@@ -1,0 +1,4 @@
+from tpualign_torch.models.clip import CLIP, build_clip, init_clip_params
+from tpualign_torch.models.convert import from_jax_params
+
+__all__ = ["CLIP", "build_clip", "init_clip_params", "from_jax_params"]

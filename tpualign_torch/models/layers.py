@@ -1,0 +1,145 @@
+"""Transformer building blocks of the CLIP towers (the port's
+``tpualign.models.layers``).
+
+Parameters keep the JAX package's layouts and names (projection kernels
+``(in, out)``, LayerNorm ``scale``/``bias``) so weights carry over as
+copies (``tpualign_torch.models.convert``). The casts follow the JAX
+towers: the residual stream stays in the compute dtype, LayerNorm
+statistics are fp32 and cast back, projections take products in the
+compute dtype with fp32 accumulation and add the bias in fp32, and QKV is
+cast to the compute dtype before attention.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpualign_torch.ops.attention import fused_mha, fused_mha_reference
+from tpualign_torch.ops.dense import matmul_f32acc
+
+__all__ = ["quick_gelu", "get_activation", "LayerNorm", "MultiHeadAttention",
+           "MLP", "ResidualBlock", "Transformer", "dense"]
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """QuickGELU: x * sigmoid(1.702 x), used by OpenAI CLIP checkpoints."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def get_activation(use_quick_gelu: bool) -> Callable[[torch.Tensor], torch.Tensor]:
+    if use_quick_gelu:
+        return quick_gelu
+    return lambda x: F.gelu(x, approximate="none")
+
+
+def dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
+          compute_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ kernel (+ bias)``: products in ``compute_dtype``, fp32 out."""
+    out = matmul_f32acc(x.to(compute_dtype), kernel.to(compute_dtype))
+    return out if bias is None else out + bias
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm computed in fp32 whatever the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        orig = x.dtype
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.scale + self.bias).to(orig)
+
+
+class MultiHeadAttention(nn.Module):
+    """Fused-QKV multi-head attention; the core is ``fused_mha`` (K1) when
+    ``use_fused_attention``, else its plain version."""
+
+    def __init__(self, width: int, num_heads: int, compute_dtype: torch.dtype,
+                 use_fused_attention: bool = False):
+        super().__init__()
+        if width % num_heads:
+            raise ValueError("width must divide heads")
+        self.num_heads = num_heads
+        self.compute_dtype = compute_dtype
+        self.use_fused_attention = use_fused_attention
+        self.in_proj_kernel = nn.Parameter(torch.empty(width, 3 * width))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
+        self.out_proj_kernel = nn.Parameter(torch.empty(width, width))
+        self.out_proj_bias = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cdt = self.compute_dtype
+        qkv = dense(x, self.in_proj_kernel, self.in_proj_bias, cdt).to(cdt)
+        attend = fused_mha if self.use_fused_attention else fused_mha_reference
+        ctx = attend(qkv, self.num_heads, mask)
+        return dense(ctx, self.out_proj_kernel, self.out_proj_bias, cdt).to(x.dtype)
+
+
+class MLP(nn.Module):
+    """c_fc (``hidden``, 4x width by default) -> activation -> c_proj."""
+
+    def __init__(self, width: int, hidden: int, use_quick_gelu: bool,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.act = get_activation(use_quick_gelu)
+        self.c_fc_kernel = nn.Parameter(torch.empty(width, hidden))
+        self.c_fc_bias = nn.Parameter(torch.zeros(hidden))
+        self.c_proj_kernel = nn.Parameter(torch.empty(hidden, width))
+        self.c_proj_bias = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        y = self.act(dense(x, self.c_fc_kernel, self.c_fc_bias, cdt))
+        y = dense(y, self.c_proj_kernel, self.c_proj_bias, cdt)
+        return y.to(x.dtype)
+
+
+class ResidualBlock(nn.Module):
+    """Pre-LN block: x + attn(ln_1(x)); x + mlp(ln_2(x))."""
+
+    def __init__(self, width: int, num_heads: int, mlp_hidden: int,
+                 use_quick_gelu: bool, compute_dtype: torch.dtype,
+                 use_fused_attention: bool):
+        super().__init__()
+        self.ln_1 = LayerNorm(width)
+        self.attn = MultiHeadAttention(width, num_heads, compute_dtype,
+                                       use_fused_attention)
+        self.ln_2 = LayerNorm(width)
+        self.mlp = MLP(width, mlp_hidden, use_quick_gelu, compute_dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), mask)
+        return x + self.mlp(self.ln_2(x))
+
+
+class Transformer(nn.Module):
+    """Stack of residual blocks (``resblocks.<i>`` here, ``resblock_<i>``
+    in the JAX tree)."""
+
+    def __init__(self, width: int, num_layers: int, num_heads: int,
+                 mlp_hidden: Optional[int], use_quick_gelu: bool,
+                 compute_dtype: torch.dtype, use_fused_attention: bool):
+        super().__init__()
+        hidden = mlp_hidden or 4 * width
+        self.resblocks = nn.ModuleList(
+            ResidualBlock(width, num_heads, hidden, use_quick_gelu,
+                          compute_dtype, use_fused_attention)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for block in self.resblocks:
+            x = block(x, mask)
+        return x

@@ -1,0 +1,242 @@
+"""Batched embedding engine on one device (the port's
+``tpualign.parallel.embed``).
+
+Images are decoded and preprocessed on the host by a thread pool, in a
+background thread that keeps batches ahead of the device; text is
+tokenized and grouped into length buckets (16/32/77 by default), exact
+under the causal mask. Items that cannot be embedded (no file, a missing
+or corrupt file, empty text) get deterministic unit-norm placeholders
+derived from their ids. PyTorch runs eagerly, so the last batch is not
+padded. No mesh: multi-GPU is a later slice.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import queue
+import threading
+from pathlib import Path
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from tpualign_torch.config import ModelConfig
+from tpualign_torch.models.clip import CLIP, build_clip, init_clip_params
+from tpualign_torch.models.convert import from_jax_params
+from tpualign_torch.ops.preprocess import preprocess_host
+from tpualign_torch.tokenizer import ClipTokenizer
+from tpualign_torch.utils.device import resolve_device
+from tpualign_torch.utils.logging import get_logger
+
+log = get_logger("parallel.embed")
+
+__all__ = ["EmbedEngine", "placeholder_embedding", "truncate_to_bucket"]
+
+
+def truncate_to_bucket(tokens: np.ndarray, buckets: Sequence[int]) -> np.ndarray:
+    """Truncate a zero-padded token batch to the smallest bucket holding
+    every row's EOT (EOT has the largest id, so length = argmax + 1)."""
+    tokens = np.asarray(tokens)
+    if tokens.shape[0] == 0:
+        return tokens
+    max_len = int(tokens.argmax(axis=1).max()) + 1
+    for b in sorted(int(b) for b in buckets):
+        if b >= max_len:
+            return tokens[:, :b]
+    return tokens
+
+
+def placeholder_embedding(item_id: str, dim: int) -> np.ndarray:
+    """Deterministic unit-norm placeholder derived from the item id."""
+    seed = int.from_bytes(hashlib.sha256(item_id.encode()).digest()[:8], "little")
+    v = np.random.default_rng(seed).random(dim, dtype=np.float32)
+    return v / np.linalg.norm(v)
+
+
+class EmbedEngine:
+    """CLIP embedding engine on one device.
+
+    ``params``: the JAX package's parameter tree as nested dicts of numpy
+    arrays (see ``tpualign_torch.models.convert``); None draws seeded
+    random weights (``init_clip_params``). ``device`` defaults to CUDA and
+    raises when it is absent; pass ``device="cpu"`` for the plain path.
+    """
+
+    def __init__(
+        self,
+        model_config: ModelConfig,
+        batch_size: int = 256,
+        params=None,
+        tokenizer: Optional[ClipTokenizer] = None,
+        seed: int = 0,
+        decode_workers: int = 8,
+        text_buckets: Optional[Sequence[int]] = (16, 32, 77),
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        self.decode_workers = decode_workers
+        self.variant = model_config.variant
+        # the full context is always an implicit last bucket
+        if text_buckets:
+            ctx = self.variant.context_length
+            self.text_buckets = tuple(sorted({min(int(b), ctx) for b in text_buckets} | {ctx}))
+        else:
+            self.text_buckets = None
+        self.tokenizer = tokenizer or ClipTokenizer(context_length=self.variant.context_length)
+        self.batch_size = max(1, int(batch_size))
+
+        self.model: CLIP = build_clip(model_config, self.device)
+        if params is None:
+            log.warning("No checkpoint configured: using seeded random weights "
+                        "(deterministic placeholder-tower mode)")
+            init_clip_params(self.model, seed=seed)
+        else:
+            from_jax_params(self.model, params)
+        self.model.eval().requires_grad_(False)
+
+    # -- batching -------------------------------------------------------------
+
+    def _run_batched(self, fn: Callable[[torch.Tensor], torch.Tensor],
+                     data: np.ndarray) -> np.ndarray:
+        n = len(data)
+        if n == 0:
+            return np.zeros((0, self.variant.embed_dim), np.float32)
+        outs = []
+        with torch.inference_mode():
+            for start in range(0, n, self.batch_size):
+                batch = torch.from_numpy(np.ascontiguousarray(data[start:start + self.batch_size]))
+                outs.append(fn(batch.to(self.device)))
+            # device -> host once at the end
+            return torch.cat(outs).float().cpu().numpy()
+
+    def _encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.model.encode_text(tokens, normalize=True)
+
+    def _encode_image(self, images: torch.Tensor) -> torch.Tensor:
+        return self.model.encode_image(images, normalize=True)
+
+    # -- public API -------------------------------------------------------------
+
+    def encode_text_batch(self, texts: Sequence[str]) -> np.ndarray:
+        """Tokenize + encode texts -> (N, D) unit-norm float32.
+
+        With ``text_buckets`` set, rows are grouped by token length into
+        the smallest bucket that holds them (EOT inclusive) and each group
+        runs at that sequence length, which is exact under the causal mask.
+        """
+        if not len(texts):
+            return np.zeros((0, self.variant.embed_dim), np.float32)
+        tokens = np.asarray(self.tokenizer(list(texts)))
+        if not self.text_buckets or len(self.text_buckets) == 1:
+            return self._run_batched(self._encode_text, tokens)
+        lengths = np.argmax(tokens, axis=1) + 1
+        buckets = np.asarray(self.text_buckets)
+        which = np.searchsorted(buckets, lengths)  # smallest bucket >= length
+        out = np.empty((len(tokens), self.variant.embed_dim), np.float32)
+        for bi in np.unique(which):
+            rows = np.flatnonzero(which == bi)
+            out[rows] = self._run_batched(self._encode_text, tokens[rows, : int(buckets[bi])])
+        return out
+
+    def encode_image_batch(self, images_nhwc: np.ndarray) -> np.ndarray:
+        """Preprocessed (N, S, S, 3) float32 -> (N, D) unit-norm float32."""
+        return self._run_batched(self._encode_image, np.asarray(images_nhwc, np.float32))
+
+    def embed_image_records(
+        self,
+        records: Sequence[dict],
+        images_dir: str | Path,
+        prefetch: int = 2,
+    ) -> np.ndarray:
+        """Embed image records: decode and preprocess on the host in a
+        background thread, encode on the device. Records without a
+        decodable file get deterministic placeholders."""
+        images_dir = Path(images_dir)
+        dim = self.variant.embed_dim
+        size = self.variant.image_size
+        out = np.zeros((len(records), dim), np.float32)
+
+        decode_idx: List[int] = []
+        for i, rec in enumerate(records):
+            fname = rec.get("filename")
+            if fname and (images_dir / fname).exists():
+                decode_idx.append(i)
+            else:
+                out[i] = placeholder_embedding(rec["image_id"], dim)
+        if not decode_idx:
+            return out
+
+        bs = self.batch_size
+        batches: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        failure: List[BaseException] = []
+
+        def decode_one(i: int) -> Optional[Tuple[int, np.ndarray]]:
+            from PIL import Image
+
+            rec = records[i]
+            try:
+                with Image.open(images_dir / rec["filename"]) as im:
+                    return i, preprocess_host(im, size)
+            except Exception as e:  # any undecodable file: skip and continue
+                log.warning("decode failed for %s: %r", rec.get("filename"), e)
+                out[i] = placeholder_embedding(rec["image_id"], dim)
+                return None
+
+        def producer():
+            from concurrent.futures import ThreadPoolExecutor
+
+            buf: List[Tuple[int, np.ndarray]] = []
+            try:
+                with ThreadPoolExecutor(max_workers=self.decode_workers) as pool:
+                    for item in pool.map(decode_one, decode_idx, chunksize=8):
+                        if item is None:
+                            continue
+                        buf.append(item)
+                        if len(buf) == bs:
+                            batches.put(buf)
+                            buf = []
+                if buf:
+                    batches.put(buf)
+            except Exception as e:  # handed to the consumer, re-raised there
+                failure.append(e)
+            finally:
+                batches.put(None)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = batches.get()
+                if item is None:
+                    break
+                idxs = [it[0] for it in item]
+                out[idxs] = self._run_batched(self._encode_image,
+                                              np.stack([it[1] for it in item]))
+        finally:
+            # drain so a producer blocked on a full queue can finish
+            while thread.is_alive():
+                try:
+                    batches.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            thread.join()
+        if failure:
+            raise failure[0]
+        return out
+
+    def embed_chunk_records(self, records: Sequence[dict]) -> np.ndarray:
+        """Embed text chunks; records without text get placeholders."""
+        texts = []
+        fallback_idx = []
+        for i, rec in enumerate(records):
+            text = rec.get("text")
+            if isinstance(text, str) and text:
+                texts.append(text)
+            else:
+                texts.append("")
+                fallback_idx.append(i)
+        embs = self.encode_text_batch(texts)
+        for i in fallback_idx:
+            embs[i] = placeholder_embedding(records[i]["chunk_id"], embs.shape[1])
+        return embs
