@@ -1,4 +1,4 @@
-"""Drives tpualign_torch's embed-and-search path on one NVIDIA GPU.
+"""Drives tpualign_torch's embed-and-search and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with one CUDA card (an H100
 for the numbers in PERF.md). Phases, one JSON line each:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-1. build: both kernels compiled from ``tpualign_torch/csrc/``, in parallel;
+1. build: the three kernels compiled from ``tpualign_torch/csrc/``, in
+   parallel;
 2. K1 ``fused_mha`` against its plain version at ViT-B-32's shapes (B=256:
    vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal), fp32
    and bf16, with times for the kernel, the plain version and
@@ -20,7 +21,22 @@ for the numbers in PERF.md). Phases, one JSON line each:
    images and 8,192 chunk records, ``RetrievalIndex`` runs the Evaluator's
    keyed k=100 search and the ``query --text`` global k=10 search; the
    kernels' launch counters are read around this phase alone;
-5. the kernels line, the card line, and ``{"ok": true, ...}`` last.
+5. K3 ``masked_sim_topk_quant`` against its plain version at Q=1,024,
+   N=1,000,000, D=512 (10,000 page keys, the mix of 3.), for int8 (s8),
+   int8 (dequant), int4 and int2, k=10 and k=40, with times for the kernel,
+   the plain version and ``torch._int_mm`` (or a dequantized matmul) +
+   ``torch.topk``;
+6. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
+   images, 100,000 weak alignments) is written to a temporary directory and
+   served by ``build_service`` + ``serve_schemas`` at int8 with refine 4 and
+   the ViT-B-32 towers; eight clients send 32 requests each over
+   /search_text, /search_image (with and without rerank),
+   /search_image_bytes, /stats and /healthz, and every answer is held
+   against the plain path; then int4 and int2 rebuilds, recall@10 of each
+   rung against exact fp32, and ``python -m tpualign_torch query
+   --image-id`` against the service; the launch counters are read around
+   the clients' run alone;
+7. the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
 line. It needs CUDA and the repository's ``tpualign_torch`` package; it
@@ -31,8 +47,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -196,6 +215,96 @@ def phase_k2(dev, gen):
                      "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
                      "dense_bound_ms": dense_bms})
     emit({"phase": "k2_masked_sim_topk", "results": rows})
+    return rows
+
+
+INT_PEAK_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+K3_SHAPE = (1024, 1_000_000, 512, 10_000)  # Q, N, D, page keys
+K3_KS = (10, 40)  # k, and the refine over-fetch of k=10 at RETRIEVAL_REFINE=4
+K3_SLAB = 128  # queries per slab of the plain version at N=1M
+
+
+def _k3_variants():
+    from tpualign_torch.parallel.retrieval import (
+        _quantize_rows, _quantize_rows_int2, _quantize_rows_int4)
+
+    # (name, quantizer, int8_mxu, kernel variant)
+    return [("int8", _quantize_rows, True, "s8"),
+            ("int8_dequant", _quantize_rows, False, "dequant"),
+            ("int4", _quantize_rows_int4, True, "int4"),
+            ("int2", _quantize_rows_int2, True, "int2")]
+
+
+def _in_slabs(fn, queries, qk, *rest, slab=K3_SLAB):
+    parts = [fn(queries[s:s + slab], qk[s:s + slab], *rest)
+             for s in range(0, len(queries), slab)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _k3_library(variant, queries, qk, corpus, ck, scales, k):
+    """One PyTorch call per step for the same function: torch._int_mm (after
+    an unpack to s8 for int4/int2) or a dequantized matmul, the rescale, the
+    mask and torch.topk. A yardstick only; the port never calls it."""
+    from tpualign_torch.ops.sim_topk import _unpack_codes, key_mask, quantize_queries
+
+    if variant == "dequant":
+        sims = queries @ (corpus.float() * scales[:, None]).T
+    else:
+        qq, qs = quantize_queries(queries)
+        codes = corpus if variant == "s8" else _unpack_codes(corpus, variant).to(torch.int8)
+        sims = torch._int_mm(qq, codes.T).float() * qs[:, None] * scales[None, :]
+    return torch.topk(torch.where(key_mask(qk, ck), sims, -1e30), k, dim=1)
+
+
+def phase_k3(dev, gen):
+    """K3 against its plain version: every variant at Q=1,024, N=1,000,000,
+    D=512 over _sim_inputs' mix, k=10 and k=40."""
+    from tpualign_torch.ops.sim_topk import (
+        key_mask, masked_sim_topk, masked_sim_topk_quant, masked_sim_topk_reference)
+
+    q, n, d, keys = K3_SHAPE
+    queries, qk, corpus, ck = _sim_inputs(gen, dev, q, n, d, keys)
+    host = corpus.cpu().numpy()
+    del corpus
+    valid_pairs = int(sum(key_mask(qk[s:s + K3_SLAB], ck).sum().item()
+                          for s in range(0, q, K3_SLAB)))
+    rows = []
+    for name, quantize, mxu, variant in _k3_variants():
+        codes, scales = (torch.from_numpy(a).to(dev) for a in quantize(host))
+        kw = dict(corpus_scales=scales, int8_mxu=mxu)
+        for k in K3_KS:
+            before = masked_sim_topk_quant.launches
+            vals, idx = masked_sim_topk(queries, qk, codes, ck, k, **kw)
+            torch.cuda.synchronize()
+            check(masked_sim_topk_quant.launches == before + 1, f"K3 {name}: no launch")
+            rvals, ridx = _in_slabs(
+                lambda a, b: masked_sim_topk_reference(a, b, codes, ck, k, **kw), queries, qk)
+            if variant == "dequant":
+                err = compare_topk(vals, idx, rvals, ridx, f"K3 {name} k={k}")
+            else:
+                check(bool(torch.equal(idx, ridx)), f"K3 {name} k={k}: indices differ")
+                check(bool(torch.equal(vals, rvals)), f"K3 {name} k={k}: values differ")
+                err = 0.0
+            ms = time_ms(lambda: masked_sim_topk(queries, qk, codes, ck, k, **kw), 5)
+            plain_ms = time_ms(lambda: _in_slabs(
+                lambda a, b: masked_sim_topk_reference(a, b, codes, ck, k, **kw),
+                queries, qk), 1)
+            lib_ms = time_ms(lambda: _k3_library(variant, queries, qk, codes, ck, scales, k), 3)
+            qbytes = q * d * (4 if variant == "dequant" else 1) + q * 4
+            nbytes = qbytes + codes.numel() + n * 4 + (q + n) * 4 + q * k * 8
+            peak = PEAK_FLOPS[torch.float32] if variant == "dequant" else INT_PEAK_OPS
+            bms, by = bound_ms(nbytes, 2.0 * d * valid_pairs, peak)
+            dense_bms, _ = bound_ms(nbytes, 2.0 * d * q * n, peak)
+            rows.append({"variant": name, "kernel_variant": variant, "Q": q, "N": n, "D": d,
+                         "k": k, "corpus_bytes": codes.numel(), "valid_pairs": valid_pairs,
+                         "empty_slots": int((ridx == 2**30).sum().item()),
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                         "dense_bound_ms": dense_bms,
+                         "tolerance": ({"values_atol": K2_TOL_VALUES, "tie_gap": K2_TIE_GAP}
+                                       if variant == "dequant" else "identical")})
+        del codes, scales
+    emit({"phase": "k3_masked_sim_topk_quant", "results": rows})
     return rows
 
 
@@ -366,6 +475,412 @@ def phase_profile(engine, images, texts) -> None:
           "text_batch": profile_window(lambda: engine.encode_text_batch(long_texts))})
 
 
+# the serve phase's store (vanilla_clip): 1,000 manuals x 125 pages, 8
+# chunks per page, 20,000 stored images on distinct pages, 5 weak
+# alignments per image
+SERVE_MANUALS, SERVE_PAGES, SERVE_CHUNKS_PER_PAGE = 1000, 125, 8
+SERVE_IMAGES, SERVE_ALIGNS = 20_000, 5
+SERVE_CLIENTS, SERVE_REQUESTS = 8, 32
+SERVE_KINDS = ("search_text", "search_image", "search_image_bytes", "search_image_rerank",
+               "stats", "healthz")
+SERVE_TEXTS = ["replace the oil filter", "torque the drain bolt to 25 Nm", "check the pump seal",
+               "vervang de pakking", "draai de bout los", "zie figuur 3",
+               "hydraulic hose routing", "valve clearance check"]
+
+
+def _serve_store(root, dev, seed):
+    """Writes the serve phase's store with the port's EmbeddingStore. Rows
+    are seeded unit vectors around a topic per page (the tower is not run
+    on 1M chunks): chunks and images of a page share its topic."""
+    from tpualign_torch.store import EmbeddingStore
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    n_pages = SERVE_MANUALS * SERVE_PAGES
+    d = 512
+    topics = torch.randn(n_pages, d, generator=gen, device=dev)
+    page_of_chunk = torch.arange(n_pages, device=dev).repeat_interleave(SERVE_CHUNKS_PER_PAGE)
+    chunk = topics[page_of_chunk] + 1.5 * torch.randn(len(page_of_chunk), d, generator=gen,
+                                                       device=dev)
+    chunk = (chunk / chunk.norm(dim=1, keepdim=True)).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    img_pages = np.sort(rng.choice(n_pages, SERVE_IMAGES, replace=False))
+    img = topics[torch.from_numpy(img_pages).to(dev)]
+    img = img + 1.5 * torch.randn(img.shape, generator=gen, device=dev)
+    img = (img / img.norm(dim=1, keepdim=True)).cpu().numpy()
+
+    def where(page):
+        return f"manual-{page // SERVE_PAGES:04d}", int(page % SERVE_PAGES)
+
+    chunk_recs = []
+    for page in range(n_pages):
+        manual, pg = where(page)
+        for c in range(SERVE_CHUNKS_PER_PAGE):
+            chunk_recs.append({"chunk_id": f"{manual}-p{pg:03d}-c{c}", "manual_id": manual,
+                               "page": pg, "text": f"step {c} on page {pg} of {manual}"})
+    img_recs, aligns = [], []
+    for i, page in enumerate(img_pages):
+        manual, pg = where(int(page))
+        img_recs.append({"image_id": f"img{i:05d}", "manual_id": manual, "page": pg,
+                         "caption": f"figure {i}", "filename": None})
+        for c in rng.choice(SERVE_CHUNKS_PER_PAGE, SERVE_ALIGNS, replace=False):
+            aligns.append((f"img{i:05d}", f"{manual}-p{pg:03d}-c{c}", float(rng.random()),
+                           "positional"))
+    store = EmbeddingStore(root, embed_dim=d)
+    store.setup(["vanilla_clip"])
+    store.insert_chunks("vanilla_clip", chunk_recs, chunk)
+    store.insert_images("vanilla_clip", img_recs, img)
+    store.insert_alignments("vanilla_clip", aligns)
+    store.save(["vanilla_clip"])
+    return img_recs
+
+
+def _png(rng, w=320, h=240) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+class _Recorder:
+    """Wraps an encoder and keeps every row it returned, by input, so that
+    each answer can be held against the embedding the service used."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.seen = {}
+        self.lock = threading.Lock()
+
+    def __call__(self, items):
+        out = self.fn(items)
+        with self.lock:
+            for item, row in zip(items, out):
+                self.seen.setdefault(item, []).append(np.array(row))
+        return out
+
+
+def _plain_refined(index, emb, keys, k=10):
+    """The plain path of a refined quantized search: the plain K3 version
+    over the index's codes for k*refine candidates, then the exact host
+    rescore. Returns host (vals, idx) as ``index.search`` does."""
+    from tpualign_torch.ops.sim_topk import masked_sim_topk_reference
+    from tpualign_torch.parallel.retrieval import NEG_INF, _refine_rescore
+
+    kf = min(k * index.refine, index.n)
+    q = torch.from_numpy(np.ascontiguousarray(emb, np.float32)).to(index.device)
+    qk = torch.from_numpy(np.asarray(keys, np.int32)).to(index.device)
+    _, idx = _in_slabs(lambda a, b: masked_sim_topk_reference(
+        a, b, index._corpus, index._keys, kf, corpus_scales=index._corpus_scales,
+        int8_mxu=True), q, qk)
+    idx = idx.cpu().numpy().astype(np.int64)
+    idx = np.where(idx >= index.n, -1, idx)
+    vals = np.where(idx >= 0, 0.0, NEG_INF).astype(np.float32)
+    return _refine_rescore(np.asarray(emb, np.float32), vals, idx, index._refine_corpus, k)
+
+
+def _pairs(vals, idx, chunk_ids):
+    """(chunk_id, score) rows, as the service formats its winners."""
+    return [[(chunk_ids[j], float(v)) for v, j in zip(vr, ir) if j >= 0]
+            for vr, ir in zip(vals, idx)]
+
+
+def _as_pairs(rows):
+    return [[(h["chunk_id"], h["score"]) for h in row] for row in rows]
+
+
+def _client(port, thread, images, pngs, out, errors, count=None):
+    """One client thread: ``count`` requests on one keep-alive connection,
+    cycling through SERVE_KINDS from its own offset."""
+    import base64
+    import http.client
+
+    rng = np.random.default_rng(1000 + thread)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        for j in range(SERVE_REQUESTS if count is None else count):
+            kind = SERVE_KINDS[(thread + j) % len(SERVE_KINDS)]
+            body = None
+            if kind == "search_text":
+                start = int(rng.integers(0, len(SERVE_TEXTS)))
+                body = {"texts": [SERVE_TEXTS[(start + t) % len(SERVE_TEXTS)] for t in range(4)],
+                        "k": 10, "global": True}
+            elif kind.startswith("search_image") and kind != "search_image_bytes":
+                body = {"image_ids": [images[int(i)]["image_id"]
+                                      for i in rng.integers(0, len(images), 2)], "k": 10}
+                if kind == "search_image_rerank":
+                    body["rerank"] = 0.3
+            elif kind == "search_image_bytes":
+                body = {"images_b64": [base64.b64encode(pngs[j % len(pngs)]).decode()], "k": 10}
+            t0 = time.perf_counter()
+            if body is None:
+                conn.request("GET", "/" + kind)
+            else:
+                path = "/search_image" if kind == "search_image_rerank" else "/" + kind
+                conn.request("POST", path, json.dumps(body),
+                             {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            payload = json.loads(resp.read())
+            out.append({"kind": kind, "status": resp.status, "s": time.perf_counter() - t0,
+                        "request": body, "response": payload,
+                        "png": j % len(pngs) if kind == "search_image_bytes" else None})
+    except Exception as e:  # handed to the phase, which fails on it
+        errors.append(repr(e))
+    finally:
+        conn.close()
+
+
+def _load(port, image_ids, pngs, clients, count, conn):
+    """The load: ``clients`` threads of _client, ``count`` requests each,
+    started together; sends back (answers, errors, wall seconds)."""
+    images = [{"image_id": i} for i in image_ids]
+    results, errors = [], []
+    clients = [threading.Thread(target=_client,
+                                args=(port, t, images, pngs, results, errors, count))
+               for t in range(clients)]
+    t0 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join()
+    conn.send((results, errors, time.perf_counter() - t0))
+    conn.close()
+
+
+def _pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))] * 1e3
+
+
+def phase_serve(dev, seed, root):
+    """The serving path: the port's store, build_service + serve_schemas at
+    int8 with refine 4 and ViT-B-32 towers, eight clients, every answer
+    held against the plain path; then int4 and int2 rebuilds, recall
+    against exact fp32, and the ``query --image-id`` CLI."""
+    import os
+    import urllib.request
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
+    from tpualign_torch.parallel.retrieval import (
+        WILDCARD_KEY, _refine_rescore, build_index, encode_keys)
+    from tpualign_torch.serving.server import (
+        _ServiceBox, build_service, index_kwargs, make_engine, make_image_bytes_encoder,
+        serve_schemas)
+    from tpualign_torch.store import EmbeddingStore
+    from tpualign_torch.weaksup.rerank import rerank_with_weak_scores
+
+    t0 = time.perf_counter()
+    images = _serve_store(root, dev, seed)
+    store_s = time.perf_counter() - t0
+    emit({"phase": "serve_store", "store_write_s": store_s,
+          "chunks": SERVE_MANUALS * SERVE_PAGES * SERVE_CHUNKS_PER_PAGE,
+          "images": SERVE_IMAGES, "alignments": SERVE_IMAGES * SERVE_ALIGNS})
+
+    config = load_config({"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8",
+                          "RETRIEVAL_REFINE": "4", "CLIP_MODEL": "ViT-B-32",
+                          "SEED": str(seed)})
+    t0 = time.perf_counter()
+    engine = make_engine(config, dev)
+    text_enc = _Recorder(engine.encode_text_batch)
+    image_enc = _Recorder(make_image_bytes_encoder(engine))
+    service = build_service(config, "vanilla_clip", encoder=text_enc, image_encoder=image_enc,
+                            device=dev)
+    build_s = time.perf_counter() - t0
+    index = service.index
+    httpd = serve_schemas({"vanilla_clip": _ServiceBox(service)}, "vanilla_clip",
+                          "127.0.0.1", 0, token=config.serve_token,
+                          max_connections=config.serve_max_connections)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    port = httpd.server_address[1]
+    rng = np.random.default_rng(seed)
+    pngs = [_png(rng) for _ in range(4)]
+    ids = [im["image_id"] for im in images]
+    try:
+        # warm-up, untimed: one request of each kind (first tower calls)
+        warm = []
+        _client(port, 0, images, pngs, warm, [], count=len(SERVE_KINDS))
+        check(all(r["status"] == 200 for r in warm), f"warm-up: {warm[0]['response']}")
+
+        fused_mha.launches = masked_sim_topk.launches = masked_sim_topk_quant.launches = 0
+        # the clients run in a process of their own, so that the server's
+        # process (and its interpreter lock) serves the requests alone
+        ctx = multiprocessing.get_context("spawn")
+        recv, send = ctx.Pipe(duplex=False)
+        load = ctx.Process(target=_load, args=(port, ids, pngs, SERVE_CLIENTS, SERVE_REQUESTS,
+                                               send))
+        load.start()
+        results, errors, wall = recv.recv()
+        load.join()
+        torch.cuda.synchronize()
+        launches = {"fused_mha": fused_mha.launches, "masked_sim_topk": masked_sim_topk.launches,
+                    "masked_sim_topk_quant": masked_sim_topk_quant.launches}
+        stats = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                                  timeout=60).read())
+        # the same requests from one client, one at a time (no contention);
+        # then again with Nagle's algorithm left on, as tpualign's server has it
+        serial, nagle = [], []
+        _client(port, 0, images, pngs, serial, [], count=4 * len(SERVE_KINDS))
+        httpd.RequestHandlerClass.disable_nagle_algorithm = False
+        _client(port, 0, images, pngs, nagle, [], count=4 * len(SERVE_KINDS))
+        httpd.RequestHandlerClass.disable_nagle_algorithm = True
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join()
+    check(not errors, f"client errors: {errors[:3]}")
+    check(len(results) == SERVE_CLIENTS * SERVE_REQUESTS, f"{len(results)} answers")
+    bad = [r for r in results if r["status"] != 200]
+    check(not bad, f"{len(bad)} requests failed, e.g. {bad[:1]}")
+
+    # every search answer against the plain path, all rows in one batch
+    img_emb = service._image_embs
+    by_id = {im["image_id"]: (i, im) for i, im in enumerate(images)}
+    row_of, rows, keys = {}, [], []
+    for tag, seen in (("text", text_enc.seen), ("png", image_enc.seen)):
+        for item, embs in seen.items():
+            for e_no, e in enumerate(embs):
+                row_of[(tag, item, e_no)] = len(rows)
+                rows.append(e)
+                keys.append(WILDCARD_KEY)
+    asked = {i for r in results + warm + serial + nagle if r["kind"].startswith("search_image")
+             and r["kind"] != "search_image_bytes" for i in r["request"]["image_ids"]}
+    for image_id in sorted(asked):
+        i, im = by_id[image_id]
+        row_of[("img", image_id)] = len(rows)
+        rows.append(img_emb[i])
+        keys.append(encode_keys([im["manual_id"]], [im["page"]], dict(index.vocab))[0][0])
+    pv, pi = _plain_refined(index, np.stack(rows), keys)
+
+    def plain(*tags, rerank=None):
+        sel = [row_of[t] for t in tags]
+        v, i = pv[sel], pi[sel]
+        if rerank is not None:
+            v, i = rerank_with_weak_scores(v, i, [t[1] for t in tags], service.chunk_ids,
+                                           service.weak_lookup, alpha=rerank)
+        return _pairs(v, i, service.chunk_ids)
+
+    checked = 0
+    for r in results + warm + serial + nagle:
+        kind, req, got = r["kind"], r["request"], r["response"]
+        if kind in ("stats", "healthz"):
+            check(got.get("status") == "ok", f"/{kind}: {got}")
+            continue
+        answers = _as_pairs(got["results"])
+        if kind == "search_text":
+            for text, ans in zip(req["texts"], answers):
+                cands = [plain(("text", text, e)) [0] for e in range(len(text_enc.seen[text]))]
+                check(ans in cands, f"/search_text {text!r}: differs from the plain path")
+        elif kind == "search_image_bytes":
+            blob = pngs[r["png"]]
+            cands = [plain(("png", blob, e))[0] for e in range(len(image_enc.seen[blob]))]
+            check(answers[0] in cands, "/search_image_bytes differs from the plain path")
+        else:
+            want = plain(*[("img", i) for i in req["image_ids"]], rerank=req.get("rerank"))
+            check(answers == want, f"/search_image {req['image_ids']}: differs from the plain path")
+        checked += 1
+    check(launches["masked_sim_topk_quant"] > 0, "K3 was not launched while serving")
+    check(launches["fused_mha"] > 0, "K1 was not launched while serving")
+
+    # the refine share of one coalesced-size search (8 queries)
+    q8 = img_emb[:8]
+    qk8 = np.full(8, WILDCARD_KEY, np.int32)
+    first = refine = 0.0
+    for _ in range(20):
+        t0 = time.perf_counter()
+        v, i = index._search_encoded_raw(q8, qk8, 40, skip_vals=True)
+        t1 = time.perf_counter()
+        _refine_rescore(q8, v, i, index._refine_corpus, 10)
+        t2 = time.perf_counter()
+        first, refine = first + t1 - t0, refine + t2 - t1
+
+    # where one request's time goes (direct calls, uncached texts)
+    fresh = iter(range(10**6))
+    profiles = {
+        "search_image_bytes": profile_window(lambda: service.search_image_bytes([pngs[0]], k=10)),
+        "search_image": profile_window(lambda: service.search_images(
+            [images[1]["image_id"], images[2]["image_id"]], k=10)),
+        "search_text_uncached": profile_window(lambda: service.search_text(
+            [f"{t} {next(fresh)}" for t in SERVE_TEXTS[:4]], k=10)),
+    }
+    serial_ms = {name: {kind: _pct([r["s"] for r in rs if r["kind"] == kind], 0.5)
+                        for kind in SERVE_KINDS}
+                 for name, rs in (("nodelay", serial), ("nagle", nagle))}
+    check(all(r["status"] == 200 for r in serial + nagle), "serial requests failed")
+
+    endpoints = {}
+    for kind in SERVE_KINDS:
+        lat = [r["s"] for r in results if r["kind"] == kind]
+        endpoints[kind] = {"requests": len(lat), "p50_ms": _pct(lat, 0.5),
+                           "p99_ms": _pct(lat, 0.99), "qps": len(lat) / wall}
+
+    # the int8 index again, standalone (its build time), and the int4/int2
+    # rebuilds; keyed and global searches of each against the plain path
+    store = EmbeddingStore(root)
+    chunk_ids, chunk_emb = store.embedding_matrix("vanilla_clip", "text_chunks")
+    manuals = store.column("vanilla_clip", "text_chunks", "manual_id")
+    pages = store.column("vanilla_clip", "text_chunks", "page")
+    sample = np.arange(0, SERVE_IMAGES, SERVE_IMAGES // 256)[:256]
+    q_img = img_emb[sample]
+    qk_keyed, _ = encode_keys([images[i]["manual_id"] for i in sample],
+                              [images[i]["page"] for i in sample], dict(index.vocab))
+    exact_index = build_index(chunk_emb, manuals, pages, device=dev)
+    q_rec = img_emb[:1024]
+    _, exact = exact_index.search(q_rec, k=10, global_search=True)
+    del exact_index
+    rungs = {}
+    for precision in ("int8", "int4", "int2"):
+        kw = dict(index_kwargs(config, "vanilla_clip"), precision=precision)
+        t0 = time.perf_counter()
+        rung = build_index(chunk_emb, manuals, pages, device=dev, **kw)
+        torch.cuda.synchronize()
+        rung_s = time.perf_counter() - t0
+        for what, keys in (("keyed", qk_keyed), ("global", np.full(len(sample), WILDCARD_KEY,
+                                                                   np.int32))):
+            got = _pairs(*rung.search_encoded(q_img, keys, 10), chunk_ids)
+            check(got == _pairs(*_plain_refined(rung, q_img, keys), chunk_ids),
+                  f"{precision} {what}: differs from the plain path")
+        wild = np.full(len(q_rec), WILDCARD_KEY, np.int32)
+        _, unref = rung._search_encoded_raw(q_rec, wild, 10)
+        _, ref = rung.search_encoded(q_rec, wild, 10)
+        recall = {name: float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, exact)]))
+                  for name, got in (("unrefined", unref), ("refined", ref))}
+        check(recall["refined"] >= recall["unrefined"],
+              f"{precision}: refine lowered recall@10 {recall}")
+        rungs[precision] = {"index_build_s": rung_s, "recall_at_10": recall,
+                            "corpus_bytes": int(rung._corpus.numel())}
+        del rung
+
+    # the one-shot CLI over the same store, against the service
+    image_id = images[7]["image_id"]
+    env = dict(os.environ, STORE_DIR=root, RETRIEVAL_PRECISION="int8",
+               RETRIEVAL_REFINE="4")
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "query", "--image-id",
+                          image_id, "--device", dev.type], capture_output=True, text=True,
+                         timeout=600, env=env)
+    cli_s = time.perf_counter() - t0
+    check(cli.returncode == 0, f"query --image-id exited {cli.returncode}: {cli.stderr[-2000:]}")
+    cli_ids = [line.split()[1] for line in cli.stdout.splitlines()[1:] if line.strip()]
+    want_ids = [h["chunk_id"] for h in service.search_images([image_id], k=10)[0]]
+    check(cli_ids == want_ids, f"query --image-id printed {cli_ids}, the service {want_ids}")
+
+    emit({"phase": "serve", "model": "ViT-B-32", "precision": "int8", "refine": 4,
+          "store_write_s": store_s, "service_build_s": build_s,
+          "clients": SERVE_CLIENTS, "requests": len(results), "answers_checked": checked,
+          "wall_s": wall, "qps": len(results) / wall, "endpoints": endpoints,
+          "serial_p50_ms": serial_ms, "profiles": profiles,
+          "refine_share_q8": refine / (first + refine),
+          "first_stage_ms_q8": first / 20 * 1e3, "refine_ms_q8": refine / 20 * 1e3,
+          "coalescer": stats.get("coalescer"), "encode_coalescer": stats.get("encode_coalescer"),
+          "query_cache": stats.get("query_cache"), "refine_store": stats.get("refine_store"),
+          "rungs": rungs, "cli_query_s": cli_s, "launches": launches})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -387,9 +902,13 @@ def main() -> int:
     k1 = phase_k1(dev, gen)
     k2 = phase_k2(dev, gen)
     launches = phase_slice(dev, args.seed)
+    k3 = phase_k3(dev, gen)
+    with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
+        serve_launches = phase_serve(dev, args.seed, root)
 
     k1_head = next(r for r in k1 if r["shape"] == "vision" and r["dtype"] == "bfloat16")
     k2_head = next(r for r in k2 if r["k"] == 100)
+    k3_head = next(r for r in k3 if r["variant"] == "int8" and r["k"] == 40)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": "fused_mha", "route": "cuda", "source": "tpualign_torch/csrc/fused_mha.cu",
@@ -403,6 +922,12 @@ def main() -> int:
          "launches": launches["masked_sim_topk"], **{k: k2_head[k] for k in keys},
          "tolerance": {"values_atol": K2_TOL_VALUES, "tie_gap": K2_TIE_GAP},
          "at": "fp32 Q=1024 N=100000 D=512 k=100"},
+        {"name": "masked_sim_topk_quant", "route": "cuda",
+         "source": "tpualign_torch/csrc/masked_sim_topk_quant.cu",
+         "replaces": "tpualign/ops/pallas_kernels.py:523",
+         "launches": serve_launches["masked_sim_topk_quant"], **{k: k3_head[k] for k in keys},
+         "tolerance": k3_head["tolerance"],
+         "at": "int8 (s8) Q=1024 N=1000000 D=512 k=40; launches from the serve phase"},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

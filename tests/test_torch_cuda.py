@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1, K2, K3) against their plain PyTorch versions,
+on the card.
 
 Marked ``cuda``: every test skips where there is no CUDA device (decided in
 a fixture, never at import). On a machine with an H100 run
@@ -116,3 +117,84 @@ def test_masked_sim_topk_ties_ascending(dev):
     args = [torch.from_numpy(a).to(dev) for a in (qv, np.zeros(2, np.int32), cv, keys)]
     _, idx = masked_sim_topk(*args, 7)
     assert idx.cpu().numpy().tolist() == [list(range(7))] * 2
+
+
+K3_VARIANTS = [("s8", "_quantize_rows", True), ("dequant", "_quantize_rows", False),
+               ("int4", "_quantize_rows_int4", True), ("int2", "_quantize_rows_int2", True)]
+
+
+@pytest.mark.parametrize("variant,quantizer,mxu", K3_VARIANTS)
+@pytest.mark.parametrize("k", [1, 10, 40, 128])
+def test_masked_sim_topk_quant_matches_plain(dev, variant, quantizer, mxu, k):
+    from tpualign_torch.ops.sim_topk import masked_sim_topk_quant
+    from tpualign_torch.parallel import retrieval
+
+    rng = np.random.default_rng(k)
+    qv, qk, cv, ck = _sim_inputs(rng, 70, 30001, 512, 40, dup=16)
+    qk[::8] = WILDCARD_KEY
+    qk[1::9] = 10**6                     # no candidates
+    ck[::11] = -1                        # padding rows never match
+    codes, scales = getattr(retrieval, quantizer)(cv)
+    args = [torch.from_numpy(a).to(dev) for a in (qv, qk, codes, ck)]
+    kw = dict(corpus_scales=torch.from_numpy(scales).to(dev), int8_mxu=mxu)
+    before = masked_sim_topk_quant.launches
+    vals, idx = masked_sim_topk(*args, k, **kw)
+    torch.cuda.synchronize()
+    rv, ri = masked_sim_topk_reference(*args, k, **kw)
+    assert masked_sim_topk_quant.launches == before + 1
+    vals, idx, rv, ri = (t.cpu().numpy() for t in (vals, idx, rv, ri))
+    empty = ri == SENTINEL_IDX
+    assert (idx[empty] == SENTINEL_IDX).all() and (vals[empty] == np.float32(NEG_INF)).all()
+    if variant == "dequant":
+        # fp32 products: indices agree outside runs of values within 1e-6
+        near = np.zeros_like(empty)
+        close = np.abs(np.diff(rv, axis=1)) <= 1e-6
+        near[:, 1:] |= close
+        near[:, :-1] |= close
+        assert (idx[~near] == ri[~near]).all()
+        np.testing.assert_allclose(vals, rv, atol=1e-5)
+    else:
+        # exact integer sums rescaled in one order: identical
+        np.testing.assert_array_equal(idx, ri)
+        np.testing.assert_array_equal(vals, rv)
+
+
+def test_masked_sim_topk_quant_rejects(dev):
+    from tpualign_torch.ops.sim_topk import masked_sim_topk_quant
+
+    q = torch.zeros(2, 24, device=dev)
+    keys = torch.zeros(2, dtype=torch.int32, device=dev)
+    ck = torch.zeros(5, dtype=torch.int32, device=dev)
+    scales = torch.ones(5, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        masked_sim_topk_quant(q, keys, torch.zeros(5, 6, dtype=torch.uint8, device=dev), ck, 3,
+                              scales, "int2")
+    with pytest.raises(ValueError, match="k must be"):
+        masked_sim_topk(q, keys, torch.zeros(5, 24, dtype=torch.int8, device=dev), ck, 129,
+                        corpus_scales=scales)
+
+
+@pytest.mark.parametrize("precision", ["int8", "int4", "int2"])
+def test_refined_index_on_the_card_matches_the_plain_path(dev, precision):
+    """RetrievalIndex(precision, refine=4) on the card: K3 first, then the
+    host rescore, equal to the same index built on the CPU, where the plain
+    version runs."""
+    from tpualign_torch.ops.sim_topk import masked_sim_topk_quant
+    from tpualign_torch.parallel import RetrievalIndex
+
+    rng = np.random.default_rng(3)
+    emb = rng.normal(size=(20000, 512)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    manuals = [f"m{i % 7}" for i in range(20000)]
+    pages = [i % 13 for i in range(20000)]
+    q = emb[:37] + 0.1 * rng.normal(size=(37, 512)).astype(np.float32)
+    card = RetrievalIndex(emb, manuals, pages, precision=precision, refine=4, device=dev)
+    cpu = RetrievalIndex(emb, manuals, pages, precision=precision, refine=4, device="cpu")
+    before = masked_sim_topk_quant.launches
+    for kw in ({"query_manuals": manuals[:37], "query_pages": pages[:37]},
+               {"global_search": True}):
+        got = card.search(q, k=10, **kw)
+        want = cpu.search(q, k=10, **kw)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+    assert masked_sim_topk_quant.launches == before + 2

@@ -13,7 +13,8 @@ import torch
 from tpualign_torch.config import ModelConfig
 from tpualign_torch.ops.attention import fused_mha
 from tpualign_torch.ops.sim_topk import masked_sim_topk
-from tpualign_torch.parallel import EmbedEngine, RetrievalIndex
+from tpualign_torch.parallel import EmbedEngine, RetrievalIndex, build_index
+from tpualign_torch.serving import RetrievalService
 
 pytestmark = pytest.mark.fast
 
@@ -44,6 +45,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         RetrievalIndex(emb, ["m"] * 4, [1] * 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         EmbedEngine(ModelConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_index(emb, ["m"] * 4, [1] * 4, precision="int8", refine=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RetrievalService(emb, list("abcd"), ["m"] * 4, [1] * 4)
     index = RetrievalIndex(emb, ["m"] * 4, [1] * 4, device="cpu")
     assert index.search(emb[:1], ["m"], [1], k=2)[1].tolist() == [[0, 1]]
 

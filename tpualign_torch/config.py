@@ -1,24 +1,31 @@
 """Typed configuration for the PyTorch port.
 
-The subset of ``tpualign.config`` that the embed-and-search path reads:
-the CLIP variant table, :class:`ModelConfig`, and the environment keys
-``CLIP_MODEL``, ``COMPUTE_DTYPE``, ``PARITY_MODE``, ``BATCH_SIZE`` and
-``TEXT_BUCKETS``. The values are copied, not imported, so the port loads
-without JAX; ``tests/test_torch_models.py`` holds the two tables equal.
+The subset of ``tpualign.config`` that the port's paths read: the CLIP
+variant table, :class:`ModelConfig`, :class:`StoreConfig`, and a
+:class:`PipelineConfig` with the embed, store, retrieval and serving keys
+(``CLIP_MODEL``, ``BATCH_SIZE``, ``TEXT_BUCKETS``, ``STORE_DIR``,
+``RETRIEVAL_*``, ``SERVE_*``, ...). The values are copied, not imported,
+so the port loads without JAX; ``tests/test_torch_models.py`` and
+``tests/test_torch_serving.py`` hold the two packages' tables and configs
+equal.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+import re
+from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Mapping, Optional
 
 __all__ = [
     "ClipVariant",
     "CLIP_VARIANTS",
     "ModelConfig",
-    "EmbedConfig",
+    "StoreConfig",
+    "PipelineConfig",
     "normalize_model_name",
+    "load_env_file",
     "load_config",
 ]
 
@@ -112,6 +119,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     parity_mode: bool = False
     fused_attention: Optional[bool] = None
+    # a CLIP_CHECKPOINT path; loading checkpoints is not yet ported
+    checkpoint_path: Optional[str] = None
 
     @property
     def variant(self) -> ClipVariant:
@@ -131,12 +140,64 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
-class EmbedConfig:
-    """What the embed-and-search slice reads from the environment."""
+class StoreConfig:
+    """Embedding-store configuration: the store's root directory."""
 
-    model: ModelConfig
+    root: str = "data/store"
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """What the port's entry points read: the embed batch, the store, and
+    the retrieval and serving knobs of ``serve`` and ``query``, under
+    tpualign's names and defaults (see ``tpualign.config.PipelineConfig``
+    for what each knob does)."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    store: StoreConfig = field(default_factory=StoreConfig)
     batch_size: int = 256
+    seed: int = 0
+    retrieval_recall_target: Optional[float] = None
+    retrieval_index: str = "exact"
+    retrieval_precision: str = "fp32"
+    retrieval_refine: int = 0
+    retrieval_refine_store: str = "auto"
     text_buckets: Optional[tuple] = (16, 32, 77)
+    serve_coalesce_ms: Optional[float] = 2.0
+    serve_query_cache: int = 1024
+    serve_token: Optional[str] = None
+    serve_idle_timeout: float = 60.0
+    serve_max_body_bytes: int = 64 * 2**20
+    serve_max_connections: int = 128
+    serve_request_deadline: float = 30.0
+    serve_auto_compact: Optional[float] = None
+
+
+def load_env_file(path: str = ".env") -> dict:
+    """Minimal ``.env`` parser, tpualign's: lines of ``KEY=VALUE``, ``#``
+    comments and blank lines ignored, values optionally quoted. Does not
+    override variables already in ``os.environ``."""
+    out: dict = {}
+    p = Path(path)
+    if not p.exists():
+        return out
+    for raw in p.read_text(encoding="utf-8").splitlines():
+        line = raw.strip()
+        if not line or line.startswith("#") or "=" not in line:
+            continue
+        key, _, rhs = line.partition("=")
+        key = key.strip()
+        stripped = rhs.strip()
+        if stripped[:1] in ("\"", "'"):
+            # quoted: closes at the last matching quote; what follows is dropped
+            m = re.match(r"^(['\"])(.*)\1", stripped)
+            value = m.group(2) if m else stripped
+        else:
+            # an inline comment is '#' preceded by whitespace
+            value = re.sub(r"\s+#.*", "", rhs).strip()
+        out[key] = value
+        os.environ.setdefault(key, value)
+    return out
 
 
 def _env(env: Mapping[str, str], key: str, default: str) -> str:
@@ -156,18 +217,52 @@ def _parse_buckets(raw: str) -> Optional[tuple]:
     return tuple(int(b.strip()) for b in raw.split(",") if b.strip())
 
 
-def load_config(overrides: Optional[Mapping[str, str]] = None) -> EmbedConfig:
-    """Build an :class:`EmbedConfig` from defaults, the process environment
-    and ``overrides`` (same keys and defaults as ``tpualign.load_config``)."""
-    env = {k: str(v) for k, v in (overrides or {}).items()}
+def _optional(env: Mapping[str, str], key: str, cast, off=("",)):
+    raw = _env(env, key, "")
+    return None if raw.strip().lower() in off else cast(raw)
+
+
+def load_config(overrides: Optional[Mapping[str, str]] = None,
+                env_file: Optional[str] = None) -> PipelineConfig:
+    """Build a :class:`PipelineConfig` from defaults, ``env_file`` (a
+    ``.env``, when given), the process environment and ``overrides``, with
+    tpualign's keys, defaults and validation (``tpualign.load_config``)."""
+    env: dict = {}
+    if env_file:
+        env.update(load_env_file(env_file))
+    env.update({k: str(v) for k, v in (overrides or {}).items()})
     model = ModelConfig(
         model_name=normalize_model_name(_env(env, "CLIP_MODEL", "ViT-B-32")),
         pretrained=_env(env, "CLIP_PRETRAINED", "openai"),
+        checkpoint_path=_env(env, "CLIP_CHECKPOINT", "") or None,
         compute_dtype=_env(env, "COMPUTE_DTYPE", "bfloat16"),
         parity_mode=_env_bool(env, "PARITY_MODE", False),
     )
-    return EmbedConfig(
+    serve_auto_compact = _optional(env, "SERVE_AUTO_COMPACT", float, ("", "off", "none"))
+    if serve_auto_compact is not None and not 0.0 < serve_auto_compact <= 1.0:
+        raise ValueError(
+            f"SERVE_AUTO_COMPACT must be a fraction in (0, 1] (postgres' "
+            f"autovacuum scale factor analogue), got {serve_auto_compact}")
+    return PipelineConfig(
         model=model,
+        store=StoreConfig(root=_env(env, "STORE_DIR", "data/store")),
         batch_size=int(_env(env, "BATCH_SIZE", "256")),
+        seed=int(_env(env, "SEED", "0")),
+        retrieval_recall_target=_optional(env, "RETRIEVAL_RECALL_TARGET", float),
+        retrieval_index=_env(env, "RETRIEVAL_INDEX", "exact"),
+        retrieval_precision=_env(env, "RETRIEVAL_PRECISION", "fp32"),
+        retrieval_refine=int(_env(env, "RETRIEVAL_REFINE", "0")),
+        retrieval_refine_store=_env(env, "RETRIEVAL_REFINE_STORE", "auto"),
         text_buckets=_parse_buckets(_env(env, "TEXT_BUCKETS", "16,32,77")),
+        serve_coalesce_ms=(
+            float(_env(env, "SERVE_COALESCE_MS", "2.0"))
+            if _env(env, "SERVE_COALESCE_MS", "2.0").lower() not in ("off", "none", "")
+            else None),
+        serve_query_cache=int(_env(env, "SERVE_QUERY_CACHE", "1024")),
+        serve_token=_env(env, "SERVE_TOKEN", "") or None,
+        serve_idle_timeout=float(_env(env, "SERVE_IDLE_TIMEOUT", "60")),
+        serve_max_body_bytes=int(_env(env, "SERVE_MAX_BODY_BYTES", str(64 * 2**20))),
+        serve_max_connections=int(_env(env, "SERVE_MAX_CONNECTIONS", "128")),
+        serve_request_deadline=float(_env(env, "SERVE_REQUEST_DEADLINE", "30")),
+        serve_auto_compact=serve_auto_compact,
     )
