@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card (an H100
 for the numbers in PERF.md). Phases, one JSON line each:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-1. build: the three kernels compiled from ``tpualign_torch/csrc/``, in
+1. build: the four kernels compiled from ``tpualign_torch/csrc/``, in
    parallel;
 2. K1 ``fused_mha`` against its plain version at ViT-B-32's shapes (B=256:
    vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal), fp32
@@ -26,7 +26,14 @@ for the numbers in PERF.md). Phases, one JSON line each:
    int8 (dequant), int4 and int2, k=10 and k=40, with times for the kernel,
    the plain version and ``torch._int_mm`` (or a dequantized matmul) +
    ``torch.topk``;
-6. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
+6. K4 ``ivf_probe_topk`` against its plain version: an ``IVFIndex`` built
+   on the card over 1,000,000 seeded unit rows around 10,000 page topics
+   (default geometry: 1,000 lists of capacity 1,536, 125 probes), each
+   batch's own probes and union; s8 at Q=2/64/1,024 and k=10/40, fp32,
+   dequant, int4 and int2 at Q=64, k=10; with times for the kernel, the
+   plain version and a gather + ``torch._int_mm``/``matmul`` +
+   ``torch.topk`` yardstick, and the union size;
+7. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
    images, 100,000 weak alignments) is written to a temporary directory and
    served by ``build_service`` + ``serve_schemas`` at int8 with refine 4 and
    the ViT-B-32 towers; eight clients send 32 requests each over
@@ -36,7 +43,15 @@ for the numbers in PERF.md). Phases, one JSON line each:
    rung against exact fp32, and ``python -m tpualign_torch query
    --image-id`` against the service; the launch counters are read around
    the clients' run alone;
-7. the kernels line, the card line, and ``{"ok": true, ...}`` last.
+8. serve_ivf, over the same store: ``python -m tpualign_torch index``
+   (RETRIEVAL_INDEX=ivf, int8, refine 4, recall target 0.95) as a
+   subprocess, the same build and calibration timed in this process (the
+   same structure), ``build_service`` loading the artifact, the clients of
+   7. with every answer against the plain path (plain K4, exact rescore),
+   recall@10 of int8/int4/int2 at the calibrated and default probe counts,
+   and ``query --image-id`` through the artifact; the counters are read
+   around the clients' run alone;
+9. the kernels line, the card line, and ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
 line. It needs CUDA and the repository's ``tpualign_torch`` package; it
@@ -308,6 +323,164 @@ def phase_k3(dev, gen):
     return rows
 
 
+K4_SHAPE = (1_000_000, 512, 10_000)  # N, D, page topics (the serve store's scale)
+# (name, layout, int8_mxu, Q, k): s8 at serving and batch sizes, k=10 and the
+# refine over-fetch k=40; the other variants at Q=64, k=10
+K4_CASES = ([("int8", "int8", True, q, k) for q in (2, 64, 1024) for k in (10, 40)]
+            + [("fp32", "fp32", False, 64, 10), ("int8_dequant", "int8", False, 64, 10),
+               ("int4", "int4", True, 64, 10), ("int2", "int2", True, 64, 10)])
+K4_SLAB = 64  # queries per slab of the plain version and of the pair count
+
+
+def _k4_queries(gen, dev, topics, q):
+    """Queries around page topics, keyed to their page; 1/8 wildcard, some
+    keyed to a page that does not exist (no candidates)."""
+    n_pages = topics.shape[0]
+    page = torch.randint(0, n_pages, (q,), generator=gen, device=dev, dtype=torch.int32)
+    qv = topics[page] + 1.5 * torch.randn(q, topics.shape[1], generator=gen, device=dev)
+    qv /= qv.norm(dim=1, keepdim=True)
+    qk = page.clone()
+    qk[::8] = -3
+    qk[3::64] = n_pages + 7
+    return qv, qk
+
+
+def _k4_slabs(fn, q, qk, probe):
+    parts = [fn(q[s:s + K4_SLAB], qk[s:s + K4_SLAB], probe[s:s + K4_SLAB])
+             for s in range(0, len(q), K4_SLAB)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _k4_library(variant, q, qk, probe, uids, emb, ck, scales, k, cap, n_lists):
+    """One PyTorch call per step for the same function: the union's rows
+    gathered, torch.matmul (dequantized rows for dequant) or torch._int_mm
+    (after an unpack to s8 for int4/int2; queries padded to its 17-row
+    minimum), the rescale, the key and membership mask, torch.topk. A
+    yardstick only; the port never calls it."""
+    from tpualign_torch.ops.ivf_topk import _membership, union_rows
+    from tpualign_torch.ops.sim_topk import _unpack_codes, key_mask, quantize_queries
+
+    blocks, rows = union_rows(uids, cap, n_lists)
+    mask = key_mask(qk, ck[rows]) & _membership(probe, blocks, n_lists).repeat_interleave(
+        cap, dim=1)
+    c = emb[rows]
+    if variant is None:
+        sims = q @ c.T
+    elif variant == "dequant":
+        sims = q @ (c.float() * scales[rows][:, None]).T
+    else:
+        qq, qs = quantize_queries(q)
+        codes = c if variant == "s8" else _unpack_codes(c, variant).to(torch.int8)
+        qq = torch.nn.functional.pad(qq, (0, 0, 0, max(0, 32 - len(qq))))
+        sims = (torch._int_mm(qq, codes.T)[:len(q)].float() * qs[:, None]
+                * scales[rows][None, :])
+    vals, pos = torch.topk(torch.where(mask, sims, -1e30), k, dim=1)
+    return vals, rows[pos]
+
+
+def phase_k4(dev, gen):
+    """K4 against its plain version: an IVFIndex built on the card over
+    K4_SHAPE (default geometry: 1,000 lists, capacity 1,536, 125 probes),
+    the union and probes of each query batch, every variant (K4_CASES)."""
+    from tpualign_torch.parallel.ivf import IVFIndex, _probe, _union
+    from tpualign_torch.parallel.retrieval import _QUANTIZERS, _tensor
+
+    n, d, n_pages = K4_SHAPE
+    topics = torch.randn(n_pages, d, generator=gen, device=dev)
+    page = torch.randint(0, n_pages, (n,), generator=gen, device=dev, dtype=torch.int32)
+    rows = topics[page] + 1.5 * torch.randn(n, d, generator=gen, device=dev)
+    host = (rows / rows.norm(dim=1, keepdim=True)).cpu().numpy()
+    del rows
+    t0 = time.perf_counter()
+    index = IVFIndex(host, keys=page.cpu().numpy(), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cap, n_lists = index.capacity, index.n_lists
+    check(n_lists == 1000 and cap <= 1536 and index.n_probes == 125,
+          f"K4 geometry: {n_lists} lists, capacity {cap}, {index.n_probes} probes")
+    layouts = {"fp32": (index._emb, None)}
+    for name in ("int8", "int4", "int2"):
+        codes, scales = _QUANTIZERS[name](host)
+        layouts[name] = index._gather(_tensor(codes, dev), _tensor(scales, dev))
+    del host
+    ck = index._keys
+    rows_total = index._emb.shape[0]
+    queries = {q: _k4_queries(gen, dev, topics, q) for q in (2, 64, 1024)}
+    rows_out = []
+    for name, layout, mxu, q, k in K4_CASES:
+        qv, qk = queries[q]
+        emb, scales = layouts[layout]
+        probe = _probe(qv, qk, index.centroids, index.n_probes, n_lists)
+        row = _k4_measure(f"K4 {name} Q={q} k={k}", qv, qk, probe,
+                          _union(probe, n_lists, index.spill_blocks), emb, ck, scales, mxu, k,
+                          cap, n_lists)
+        rows_out.append({"variant": name, "Q": q, "k": k, "N": n, "D": d, "n_lists": n_lists,
+                         "capacity": cap, "n_probes": index.n_probes,
+                         "spill_blocks": index.spill_blocks, "layout_rows": rows_total, **row})
+    emit({"phase": "k4_ivf_probe_topk", "index_build_s": build_s, "results": rows_out})
+    return rows_out
+
+
+def _k4_measure(what, qv, qk, probe, uids, emb, ck, scales, mxu, k, cap, n_lists) -> dict:
+    """One K4 launch against its plain version on the same inputs, then its
+    time, the plain version's, the library yardstick's and the bound.
+
+    The bound's bytes: the union's keys (4 B a row: every row's key is read
+    to admit it), the embedding row and scale of each distinct row that
+    some query admits (rows none admits, empty slots included, need not be
+    read), the queries, probes, uids and outputs. Its operations: 2·D for
+    each admitted (query, row) pair."""
+    from tpualign_torch.ops.ivf_topk import (
+        _membership, ivf_probe_topk, ivf_probe_topk_reference, union_rows)
+    from tpualign_torch.ops.sim_topk import key_mask, quant_variant
+
+    q, d = qv.shape
+    variant = quant_variant(emb, d, scales, mxu)
+    args = (uids, emb, ck, k, cap, n_lists)
+    kw = dict(packed_scales=scales, int8_mxu=mxu)
+    before = ivf_probe_topk.launches
+    vals, idx = ivf_probe_topk(qv, qk, probe, *args, **kw)
+    torch.cuda.synchronize()
+    check(ivf_probe_topk.launches == before + 1, f"{what}: no launch")
+
+    def plain():
+        return _k4_slabs(lambda a, b, c: ivf_probe_topk_reference(a, b, c, *args, **kw),
+                         qv, qk, probe)
+
+    rvals, ridx = plain()
+    if variant in (None, "dequant"):
+        err = compare_topk(vals, idx, rvals, ridx, what)
+    else:
+        check(bool(torch.equal(idx, ridx)), f"{what}: indices differ")
+        check(bool(torch.equal(vals, rvals)), f"{what}: values differ")
+        err = 0.0
+    ms = time_ms(lambda: ivf_probe_topk(qv, qk, probe, *args, **kw), 20 if q < 1024 else 3)
+    plain_ms = time_ms(plain, 1)
+    lib_ms = time_ms(lambda: _k4_library(variant, qv, qk, probe, uids, emb, ck, scales, k,
+                                         cap, n_lists), 3)
+    blocks, urows = union_rows(uids, cap, n_lists)
+    pairs = 0
+    admitted = torch.zeros(len(urows), dtype=torch.bool, device=urows.device)
+    for s0 in range(0, q, K4_SLAB):
+        member = _membership(probe[s0:s0 + K4_SLAB], blocks, n_lists)
+        m = key_mask(qk[s0:s0 + K4_SLAB], ck[urows]) & member.repeat_interleave(cap, dim=1)
+        pairs += int(m.sum().item())
+        admitted |= m.any(dim=0)
+    distinct = int(admitted.sum().item())
+    row_bytes = emb.shape[1] * emb.element_size() + (4 if scales is not None else 0)
+    qbytes = q * d * (1 if variant in ("s8", "int4", "int2") else 4) + q * 8
+    nbytes = (len(urows) * 4 + distinct * row_bytes + qbytes + probe.numel() * 4
+              + len(uids) * 4 + q * k * 8)
+    peak = INT_PEAK_OPS if variant in ("s8", "int4", "int2") else PEAK_FLOPS[torch.float32]
+    bms, by = bound_ms(nbytes, 2.0 * d * pairs, peak)
+    return {"kernel_variant": variant or "fp32", "union_blocks": len(blocks),
+            "union_rows": len(urows), "admitted_rows": distinct, "admitted_pairs": pairs,
+            "empty_slots": int((ridx == 2**30).sum().item()), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "tolerance": ({"values_atol": K2_TOL_VALUES, "tie_gap": K2_TIE_GAP}
+                          if variant in (None, "dequant") else "identical")}
+
+
 def _chunk_texts(rng, count):
     """Texts whose byte-level token counts fill the 16, 32 and 77 buckets,
     with every 97th text empty (a placeholder)."""
@@ -481,6 +654,7 @@ def phase_profile(engine, images, texts) -> None:
 SERVE_MANUALS, SERVE_PAGES, SERVE_CHUNKS_PER_PAGE = 1000, 125, 8
 SERVE_IMAGES, SERVE_ALIGNS = 20_000, 5
 SERVE_CLIENTS, SERVE_REQUESTS = 8, 32
+SERVE_RECALL_QUERIES = 1024
 SERVE_KINDS = ("search_text", "search_image", "search_image_bytes", "search_image_rerank",
                "stats", "healthz")
 SERVE_TEXTS = ["replace the oil filter", "torque the drain bolt to 25 Nm", "check the pump seal",
@@ -580,6 +754,29 @@ def _plain_refined(index, emb, keys, k=10):
     return _refine_rescore(np.asarray(emb, np.float32), vals, idx, index._refine_corpus, k)
 
 
+def _plain_refined_ivf(index, emb, keys, k=10, n_probes=None):
+    """The plain path of a refined IVF search: the index's probes and union,
+    the plain K4 version over its layout for k*refine candidates, the
+    packed rows mapped to corpus ids, then the exact host rescore."""
+    from tpualign_torch.ops.ivf_topk import ivf_probe_topk_reference
+    from tpualign_torch.parallel.ivf import _probe, _union
+    from tpualign_torch.parallel.retrieval import NEG_INF, _refine_rescore
+
+    kf = min(k * max(1, index.refine), index.n)
+    q = torch.from_numpy(np.ascontiguousarray(emb, np.float32)).to(index.device)
+    qk = torch.from_numpy(np.asarray(keys, np.int32)).to(index.device)
+    probe = _probe(q, qk, index.centroids, n_probes or index.n_probes, index.n_lists)
+    uids = _union(probe, index.n_lists, index.spill_blocks)
+    _, pidx = _k4_slabs(lambda a, b, c: ivf_probe_topk_reference(
+        a, b, c, uids, index._emb, index._keys, kf, index.capacity, index.n_lists,
+        packed_scales=index._scales, int8_mxu=index.int8_mxu), q, qk, probe)
+    empty = pidx >= 2**30
+    idx = index._ids[pidx.clamp(max=len(index._ids) - 1).long()].long()
+    idx = torch.where(empty, -1, idx).cpu().numpy()
+    vals = np.where(idx >= 0, 0.0, NEG_INF).astype(np.float32)
+    return _refine_rescore(np.asarray(emb, np.float32), vals, idx, index._refine_corpus, k)
+
+
 def _pairs(vals, idx, chunk_ids):
     """(chunk_id, score) rows, as the service formats its winners."""
     return [[(chunk_ids[j], float(v)) for v, j in zip(vr, ir) if j >= 0]
@@ -653,24 +850,159 @@ def _pct(xs, p):
     return xs[min(len(xs) - 1, int(p * len(xs)))] * 1e3
 
 
+def _drive(service, images, pngs, counters, nagle: bool = False) -> dict:
+    """Serves ``service`` over HTTP: a warm-up request of each kind, then
+    SERVE_CLIENTS clients (in a process of their own, so that the server's
+    process and its interpreter lock serve the requests alone) with
+    ``counters`` (functions with a ``launches`` count) set to 0 just before
+    and read just after, /stats, and a serial pass from one client (again
+    with Nagle's algorithm on, as tpualign's server has it, with
+    ``nagle``)."""
+    import urllib.request
+
+    from tpualign_torch.serving.server import _ServiceBox, serve_schemas
+
+    httpd = serve_schemas({"vanilla_clip": _ServiceBox(service)}, "vanilla_clip",
+                          "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    port = httpd.server_address[1]
+    ids = [im["image_id"] for im in images]
+    out = {"serial": [], "nagle": []}
+    try:
+        warm = []
+        _client(port, 0, images, pngs, warm, [], count=len(SERVE_KINDS))
+        check(all(r["status"] == 200 for r in warm), f"warm-up: {warm[0]['response']}")
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        ctx = multiprocessing.get_context("spawn")
+        recv, send = ctx.Pipe(duplex=False)
+        load = ctx.Process(target=_load, args=(port, ids, pngs, SERVE_CLIENTS, SERVE_REQUESTS,
+                                               send))
+        load.start()
+        check(recv.poll(600), "the clients' process sent no answers within 600 s")
+        results, errors, wall = recv.recv()
+        load.join()
+        torch.cuda.synchronize()
+        out["launches"] = {fn.__name__: fn.launches for fn in counters}
+        out["stats"] = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                                         timeout=60).read())
+        _client(port, 0, images, pngs, out["serial"], [], count=4 * len(SERVE_KINDS))
+        if nagle:
+            httpd.RequestHandlerClass.disable_nagle_algorithm = False
+            _client(port, 0, images, pngs, out["nagle"], [], count=4 * len(SERVE_KINDS))
+            httpd.RequestHandlerClass.disable_nagle_algorithm = True
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join()
+    check(not errors, f"client errors: {errors[:3]}")
+    check(len(results) == SERVE_CLIENTS * SERVE_REQUESTS, f"{len(results)} answers")
+    bad = [r for r in results + out["serial"] + out["nagle"] if r["status"] != 200]
+    check(not bad, f"{len(bad)} requests failed, e.g. {bad[:1]}")
+    out.update(results=results, warm=warm, wall=wall)
+    out["endpoints"] = {}
+    for kind in SERVE_KINDS:
+        lat = [r["s"] for r in results if r["kind"] == kind]
+        out["endpoints"][kind] = {"requests": len(lat), "p50_ms": _pct(lat, 0.5),
+                                  "p99_ms": _pct(lat, 0.99), "qps": len(lat) / wall}
+    out["serial_p50_ms"] = {name: {kind: _pct([r["s"] for r in rs if r["kind"] == kind], 0.5)
+                                   for kind in SERVE_KINDS}
+                            for name, rs in (("nodelay", out["serial"]), ("nagle", out["nagle"]))
+                            if rs}
+    return out
+
+
+def _check_answers(run, service, images, pngs, text_enc, image_enc, plain_refined) -> int:
+    """Every search answer of ``run`` against the plain path, all rows in
+    one batch: ``plain_refined(index, rows, keys)`` gives host (vals, idx)
+    as ``index.search`` does. Returns the number of answers checked."""
+    from tpualign_torch.parallel.retrieval import WILDCARD_KEY, encode_keys
+    from tpualign_torch.weaksup.rerank import rerank_with_weak_scores
+
+    index = service.index
+    img_emb = service._image_embs
+    by_id = {im["image_id"]: (i, im) for i, im in enumerate(images)}
+    row_of, rows, keys = {}, [], []
+    for tag, seen in (("text", text_enc.seen), ("png", image_enc.seen)):
+        for item, embs in seen.items():
+            for e_no, e in enumerate(embs):
+                row_of[(tag, item, e_no)] = len(rows)
+                rows.append(e)
+                keys.append(WILDCARD_KEY)
+    answers = run["results"] + run["warm"] + run["serial"] + run["nagle"]
+    asked = {i for r in answers if r["kind"].startswith("search_image")
+             and r["kind"] != "search_image_bytes" for i in r["request"]["image_ids"]}
+    for image_id in sorted(asked):
+        i, im = by_id[image_id]
+        row_of[("img", image_id)] = len(rows)
+        rows.append(img_emb[i])
+        keys.append(encode_keys([im["manual_id"]], [im["page"]], dict(index.vocab))[0][0])
+    pv, pi = plain_refined(index, np.stack(rows), keys)
+
+    def plain(*tags, rerank=None):
+        sel = [row_of[t] for t in tags]
+        v, i = pv[sel], pi[sel]
+        if rerank is not None:
+            v, i = rerank_with_weak_scores(v, i, [t[1] for t in tags], service.chunk_ids,
+                                           service.weak_lookup, alpha=rerank)
+        return _pairs(v, i, service.chunk_ids)
+
+    checked = 0
+    for r in answers:
+        kind, req, got = r["kind"], r["request"], r["response"]
+        if kind in ("stats", "healthz"):
+            check(got.get("status") == "ok", f"/{kind}: {got}")
+            continue
+        got = _as_pairs(got["results"])
+        if kind == "search_text":
+            for text, ans in zip(req["texts"], got):
+                cands = [plain(("text", text, e))[0] for e in range(len(text_enc.seen[text]))]
+                check(ans in cands, f"/search_text {text!r}: differs from the plain path")
+        elif kind == "search_image_bytes":
+            blob = pngs[r["png"]]
+            cands = [plain(("png", blob, e))[0] for e in range(len(image_enc.seen[blob]))]
+            check(got[0] in cands, "/search_image_bytes differs from the plain path")
+        else:
+            want = plain(*[("img", i) for i in req["image_ids"]], rerank=req.get("rerank"))
+            check(got == want, f"/search_image {req['image_ids']}: differs from the plain path")
+        checked += 1
+    return checked
+
+
+def _query_cli(env, image_id, service, dev):
+    """``python -m tpualign_torch query --image-id`` as a subprocess; its ids
+    must be the service's. Returns its wall seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "query", "--image-id",
+                          image_id, "--device", dev.type], capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, **env))
+    secs = time.perf_counter() - t0
+    check(cli.returncode == 0, f"query --image-id exited {cli.returncode}: {cli.stderr[-2000:]}")
+    check("no prebuilt" not in cli.stdout, f"query did not use the artifact: {cli.stdout[:200]}")
+    cli_ids = [line.split()[1] for line in cli.stdout.splitlines()[1:] if line.strip()]
+    want_ids = [h["chunk_id"] for h in service.search_images([image_id], k=10)[0]]
+    check(cli_ids == want_ids, f"query --image-id printed {cli_ids}, the service {want_ids}")
+    return secs
+
+
 def phase_serve(dev, seed, root):
     """The serving path: the port's store, build_service + serve_schemas at
     int8 with refine 4 and ViT-B-32 towers, eight clients, every answer
     held against the plain path; then int4 and int2 rebuilds, recall
-    against exact fp32, and the ``query --image-id`` CLI."""
-    import os
-    import urllib.request
-
+    against exact fp32, and the ``query --image-id`` CLI. Returns the
+    launches, and what serve_ivf reuses."""
     from tpualign_torch.config import load_config
     from tpualign_torch.ops.attention import fused_mha
     from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
     from tpualign_torch.parallel.retrieval import (
         WILDCARD_KEY, _refine_rescore, build_index, encode_keys)
     from tpualign_torch.serving.server import (
-        _ServiceBox, build_service, index_kwargs, make_engine, make_image_bytes_encoder,
-        serve_schemas)
+        build_service, index_kwargs, make_engine, make_image_bytes_encoder)
     from tpualign_torch.store import EmbeddingStore
-    from tpualign_torch.weaksup.rerank import rerank_with_weak_scores
 
     t0 = time.perf_counter()
     images = _serve_store(root, dev, seed)
@@ -690,102 +1022,17 @@ def phase_serve(dev, seed, root):
                             device=dev)
     build_s = time.perf_counter() - t0
     index = service.index
-    httpd = serve_schemas({"vanilla_clip": _ServiceBox(service)}, "vanilla_clip",
-                          "127.0.0.1", 0, token=config.serve_token,
-                          max_connections=config.serve_max_connections)
-    server = threading.Thread(target=httpd.serve_forever, daemon=True)
-    server.start()
-    port = httpd.server_address[1]
     rng = np.random.default_rng(seed)
     pngs = [_png(rng) for _ in range(4)]
-    ids = [im["image_id"] for im in images]
-    try:
-        # warm-up, untimed: one request of each kind (first tower calls)
-        warm = []
-        _client(port, 0, images, pngs, warm, [], count=len(SERVE_KINDS))
-        check(all(r["status"] == 200 for r in warm), f"warm-up: {warm[0]['response']}")
-
-        fused_mha.launches = masked_sim_topk.launches = masked_sim_topk_quant.launches = 0
-        # the clients run in a process of their own, so that the server's
-        # process (and its interpreter lock) serves the requests alone
-        ctx = multiprocessing.get_context("spawn")
-        recv, send = ctx.Pipe(duplex=False)
-        load = ctx.Process(target=_load, args=(port, ids, pngs, SERVE_CLIENTS, SERVE_REQUESTS,
-                                               send))
-        load.start()
-        results, errors, wall = recv.recv()
-        load.join()
-        torch.cuda.synchronize()
-        launches = {"fused_mha": fused_mha.launches, "masked_sim_topk": masked_sim_topk.launches,
-                    "masked_sim_topk_quant": masked_sim_topk_quant.launches}
-        stats = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
-                                                  timeout=60).read())
-        # the same requests from one client, one at a time (no contention);
-        # then again with Nagle's algorithm left on, as tpualign's server has it
-        serial, nagle = [], []
-        _client(port, 0, images, pngs, serial, [], count=4 * len(SERVE_KINDS))
-        httpd.RequestHandlerClass.disable_nagle_algorithm = False
-        _client(port, 0, images, pngs, nagle, [], count=4 * len(SERVE_KINDS))
-        httpd.RequestHandlerClass.disable_nagle_algorithm = True
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        server.join()
-    check(not errors, f"client errors: {errors[:3]}")
-    check(len(results) == SERVE_CLIENTS * SERVE_REQUESTS, f"{len(results)} answers")
-    bad = [r for r in results if r["status"] != 200]
-    check(not bad, f"{len(bad)} requests failed, e.g. {bad[:1]}")
-
-    # every search answer against the plain path, all rows in one batch
-    img_emb = service._image_embs
-    by_id = {im["image_id"]: (i, im) for i, im in enumerate(images)}
-    row_of, rows, keys = {}, [], []
-    for tag, seen in (("text", text_enc.seen), ("png", image_enc.seen)):
-        for item, embs in seen.items():
-            for e_no, e in enumerate(embs):
-                row_of[(tag, item, e_no)] = len(rows)
-                rows.append(e)
-                keys.append(WILDCARD_KEY)
-    asked = {i for r in results + warm + serial + nagle if r["kind"].startswith("search_image")
-             and r["kind"] != "search_image_bytes" for i in r["request"]["image_ids"]}
-    for image_id in sorted(asked):
-        i, im = by_id[image_id]
-        row_of[("img", image_id)] = len(rows)
-        rows.append(img_emb[i])
-        keys.append(encode_keys([im["manual_id"]], [im["page"]], dict(index.vocab))[0][0])
-    pv, pi = _plain_refined(index, np.stack(rows), keys)
-
-    def plain(*tags, rerank=None):
-        sel = [row_of[t] for t in tags]
-        v, i = pv[sel], pi[sel]
-        if rerank is not None:
-            v, i = rerank_with_weak_scores(v, i, [t[1] for t in tags], service.chunk_ids,
-                                           service.weak_lookup, alpha=rerank)
-        return _pairs(v, i, service.chunk_ids)
-
-    checked = 0
-    for r in results + warm + serial + nagle:
-        kind, req, got = r["kind"], r["request"], r["response"]
-        if kind in ("stats", "healthz"):
-            check(got.get("status") == "ok", f"/{kind}: {got}")
-            continue
-        answers = _as_pairs(got["results"])
-        if kind == "search_text":
-            for text, ans in zip(req["texts"], answers):
-                cands = [plain(("text", text, e)) [0] for e in range(len(text_enc.seen[text]))]
-                check(ans in cands, f"/search_text {text!r}: differs from the plain path")
-        elif kind == "search_image_bytes":
-            blob = pngs[r["png"]]
-            cands = [plain(("png", blob, e))[0] for e in range(len(image_enc.seen[blob]))]
-            check(answers[0] in cands, "/search_image_bytes differs from the plain path")
-        else:
-            want = plain(*[("img", i) for i in req["image_ids"]], rerank=req.get("rerank"))
-            check(answers == want, f"/search_image {req['image_ids']}: differs from the plain path")
-        checked += 1
+    run = _drive(service, images, pngs, (fused_mha, masked_sim_topk, masked_sim_topk_quant),
+                 nagle=True)
+    launches = run["launches"]
+    checked = _check_answers(run, service, images, pngs, text_enc, image_enc, _plain_refined)
     check(launches["masked_sim_topk_quant"] > 0, "K3 was not launched while serving")
     check(launches["fused_mha"] > 0, "K1 was not launched while serving")
 
     # the refine share of one coalesced-size search (8 queries)
+    img_emb = service._image_embs
     q8 = img_emb[:8]
     qk8 = np.full(8, WILDCARD_KEY, np.int32)
     first = refine = 0.0
@@ -798,24 +1045,7 @@ def phase_serve(dev, seed, root):
         first, refine = first + t1 - t0, refine + t2 - t1
 
     # where one request's time goes (direct calls, uncached texts)
-    fresh = iter(range(10**6))
-    profiles = {
-        "search_image_bytes": profile_window(lambda: service.search_image_bytes([pngs[0]], k=10)),
-        "search_image": profile_window(lambda: service.search_images(
-            [images[1]["image_id"], images[2]["image_id"]], k=10)),
-        "search_text_uncached": profile_window(lambda: service.search_text(
-            [f"{t} {next(fresh)}" for t in SERVE_TEXTS[:4]], k=10)),
-    }
-    serial_ms = {name: {kind: _pct([r["s"] for r in rs if r["kind"] == kind], 0.5)
-                        for kind in SERVE_KINDS}
-                 for name, rs in (("nodelay", serial), ("nagle", nagle))}
-    check(all(r["status"] == 200 for r in serial + nagle), "serial requests failed")
-
-    endpoints = {}
-    for kind in SERVE_KINDS:
-        lat = [r["s"] for r in results if r["kind"] == kind]
-        endpoints[kind] = {"requests": len(lat), "p50_ms": _pct(lat, 0.5),
-                           "p99_ms": _pct(lat, 0.99), "qps": len(lat) / wall}
+    profiles = _profiles(service, images, pngs)
 
     # the int8 index again, standalone (its build time), and the int4/int2
     # rebuilds; keyed and global searches of each against the plain path
@@ -823,12 +1053,12 @@ def phase_serve(dev, seed, root):
     chunk_ids, chunk_emb = store.embedding_matrix("vanilla_clip", "text_chunks")
     manuals = store.column("vanilla_clip", "text_chunks", "manual_id")
     pages = store.column("vanilla_clip", "text_chunks", "page")
-    sample = np.arange(0, SERVE_IMAGES, SERVE_IMAGES // 256)[:256]
+    sample = np.arange(0, SERVE_IMAGES, max(1, SERVE_IMAGES // 256))[:256]
     q_img = img_emb[sample]
     qk_keyed, _ = encode_keys([images[i]["manual_id"] for i in sample],
                               [images[i]["page"] for i in sample], dict(index.vocab))
     exact_index = build_index(chunk_emb, manuals, pages, device=dev)
-    q_rec = img_emb[:1024]
+    q_rec = img_emb[:SERVE_RECALL_QUERIES]
     _, exact = exact_index.search(q_rec, k=10, global_search=True)
     del exact_index
     rungs = {}
@@ -843,42 +1073,171 @@ def phase_serve(dev, seed, root):
             got = _pairs(*rung.search_encoded(q_img, keys, 10), chunk_ids)
             check(got == _pairs(*_plain_refined(rung, q_img, keys), chunk_ids),
                   f"{precision} {what}: differs from the plain path")
-        wild = np.full(len(q_rec), WILDCARD_KEY, np.int32)
-        _, unref = rung._search_encoded_raw(q_rec, wild, 10)
-        _, ref = rung.search_encoded(q_rec, wild, 10)
-        recall = {name: float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, exact)]))
-                  for name, got in (("unrefined", unref), ("refined", ref))}
-        check(recall["refined"] >= recall["unrefined"],
-              f"{precision}: refine lowered recall@10 {recall}")
+        recall = _recall(rung, q_rec, exact)
         rungs[precision] = {"index_build_s": rung_s, "recall_at_10": recall,
                             "corpus_bytes": int(rung._corpus.numel())}
         del rung
 
-    # the one-shot CLI over the same store, against the service
-    image_id = images[7]["image_id"]
-    env = dict(os.environ, STORE_DIR=root, RETRIEVAL_PRECISION="int8",
-               RETRIEVAL_REFINE="4")
-    t0 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "query", "--image-id",
-                          image_id, "--device", dev.type], capture_output=True, text=True,
-                         timeout=600, env=env)
-    cli_s = time.perf_counter() - t0
-    check(cli.returncode == 0, f"query --image-id exited {cli.returncode}: {cli.stderr[-2000:]}")
-    cli_ids = [line.split()[1] for line in cli.stdout.splitlines()[1:] if line.strip()]
-    want_ids = [h["chunk_id"] for h in service.search_images([image_id], k=10)[0]]
-    check(cli_ids == want_ids, f"query --image-id printed {cli_ids}, the service {want_ids}")
+    cli_s = _query_cli({"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8",
+                        "RETRIEVAL_REFINE": "4"}, images[7]["image_id"], service, dev)
 
     emit({"phase": "serve", "model": "ViT-B-32", "precision": "int8", "refine": 4,
           "store_write_s": store_s, "service_build_s": build_s,
-          "clients": SERVE_CLIENTS, "requests": len(results), "answers_checked": checked,
-          "wall_s": wall, "qps": len(results) / wall, "endpoints": endpoints,
-          "serial_p50_ms": serial_ms, "profiles": profiles,
-          "refine_share_q8": refine / (first + refine),
+          "clients": SERVE_CLIENTS, "requests": len(run["results"]), "answers_checked": checked,
+          "wall_s": run["wall"], "qps": len(run["results"]) / run["wall"],
+          "endpoints": run["endpoints"], "serial_p50_ms": run["serial_p50_ms"],
+          "profiles": profiles, "refine_share_q8": refine / (first + refine),
           "first_stage_ms_q8": first / 20 * 1e3, "refine_ms_q8": refine / 20 * 1e3,
-          "coalescer": stats.get("coalescer"), "encode_coalescer": stats.get("encode_coalescer"),
-          "query_cache": stats.get("query_cache"), "refine_store": stats.get("refine_store"),
+          "coalescer": run["stats"].get("coalescer"),
+          "encode_coalescer": run["stats"].get("encode_coalescer"),
+          "query_cache": run["stats"].get("query_cache"),
+          "refine_store": run["stats"].get("refine_store"),
           "rungs": rungs, "cli_query_s": cli_s, "launches": launches})
-    return launches
+    return launches, {"engine": engine, "images": images, "pngs": pngs, "exact": exact,
+                      "chunk_emb": chunk_emb, "manuals": manuals, "pages": pages}
+
+
+def _profiles(service, images, pngs) -> dict:
+    fresh = iter(range(10**6))
+    return {
+        "search_image_bytes": profile_window(lambda: service.search_image_bytes([pngs[0]], k=10)),
+        "search_image": profile_window(lambda: service.search_images(
+            [images[1]["image_id"], images[2]["image_id"]], k=10)),
+        "search_text_uncached": profile_window(lambda: service.search_text(
+            [f"{t} {next(fresh)}" for t in SERVE_TEXTS[:4]], k=10)),
+    }
+
+
+def _recall(index, q_rec, exact, **kw) -> dict:
+    """recall@10 of ``index`` against the exact fp32 top-10, unrefined (the
+    first stage alone) and refined."""
+    from tpualign_torch.parallel.retrieval import WILDCARD_KEY
+
+    wild = np.full(len(q_rec), WILDCARD_KEY, np.int32)
+    _, unref = index._search_encoded_raw(q_rec, wild, 10, **kw)
+    _, ref = index.search_encoded(q_rec, wild, 10, **kw)
+    recall = {name: float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(got, exact)]))
+              for name, got in (("unrefined", unref), ("refined", ref))}
+    check(recall["refined"] >= recall["unrefined"], f"refine lowered recall@10 {recall}")
+    return recall
+
+
+def phase_serve_ivf(dev, seed, root, shared):
+    """RETRIEVAL_INDEX=ivf over the serve phase's store: ``python -m
+    tpualign_torch index`` as a subprocess (int8, refine 4, recall target
+    0.95), the same build and calibration timed in this process (the same
+    structure), build_service loading the artifact, the clients' mix with
+    every answer against the plain path (plain K4, exact rescore), recall
+    of each rung against exact fp32, and ``query --image-id`` through the
+    artifact."""
+    import os
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.ivf_topk import ivf_probe_topk
+    from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
+    from tpualign_torch.parallel.ivf import IVFIndex, _probe, _union
+    from tpualign_torch.parallel.retrieval import encode_keys
+    from tpualign_torch.serving.server import build_service, make_image_bytes_encoder
+
+    cache = os.path.join(root, "vanilla_clip.ivf.npz")
+    env = {"STORE_DIR": root, "RETRIEVAL_INDEX": "ivf", "RETRIEVAL_PRECISION": "int8",
+           "RETRIEVAL_REFINE": "4", "RETRIEVAL_RECALL_TARGET": "0.95", "IVF_CACHE": cache}
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "index", "--device",
+                          dev.type], capture_output=True, text=True, timeout=900,
+                         env=dict(os.environ, **env))
+    index_cli_s = time.perf_counter() - t0
+    check(cli.returncode == 0, f"index exited {cli.returncode}: {cli.stderr[-2000:]}")
+    info = json.loads(cli.stdout.strip().splitlines()[-1])
+    check(info["n_lists"] == 1000 and info["capacity"] <= 1536
+          and info["calibrated_target"] == 0.95 and os.path.exists(cache),
+          f"index printed {info}")
+
+    # the same build and calibration in this process: their times, and the
+    # same structure as the subprocess's artifact (k-means is deterministic)
+    chunk_emb, manuals, pages = shared["chunk_emb"], shared["manuals"], shared["pages"]
+    t0 = time.perf_counter()
+    again = IVFIndex(chunk_emb, manuals, pages, precision="int8", refine=4, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again.calibrate(0.95)
+    calibrate_s = time.perf_counter() - t0
+    art = np.load(cache)
+    check(np.array_equal(again._ids.cpu().numpy(), art["pids"])
+          and np.array_equal(again.centroids.cpu().numpy(), art["centroids"])
+          and again.n_probes == info["n_probes"], "two builds of one store differ")
+    del again, art
+
+    config = load_config({**env, "CLIP_MODEL": "ViT-B-32", "SEED": str(seed)})
+    engine, images, pngs = shared["engine"], shared["images"], shared["pngs"]
+    text_enc = _Recorder(engine.encode_text_batch)
+    image_enc = _Recorder(make_image_bytes_encoder(engine))
+    t0 = time.perf_counter()
+    service = build_service(config, "vanilla_clip", encoder=text_enc, image_encoder=image_enc,
+                            device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    index = service.index
+    check(isinstance(index, IVFIndex) and service.stats()["ivf"]["n_probes"] == info["n_probes"],
+          f"the service did not load the artifact: {service.stats().get('ivf')}")
+    run = _drive(service, images, pngs,
+                 (fused_mha, masked_sim_topk, masked_sim_topk_quant, ivf_probe_topk))
+    launches = run["launches"]
+    checked = _check_answers(run, service, images, pngs, text_enc, image_enc,
+                             _plain_refined_ivf)
+    check(launches["ivf_probe_topk"] > 0, "K4 was not launched while serving")
+    check(launches["fused_mha"] > 0, "K1 was not launched while serving")
+    profiles = _profiles(service, images, pngs)
+
+    # K4 at the shape serving gives it: the /search_image profile's two
+    # keyed image queries, k * refine candidates, the calibrated probes
+    two = [images[1], images[2]]
+    qv = torch.from_numpy(service._image_embs[[service._images[im["image_id"]] for im in two]])
+    qk = np.asarray(encode_keys([im["manual_id"] for im in two], [im["page"] for im in two],
+                                dict(index.vocab))[0], np.int32)
+    qv, qk = qv.to(dev), torch.from_numpy(qk).to(dev)
+    probe = _probe(qv, qk, index.centroids, index.n_probes, index.n_lists)
+    kf = 10 * index.refine
+    k4_serving = {"variant": "int8", "Q": 2, "k": kf, "N": index.n, "D": index.dim,
+                  "n_lists": index.n_lists, "capacity": index.capacity,
+                  "n_probes": index.n_probes, "spill_blocks": index.spill_blocks,
+                  **_k4_measure("K4 at the serving shape", qv, qk, probe,
+                                _union(probe, index.n_lists, index.spill_blocks), index._emb,
+                                index._keys, index._scales, index.int8_mxu, kf,
+                                index.capacity, index.n_lists)}
+
+    # recall@10 of each rung against exact fp32, at its calibrated and the
+    # default probe counts, unrefined and refined
+    q_rec = service._image_embs[:SERVE_RECALL_QUERIES]
+    rungs = {}
+    for precision in ("int8", "int4", "int2"):
+        t0 = time.perf_counter()
+        rung = index if precision == "int8" else IVFIndex(
+            chunk_emb, manuals, pages, precision=precision, refine=4, device=dev)
+        rung_s = time.perf_counter() - t0
+        default_probes = rung.n_lists // 8
+        calibrated = rung.n_probes if precision == "int8" else rung.calibrate(0.95)
+        rungs[precision] = {
+            "index_build_s": None if precision == "int8" else rung_s,
+            "n_probes_calibrated": calibrated, "n_probes_default": default_probes,
+            "recall_at_10": {f"probes_{p}": _recall(rung, q_rec, shared["exact"], n_probes=p)
+                             for p in sorted({calibrated, default_probes})},
+            "memory_bytes": rung.memory_bytes}
+        del rung
+    cli_s = _query_cli(env, images[7]["image_id"], service, dev)
+    stats = run["stats"]
+    emit({"phase": "serve_ivf", "model": "ViT-B-32", "precision": "int8", "refine": 4,
+          "ivf": stats.get("ivf"), "index_cli_s": index_cli_s, "build_s": build_s,
+          "calibrate_s": calibrate_s, "service_load_s": load_s,
+          "clients": SERVE_CLIENTS, "requests": len(run["results"]), "answers_checked": checked,
+          "wall_s": run["wall"], "qps": len(run["results"]) / run["wall"],
+          "endpoints": run["endpoints"], "serial_p50_ms": run["serial_p50_ms"],
+          "profiles": profiles, "coalescer": stats.get("coalescer"),
+          "query_cache": stats.get("query_cache"), "rungs": rungs, "cli_query_s": cli_s,
+          "k4_serving_shape": k4_serving, "launches": launches})
+    return launches, k4_serving
 
 
 def main() -> int:
@@ -903,12 +1262,16 @@ def main() -> int:
     k2 = phase_k2(dev, gen)
     launches = phase_slice(dev, args.seed)
     k3 = phase_k3(dev, gen)
+    k4 = phase_k4(dev, gen)
     with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
-        serve_launches = phase_serve(dev, args.seed, root)
+        serve_launches, shared = phase_serve(dev, args.seed, root)
+        ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)
+        del shared
 
     k1_head = next(r for r in k1 if r["shape"] == "vision" and r["dtype"] == "bfloat16")
     k2_head = next(r for r in k2 if r["k"] == 100)
     k3_head = next(r for r in k3 if r["variant"] == "int8" and r["k"] == 40)
+    k4_125 = next(r for r in k4 if r["variant"] == "int8" and r["Q"] == 2 and r["k"] == 40)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": "fused_mha", "route": "cuda", "source": "tpualign_torch/csrc/fused_mha.cu",
@@ -928,6 +1291,16 @@ def main() -> int:
          "launches": serve_launches["masked_sim_topk_quant"], **{k: k3_head[k] for k in keys},
          "tolerance": k3_head["tolerance"],
          "at": "int8 (s8) Q=1024 N=1000000 D=512 k=40; launches from the serve phase"},
+        {"name": "ivf_probe_topk", "route": "cuda",
+         "source": "tpualign_torch/csrc/ivf_probe_topk.cu",
+         "replaces": "tpualign/ops/pallas_kernels.py:778",
+         "launches": ivf_launches["ivf_probe_topk"], **{k: k4_head[k] for k in keys},
+         "tolerance": k4_head["tolerance"],
+         "at": (f"int8 (s8) Q=2 k={k4_head['k']}, the serve_ivf store's two keyed image "
+                f"queries at its calibrated {k4_head['n_probes']} probes, N={k4_head['N']} "
+                f"D={k4_head['D']}, {k4_head['union_blocks']} of {k4_head['n_lists']} lists "
+                f"+ spill; launches from the serve_ivf phase; at the default 125 probes "
+                f"(phase k4) {k4_125['ms']:.4f} ms, bound {k4_125['bound_ms']:.4f} ms")},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K3) against their plain PyTorch versions,
-on the card.
+"""The port's CUDA kernels (K1, K2, K3, K4) against their plain PyTorch
+versions, on the card.
 
 Marked ``cuda``: every test skips where there is no CUDA device (decided in
 a fixture, never at import). On a machine with an H100 run
@@ -198,3 +198,98 @@ def test_refined_index_on_the_card_matches_the_plain_path(dev, precision):
         np.testing.assert_array_equal(got[1], want[1])
         np.testing.assert_array_equal(got[0], want[0])
     assert masked_sim_topk_quant.launches == before + 2
+
+
+K4_VARIANTS = [("fp32", None, False), ("s8", "_quantize_rows", True),
+               ("dequant", "_quantize_rows", False), ("int4", "_quantize_rows_int4", True),
+               ("int2", "_quantize_rows_int2", True)]
+
+
+def _k4_inputs(rng, q, d=512, n_lists=20, cap=200, spill=3, p=5, groups=4):
+    """A packed layout (capacity not a multiple of the 64-row tile), unused
+    slots, duplicated rows, padding queries, and a union with padding
+    entries between the real blocks and the spill blocks."""
+    rows = (n_lists + 1 + spill) * cap
+    cv = rng.normal(size=(rows, d)).astype(np.float32)
+    cv[rows - 16:] = cv[:16]
+    cv /= np.linalg.norm(cv, axis=1, keepdims=True)
+    ck = rng.integers(0, groups, rows).astype(np.int32)
+    ck[::11] = -1
+    ck[n_lists * cap:(n_lists + 1) * cap] = -1
+    qv = rng.normal(size=(q, d)).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    qk = rng.integers(0, groups, q).astype(np.int32)
+    qk[::8] = WILDCARD_KEY
+    qk[1::9] = 10**6                     # no candidates
+    probes = np.stack([rng.choice(n_lists, p, replace=False) for _ in range(q)]).astype(
+        np.int32)
+    if q > 2:
+        qk[-1], probes[-1] = -2, n_lists     # a padding query
+    real = np.unique(probes[probes != n_lists])
+    uids = np.concatenate([real, [n_lists] * 3, n_lists + 1 + np.arange(spill)]).astype(
+        np.int32)
+    return qv, qk, probes, uids, cv, ck, (cap, n_lists)
+
+
+@pytest.mark.parametrize("variant,quantizer,mxu", K4_VARIANTS)
+@pytest.mark.parametrize("q,k", [(2, 10), (130, 40)])
+def test_ivf_probe_topk_matches_plain(dev, variant, quantizer, mxu, q, k):
+    from tpualign_torch.ops.ivf_topk import ivf_probe_topk, ivf_probe_topk_reference
+    from tpualign_torch.parallel import retrieval
+
+    rng = np.random.default_rng(q + k)
+    qv, qk, probes, uids, cv, ck, (cap, n_lists) = _k4_inputs(rng, q)
+    scales = None
+    if quantizer is not None:
+        cv, scales = getattr(retrieval, quantizer)(cv)
+        scales = torch.from_numpy(scales).to(dev)
+    args = [torch.from_numpy(a).to(dev) for a in (qv, qk, probes, uids, cv, ck)]
+    kw = dict(packed_scales=scales, int8_mxu=mxu)
+    before = ivf_probe_topk.launches
+    vals, idx = ivf_probe_topk(*args, k, cap, n_lists, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_probe_topk_reference(*args, k, cap, n_lists, **kw)
+    assert ivf_probe_topk.launches == before + 1
+    vals, idx, rv, ri = (t.cpu().numpy() for t in (vals, idx, rv, ri))
+    empty = ri == SENTINEL_IDX
+    assert (idx[empty] == SENTINEL_IDX).all() and (vals[empty] == np.float32(NEG_INF)).all()
+    assert not empty.all()
+    if variant in ("fp32", "dequant"):
+        near = np.zeros_like(empty)
+        close = np.abs(np.diff(rv, axis=1)) <= 1e-6
+        near[:, 1:] |= close
+        near[:, :-1] |= close
+        assert (idx[~near] == ri[~near]).all()
+        np.testing.assert_allclose(vals, rv, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(idx, ri)
+        np.testing.assert_array_equal(vals, rv)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8", "int4", "int2"])
+def test_ivf_index_on_the_card_matches_the_cpu(dev, precision, tmp_path):
+    """One artifact, loaded on the card and on the CPU: probed searches
+    (K4, then refine for the quantized rungs) return the same corpus ids."""
+    from tpualign_torch.ops.ivf_topk import ivf_probe_topk
+    from tpualign_torch.parallel.ivf import IVFIndex
+
+    rng = np.random.default_rng(5)
+    centers = rng.normal(size=(64, 512)).astype(np.float32)
+    emb = centers[rng.integers(0, 64, 20000)] + rng.normal(size=(20000, 512)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    manuals = [f"m{i % 7}" for i in range(20000)]
+    pages = [i % 13 for i in range(20000)]
+    refine = 0 if precision == "fp32" else 4
+    IVFIndex(emb, manuals, pages, n_lists=64, iters=4, precision=precision,
+             device=dev).save(tmp_path / "a.npz")
+    card = IVFIndex.load(tmp_path / "a.npz", emb, refine=refine, device=dev)
+    cpu = IVFIndex.load(tmp_path / "a.npz", emb, refine=refine, device="cpu")
+    q = emb[:37] + 0.1 * rng.normal(size=(37, 512)).astype(np.float32)
+    before = ivf_probe_topk.launches
+    for kw in ({"query_manuals": manuals[:37], "query_pages": pages[:37]},
+               {"global_search": True}):
+        got = card.search(q, k=10, n_probes=8, **kw)
+        want = cpu.search(q, k=10, n_probes=8, **kw)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], atol=1e-5 if precision == "fp32" else 0)
+    assert ivf_probe_topk.launches == before + 2

@@ -284,12 +284,14 @@ def _same_fp32(got, want):
 
 
 def test_later_slices_raise(corpus):
+    """HNSW and meshes are later slices; IVF is ported (tests/test_torch_ivf.py)."""
     emb, manuals, pages = corpus
-    for index_type in ("ivf", "hnsw"):
-        with pytest.raises(NotImplementedError, match=index_type.upper()):
-            port_retrieval.build_index(emb, manuals, pages, index_type=index_type, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_retrieval.build_index(emb, manuals, pages, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="HNSW"):
+        port_retrieval.build_index(emb, manuals, pages, index_type="hnsw", device="cpu")
+    for index_type in ("exact", "ivf"):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            port_retrieval.build_index(emb, manuals, pages, mesh=object(), device="cpu",
+                                       index_type=index_type)
     with pytest.raises(ValueError, match="retrieval_index"):
         port_retrieval.build_index(emb, manuals, pages, index_type="flat", device="cpu")
     # an empty corpus serves the exact index under RETRIEVAL_INDEX=ivf

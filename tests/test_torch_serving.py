@@ -19,6 +19,8 @@ import pytest
 
 import tpualign.config as jax_config
 import tpualign_torch.config as torch_config
+import tpualign.parallel.ivf as jax_ivf
+import tpualign.parallel.retrieval as jax_retrieval
 from tpualign.serving import RetrievalService as JaxService
 from tpualign.serving.server import index_kwargs as jax_index_kwargs
 from tpualign.serving.server import make_image_bytes_encoder as jax_image_encoder
@@ -37,7 +39,8 @@ SERVE_FIELDS = ("retrieval_recall_target", "retrieval_index", "retrieval_precisi
                 "retrieval_refine", "retrieval_refine_store", "text_buckets",
                 "serve_coalesce_ms", "serve_query_cache", "serve_token", "serve_idle_timeout",
                 "serve_max_body_bytes", "serve_max_connections", "serve_request_deadline",
-                "serve_auto_compact", "batch_size", "seed")
+                "serve_auto_compact", "batch_size", "seed", "ivf_lists", "ivf_probes",
+                "ivf_cache")
 
 
 @pytest.mark.parametrize("overrides", [
@@ -47,7 +50,8 @@ SERVE_FIELDS = ("retrieval_recall_target", "retrieval_index", "retrieval_precisi
      "SERVE_QUERY_CACHE": "0", "SERVE_TOKEN": "t", "SERVE_IDLE_TIMEOUT": "5",
      "SERVE_MAX_BODY_BYTES": "1000", "SERVE_MAX_CONNECTIONS": "3",
      "SERVE_REQUEST_DEADLINE": "2.5", "SERVE_AUTO_COMPACT": "0.2", "TEXT_BUCKETS": "off",
-     "SEED": "7", "RETRIEVAL_INDEX": "ivf"},
+     "SEED": "7", "RETRIEVAL_INDEX": "ivf", "IVF_LISTS": "64", "IVF_PROBES": "9",
+     "IVF_CACHE": "/data/g.ivf.npz"},
 ])
 def test_serve_config_matches_jax(overrides, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -202,6 +206,41 @@ def test_service_matches_jax(precision, refine):
     assert (st["refine_store"] is None) == (jst["refine_store"] is None)
     with pytest.raises(KeyError):
         port.search_images(["nope"])
+
+
+@pytest.fixture
+def jax_as_on_tpu(monkeypatch):
+    """tpualign's IVF routed as on its TPU: the K4 kernel (interpret mode)
+    for probed k <= 64, int8 as s8 products: the port's routes."""
+    monkeypatch.setattr(jax_ivf.IVFIndex, "_kernel_path",
+                        lambda self, exact_ties, k: not exact_ties and k <= 64)
+    monkeypatch.setattr(jax_retrieval, "_int8_mxu_override", True)
+
+
+@pytest.mark.parametrize("precision,refine", [("fp32", 0), ("int8", 4), ("int4", 0)])
+def test_ivf_service_matches_jax(precision, refine, jax_as_on_tpu):
+    """RETRIEVAL_INDEX=ivf: the same answers and the same /stats ivf block
+    as tpualign's service over the same rows."""
+    port, ref, emb, manuals, pages = _services(precision, refine, index_type="ivf",
+                                               ivf_lists=8, ivf_probes=3)
+    # quantized first-stage values: an ulp or two of the query scale apart
+    # (tpualign's jitted search multiplies by fl(1/127)); refined values are
+    # exact rescores; fp32 products sum in another order
+    exact = precision != "fp32"
+    rtol = 2.5e-7 if exact and refine <= 1 else 0.0
+    q = emb[10:14] + 0.05
+    for k in (3, 10):
+        _same_rows(port.search_embeddings(q, manuals[10:14], pages[10:14], k=k),
+                   ref.search_embeddings(q, manuals[10:14], pages[10:14], k=k), exact, rtol)
+        _same_rows(port.search_embeddings(q, None, None, k=k, global_search=True),
+                   ref.search_embeddings(q, None, None, k=k, global_search=True), exact, rtol)
+    _same_rows(port.search_images(["img1", "img7"], k=6, rerank_alpha=0.3),
+               ref.search_images(["img1", "img7"], k=6, rerank_alpha=0.3), exact, rtol)
+    _same_rows(port.search_text(["de pomp", "replace the filter"], k=4),
+               ref.search_text(["de pomp", "replace the filter"], k=4), exact, rtol)
+    st, jst = port.stats(), ref.stats()
+    assert st["index"] == jst["index"] == "IVFIndex"
+    assert st["ivf"] == jst["ivf"] and st["ivf"]["n_probes"] == 3
 
 
 def test_coalescer_under_threads_equals_serial():
@@ -391,3 +430,37 @@ def test_cli_needs_cuda_unless_cpu_is_asked(jax_store, tmp_path):
                          capture_output=True, text=True, timeout=300, cwd=tmp_path,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 2 and "not yet ported" in out.stdout
+
+
+def test_index_cli_then_query_matches_jax(jax_store, tmp_path, monkeypatch, capsys):
+    """``index`` writes the artifact (the same JSON line as ``tpualign
+    index``); ``query --image-id`` then searches through it, as tpualign's
+    CLI does over the same artifact."""
+    import tpualign.cli as jax_cli
+    import tpualign_torch.cli as torch_cli
+
+    monkeypatch.setenv("STORE_DIR", str(jax_store))
+    monkeypatch.setenv("RETRIEVAL_INDEX", "ivf")
+    monkeypatch.setenv("RETRIEVAL_PRECISION", "fp32")
+    monkeypatch.setenv("RETRIEVAL_REFINE", "0")
+    monkeypatch.setenv("IVF_LISTS", "8")
+    monkeypatch.setenv("RETRIEVAL_RECALL_TARGET", "0.9")
+    lines = []
+    for main, cache, extra in ((torch_cli.main, "port", ["--device", "cpu"]),
+                               (jax_cli.main, "jax", [])):
+        path = str(tmp_path / f"{cache}.vanilla_clip.ivf.npz")
+        assert main(["index", "--env-file", "", "--cache", path, *extra]) == 0
+        lines.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+        assert lines[-1]["cache"] == path and os.path.exists(path)
+    assert {**lines[0], "cache": None} == {**lines[1], "cache": None}
+    assert lines[0]["index"] == "ivf" and lines[0]["calibrated_target"] == 0.9
+    # both CLIs query through the port's artifact
+    monkeypatch.setenv("IVF_CACHE", str(tmp_path / "port.vanilla_clip.ivf.npz"))
+    argv = ["query", "--image-id", "img4", "-k", "6", "--env-file", ""]
+    assert torch_cli.main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert jax_cli.main(argv) == 0
+    want = capsys.readouterr().out
+    assert got.splitlines()[0] == "top-6 chunks for img4:" and "no prebuilt" not in got
+    ids = [[line.split()[1] for line in out.splitlines()[1:]] for out in (got, want)]
+    assert len(ids[0]) == 6 and ids[0] == ids[1]

@@ -1,15 +1,16 @@
 """Command-line interface: ``python -m tpualign_torch <command>``.
 
-``serve`` and ``query`` are tpualign's, with the same flags, environment
-keys and output; they run on the GPU. The other subcommands of
+``serve``, ``query`` and ``index`` are tpualign's, with the same flags,
+environment keys and output; they run on the GPU. The other subcommands of
 ``python -m tpualign`` (run, process, filter, setup-db, embed, evaluate,
-check, train, ingest, watch, calibrate, index) are later slices of the
-port: they print so and exit with 2.
+check, train, ingest, watch, calibrate) are later slices of the port: they
+print so and exit with 2.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from typing import Optional, Sequence
@@ -18,7 +19,7 @@ from tpualign_torch.config import load_config
 from tpualign_torch.store import SCHEMAS
 
 _NOT_PORTED = ("run", "process", "filter", "setup-db", "embed", "evaluate", "check", "train",
-               "ingest", "watch", "calibrate", "index")
+               "ingest", "watch", "calibrate")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -43,7 +44,7 @@ def _config_from(args):
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="tpualign_torch",
-        description="tpualign on an NVIDIA GPU: serve and query an embedding store",
+        description="tpualign on an NVIDIA GPU: index, serve and query an embedding store",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -74,6 +75,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          help="blend weak-supervision scores into the ranking: "
                               "(1-ALPHA)*cosine + ALPHA*weak_score")
 
+    p_index = sub.add_parser(
+        "index", help="build + persist the IVF retrieval index offline (the reference built "
+                      "its ANN index at setup time)")
+    _add_common(p_index)
+    p_index.add_argument("--schema", default="vanilla_clip", choices=list(SCHEMAS))
+    p_index.add_argument("--cache", default=None,
+                         help="artifact path (default: IVF_CACHE from the config, else "
+                              "<store>/<schema>.ivf.npz)")
+
     for name in _NOT_PORTED:
         sub.add_parser(name, help="not yet ported (python -m tpualign has it)")
 
@@ -84,7 +94,31 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     if args.command == "serve":
         return _run_serve(args)
+    if args.command == "index":
+        return _run_index(args)
     return _run_query(args)
+
+
+def _run_index(args) -> int:
+    """Build (or load) the schema's IVF artifact and print one JSON line
+    with its geometry, as ``tpualign index`` does."""
+    from tpualign_torch.serving.server import build_index_artifact, schema_cache_path
+
+    config = _config_from(args)
+    kind = getattr(config, "retrieval_index", "exact")
+    if kind == "exact":
+        kind = "ivf"  # exact search has no offline artifact
+    cache = schema_cache_path(
+        args.cache or (getattr(config, "hnsw_cache", None) if kind == "hnsw"
+                       else getattr(config, "ivf_cache", None))
+        or os.path.join(config.store.root, f"{args.schema}.{kind}.npz"), args.schema)
+    index = build_index_artifact(config, args.schema, cache, device=args.device)
+    print(json.dumps({"schema": args.schema, "index": kind, "cache": cache, "n": index.n,
+                      "precision": index.precision, "n_lists": index.n_lists,
+                      "n_probes": index.n_probes, "capacity": index.capacity,
+                      "spill": index.spill,
+                      "calibrated_target": getattr(index, "calibrated_target", None)}))
+    return 0
 
 
 def _run_serve(args) -> int:
@@ -174,8 +208,9 @@ def _run_query(args) -> int:
             return 1
         img = images[pos]
         kw = index_kwargs(config, schema)
-        # an ivf/hnsw artifact is only honoured where it exists, and the
-        # port builds neither yet: exact search, as tpualign falls back to
+        # an ivf/hnsw artifact is honoured only where it exists (`index`
+        # builds it): a one-shot query never pays a k-means build it cannot
+        # keep, and searches exactly instead, as tpualign does
         has_artifact = any(kw["index_type"] == t and kw[f"{t}_cache"]
                            and os.path.exists(kw[f"{t}_cache"]) for t in ("ivf", "hnsw"))
         if kw["index_type"] != "exact" and not has_artifact:

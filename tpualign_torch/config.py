@@ -4,7 +4,7 @@ The subset of ``tpualign.config`` that the port's paths read: the CLIP
 variant table, :class:`ModelConfig`, :class:`StoreConfig`, and a
 :class:`PipelineConfig` with the embed, store, retrieval and serving keys
 (``CLIP_MODEL``, ``BATCH_SIZE``, ``TEXT_BUCKETS``, ``STORE_DIR``,
-``RETRIEVAL_*``, ``SERVE_*``, ...). The values are copied, not imported,
+``RETRIEVAL_*``, ``IVF_*``, ``SERVE_*``, ...). The values are copied, not imported,
 so the port loads without JAX; ``tests/test_torch_models.py`` and
 ``tests/test_torch_serving.py`` hold the two packages' tables and configs
 equal.
@@ -162,6 +162,11 @@ class PipelineConfig:
     retrieval_precision: str = "fp32"
     retrieval_refine: int = 0
     retrieval_refine_store: str = "auto"
+    # IVF geometry (None = sqrt(N) lists, lists//8 probes) and the artifact
+    # path (None = rebuild at each serve start)
+    ivf_lists: Optional[int] = None
+    ivf_probes: Optional[int] = None
+    ivf_cache: Optional[str] = None
     text_buckets: Optional[tuple] = (16, 32, 77)
     serve_coalesce_ms: Optional[float] = 2.0
     serve_query_cache: int = 1024
@@ -253,6 +258,9 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
         retrieval_precision=_env(env, "RETRIEVAL_PRECISION", "fp32"),
         retrieval_refine=int(_env(env, "RETRIEVAL_REFINE", "0")),
         retrieval_refine_store=_env(env, "RETRIEVAL_REFINE_STORE", "auto"),
+        ivf_lists=_optional(env, "IVF_LISTS", int),
+        ivf_probes=_optional(env, "IVF_PROBES", int),
+        ivf_cache=_env(env, "IVF_CACHE", "") or None,
         text_buckets=_parse_buckets(_env(env, "TEXT_BUCKETS", "16,32,77")),
         serve_coalesce_ms=(
             float(_env(env, "SERVE_COALESCE_MS", "2.0"))

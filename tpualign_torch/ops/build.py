@@ -25,7 +25,7 @@ __all__ = ["KERNELS", "build", "build_all", "load"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("fused_mha", "masked_sim_topk", "masked_sim_topk_quant")
+KERNELS = ("fused_mha", "masked_sim_topk", "masked_sim_topk_quant", "ivf_probe_topk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -42,6 +42,9 @@ _SIGNATURES = {
     "masked_sim_topk_quant": ("tpualign_masked_sim_topk_quant",
                               [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                _I, _P]),
+    "ivf_probe_topk": ("tpualign_ivf_probe_topk",
+                       [_I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -15,7 +15,9 @@ rescores them exactly, in float64 on the host, from a :class:`_RefineCorpus`
 (RAM, fp16, or a disk memmap), as FAISS's refine stage does.
 ``recall_target`` keeps tpualign's meaning off the TPU: there
 ``jax.lax.approx_max_k`` lowers to an exact top-k, and so the port's top-k
-is exact too. Meshes, IVF, HNSW and add/remove/compact are later slices.
+is exact too. ``build_index`` also builds the IVF index
+(``tpualign_torch.parallel.ivf``). Meshes, HNSW and add/remove/compact are
+later slices.
 """
 
 from __future__ import annotations
@@ -376,12 +378,14 @@ class _RefineCorpus:
 
 
 def _setup_refine(refine: int, precision: str, fp32_rows, keep_on_fp32: bool = False,
-                  store: Optional[str] = None):
+                  store: Optional[str] = None, prequantized: bool = False):
     """Validate the refine factor and build the host rescore corpus.
     Returns ``(refine, corpus_or_None)``: refine comes back 0 when there is
     nothing to refine (an exact fp32 first stage), and ``keep_on_fp32``
     keeps the factor with no copy when the first stage is approximate but
-    exactly scored (recall_target over-fetch)."""
+    exactly scored (recall_target over-fetch). A ``prequantized`` corpus
+    (an IVF build from int8 or packed rows) has no fp32 rows to rescore
+    with, and refine raises there."""
     if refine < 0:
         raise ValueError(f"refine must be a factor >= 0, got {refine}")
     refine = int(refine)
@@ -389,6 +393,9 @@ def _setup_refine(refine: int, precision: str, fp32_rows, keep_on_fp32: bool = F
     if refine <= 1:
         return refine, None
     if precision in _QUANTIZED:
+        if prequantized:
+            raise ValueError("refine needs fp32 rows for the exact rescore; this build received "
+                             "a pre-quantized corpus — build from fp32 rows or drop refine")
         return refine, _RefineCorpus.build(fp32_rows, store)
     if keep_on_fp32:
         return refine, None
@@ -586,18 +593,25 @@ def build_index(
     """Index factory honoring the ``RETRIEVAL_INDEX`` knob, with tpualign's
     signature. ``"exact"`` builds a :class:`RetrievalIndex`; ``refine`` and
     ``refine_store`` (the ``RETRIEVAL_REFINE``/``RETRIEVAL_REFINE_STORE``
-    knobs) set its refine stage. ``"ivf"`` (with the K4 kernel) and
-    ``"hnsw"`` are later slices of the port and raise
-    ``NotImplementedError``; the IVF and HNSW geometry arguments are
-    accepted for them."""
+    knobs) set its refine stage. ``"ivf"`` builds an
+    :class:`~tpualign_torch.parallel.ivf.IVFIndex` with ``ivf_lists`` and
+    ``ivf_probes``; ``ivf_cache`` (``IVF_CACHE``) is its artifact: loaded
+    when it matches the corpus and precision (and recalibrated and saved
+    again when ``recall_target`` changed), else built, calibrated to
+    ``recall_target`` unless ``ivf_probes`` is set, and saved. An empty
+    corpus serves the exact index. ``"hnsw"`` is a later slice of the port
+    and raises ``NotImplementedError``; its arguments are accepted."""
     if index_type == "ivf" and len(corpus_embeddings) == 0:
         # an empty schema serves the exact index, as tpualign does
         index_type = "exact"
-    if index_type in ("ivf", "hnsw"):
+    if index_type == "ivf":
+        return _build_ivf(corpus_embeddings, corpus_manuals, corpus_pages, mesh, precision,
+                          recall_target, ivf_lists, ivf_probes, ivf_cache, refine,
+                          refine_store, device)
+    if index_type == "hnsw":
         raise NotImplementedError(
-            f"RETRIEVAL_INDEX={index_type} is not yet ported to tpualign_torch "
-            f"({'the IVF slice, with the ivf_probe_topk kernel' if index_type == 'ivf' else 'the HNSW slice'}); "
-            f"use RETRIEVAL_INDEX=exact")
+            "RETRIEVAL_INDEX=hnsw is not yet ported to tpualign_torch (the HNSW slice); "
+            "use RETRIEVAL_INDEX=exact or ivf")
     if index_type != "exact":
         raise ValueError(f"retrieval_index must be 'exact', 'ivf' or 'hnsw', got {index_type!r}")
     return RetrievalIndex(
@@ -605,3 +619,36 @@ def build_index(
         precision=precision, recall_target=recall_target, refine=refine,
         refine_store=refine_store, device=device,
     )
+
+
+def _build_ivf(corpus_embeddings, corpus_manuals, corpus_pages, mesh, precision, recall_target,
+               ivf_lists, ivf_probes, ivf_cache, refine, refine_store, device):
+    """``build_index``'s IVF branch, tpualign's: the artifact first, a build
+    when it is missing or unusable."""
+    from tpualign_torch.parallel.ivf import IVFIndex
+
+    if ivf_cache and os.path.exists(ivf_cache):
+        try:
+            loaded = IVFIndex.load(ivf_cache, corpus_embeddings, refine=refine, mesh=mesh,
+                                   refine_store=refine_store, device=device)
+            if loaded.precision != precision:
+                raise ValueError(f"cache precision {loaded.precision} != requested {precision}")
+            if (recall_target is not None and ivf_probes is None
+                    and getattr(loaded, "calibrated_target", None) != recall_target):
+                # the target changed since the artifact was written
+                loaded.calibrate(recall_target)
+                loaded.save(ivf_cache)
+            return loaded
+        except Exception as e:  # a stale or mismatched artifact: rebuild
+            log.warning("IVF cache %s unusable (%s); rebuilding", ivf_cache, e)
+    index = IVFIndex(corpus_embeddings, corpus_manuals, corpus_pages, n_lists=ivf_lists,
+                     n_probes=ivf_probes, precision=precision, mesh=mesh, refine=refine,
+                     refine_store=refine_store, device=device)
+    if recall_target is not None and ivf_probes is None:
+        # RETRIEVAL_RECALL_TARGET means "this recall, whatever the index":
+        # the smallest probe count that meets it
+        index.calibrate(recall_target)
+    if ivf_cache:
+        index.save(ivf_cache)
+        log.info("IVF index structure cached to %s", ivf_cache)
+    return index

@@ -4,10 +4,11 @@ from tpualign_torch.serving.server import (
     BatchCoalescer,
     RetrievalService,
     TextEncodeCoalescer,
+    build_index_artifact,
     build_service,
     serve,
     serve_schemas,
 )
 
-__all__ = ["BatchCoalescer", "RetrievalService", "TextEncodeCoalescer", "build_service",
-           "serve", "serve_schemas"]
+__all__ = ["BatchCoalescer", "RetrievalService", "TextEncodeCoalescer", "build_index_artifact",
+           "build_service", "serve", "serve_schemas"]

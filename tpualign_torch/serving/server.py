@@ -2,7 +2,9 @@
 ``tpualign.serving.server``).
 
 The corpus stays resident on the GPU inside a long-lived process
-(:class:`~tpualign_torch.parallel.retrieval.RetrievalIndex`) behind a
+(:class:`~tpualign_torch.parallel.retrieval.RetrievalIndex`, or
+:class:`~tpualign_torch.parallel.ivf.IVFIndex` under
+``RETRIEVAL_INDEX=ivf``) behind a
 dependency-free JSON/HTTP front (stdlib ``http.server``), with tpualign's
 endpoints and transport limits:
 
@@ -45,8 +47,8 @@ from tpualign_torch.weaksup.rerank import build_weak_lookup, rerank_with_weak_sc
 log = get_logger("serving")
 
 __all__ = ["RetrievalService", "BatchCoalescer", "TextEncodeCoalescer", "RequestMetrics",
-           "build_service", "index_kwargs", "make_image_bytes_encoder", "schema_cache_path",
-           "serve", "serve_schemas"]
+           "build_index_artifact", "build_service", "index_kwargs", "make_image_bytes_encoder",
+           "schema_cache_path", "serve", "serve_schemas"]
 
 _LATER = "not yet ported to tpualign_torch (the index-mutation slice)"
 
@@ -486,6 +488,15 @@ class RetrievalService:
             "dead_rows": 0,  # no tombstones until the index-mutation slice
             "auto_compact": self.auto_compact,
         }
+        if hasattr(self.index, "n_lists"):  # IVF geometry
+            out["ivf"] = {
+                "n_lists": self.index.n_lists,
+                "n_probes": self.index.n_probes,
+                "capacity": self.index.capacity,
+                "spill": self.index.spill,
+                "precision": self.index.precision,
+                "calibrated_target": getattr(self.index, "calibrated_target", None),
+            }
         if self.coalescer is not None:
             out["coalescer"] = self.coalescer.stats()
         if self._encode_coalescer is not None:
@@ -532,6 +543,30 @@ def index_kwargs(config, schema: str) -> dict:
         hnsw_ef_search=getattr(config, "hnsw_ef_search", None),
         hnsw_cache=schema_cache_path(getattr(config, "hnsw_cache", None), schema),
     )
+
+
+def build_index_artifact(config, schema: str, cache_path: str,
+                         index_type: Optional[str] = None, device="cuda"):
+    """The offline index build of ``tpualign_torch index``: the configured
+    ``RETRIEVAL_INDEX`` over the schema's chunk corpus, built (k-means, and
+    probe calibration when ``RETRIEVAL_RECALL_TARGET`` is set) or loaded
+    when a matching artifact exists, and saved to ``cache_path``, where
+    ``serve`` and ``query`` find it through ``IVF_CACHE``. ``exact`` has no
+    artifact and builds the IVF one, as tpualign does."""
+    if index_type is None:
+        index_type = getattr(config, "retrieval_index", "exact")
+    if index_type == "exact":
+        index_type = "ivf"
+    store = EmbeddingStore(config.store.root, embed_dim=config.model.variant.embed_dim)
+    if not store.has_embeddings(schema):
+        raise ValueError(f"schema {schema} has no embeddings in {config.store.root}")
+    _, chunk_emb = store.embedding_matrix(schema, "text_chunks")
+    kw = index_kwargs(config, schema)
+    kw.update(index_type=index_type,
+              ivf_cache=cache_path if index_type == "ivf" else None,
+              hnsw_cache=cache_path if index_type == "hnsw" else None)
+    return build_index(chunk_emb, store.column(schema, "text_chunks", "manual_id"),
+                       store.column(schema, "text_chunks", "page"), device=device, **kw)
 
 
 def make_image_bytes_encoder(engine) -> Callable:
