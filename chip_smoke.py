@@ -1,4 +1,4 @@
-"""Drives tpualign_torch's embed-and-search and serving paths on one NVIDIA GPU.
+"""Drives tpualign_torch's embed-and-search, pipeline and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card (an H100
 for the numbers in PERF.md). Phases, one JSON line each:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-1. build: the four kernels compiled from ``tpualign_torch/csrc/``, in
+1. build: the five kernels compiled from ``tpualign_torch/csrc/``, in
    parallel;
 2. K1 ``fused_mha`` against its plain version at ViT-B-32's shapes (B=256:
    vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal), fp32
@@ -33,25 +33,48 @@ for the numbers in PERF.md). Phases, one JSON line each:
    dequant, int4 and int2 at Q=64, k=10; with times for the kernel, the
    plain version and a gather + ``torch._int_mm``/``matmul`` +
    ``torch.topk`` yardstick, and the union size;
-7. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
-   images, 100,000 weak alignments) is written to a temporary directory and
-   served by ``build_service`` + ``serve_schemas`` at int8 with refine 4 and
-   the ViT-B-32 towers; eight clients send 32 requests each over
-   /search_text, /search_image (with and without rerank),
-   /search_image_bytes, /stats and /healthz, and every answer is held
-   against the plain path; then int4 and int2 rebuilds, recall@10 of each
-   rung against exact fp32, and ``python -m tpualign_torch query
-   --image-id`` against the service; the launch counters are read around
-   the clients' run alone;
-8. serve_ivf, over the same store: ``python -m tpualign_torch index``
-   (RETRIEVAL_INDEX=ivf, int8, refine 4, recall target 0.95) as a
-   subprocess, the same build and calibration timed in this process (the
-   same structure), ``build_service`` loading the artifact, the clients of
-   7. with every answer against the plain path (plain K4, exact rescore),
-   recall@10 of int8/int4/int2 at the calibrated and default probe counts,
-   and ``query --image-id`` through the artifact; the counters are read
-   around the clients' run alone;
-9. the kernels line, the card line, and ``{"ok": true, ...}`` last.
+7. K5 ``normalize_u8`` against its plain version, bit for bit, at one
+   device-feed batch (B=256, 224x224x3 uint8 -> fp32), with times for the
+   kernel and the plain version and its bound (no single PyTorch call
+   computes it);
+8. device_feed: 2,048 seeded smooth PNG/JPEG files (96-1,200 px per side,
+   about a third above the 256 bucket) through ``embed_image_records``
+   with the host feed, then the device feed: images/s of each, K5's
+   launches, the profile of one batch of each, and 64 images' pixels on
+   the card against the port's CPU path;
+9. pipeline: a processed corpus in tpualign's stage-1 format (512 manuals
+   x 8 pages, one image and eight chunks per page, 4,096 images and 32,768
+   chunks, and the lexical components) through ``python -m tpualign_torch
+   setup-db``, ``embed`` (IMAGE_PREPROCESS=device) and ``evaluate`` as
+   subprocesses, their kernel launch counters written at exit;
+   metrics.json's four schemas, vanilla_clip's metrics against a float64
+   recount from the stored embeddings, and every schema's alignment
+   records against the CPU ``compute_alignments``. The cartesian metrics
+   cannot see the ranking (every same-page chunk is true), so K2 is held
+   against its plain version at the Evaluator's own search (Q=4,096,
+   N=32,768, 4,096 page keys, k=100), and the weak-supervision schemas'
+   ``gt="alignments"`` ranks, top-k and MRR, which move with the ranking,
+   against a float64 recount over the stored alignments;
+10. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
+    images, 100,000 weak alignments) is written to a temporary directory and
+    served by ``build_service`` + ``serve_schemas`` at int8 with refine 4 and
+    the ViT-B-32 towers; eight clients send 32 requests each over
+    /search_text, /search_image (with and without rerank),
+    /search_image_bytes, /stats and /healthz, and every answer is held
+    against the plain path; then int4 and int2 rebuilds, recall@10 of each
+    rung against exact fp32, and ``python -m tpualign_torch query
+    --image-id`` against the service; the launch counters are read around
+    the clients' run alone;
+11. serve_ivf, over the same store: ``python -m tpualign_torch index``
+    (RETRIEVAL_INDEX=ivf, int8, refine 4, recall target 0.95) as a
+    subprocess, the same build and calibration timed in this process (the
+    same structure), ``build_service`` loading the artifact, the clients of
+    10. with every answer against the plain path (plain K4, exact rescore),
+    recall@10 of int8/int4/int2 at the calibrated and default probe counts,
+    and ``query --image-id`` through the artifact; the counters are read
+    around the clients' run alone;
+12. the seconds of each phase, the kernels line, the card line, and
+    ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
 line. It needs CUDA and the repository's ``tpualign_torch`` package; it
@@ -1240,6 +1263,444 @@ def phase_serve_ivf(dev, seed, root, shared):
     return launches, k4_serving
 
 
+# K5 and the device image feed
+K5_SHAPE = (256, 224, 224, 3)          # one device-feed batch at ViT-B-32
+FEED_IMAGES, FEED_BUCKET = 2048, 256   # files of the device_feed phase; IMAGE_PREPROCESS_BUCKET
+PIPE_MANUALS, PIPE_PAGES, PIPE_CHUNKS_PER_PAGE = 512, 8, 8
+PIPE_TERMS = ["oil", "filter", "bolt", "pakking", "vervang", "draai", "torque", "pump", "seal",
+              "valve", "hose", "peil", "check"]
+
+
+def phase_k5(dev, gen):
+    """K5 ``normalize_u8`` against its plain version, bit for bit, at one
+    device-feed batch (and on an unaligned view with a tail)."""
+    from tpualign_torch.ops.normalize import normalize_u8, normalize_u8_reference
+
+    x = torch.randint(0, 256, K5_SHAPE, generator=gen, device=dev, dtype=torch.uint8)
+    got, want = normalize_u8(x), normalize_u8_reference(x)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, want)), "K5: not bit-identical to its plain version")
+    odd = x.view(-1)[1:1 + 3 * 7 * 5 * 3].view(3, 7, 5, 3)  # unaligned base, a tail of 11
+    check(bool(torch.equal(normalize_u8(odd), normalize_u8_reference(odd))),
+          "K5: unaligned view not bit-identical")
+    err = (got - want).abs().max().item()
+    ms = time_ms(lambda: normalize_u8(x), 50)
+    plain_ms = time_ms(lambda: normalize_u8_reference(x), 20)
+    n = x.numel()
+    bms, by = bound_ms(5.0 * n, 3.0 * n, PEAK_FLOPS[torch.float32])
+    row = {"shape": list(K5_SHAPE), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "gb_per_s": 5.0 * n / ms / 1e6}
+    emit({"phase": "k5_normalize_u8", **row})
+    return row
+
+
+def _feed_image(args):
+    """One seeded smooth image file: a 6x6 random grid resized bicubic to
+    (w, h), PNG for even indices, JPEG for odd ones."""
+    from PIL import Image
+
+    root, seed, i, h, w = args
+    rng = np.random.default_rng([seed, i])
+    small = Image.fromarray(rng.integers(0, 256, (6, 6, 3), dtype=np.uint8))
+    img = small.resize((int(w), int(h)), Image.BICUBIC)
+    name = f"feed{i:05d}.{'png' if i % 2 == 0 else 'jpg'}"
+    if i % 2 == 0:
+        img.save(f"{root}/{name}", format="PNG", compress_level=1)
+    else:
+        img.save(f"{root}/{name}", format="JPEG", quality=90)
+    return name
+
+
+def _feed_files(root, seed, n=FEED_IMAGES):
+    """n seeded smooth PNG/JPEG files, 96-1,200 px per side, about a third
+    with a side above the bucket (shrunk on the host by pad_to_bucket)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(seed)
+    sides = rng.integers(96, FEED_BUCKET + 1, (n, 2))
+    big = np.flatnonzero(rng.random(n) < 1 / 3)
+    long_side = rng.integers(0, 2, len(big))
+    sides[big, long_side] = rng.integers(FEED_BUCKET + 1, 1201, len(big))
+    sides[big, 1 - long_side] = rng.integers(96, 1201, len(big))
+    with ThreadPoolExecutor(8) as pool:
+        names = list(pool.map(_feed_image, [(root, seed, i, h, w)
+                                            for i, (h, w) in enumerate(sides)]))
+    return names, sides
+
+
+def _decode_padded(root, names):
+    """The device feed's host half for these files: decode, pad into the
+    bucket. Returns (stacked uint8 buffers, (n, 2) int32 true sizes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from tpualign_torch.ops.preprocess import pad_to_bucket
+
+    def one(name):
+        with Image.open(f"{root}/{name}") as im:
+            return pad_to_bucket(np.asarray(im.convert("RGB"), np.uint8), FEED_BUCKET)
+
+    with ThreadPoolExecutor(8) as pool:
+        bufs, hws = zip(*pool.map(one, names))
+    return np.stack(bufs), np.asarray(hws, np.int32)
+
+
+def check_drift(got: np.ndarray, want: np.ndarray, what: str) -> dict:
+    """The device feed's parity bounds in raw [0, 1] units: at most two
+    uint8 steps anywhere, at most 1e-4 of the pixels more than one step
+    off, mean drift at most 1e-4."""
+    from tpualign_torch.ops.preprocess import CLIP_STD
+
+    draw = np.abs(got - want) * np.asarray(CLIP_STD)
+    out = {"max_steps": float(draw.max() * 255), "share_over_1_step": float(np.mean(draw * 255 > 1.01)),
+           "mean": float(draw.mean())}
+    check(out["max_steps"] <= 2.01 and out["share_over_1_step"] <= 1e-4 and out["mean"] <= 1e-4,
+          f"{what}: drift {out}")
+    return out
+
+
+def phase_device_feed(dev, seed, root):
+    """``embed_image_records`` over 2,048 files with the host feed, then the
+    device feed (ViT-B-32, bf16, batch 256): images/s of each, the idle
+    share of one batch of each, and 64 images' pixels on the card against
+    the port's CPU path."""
+    import os
+
+    from PIL import Image
+
+    from tpualign_torch.config import ModelConfig
+    from tpualign_torch.ops import preprocess as pp
+    from tpualign_torch.ops.normalize import normalize_u8
+    from tpualign_torch.parallel import EmbedEngine
+
+    feed = os.path.join(root, "feed")
+    os.makedirs(feed)
+    t0 = time.perf_counter()
+    names, sides = _feed_files(feed, seed)
+    t_files = time.perf_counter() - t0
+    records = [{"image_id": f"feed{i:05d}", "filename": name} for i, name in enumerate(names)]
+    engine = EmbedEngine(ModelConfig("ViT-B-32"), device=dev, seed=seed,
+                         preprocess_bucket=FEED_BUCKET)
+    bs = engine.batch_size
+    rates, launches, embs = {}, {}, {}
+    for mode in ("host", "device"):
+        engine.preprocess = mode
+        engine.embed_image_records(records[:bs], feed)  # warm-up, untimed
+        normalize_u8.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embs[mode] = engine.embed_image_records(records, feed)
+        rates[mode] = len(records) / (time.perf_counter() - t0)
+        launches[mode] = normalize_u8.launches
+        emb = embs[mode]
+        check(bool(np.isfinite(emb).all()), f"{mode} feed: non-finite embeddings")
+        norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1.0).max())
+        check(norm_err <= 1e-5, f"{mode} feed: norms off by {norm_err:.3g}")
+    check(launches["host"] == 0, f"the host feed launched K5 {launches['host']} times")
+    check(launches["device"] == -(-len(records) // bs),
+          f"the device feed launched K5 {launches['device']} times for {len(records)} images")
+    cos = np.sum(embs["host"] * embs["device"], axis=1)
+
+    # the device feed's host half alone (decode + pad, 8 threads), and one
+    # batch of each feed as the consumer runs it, its host work done
+    t0 = time.perf_counter()
+    _decode_padded(feed, names)
+    decode_per_s = len(names) / (time.perf_counter() - t0)
+    u8, hw = _decode_padded(feed, names[:bs])
+    pinned = torch.empty((bs, FEED_BUCKET, FEED_BUCKET, 3), dtype=torch.uint8, pin_memory=True)
+    host_imgs = []
+    for name in names[:bs]:
+        with Image.open(os.path.join(feed, name)) as im:
+            host_imgs.append(pp.preprocess_host(im, 224))
+    host_imgs = np.stack(host_imgs)
+    profiles = {
+        "device_batch": profile_window(lambda: engine._encode_image_u8(list(u8), hw, pinned)),
+        "host_batch": profile_window(lambda: engine.encode_image_batch(host_imgs)),
+    }
+
+    hw_t = torch.from_numpy(hw[:64])
+    got = pp.preprocess_device(torch.from_numpy(u8[:64]).to(dev), hw_t.to(dev), 224)
+    want = pp.preprocess_device(torch.from_numpy(u8[:64]), hw_t, 224)
+    drift = check_drift(got.cpu().numpy(), want.numpy(), "device_feed: card against CPU")
+    emit({"phase": "device_feed", "images": len(records), "bucket": FEED_BUCKET,
+          "above_bucket": int((sides.max(axis=1) > FEED_BUCKET).sum()),
+          "files_s": t_files, "images_per_s": rates, "decode_pad_per_s": decode_per_s,
+          "k5_launches": launches,
+          "host_vs_device_cosine": {"min": float(cos.min()), "mean": float(cos.mean())},
+          "pixels_card_vs_cpu": drift, "profile": profiles})
+    return names
+
+
+def _processed_corpus(root, seed, feed_dir, feed_names):
+    """tpualign's stage-1 outputs for 512 manuals x 8 pages, one image
+    (hard links to the device_feed files) and eight chunks per page, with
+    bboxes, and the lexical components."""
+    import json
+    import os
+
+    out = os.path.join(root, "processed")
+    images_dir = os.path.join(out, "images")
+    os.makedirs(images_dir)
+    rng = np.random.default_rng(seed + 1)
+    texts = _chunk_texts(rng, PIPE_MANUALS * PIPE_PAGES * PIPE_CHUNKS_PER_PAGE)
+    images, chunks = [], []
+    for m in range(PIPE_MANUALS):
+        for p in range(PIPE_PAGES):
+            page = m * PIPE_PAGES + p
+            src = feed_names[page % len(feed_names)]
+            image_id = f"man{m:03d}_p{p}_img0"
+            name = f"{image_id}.{src.rsplit('.', 1)[1]}"
+            os.link(os.path.join(feed_dir, src), os.path.join(images_dir, name))
+            x0, y0 = (int(v) for v in rng.integers(40, 400, 2))
+            bbox = None if page % 53 == 0 else [x0, y0, x0 + 160, y0 + 120]
+            images.append({"image_id": image_id, "manual_id": f"man{m:03d}", "page": p,
+                           "bbox": bbox, "bbox_source": "native", "caption": None,
+                           "filename": name, "image_type": "raster_image"})
+            for c in range(PIPE_CHUNKS_PER_PAGE):
+                top = int(rng.integers(40, 740))
+                chunks.append({"chunk_id": f"man{m:03d}_p{p}_c{c}", "manual_id": f"man{m:03d}",
+                               "page": p, "bbox": [50, top, 400, top + 12],
+                               "text": texts[page * PIPE_CHUNKS_PER_PAGE + c]})
+    counts = {t: sum(1 for c in chunks if t in c["text"].lower()) for t in PIPE_TERMS}
+    comps = [{"term": t, "count": n} for t, n in sorted(counts.items(), key=lambda kv: -kv[1])]
+    for fname, obj in (("image_metadata.json", images), ("text_chunks.json", chunks),
+                       ("lexical_components.json",
+                        {"total_components": len(comps),
+                         "total_occurrences": sum(counts.values()), "components": comps})):
+        with open(os.path.join(out, fname), "w") as f:
+            json.dump(obj, f)
+    return out, images, chunks, [c["term"] for c in comps]
+
+
+_STAGE = """
+import atexit, json, runpy, sys
+from tpualign_torch.ops.attention import fused_mha
+from tpualign_torch.ops.normalize import normalize_u8
+from tpualign_torch.ops.sim_topk import masked_sim_topk
+path = sys.argv[1]
+def _dump():
+    with open(path, "w") as f:
+        json.dump({"fused_mha": fused_mha.launches, "masked_sim_topk": masked_sim_topk.launches,
+                   "normalize_u8": normalize_u8.launches}, f)
+atexit.register(_dump)
+sys.argv = ["tpualign_torch"] + sys.argv[2:]
+runpy.run_module("tpualign_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _run_stage(argv, env, cwd):
+    """``python -m tpualign_torch <argv>`` as a subprocess whose kernel
+    launch counters are written at exit. Returns (wall s, counters)."""
+    import json
+    import os
+
+    counters = os.path.join(cwd, f"counters-{argv[0]}.json")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _STAGE, counters, *argv], capture_output=True,
+                         text=True, timeout=600, cwd=cwd,
+                         env=dict(os.environ, PYTHONPATH=path, **env))
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"{argv[0]} exited {out.returncode}: {out.stderr[-3000:]}")
+    with open(counters) as f:
+        return secs, json.load(f), out
+
+
+def _recount(store, schema):
+    """The cartesian metrics of one schema recounted in float64 numpy from
+    the stored embeddings: each image's same-page chunks ranked by score
+    descending, then corpus index."""
+    img_ids, img_emb = store.embedding_matrix(schema, "images")
+    chunk_ids, chunk_emb = store.embedding_matrix(schema, "text_chunks")
+    img_row = {k: i for i, k in enumerate(img_ids)}
+    chunk_row = {k: i for i, k in enumerate(chunk_ids)}
+    by_page = {}
+    for c in store.chunks(schema):
+        by_page.setdefault((c["manual_id"], c.get("page")), []).append(chunk_row[c["chunk_id"]])
+    img_emb, chunk_emb = img_emb.astype(np.float64), chunk_emb.astype(np.float64)
+    ranks, sims = [], []
+    for img in store.images(schema):
+        truth = by_page.get((img["manual_id"], img.get("page")), [])
+        if not truth:
+            continue
+        cand = np.asarray(sorted(truth))
+        scores = chunk_emb[cand] @ img_emb[img_row[img["image_id"]]]
+        order = cand[np.lexsort((cand, -scores))][:100]
+        pos = {int(j): r + 1 for r, j in enumerate(order)}
+        ranks += [pos.get(j, 0) for j in truth]
+        sims += [float(chunk_emb[j] @ img_emb[img_row[img["image_id"]]]) for j in truth]
+    ranks = np.asarray(ranks)
+    return {"top_k": {str(k): float(np.mean((ranks > 0) & (ranks <= k))) for k in (1, 5, 10)},
+            "mrr": float(np.mean(np.where(ranks > 0, 1.0 / np.maximum(ranks, 1), 0.0))),
+            "avg_similarity": float(np.mean(sims)), "num_pairs": len(ranks)}
+
+
+def _alignment_recount(store, schema, window):
+    """Per stored alignment of ``schema``, in the store's order: the
+    1-based rank of its chunk among its image's same-page chunks by
+    float64 score descending, then corpus index (0 beyond ``window``), and
+    whether another same-page chunk scores within K2_TIE_GAP of it."""
+    img_ids, img_emb = store.embedding_matrix(schema, "images")
+    chunk_ids, chunk_emb = store.embedding_matrix(schema, "text_chunks")
+    img_row = {k: i for i, k in enumerate(img_ids)}
+    chunk_row = {k: i for i, k in enumerate(chunk_ids)}
+    page_of = {i["image_id"]: (i["manual_id"], i.get("page")) for i in store.images(schema)}
+    by_page = {}
+    for c in store.chunks(schema):
+        by_page.setdefault((c["manual_id"], c.get("page")), []).append(chunk_row[c["chunk_id"]])
+    img_emb, chunk_emb = img_emb.astype(np.float64), chunk_emb.astype(np.float64)
+    ranked = {}
+    ranks, near = [], []
+    for image_id, chunk_id, _, _ in store.alignments(schema):
+        if image_id not in ranked:
+            cand = np.asarray(sorted(by_page.get(page_of[image_id], [])), np.int64)
+            scores = chunk_emb[cand] @ img_emb[img_row[image_id]]
+            order = cand[np.lexsort((cand, -scores))][:window]
+            ranked[image_id] = ({int(j): r + 1 for r, j in enumerate(order)},
+                                dict(zip(cand.tolist(), scores.tolist())))
+        pos, score = ranked[image_id]
+        j = chunk_row[chunk_id]
+        ranks.append(pos.get(j, 0))
+        near.append(j in score and any(abs(v - score[j]) <= K2_TIE_GAP
+                                       for c, v in score.items() if c != j))
+    return np.asarray(ranks, np.int64), np.asarray(near, bool)
+
+
+def _check_evaluator_ranking(dev, store, eval_dir) -> dict:
+    """What the cartesian metrics cannot show. K2 at the Evaluator's own
+    search (vanilla_clip's images against its chunks, the page keys,
+    k=MRR_WINDOW) against the same ``RetrievalIndex.search`` through the
+    plain version; then each weak-supervision schema's alignment ranks
+    from the Evaluator on the card against a float64 recount, and its
+    top-1/5/10 and MRR against the recount's."""
+    from unittest import mock
+
+    from tpualign_torch.evaluation import Evaluator
+    from tpualign_torch.evaluation.metrics import MRR_WINDOW
+    from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_reference
+    from tpualign_torch.parallel import retrieval
+
+    schema = "vanilla_clip"
+    images, chunks = store.images(schema), store.chunks(schema)
+    _, img_emb = store.embedding_matrix(schema, "images")
+    _, chunk_emb = store.embedding_matrix(schema, "text_chunks")
+    index = retrieval.RetrievalIndex(chunk_emb, [c["manual_id"] for c in chunks],
+                                     [c.get("page") for c in chunks], device=dev)
+    manuals, pages = [i["manual_id"] for i in images], [i.get("page") for i in images]
+    before = masked_sim_topk.launches
+    vals, idx = index.search(img_emb, manuals, pages, k=MRR_WINDOW)
+    check(masked_sim_topk.launches == before + 1,
+          f"the Evaluator's search launched K2 {masked_sim_topk.launches - before} times")
+    with mock.patch.object(retrieval, "masked_sim_topk", masked_sim_topk_reference):
+        rvals, ridx = index.search(img_emb, manuals, pages, k=MRR_WINDOW)
+    err = compare_topk(*(torch.from_numpy(x) for x in (vals, idx, rvals, ridx)),
+                       "K2 at the Evaluator's search")
+    ev = Evaluator(store, output_dir=eval_dir, device=dev)
+    check(np.array_equal(ev._schema_state(schema)["topk_idx"], idx),
+          "the Evaluator's top-100 table differs from RetrievalIndex.search's")
+    qk = torch.from_numpy(retrieval.encode_keys(manuals, pages, dict(index.vocab))[0]).to(dev)
+    q = torch.from_numpy(img_emb).to(dev)
+    k2 = {"Q": len(images), "N": len(chunks), "page_keys": len(set(zip(manuals, pages))),
+          "k": MRR_WINDOW, "max_abs_err": err,
+          "empty_slots": int((idx < 0).sum()),
+          "ms": time_ms(lambda: masked_sim_topk(q, qk, index._corpus, index._keys, MRR_WINDOW),
+                        5),
+          "plain_ms": time_ms(lambda: masked_sim_topk_reference(
+              q, qk, index._corpus, index._keys, MRR_WINDOW), 3)}
+
+    aligned = {}
+    for schema in ("clip_lexical", "clip_positional", "clip_combined"):
+        want, near = _alignment_recount(store, schema, MRR_WINDOW)
+        got = ev._pair_ranks(schema, "alignments")
+        check(len(got) == len(want) > 0, f"{schema}: {len(got)} alignment ranks, {len(want)}")
+        check(bool((got[~near] == want[~near]).all()),
+              f"{schema}: {(got[~near] != want[~near]).sum()} alignment ranks differ "
+              "from the float64 recount")
+        tol = 1e-6 + near.sum() / len(want)
+        top = ev.compute_top_k_accuracy(schema, (1, 5, 10), gt="alignments")
+        mrr = ev.compute_mrr(schema, gt="alignments")
+        want_top = {k: float(np.mean((want > 0) & (want <= k))) for k in (1, 5, 10)}
+        want_mrr = float(np.mean(np.where(want > 0, 1.0 / np.maximum(want, 1), 0.0)))
+        for k in (1, 5, 10):
+            check(abs(top[k] - want_top[k]) <= tol,
+                  f"{schema} alignments top-{k} {top[k]} against {want_top[k]}")
+        check(abs(mrr - want_mrr) <= tol, f"{schema} alignments MRR {mrr} against {want_mrr}")
+        check(len(set(want_top.values())) > 1,
+              f"{schema}: the alignment ranks do not move with k ({want_top})")
+        aligned[schema] = {"pairs": len(want), "near_ties": int(near.sum()),
+                           "top_k": top, "mrr": mrr, "recount_top_k": want_top,
+                           "recount_mrr": want_mrr}
+    return {"k2_at_evaluator_search": k2, "alignments_gt": aligned}
+
+
+def phase_pipeline(dev, seed, root, feed_names):
+    """Stages 3-5 as a user runs them: ``python -m tpualign_torch
+    setup-db``, ``embed`` (IMAGE_PREPROCESS=device) and ``evaluate`` as
+    subprocesses over a processed corpus of 4,096 images and 32,768
+    chunks; metrics.json held against a float64 recount, the alignment
+    records against the CPU ``compute_alignments``. Returns the launches
+    of the three stages."""
+    import json
+    import os
+
+    from tpualign_torch.pipeline import SCHEMA_FLAGS
+    from tpualign_torch.store import SCHEMAS, EmbeddingStore
+    from tpualign_torch.weaksup import compute_alignments
+
+    work = os.path.join(root, "pipeline")
+    os.makedirs(work)
+    out, images, chunks, terms = _processed_corpus(work, seed, os.path.join(root, "feed"),
+                                                   feed_names)
+    env = {"OUTPUT_DIR": out, "INPUT_DIR": os.path.join(work, "raw"),
+           "STORE_DIR": os.path.join(work, "store"),
+           "EVAL_OUTPUT_DIR": os.path.join(work, "eval"), "IMAGE_PREPROCESS": "device",
+           "IMAGE_PREPROCESS_BUCKET": str(FEED_BUCKET), "SEED": str(seed)}
+    secs, launches = {}, {}
+    for argv in (["setup-db"], ["embed"], ["evaluate"]):
+        secs[argv[0]], launches[argv[0]], done = _run_stage(argv + ["--device", dev.type],
+                                                            env, work)
+    total = {k: sum(c[k] for c in launches.values()) for k in launches["embed"]}
+    check(launches["embed"]["normalize_u8"] == -(-len(images) // B),
+          f"embed launched K5 {launches['embed']['normalize_u8']} times")
+
+    with open(os.path.join(work, "eval", "metrics.json")) as f:
+        metrics = json.load(f)
+    check(sorted(metrics) == sorted(SCHEMAS), f"metrics.json holds {sorted(metrics)}")
+    store = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
+    want = _recount(store, "vanilla_clip")
+    got = metrics["vanilla_clip"]
+    check(got["num_pairs"] == want["num_pairs"] == len(images) * PIPE_CHUNKS_PER_PAGE,
+          f"num_pairs {got['num_pairs']} against {want['num_pairs']}")
+    for k in ("1", "5", "10"):
+        check(abs(got["top_k"][k] - want["top_k"][k]) <= 1e-6, f"top-{k} {got} against {want}")
+    check(abs(got["mrr"] - want["mrr"]) <= 1e-6, f"mrr {got['mrr']} against {want['mrr']}")
+    check(abs(got["avg_similarity"] - want["avg_similarity"]) <= 1e-5,
+          f"avg_similarity {got['avg_similarity']} against {want['avg_similarity']}")
+
+    ranking = _check_evaluator_ranking(dev, store, os.path.join(work, "eval_check"))
+
+    t0 = time.perf_counter()
+    n_records = {}
+    for schema in SCHEMAS:
+        records = compute_alignments(images, chunks, terms, *SCHEMA_FLAGS[schema], device="cpu")
+        check(store.alignments(schema) == records,
+              f"{schema}: stored alignments differ from the CPU compute_alignments")
+        n_records[schema] = len(records)
+    t_cpu_align = time.perf_counter() - t0
+    check(n_records["clip_combined"] > 0 and n_records["clip_positional"] > 0,
+          f"weak supervision produced {n_records}")
+    emit({"phase": "pipeline", "model": "ViT-B-32", "images": len(images), "chunks": len(chunks),
+          "stage_s": secs, "launches": launches, "alignments": n_records,
+          "cpu_compute_alignments_s": t_cpu_align, "metrics": metrics, "recount": want,
+          **ranking,
+          "evaluate_warnings": [line for line in done.stderr.splitlines()
+                                if "WARNING" in line][:3]})
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1256,17 +1717,42 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
+    seconds = {}
+    t_start = t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[name] = now - t0
+        t0 = now
+
     phase_build()
+    lap("build")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     k1 = phase_k1(dev, gen)
+    lap("k1")
     k2 = phase_k2(dev, gen)
+    lap("k2")
     launches = phase_slice(dev, args.seed)
+    lap("slice")
     k3 = phase_k3(dev, gen)
+    lap("k3")
     k4 = phase_k4(dev, gen)
+    lap("k4")
+    k5 = phase_k5(dev, gen)
+    lap("k5")
+    with tempfile.TemporaryDirectory(prefix="tpualign_feed_") as root:
+        feed_names = phase_device_feed(dev, args.seed, root)
+        lap("device_feed")
+        pipe_launches = phase_pipeline(dev, args.seed, root, feed_names)
+        lap("pipeline")
     with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
         serve_launches, shared = phase_serve(dev, args.seed, root)
+        lap("serve")
         ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)
+        lap("serve_ivf")
         del shared
+    emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t_start})
 
     k1_head = next(r for r in k1 if r["shape"] == "vision" and r["dtype"] == "bfloat16")
     k2_head = next(r for r in k2 if r["k"] == 100)
@@ -1301,6 +1787,12 @@ def main() -> int:
                 f"D={k4_head['D']}, {k4_head['union_blocks']} of {k4_head['n_lists']} lists "
                 f"+ spill; launches from the serve_ivf phase; at the default 125 probes "
                 f"(phase k4) {k4_125['ms']:.4f} ms, bound {k4_125['bound_ms']:.4f} ms")},
+        {"name": "normalize_u8", "route": "cuda", "source": "tpualign_torch/csrc/normalize_u8.cu",
+         "replaces": "tpualign/ops/pallas_kernels.py:805",
+         "launches": pipe_launches["normalize_u8"], **{k: k5[k] for k in keys},
+         "tolerance": "bit-identical",
+         "at": "u8 (256, 224, 224, 3) -> fp32, one device-feed batch of ViT-B-32; launches "
+               "from the pipeline phase's embed stage (IMAGE_PREPROCESS=device)"},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

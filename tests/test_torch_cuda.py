@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, K2, K3, K4) against their plain PyTorch
-versions, on the card.
+"""The port's CUDA kernels (K1, K2, K3, K4, K5) against their plain PyTorch
+versions, on the card, and the device image feed on the card against the
+CPU.
 
 Marked ``cuda``: every test skips where there is no CUDA device (decided in
 a fixture, never at import). On a machine with an H100 run
@@ -293,3 +294,105 @@ def test_ivf_index_on_the_card_matches_the_cpu(dev, precision, tmp_path):
         np.testing.assert_array_equal(got[1], want[1])
         np.testing.assert_allclose(got[0], want[0], atol=1e-5 if precision == "fp32" else 0)
     assert ivf_probe_topk.launches == before + 2
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((256, 224, 224, 3), 0),   # the main path's batch
+    ((3, 7, 5, 3), 0),         # 315 elements: a tail of 11
+    ((2, 31, 17, 3), 1),       # a view one byte past an aligned base
+    ((1, 4, 4, 3), 5),         # unaligned and shorter than one group
+])
+def test_normalize_u8_matches_plain(dev, shape, offset):
+    from tpualign_torch.ops.normalize import normalize_u8, normalize_u8_reference
+
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(np.random.default_rng(n).integers(0, 256, n + offset,
+                                                              dtype=np.uint8)).to(dev)
+    x = flat[offset:].view(shape)
+    assert (x.data_ptr() % 16 != 0) == (offset % 16 != 0)
+    before = normalize_u8.launches
+    got = normalize_u8(x)
+    torch.cuda.synchronize()
+    assert normalize_u8.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == shape
+    # bit-identical: three separately rounded fp32 operations on both sides
+    assert torch.equal(got, normalize_u8_reference(x))
+    assert torch.equal(got.cpu(), normalize_u8_reference(x.cpu()))
+
+
+def test_normalize_u8_rejects(dev):
+    from tpualign_torch.ops.normalize import normalize_u8
+
+    with pytest.raises(ValueError, match="contiguous"):
+        normalize_u8(torch.zeros(2, 4, 4, 3, dtype=torch.uint8, device=dev).transpose(1, 2))
+    with pytest.raises(TypeError, match="uint8"):
+        normalize_u8(torch.zeros(2, 4, 4, 3, device=dev))
+
+
+@pytest.mark.parametrize("method,boxes", [("bicubic", False), ("bicubic", True),
+                                          ("bilinear", False)])
+def test_preprocess_device_on_the_card_matches_the_cpu(dev, method, boxes):
+    """The card's device feed against the port's CPU path, with TF32 on
+    globally (the resize must not take it): the parity bounds in raw [0, 1]
+    units (two uint8 steps at most, 1e-4 of pixels more than one, mean
+    1e-4), 1e-5 for bilinear; K5 launched once for a bicubic batch."""
+    from tpualign_torch.ops import preprocess as pp
+    from tpualign_torch.ops.normalize import normalize_u8
+
+    rng = np.random.default_rng(17)
+    sizes = [(120, 180), (300, 200), (640, 480), (224, 224), (150, 640), (47, 251), (96, 96),
+             (256, 255)]
+    bufs, hws = zip(*(pp.pad_to_bucket(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), 256)
+                      for h, w in sizes))
+    u8, hw = np.stack(bufs), np.asarray(hws, np.int32)
+    kw = {"method": method}
+    if boxes:
+        b, f = pp.sample_crop_boxes(np.random.default_rng(3), hw)
+        kw.update(crop_boxes=torch.from_numpy(b), flip=torch.from_numpy(f))
+    want = pp.preprocess_device(torch.from_numpy(u8), torch.from_numpy(hw), 224, **kw).numpy()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        before = normalize_u8.launches
+        got = pp.preprocess_device(torch.from_numpy(u8).to(dev), torch.from_numpy(hw).to(dev),
+                                   224, **kw)
+        torch.cuda.synchronize()
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert normalize_u8.launches == before + (method == "bicubic")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    got = got.cpu().numpy()
+    if method == "bilinear":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        return
+    draw = np.abs(got - want) * np.asarray(pp.CLIP_STD)
+    assert draw.max() <= 2.01 / 255.0, draw.max() * 255
+    assert np.mean(draw * 255 > 1.01) <= 1e-4
+    assert draw.mean() <= 1e-4, draw.mean()
+
+
+def test_weak_supervision_on_the_card_matches_the_cpu(dev):
+    """Positional grids on the card equal the CPU's bit for bit (divisors
+    go in as tensors: CUDA multiplies by a Python scalar's reciprocal), so
+    ``compute_alignments`` writes the same records on either device."""
+    from tpualign_torch.weaksup import compute_alignments, positional_scores
+
+    rng = np.random.default_rng(23)
+
+    def boxes(n):
+        x0, y0 = rng.integers(0, 500, n), rng.integers(0, 700, n)
+        b = np.stack([x0, y0, x0 + rng.integers(0, 300, n), y0 + rng.integers(0, 200, n)], 1)
+        return b.astype(np.float32)
+
+    a, b = boxes(300), boxes(700)
+    got = positional_scores(torch.from_numpy(a).to(dev), b)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), positional_scores(a, b))
+    images = [{"image_id": f"i{i}", "manual_id": f"m{i % 5}", "page": i % 7,
+               "bbox": a[i].tolist()} for i in range(300)]
+    chunks = [{"chunk_id": f"c{j}", "manual_id": f"m{j % 5}", "page": j % 7,
+               "bbox": b[j].tolist(), "text": "filter pomp" if j % 3 else "bout"}
+              for j in range(700)]
+    for flags in ((False, True), (True, True)):
+        assert (compute_alignments(images, chunks, ["filter", "bout"], *flags, device=dev)
+                == compute_alignments(images, chunks, ["filter", "bout"], *flags, device="cpu"))

@@ -119,3 +119,54 @@ def test_batch_and_bucket_invariance(engines):
     np.testing.assert_allclose(whole, unbucketed, atol=1e-5)
     assert port.encode_text_batch([]).shape == (0, 64)
     assert port.encode_image_batch(np.zeros((0, 32, 32, 3), np.float32)).shape == (0, 64)
+
+
+def _feed_records(tmp_path):
+    """PNG and JPEG files below and above a 48-pixel bucket, a corrupt
+    file, a missing one and a record without a file."""
+    rng = np.random.default_rng(5)
+    records = []
+    for i, (h, w, ext) in enumerate([(40, 30, "png"), (48, 48, "jpg"), (90, 20, "png"),
+                                     (33, 120, "jpg"), (7, 9, "png"), (100, 100, "png")]):
+        y, x = np.mgrid[0:h, 0:w]
+        smooth = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1),
+                           (x + y) % 256], -1).astype(np.uint8)
+        noisy = np.clip(smooth + rng.integers(-20, 21, smooth.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(noisy).save(tmp_path / f"f{i}.{ext}")
+        records.append({"image_id": f"f-{i}", "filename": f"f{i}.{ext}",
+                        "manual_id": "m0", "page": i})
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8 truncated")
+    records.append({"image_id": "bad", "filename": "bad.jpg", "manual_id": "m0", "page": 0})
+    records.append({"image_id": "gone", "filename": "gone.png", "manual_id": "m0", "page": 1})
+    records.append({"image_id": "vec", "filename": None, "manual_id": "m0", "page": 2})
+    return records
+
+
+@pytest.mark.parametrize("batch_size", [4, 16])
+def test_device_feed_matches_jax(engines, tmp_path, batch_size):
+    """Both packages' engines with ``preprocess="device"`` over the same
+    files: embeddings within 1e-3 at fp32, identical placeholders; the
+    port's device feed also agrees with its host feed to the parity of
+    the two preprocesses."""
+    port, ref = engines
+    for engine in (port, ref):
+        engine.preprocess, engine.preprocess_bucket = "device", 48
+    port.batch_size = ref.batch_size = batch_size
+    records = _feed_records(tmp_path)
+    got = port.embed_image_records(records, tmp_path)
+    want = ref.embed_image_records(records, tmp_path)
+    assert got.dtype == np.float32 and got.shape == want.shape == (len(records), 64)
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-3, f"max abs error {err:.3g}"
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-5)
+    for i in (6, 7, 8):
+        np.testing.assert_array_equal(got[i], want[i])
+    port.preprocess = "host"
+    host = port.embed_image_records(records, tmp_path)
+    np.testing.assert_array_equal(host[6:], got[6:])
+    assert float(np.abs(host[:6] - got[:6]).max()) <= 0.1
+
+
+def test_engine_rejects_unknown_feed():
+    with pytest.raises(ValueError, match="host|device"):
+        EmbedEngine(torch_config.ModelConfig(), preprocess="gpu", device="cpu")

@@ -426,7 +426,15 @@ def test_cli_needs_cuda_unless_cpu_is_asked(jax_store, tmp_path):
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
         env=dict(os.environ, STORE_DIR=str(jax_store), PYTHONPATH=REPO))
     assert out.returncode != 0 and "CUDA is not available" in out.stderr
-    out = subprocess.run([sys.executable, "-m", "tpualign_torch", "evaluate"],
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; torch.cuda.is_available = lambda: False\n"
+         "import sys; from tpualign_torch.cli import main\n"
+         "sys.exit(main(['evaluate']))"],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+        env=dict(os.environ, STORE_DIR=str(jax_store), PYTHONPATH=REPO))
+    assert out.returncode != 0 and "CUDA is not available" in out.stderr
+    out = subprocess.run([sys.executable, "-m", "tpualign_torch", "train"],
                          capture_output=True, text=True, timeout=300, cwd=tmp_path,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 2 and "not yet ported" in out.stdout

@@ -1,22 +1,30 @@
 """tpualign_torch: the PyTorch/CUDA port of tpualign for NVIDIA Hopper.
 
-The port embeds images and text chunks with the CLIP towers, searches
-exactly or over quantized corpora, and serves a store, on one GPU:
+The port embeds images and text chunks with the CLIP towers, scores weak
+supervision, fills and evaluates the store, searches exactly or over
+quantized corpora, and serves a store, on one GPU:
 
 - ``tpualign_torch.parallel.EmbedEngine``: ``encode_text_batch``,
-  ``encode_image_batch``, ``embed_image_records``, ``embed_chunk_records``;
+  ``encode_image_batch``, ``embed_image_records`` (host or device image
+  feed), ``embed_chunk_records``;
+- ``tpualign_torch.pipeline.Pipeline``: stages 3-5 (store setup, one
+  embedding pass with weak supervision for the four schemas, evaluation to
+  ``metrics.json``), and ``python -m tpualign_torch setup-db`` / ``embed``
+  / ``evaluate``;
 - ``tpualign_torch.parallel.RetrievalIndex`` / ``build_index``: ``search``
-  at fp32, int8, int4 or int2, with ``refine``;
+  at fp32, int8, int4 or int2, with ``refine``, or over an IVF index;
 - ``tpualign_torch.store.EmbeddingStore``: tpualign's on-disk store format;
 - ``tpualign_torch.serving``: the HTTP daemon's query routes, and
-  ``python -m tpualign_torch serve`` / ``query``.
+  ``python -m tpualign_torch serve`` / ``query`` / ``index``.
 
-Three hand-written CUDA kernels carry the device work: ``fused_mha`` (K1,
+Five hand-written CUDA kernels carry the device work: ``fused_mha`` (K1,
 ``ops/attention.py``) in every residual block, ``masked_sim_topk`` (K2,
 fp32) and ``masked_sim_topk_quant`` (K3, int8/int4/int2) behind the search
-(``ops/sim_topk.py``). The package imports neither JAX nor ``tpualign``;
-it runs on CUDA unless the caller passes ``device="cpu"``, where every
-kernel's plain PyTorch version runs instead.
+(``ops/sim_topk.py``), ``ivf_probe_topk`` (K4, ``ops/ivf_topk.py``) behind
+the IVF index, and ``normalize_u8`` (K5, ``ops/normalize.py``) at the end
+of the device image feed. The package imports neither JAX nor
+``tpualign``; it runs on CUDA unless the caller passes ``device="cpu"``,
+where every kernel's plain PyTorch version runs instead.
 """
 
 from tpualign_torch.config import CLIP_VARIANTS, ClipVariant, ModelConfig, load_config

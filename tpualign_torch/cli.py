@@ -1,10 +1,12 @@
 """Command-line interface: ``python -m tpualign_torch <command>``.
 
-``serve``, ``query`` and ``index`` are tpualign's, with the same flags,
-environment keys and output; they run on the GPU. The other subcommands of
-``python -m tpualign`` (run, process, filter, setup-db, embed, evaluate,
-check, train, ingest, watch, calibrate) are later slices of the port: they
-print so and exit with 2.
+``setup-db``, ``embed`` and ``evaluate`` (the pipeline's stages 3-5, over
+the processed outputs that ``python -m tpualign process``/``filter``
+write), ``serve``, ``query`` and ``index`` are tpualign's, with the same
+flags, environment keys and output; they run on the GPU unless
+``--device cpu`` is given. The other subcommands of ``python -m tpualign``
+(run, process, filter, check, train, ingest, watch, calibrate) are later
+slices of the port: they print so and exit with 2.
 """
 
 from __future__ import annotations
@@ -18,12 +20,12 @@ from typing import Optional, Sequence
 from tpualign_torch.config import load_config
 from tpualign_torch.store import SCHEMAS
 
-_NOT_PORTED = ("run", "process", "filter", "setup-db", "embed", "evaluate", "check", "train",
-               "ingest", "watch", "calibrate")
+_NOT_PORTED = ("run", "process", "filter", "check", "train", "ingest", "watch", "calibrate")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--env-file", default=".env", help="env file with configuration")
+    p.add_argument("--output-dir", default=None)
     p.add_argument("--store-dir", default=None)
     p.add_argument("--model", default=None, help="CLIP model name (e.g. ViT-B-32)")
     p.add_argument("--batch-size", type=int, default=None)
@@ -33,8 +35,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 def _config_from(args):
     overrides = {}
-    for attr, env in (("store_dir", "STORE_DIR"), ("model", "CLIP_MODEL"),
-                      ("batch_size", "BATCH_SIZE")):
+    for attr, env in (("output_dir", "OUTPUT_DIR"), ("store_dir", "STORE_DIR"),
+                      ("model", "CLIP_MODEL"), ("batch_size", "BATCH_SIZE")):
         v = getattr(args, attr, None)
         if v is not None:
             overrides[env] = str(v)
@@ -44,9 +46,23 @@ def _config_from(args):
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="tpualign_torch",
-        description="tpualign on an NVIDIA GPU: index, serve and query an embedding store",
+        description="tpualign on an NVIDIA GPU: embed processed manuals into the store, "
+                    "evaluate, index, serve and query it",
     )
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p_setup = sub.add_parser("setup-db", help="stage 3: create store schemas")
+    _add_common(p_setup)
+    p_setup.add_argument("--force", action="store_true")
+
+    p_embed = sub.add_parser("embed", help="stage 4: embed + weak supervision")
+    _add_common(p_embed)
+    p_embed.add_argument("schema", nargs="?", default=None,
+                         help=f"one of {', '.join(SCHEMAS)}; omit for all")
+    p_embed.add_argument("--force", action="store_true")
+
+    p_eval = sub.add_parser("evaluate", help="stage 5: metrics + charts")
+    _add_common(p_eval)
 
     p_serve = sub.add_parser(
         "serve", help="retrieval daemon: device-resident index over HTTP/JSON")
@@ -92,11 +108,41 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"tpualign_torch {args.command}: not yet ported to the GPU package; "
               f"run `python -m tpualign {args.command}`")
         return 2
+    if args.command in ("setup-db", "embed", "evaluate"):
+        return _run_stage(args)
     if args.command == "serve":
         return _run_serve(args)
     if args.command == "index":
         return _run_index(args)
     return _run_query(args)
+
+
+def _run_stage(args) -> int:
+    """Stages 3-5 of the pipeline, as ``tpualign setup-db|embed|evaluate``.
+    The stages log a schema's failure and go on with the next, as
+    tpualign's do; the exit code is 1 when a schema failed to fill
+    (``embed``) or has no metrics (``evaluate``)."""
+    from tpualign_torch.pipeline import Pipeline
+
+    if args.command == "embed" and args.schema is not None and args.schema not in SCHEMAS:
+        print(f"Unknown schema: {args.schema}")
+        print(f"Available schemas: {', '.join(SCHEMAS)}")
+        return 1
+    pipe = Pipeline(_config_from(args), device=args.device)
+    if args.command == "setup-db":
+        pipe.step_store_setup(force=args.force)
+        return 0
+    if args.command == "embed":
+        failed = pipe.step_insert_embeddings(force=args.force,
+                                             schemas=[args.schema] if args.schema else None)
+    else:
+        metrics = pipe.step_evaluation() or {}
+        failed = [s for s in SCHEMAS if pipe.store.schema_exists(s) and s not in metrics]
+    if failed:
+        print(f"tpualign_torch {args.command}: failed for {', '.join(failed)}; "
+              "see the errors above", file=sys.stderr)
+        return 1
+    return 0
 
 
 def _run_index(args) -> int:

@@ -1,10 +1,12 @@
 """Typed configuration for the PyTorch port.
 
 The subset of ``tpualign.config`` that the port's paths read: the CLIP
-variant table, :class:`ModelConfig`, :class:`StoreConfig`, and a
-:class:`PipelineConfig` with the embed, store, retrieval and serving keys
-(``CLIP_MODEL``, ``BATCH_SIZE``, ``TEXT_BUCKETS``, ``STORE_DIR``,
-``RETRIEVAL_*``, ``IVF_*``, ``SERVE_*``, ...). The values are copied, not imported,
+variant table, :class:`ModelConfig`, :class:`DataConfig`,
+:class:`StoreConfig`, and a :class:`PipelineConfig` with the pipeline,
+embed, store, retrieval and serving keys (``CLIP_MODEL``, ``BATCH_SIZE``,
+``TEXT_BUCKETS``, ``IMAGE_PREPROCESS*``, ``OUTPUT_DIR``,
+``EVAL_OUTPUT_DIR``, ``STORE_DIR``, ``RETRIEVAL_*``, ``IVF_*``,
+``SERVE_*``, ...). The values are copied, not imported,
 so the port loads without JAX; ``tests/test_torch_models.py`` and
 ``tests/test_torch_serving.py`` hold the two packages' tables and configs
 equal.
@@ -22,6 +24,7 @@ __all__ = [
     "ClipVariant",
     "CLIP_VARIANTS",
     "ModelConfig",
+    "DataConfig",
     "StoreConfig",
     "PipelineConfig",
     "normalize_model_name",
@@ -140,6 +143,19 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Where stages 3-5 read the processed outputs of stages 1-2
+    (``image_metadata.json``, ``text_chunks.json``, the lexical components
+    and ``images/``)."""
+
+    output_dir: str = "data/processed"
+
+    @property
+    def images_dir(self) -> str:
+        return str(Path(self.output_dir) / "images")
+
+
+@dataclass(frozen=True)
 class StoreConfig:
     """Embedding-store configuration: the store's root directory."""
 
@@ -148,14 +164,20 @@ class StoreConfig:
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """What the port's entry points read: the embed batch, the store, and
-    the retrieval and serving knobs of ``serve`` and ``query``, under
-    tpualign's names and defaults (see ``tpualign.config.PipelineConfig``
-    for what each knob does)."""
+    """What the port's entry points read: the pipeline's directories, the
+    embed batch and image feed, the store, and the retrieval and serving
+    knobs of ``serve`` and ``query``, under tpualign's names and defaults
+    (see ``tpualign.config.PipelineConfig`` for what each knob does)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     store: StoreConfig = field(default_factory=StoreConfig)
+    eval_output_dir: str = "evaluation_results"
     batch_size: int = 256
+    # image feed: "host" (PIL bicubic per image) or "device" (uint8
+    # buckets, resize and normalisation on the device), and the bucket edge
+    image_preprocess: str = "host"
+    image_preprocess_bucket: int = 256
     seed: int = 0
     retrieval_recall_target: Optional[float] = None
     retrieval_index: str = "exact"
@@ -250,8 +272,12 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
             f"autovacuum scale factor analogue), got {serve_auto_compact}")
     return PipelineConfig(
         model=model,
+        data=DataConfig(output_dir=_env(env, "OUTPUT_DIR", "data/processed")),
         store=StoreConfig(root=_env(env, "STORE_DIR", "data/store")),
+        eval_output_dir=_env(env, "EVAL_OUTPUT_DIR", "evaluation_results"),
         batch_size=int(_env(env, "BATCH_SIZE", "256")),
+        image_preprocess=_env(env, "IMAGE_PREPROCESS", "host"),
+        image_preprocess_bucket=int(_env(env, "IMAGE_PREPROCESS_BUCKET", "256")),
         seed=int(_env(env, "SEED", "0")),
         retrieval_recall_target=_optional(env, "RETRIEVAL_RECALL_TARGET", float),
         retrieval_index=_env(env, "RETRIEVAL_INDEX", "exact"),

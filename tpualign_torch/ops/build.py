@@ -25,7 +25,8 @@ __all__ = ["KERNELS", "build", "build_all", "load"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("fused_mha", "masked_sim_topk", "masked_sim_topk_quant", "ivf_probe_topk")
+KERNELS = ("fused_mha", "masked_sim_topk", "masked_sim_topk_quant", "ivf_probe_topk",
+           "normalize_u8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: (argtypes, restype) of each kernel's entry point
 _SIGNATURES = {
     "fused_mha": ("tpualign_fused_mha",
@@ -45,6 +47,8 @@ _SIGNATURES = {
     "ivf_probe_topk": ("tpualign_ivf_probe_topk",
                        [_I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _I, _P]),
+    "normalize_u8": ("tpualign_normalize_u8",
+                     [_P, _P, ctypes.c_longlong, _F, _F, _F, _F, _F, _F, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,13 @@
 """Batched embedding engine on one device (the port's
 ``tpualign.parallel.embed``).
 
-Images are decoded and preprocessed on the host by a thread pool, in a
-background thread that keeps batches ahead of the device; text is
-tokenized and grouped into length buckets (16/32/77 by default), exact
+Images are decoded by a thread pool, in a background thread that keeps
+batches ahead of the device. The image feed is ``preprocess="host"`` (PIL
+bicubic per image on the host, fp32 batches go up) or ``"device"`` (the
+host only decodes and pads into uint8 buckets, which go up from a pinned
+buffer; resize, crop and normalisation run on the device through
+``ops.preprocess.preprocess_device``, whose bicubic arm ends in K5). Text
+is tokenized and grouped into length buckets (16/32/77 by default), exact
 under the causal mask. Items that cannot be embedded (no file, a missing
 or corrupt file, empty text) get deterministic unit-norm placeholders
 derived from their ids. PyTorch runs eagerly, so the last batch is not
@@ -16,7 +20,7 @@ import hashlib
 import queue
 import threading
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +28,7 @@ import torch
 from tpualign_torch.config import ModelConfig
 from tpualign_torch.models.clip import CLIP, build_clip, init_clip_params
 from tpualign_torch.models.convert import from_jax_params
-from tpualign_torch.ops.preprocess import preprocess_host
+from tpualign_torch.ops.preprocess import pad_to_bucket, preprocess_device, preprocess_host
 from tpualign_torch.tokenizer import ClipTokenizer
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
@@ -59,8 +63,11 @@ class EmbedEngine:
 
     ``params``: the JAX package's parameter tree as nested dicts of numpy
     arrays (see ``tpualign_torch.models.convert``); None draws seeded
-    random weights (``init_clip_params``). ``device`` defaults to CUDA and
-    raises when it is absent; pass ``device="cpu"`` for the plain path.
+    random weights (``init_clip_params``). ``preprocess`` is the image
+    feed, ``"host"`` or ``"device"``; ``preprocess_bucket`` the edge of the
+    device feed's uint8 buffers (larger images are shrunk on the host).
+    ``device`` defaults to CUDA and raises when it is absent; pass
+    ``device="cpu"`` for the plain path.
     """
 
     def __init__(
@@ -72,10 +79,16 @@ class EmbedEngine:
         seed: int = 0,
         decode_workers: int = 8,
         text_buckets: Optional[Sequence[int]] = (16, 32, 77),
+        preprocess: str = "host",
+        preprocess_bucket: int = 256,
         device: str | torch.device = "cuda",
     ):
+        if preprocess not in ("host", "device"):
+            raise ValueError(f"preprocess must be host|device, got {preprocess!r}")
         self.device = resolve_device(device)
         self.decode_workers = decode_workers
+        self.preprocess = preprocess
+        self.preprocess_bucket = int(preprocess_bucket)
         self.variant = model_config.variant
         # the full context is always an implicit last bucket
         if text_buckets:
@@ -143,15 +156,32 @@ class EmbedEngine:
         """Preprocessed (N, S, S, 3) float32 -> (N, D) unit-norm float32."""
         return self._run_batched(self._encode_image, np.asarray(images_nhwc, np.float32))
 
+    def _encode_image_u8(self, images_u8: Sequence[np.ndarray], hws: np.ndarray,
+                         pinned: Optional[torch.Tensor]) -> np.ndarray:
+        """One device-feed batch: n (bucket, bucket, 3) uint8 buffers and
+        their true (h, w) up (stacked into the pinned buffer on CUDA), then
+        preprocess and the image tower on the device."""
+        with torch.inference_mode():
+            if pinned is not None:
+                host = pinned[:len(images_u8)]
+                np.stack(images_u8, out=host.numpy())
+                u8 = host.to(self.device, non_blocking=True)
+            else:
+                u8 = torch.from_numpy(np.stack(images_u8)).to(self.device)
+            hw = torch.from_numpy(hws).to(self.device)
+            x = preprocess_device(u8, hw, self.variant.image_size)
+            return self._encode_image(x).float().cpu().numpy()
+
     def embed_image_records(
         self,
         records: Sequence[dict],
         images_dir: str | Path,
         prefetch: int = 2,
     ) -> np.ndarray:
-        """Embed image records: decode and preprocess on the host in a
-        background thread, encode on the device. Records without a
-        decodable file get deterministic placeholders."""
+        """Embed image records: decode (and, with the host feed,
+        preprocess) on the host in a background thread, encode on the
+        device. Records without a decodable file get deterministic
+        placeholders."""
         images_dir = Path(images_dir)
         dim = self.variant.embed_dim
         size = self.variant.image_size
@@ -170,13 +200,19 @@ class EmbedEngine:
         bs = self.batch_size
         batches: "queue.Queue" = queue.Queue(maxsize=prefetch)
         failure: List[BaseException] = []
+        device_mode = self.preprocess == "device"
+        bucket = self.preprocess_bucket
 
-        def decode_one(i: int) -> Optional[Tuple[int, np.ndarray]]:
+        def decode_one(i: int) -> Optional[tuple]:
             from PIL import Image
 
             rec = records[i]
             try:
                 with Image.open(images_dir / rec["filename"]) as im:
+                    if device_mode:
+                        padded, hw = pad_to_bucket(np.asarray(im.convert("RGB"), np.uint8),
+                                                   bucket)
+                        return i, padded, hw
                     return i, preprocess_host(im, size)
             except Exception as e:  # any undecodable file: skip and continue
                 log.warning("decode failed for %s: %r", rec.get("filename"), e)
@@ -186,7 +222,7 @@ class EmbedEngine:
         def producer():
             from concurrent.futures import ThreadPoolExecutor
 
-            buf: List[Tuple[int, np.ndarray]] = []
+            buf: List[tuple] = []
             try:
                 with ThreadPoolExecutor(max_workers=self.decode_workers) as pool:
                     for item in pool.map(decode_one, decode_idx, chunksize=8):
@@ -203,6 +239,11 @@ class EmbedEngine:
             finally:
                 batches.put(None)
 
+        # the device feed's uint8 batches go up from one pinned buffer:
+        # each batch's embeddings reach the host before the next is written
+        pinned = None
+        if device_mode and self.device.type == "cuda":
+            pinned = torch.empty((bs, bucket, bucket, 3), dtype=torch.uint8, pin_memory=True)
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         try:
@@ -211,8 +252,12 @@ class EmbedEngine:
                 if item is None:
                     break
                 idxs = [it[0] for it in item]
-                out[idxs] = self._run_batched(self._encode_image,
-                                              np.stack([it[1] for it in item]))
+                if device_mode:
+                    hws = np.asarray([it[2] for it in item], np.int32)
+                    out[idxs] = self._encode_image_u8([it[1] for it in item], hws, pinned)
+                else:
+                    out[idxs] = self._run_batched(self._encode_image,
+                                                  np.stack([it[1] for it in item]))
         finally:
             # drain so a producer blocked on a full queue can finish
             while thread.is_alive():

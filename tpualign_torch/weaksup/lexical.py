@@ -1,0 +1,36 @@
+"""Lexical alignment scoring (the port's copy of ``tpualign.weaksup.lexical``).
+
+For a chunk, ``matching = #{term in vocabulary : term is a substring of
+lower(chunk text)}`` and ``score = min(1, matching / max(0.1 * |vocab|,
+1))``. The score depends on the chunk alone, so it is computed once per
+chunk and broadcast across the images. Substring counting is host work
+over strings, in plain Python here (tpualign may call its native library
+for it; the counts are the same integers).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+__all__ = ["lexical_match_counts", "lexical_scores"]
+
+
+def lexical_match_counts(chunk_texts: Sequence[str], terms: Sequence[str]) -> np.ndarray:
+    """(C,) int32: number of vocabulary terms substring-matching each chunk."""
+    counts = np.zeros(len(chunk_texts), dtype=np.int32)
+    for i, text in enumerate(chunk_texts):
+        lower = text.lower()
+        counts[i] = sum(1 for term in terms if term in lower)
+    return counts
+
+
+def lexical_scores(chunk_texts: Sequence[str], terms: Sequence[str]) -> np.ndarray:
+    """(C,) float32 lexical alignment scores; zeros when the vocabulary is
+    empty."""
+    if not terms:
+        return np.zeros(len(chunk_texts), dtype=np.float32)
+    counts = lexical_match_counts(chunk_texts, terms).astype(np.float32)
+    denom = max(len(terms) * 0.1, 1.0)
+    return np.minimum(1.0, counts / denom).astype(np.float32)
