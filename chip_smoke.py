@@ -10,13 +10,15 @@ for the numbers in PERF.md). Phases, one JSON line each:
    parallel;
 2. K1 ``fused_mha`` against its plain version at ViT-B-32's shapes (B=256:
    vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal), fp32
-   and bf16, with times for the kernel, the plain version and
+   (the CUDA-core kernel) and bf16 (the tensor-core kernel): eight rows,
+   with times for the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
    calls it);
 3. K2 ``masked_sim_topk`` against its plain version at Q=1,024, N=100,000,
    D=512 (1,000 page keys, 1/8 wildcard queries, queries without
    candidates, 16 duplicated corpus rows), k=10 and k=100, with times for
-   the kernel, the plain version and ``torch.matmul`` + ``torch.topk``;
+   the kernel, the plain version and ``torch.matmul`` + ``torch.topk``,
+   and the corpus tiles its key-aware skip reads;
 4. the slice: ``EmbedEngine`` (ViT-B-32, seeded weights, bf16) embeds 2,048
    images and 8,192 chunk records, ``RetrievalIndex`` runs the Evaluator's
    keyed k=100 search and the ``query --text`` global k=10 search; the
@@ -52,9 +54,12 @@ for the numbers in PERF.md). Phases, one JSON line each:
    records against the CPU ``compute_alignments``. The cartesian metrics
    cannot see the ranking (every same-page chunk is true), so K2 is held
    against its plain version at the Evaluator's own search (Q=4,096,
-   N=32,768, 4,096 page keys, k=100), and the weak-supervision schemas'
-   ``gt="alignments"`` ranks, top-k and MRR, which move with the ranking,
-   against a float64 recount over the stored alignments;
+   N=32,768, 4,096 page keys, k=100), timed beside the plain version and
+   the library yardstick (``torch.where(key_mask, q @ c.T, NEG_INF)`` +
+   ``torch.topk``) with its bound and the corpus tiles it reads, and the
+   weak-supervision schemas' ``gt="alignments"`` ranks, top-k and MRR,
+   which move with the ranking, against a float64 recount over the stored
+   alignments;
 10. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
     images, 100,000 weak alignments) is written to a temporary directory and
     served by ``build_service`` + ``serve_schemas`` at int8 with refine 4 and
@@ -222,6 +227,24 @@ def compare_topk(vals, idx, rvals, ridx, what: str) -> float:
     return err
 
 
+def k2_admitted_tiles(qk, ck):
+    """(admitted, all) pairs of a K2 query tile and corpus tile for these
+    keys, the queries grouped by key as K2's wrapper groups them: the
+    corpus tiles K2 reads (it skips the rest unread)."""
+    from tpualign_torch.ops.sim_topk import _BQ, _K2_BN, group_by_key, key_mask
+
+    bq, bn = _BQ[None], _K2_BN
+    qk = qk[group_by_key(qk)]
+    n = ck.shape[0]
+    n_tiles = -(-n // bn)
+    admitted = 0
+    for q0 in range(0, len(qk), bq):
+        rows = torch.zeros(n_tiles * bn, dtype=torch.bool, device=ck.device)
+        rows[:n] = key_mask(qk[q0:q0 + bq], ck).any(dim=0)
+        admitted += int(rows.view(n_tiles, bn).any(dim=1).sum().item())
+    return admitted, n_tiles * -(-len(qk) // bq)
+
+
 def phase_k2(dev, gen):
     from tpualign_torch.ops.sim_topk import (
         key_mask, masked_sim_topk, masked_sim_topk_reference)
@@ -230,6 +253,7 @@ def phase_k2(dev, gen):
     args = _sim_inputs(gen, dev, q, n, d, 1000)
     queries, qk, corpus, ck = args
     valid_pairs = int(key_mask(qk, ck).sum().item())
+    admitted, tiles = k2_admitted_tiles(qk, ck)
     rows = []
     for k in (10, 100):
         vals, idx = masked_sim_topk(*args, k)
@@ -248,6 +272,7 @@ def phase_k2(dev, gen):
         bms, by = bound_ms(nbytes, 2.0 * d * valid_pairs, PEAK_FLOPS[torch.float32])
         dense_bms, _ = bound_ms(nbytes, 2.0 * d * q * n, PEAK_FLOPS[torch.float32])
         rows.append({"Q": q, "N": n, "D": d, "k": k, "valid_pairs": valid_pairs,
+                     "admitted_tiles": admitted, "tiles": tiles,
                      "empty_slots": int((ridx == 2**30).sum().item()),
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
@@ -1580,7 +1605,7 @@ def _check_evaluator_ranking(dev, store, eval_dir) -> dict:
 
     from tpualign_torch.evaluation import Evaluator
     from tpualign_torch.evaluation.metrics import MRR_WINDOW
-    from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_reference
+    from tpualign_torch.ops.sim_topk import key_mask, masked_sim_topk, masked_sim_topk_reference
     from tpualign_torch.parallel import retrieval
 
     schema = "vanilla_clip"
@@ -1603,13 +1628,29 @@ def _check_evaluator_ranking(dev, store, eval_dir) -> dict:
           "the Evaluator's top-100 table differs from RetrievalIndex.search's")
     qk = torch.from_numpy(retrieval.encode_keys(manuals, pages, dict(index.vocab))[0]).to(dev)
     q = torch.from_numpy(img_emb).to(dev)
-    k2 = {"Q": len(images), "N": len(chunks), "page_keys": len(set(zip(manuals, pages))),
-          "k": MRR_WINDOW, "max_abs_err": err,
+    corpus, ck = index._corpus, index._keys
+    mask = key_mask(qk, ck)
+    pairs = int(mask.sum().item())
+    rows_read = int(mask.any(dim=0).sum().item())
+    admitted, tiles = k2_admitted_tiles(qk, ck)
+    del mask
+    nq, d = q.shape
+
+    def library():
+        sims = torch.where(key_mask(qk, ck), q @ corpus.T, -1e30)
+        return torch.topk(sims, MRR_WINDOW, dim=1)
+
+    # each query, key and output once, and the corpus rows some query admits
+    nbytes = (nq + rows_read) * d * 4 + (nq + len(ck)) * 4 + nq * MRR_WINDOW * 8
+    bms, by = bound_ms(nbytes, 2.0 * d * pairs, PEAK_FLOPS[torch.float32])
+    k2 = {"Q": nq, "N": len(chunks), "page_keys": len(set(zip(manuals, pages))),
+          "k": MRR_WINDOW, "max_abs_err": err, "valid_pairs": pairs,
+          "admitted_tiles": admitted, "tiles": tiles,
           "empty_slots": int((idx < 0).sum()),
-          "ms": time_ms(lambda: masked_sim_topk(q, qk, index._corpus, index._keys, MRR_WINDOW),
-                        5),
-          "plain_ms": time_ms(lambda: masked_sim_topk_reference(
-              q, qk, index._corpus, index._keys, MRR_WINDOW), 3)}
+          "ms": time_ms(lambda: masked_sim_topk(q, qk, corpus, ck, MRR_WINDOW), 20),
+          "plain_ms": time_ms(lambda: masked_sim_topk_reference(q, qk, corpus, ck, MRR_WINDOW),
+                              3),
+          "library_ms": time_ms(library, 5), "bound_ms": bms, "bound_by": by}
 
     aligned = {}
     for schema in ("clip_lexical", "clip_positional", "clip_combined"):
@@ -1698,7 +1739,7 @@ def phase_pipeline(dev, seed, root, feed_names):
           **ranking,
           "evaluate_warnings": [line for line in done.stderr.splitlines()
                                 if "WARNING" in line][:3]})
-    return total
+    return total, ranking["k2_at_evaluator_search"]
 
 
 def main() -> int:
@@ -1744,7 +1785,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="tpualign_feed_") as root:
         feed_names = phase_device_feed(dev, args.seed, root)
         lap("device_feed")
-        pipe_launches = phase_pipeline(dev, args.seed, root, feed_names)
+        pipe_launches, k2_eval = phase_pipeline(dev, args.seed, root, feed_names)
         lap("pipeline")
     with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
         serve_launches, shared = phase_serve(dev, args.seed, root)
@@ -1770,7 +1811,12 @@ def main() -> int:
          "replaces": "tpualign/ops/pallas_kernels.py:329",
          "launches": launches["masked_sim_topk"], **{k: k2_head[k] for k in keys},
          "tolerance": {"values_atol": K2_TOL_VALUES, "tie_gap": K2_TIE_GAP},
-         "at": "fp32 Q=1024 N=100000 D=512 k=100"},
+         "at": (f"fp32 Q=1024 N=100000 D=512 k=100, {k2_head['admitted_tiles']} of "
+                f"{k2_head['tiles']} tiles admitted; at the "
+                f"Evaluator's search (pipeline phase: Q={k2_eval['Q']} N={k2_eval['N']} "
+                f"k={k2_eval['k']}, {k2_eval['admitted_tiles']} of {k2_eval['tiles']} tiles "
+                f"admitted) {k2_eval['ms']:.4f} ms, library {k2_eval['library_ms']:.4f} ms, "
+                f"bound {k2_eval['bound_ms']:.4f} ms ({k2_eval['bound_by']})")},
         {"name": "masked_sim_topk_quant", "route": "cuda",
          "source": "tpualign_torch/csrc/masked_sim_topk_quant.cu",
          "replaces": "tpualign/ops/pallas_kernels.py:523",

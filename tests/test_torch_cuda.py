@@ -58,6 +58,46 @@ def test_fused_mha_matches_plain(dev, b, t, heads, hd, dtype, causal):
     assert err <= tol, f"max abs error {err:.3g} > {tol}"
 
 
+def _mha_case(dev, b, t, heads, hd, dtype, causal):
+    rng = np.random.default_rng(1000 * t + 10 * hd + b)
+    qkv = torch.from_numpy(rng.normal(size=(b, t, 3 * heads * hd)).astype(np.float32))
+    qkv = qkv.to(dev, dtype)
+    mask = causal_mask(t, dev) if causal else None
+    before = fused_mha.launches
+    got = fused_mha(qkv, heads, mask)
+    torch.cuda.synchronize()
+    want = fused_mha_reference(qkv, heads, mask)
+    assert fused_mha.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, t, heads * hd)
+    # the bounds of test_fused_mha_matches_plain
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, f"T={t} hd={hd} B={b} causal={causal}: max abs error {err:.3g} > {tol}"
+
+
+@pytest.mark.parametrize("hd", [64, 80, 88, 104])
+@pytest.mark.parametrize("t", [1, 16, 50, 63, 64, 65, 77, 128, 129, 257])
+def test_fused_mha_bf16_tensor_cores_match_plain(dev, t, hd):
+    """The bf16 kernel (mma.sync) at T padded to 16 (one pass up to 128,
+    three passes past it) and hd padded to 16, causal and unmasked, B=1
+    and an odd B."""
+    for b in (1, 3):
+        for causal in (False, True):
+            _mha_case(dev, b, t, 2, hd, torch.bfloat16, causal)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 88, 104])
+def test_fused_mha_fp32_dispatch_matches_plain(dev, hd):
+    """fp32 keeps the CUDA-core kernel: one case per head dim."""
+    _mha_case(dev, 3, 50, 2, hd, torch.float32, hd == 88)
+
+
+def test_fused_mha_bf16_rejects_unaligned(dev):
+    flat = torch.zeros(1 + 4 * 3 * 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_mha(flat[1:].view(1, 4, 3 * 64), 1)
+
+
 def test_fused_mha_rejects(dev):
     qkv = torch.zeros(1, 4, 3 * 2 * 32, device=dev)
     with pytest.raises(ValueError, match="head dim"):
@@ -118,6 +158,85 @@ def test_masked_sim_topk_ties_ascending(dev):
     args = [torch.from_numpy(a).to(dev) for a in (qv, np.zeros(2, np.int32), cv, keys)]
     _, idx = masked_sim_topk(*args, 7)
     assert idx.cpu().numpy().tolist() == [list(range(7))] * 2
+
+
+def _check_against_plain(vals, idx, rv, ri):
+    """Empty slots exact; indices equal outside runs of the plain version's
+    values within 1e-6 of a neighbour; values within 1e-5 (the bounds of
+    test_masked_sim_topk_matches_plain)."""
+    vals, idx, rv, ri = (t.cpu().numpy() for t in (vals, idx, rv, ri))
+    empty = ri == SENTINEL_IDX
+    assert (idx[empty] == SENTINEL_IDX).all() and (vals[empty] == np.float32(NEG_INF)).all()
+    near = np.zeros_like(empty)
+    close = np.abs(np.diff(rv, axis=1)) <= 1e-6
+    near[:, 1:] |= close
+    near[:, :-1] |= close
+    assert (idx[~near] == ri[~near]).all()
+    np.testing.assert_allclose(vals, rv, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 10, 100, 128])
+def test_masked_sim_topk_key_skip_is_exact(dev, k):
+    """A corpus whose rows lie together by key (N not a multiple of the
+    128-row tile) and keyed queries in no order, 70 of them (more than a
+    64-query tile) with a key no row has, and some wildcards: the kernel
+    skips most corpus tiles. It must return what it returns for the same
+    rows in a random order, where no tile can be skipped (the same values
+    bit for bit, the same rows), and match the plain version."""
+    rng = np.random.default_rng(k)
+    n, d, pages = 20_037, 512, 400
+    qv, _, cv, _ = _sim_inputs(rng, 300, n, d, 1)
+    ck = np.sort(rng.integers(0, pages, n)).astype(np.int32)
+    ck[::13] = -1                        # padding rows never match
+    qk = rng.integers(0, pages, 300).astype(np.int32)
+    qk[rng.choice(300, 70, replace=False)] = pages + 5   # admit nothing
+    qk[::37] = WILDCARD_KEY
+    nothing = qk == pages + 5
+    perm = rng.permutation(n)
+    grouped = [torch.from_numpy(a).to(dev) for a in (qv, qk, cv, ck)]
+    shuffled = [torch.from_numpy(a).to(dev) for a in (qv, qk, cv[perm], ck[perm])]
+    before = masked_sim_topk.launches
+    vals, idx = masked_sim_topk(*grouped, k)
+    svals, sidx = masked_sim_topk(*shuffled, k)
+    torch.cuda.synchronize()
+    assert masked_sim_topk.launches == before + 2
+    _check_against_plain(vals, idx, *masked_sim_topk_reference(*grouped, k))
+    _check_against_plain(svals, sidx, *masked_sim_topk_reference(*shuffled, k))
+    vals, idx, svals, sidx = (t.cpu().numpy() for t in (vals, idx, svals, sidx))
+    np.testing.assert_array_equal(svals, vals)
+    mapped = np.where(sidx == SENTINEL_IDX, SENTINEL_IDX, perm[np.minimum(sidx, n - 1)])
+    np.testing.assert_array_equal(mapped, idx)
+    assert (idx[nothing] == SENTINEL_IDX).all() and (idx[~nothing, 0] != SENTINEL_IDX).all()
+
+
+@pytest.mark.parametrize("k", [10, 128])
+def test_masked_sim_topk_all_wildcard(dev, k):
+    """A global search: every query a wildcard, every tile scored."""
+    rng = np.random.default_rng(7 + k)
+    qv, qk, cv, ck = _sim_inputs(rng, 130, 5_000, 512, 3, dup=16)
+    qk[:] = WILDCARD_KEY
+    args = [torch.from_numpy(a).to(dev) for a in (qv, qk, cv, ck)]
+    vals, idx = masked_sim_topk(*args, k)
+    torch.cuda.synchronize()
+    _check_against_plain(vals, idx, *masked_sim_topk_reference(*args, k))
+
+
+def test_quantize_queries_on_the_card_matches_the_cpu(dev):
+    """The card's per-row query scales and codes equal the CPU's bit for
+    bit, on rows whose max|q| / 127 rounds otherwise as a product with
+    fl(1/127), which is how CUDA torch divides by a Python scalar."""
+    from tpualign_torch.ops.sim_topk import quantize_queries
+
+    rng = np.random.default_rng(29)
+    q = rng.normal(size=(4096, 512)).astype(np.float32)
+    top = np.abs(q).max(axis=1)
+    differs = top / np.float32(127.0) != top * (np.float32(1.0) / np.float32(127.0))
+    assert differs.sum() >= 100
+    q = q[differs]
+    qq, qs = quantize_queries(torch.from_numpy(q).to(dev))
+    want_qq, want_qs = quantize_queries(torch.from_numpy(q))
+    assert torch.equal(qs.cpu(), want_qs)
+    assert torch.equal(qq.cpu(), want_qq)
 
 
 K3_VARIANTS = [("s8", "_quantize_rows", True), ("dequant", "_quantize_rows", False),

@@ -15,7 +15,8 @@ from tpualign.ops.pallas_kernels import masked_sim_topk as jax_sim_topk
 from tpualign.ops.similarity import NEG_INF as JAX_NEG_INF
 from tpualign.ops.similarity import WILDCARD_KEY as JAX_WILDCARD
 from tpualign.ops.similarity import masked_topk as jax_masked_topk
-from tpualign_torch.ops.sim_topk import SENTINEL_IDX, key_mask, masked_sim_topk
+from tpualign_torch.ops.sim_topk import (
+    SENTINEL_IDX, group_by_key, key_mask, masked_sim_topk, ungroup_rows)
 from tpualign_torch.ops.similarity import NEG_INF, WILDCARD_KEY, masked_topk
 
 pytestmark = pytest.mark.fast
@@ -135,3 +136,37 @@ def test_key_mask():
     ck = torch.tensor([0, 5, -1, 7], dtype=torch.int32)
     want = [[1, 0, 0, 0], [0, 1, 0, 0], [1, 1, 0, 1], [0, 0, 0, 0]]
     assert key_mask(qk, ck).int().tolist() == want
+
+
+def test_group_by_key_is_stable_with_wildcards_first():
+    qk = torch.tensor([5, WILDCARD_KEY, 2, 5, WILDCARD_KEY, 2, 7, 10**6], dtype=torch.int32)
+    assert group_by_key(qk).tolist() == [1, 4, 2, 5, 0, 3, 6, 7]
+
+
+@pytest.mark.parametrize("q", [1, 64, 301])
+def test_ungroup_rows_inverts_group_by_key(q):
+    rng = np.random.default_rng(q)
+    qk = torch.from_numpy(rng.integers(-3, 20, q).astype(np.int32))
+    order = group_by_key(qk)
+    grouped = qk[order].numpy()
+    assert (np.diff(grouped) >= 0).all()
+    same = grouped[:-1] == grouped[1:]
+    assert (np.diff(order.numpy())[same] > 0).all()   # stable within a key
+    for rows in (torch.from_numpy(rng.normal(size=(q, 5)).astype(np.float32)),
+                 torch.from_numpy(rng.integers(0, 99, (q, 3)).astype(np.int32))):
+        assert torch.equal(ungroup_rows(rows[order], order), rows)
+
+
+def test_grouped_search_matches_the_search_in_query_order():
+    """What the CUDA wrapper does around K2 (search the queries grouped by
+    key, put the rows back), composed here with the plain version, is the
+    search in the queries' own order."""
+    rng = np.random.default_rng(31)
+    q, qk, c, ck = make(rng, 40, 300, 32, 6)
+    qk[::5] = WILDCARD_KEY
+    tq, tqk, tc, tck = (torch.from_numpy(a) for a in (q, qk, c, ck))
+    order = group_by_key(tqk)
+    vals, idx = masked_sim_topk(tq[order], tqk[order], tc, tck, 9)
+    want_vals, want_idx = masked_sim_topk(tq, tqk, tc, tck, 9)
+    assert torch.equal(ungroup_rows(idx, order), want_idx)
+    assert torch.equal(ungroup_rows(vals, order), want_vals)

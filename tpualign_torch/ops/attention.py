@@ -7,8 +7,9 @@ on a CPU tensor it runs :func:`fused_mha_reference`, the plain PyTorch
 version with the numerics of ``_xla_reference_mha``.
 
 Bound on the H100 (ViT-B-32, B=256): memory, one read of the packed QKV
-and one write of the context per launch, about 24 us at 3.35 TB/s; the
-kernel keeps the T x T scores in shared memory (see the source's notes).
+and one write of the context per launch, about 24 us at 3.35 TB/s. bf16
+runs on the tensor cores (``mma.sync``, the scores in registers), fp32 on
+the CUDA cores (see the source's notes).
 Forward only: the backward, which recomputes through the plain path as
 ``pallas_attention.py``'s ``custom_vjp`` does, comes with training.
 """
@@ -61,8 +62,9 @@ def fused_mha(qkv: torch.Tensor, num_heads: int,
 
     ``mask``: optional additive ``(T, T)`` (or ``(1, 1, T, T)``) fp32 mask,
     e.g. the text tower's causal mask. CUDA tensors launch K1 (fp32 or
-    bf16, T <= 257, head dim in ``HEAD_DIMS``) and raise on anything it
-    does not take; CPU tensors take :func:`fused_mha_reference`.
+    bf16, T <= 257, head dim in ``HEAD_DIMS``, a bf16 ``qkv`` starting on a
+    16-byte boundary) and raise on anything it does not take; CPU tensors
+    take :func:`fused_mha_reference`.
     """
     if qkv.dim() != 3 or qkv.shape[2] % 3:
         raise ValueError(f"qkv must be (B, T, 3*D); got {tuple(qkv.shape)}")
@@ -93,6 +95,9 @@ def fused_mha(qkv: torch.Tensor, num_heads: int,
         raise ValueError(f"sequence length {t} outside 1..{MAX_SEQ}")
     if not qkv.is_contiguous() or (mask is not None and not mask.is_contiguous()):
         raise ValueError("qkv and mask must be contiguous")
+    if qkv.dtype == torch.bfloat16 and qkv.data_ptr() % 16:
+        raise ValueError("bf16 qkv must start on a 16-byte boundary (the kernel copies "
+                         "16 bytes at a time)")
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
         return out

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "fused_mha": ("tpualign_fused_mha",
                   [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]),
     "masked_sim_topk": ("tpualign_masked_sim_topk",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P]),
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]),
     "masked_sim_topk_quant": ("tpualign_masked_sim_topk_quant",
                               [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                _I, _P]),

@@ -38,6 +38,8 @@ __all__ = ["ivf_probe_topk", "ivf_probe_topk_reference", "union_rows"]
 
 # K4's variant codes (csrc/ivf_probe_topk.cu)
 _VARIANT_CODE = {"s8": 0, "int4": 1, "int2": 2, "dequant": 3, None: 4}
+# query tiles of K4's sweeps: its fp32 sweep keeps a 32-query tile
+_IVF_BQ = {**_BQ, None: 32}
 
 
 def union_rows(uids: torch.Tensor, capacity: int, n_lists: int
@@ -136,7 +138,7 @@ def ivf_probe_topk(queries: torch.Tensor, query_keys: torch.Tensor, probes: torc
     else:
         qq, qs = queries, None
     per_block = -(-capacity // _BN)
-    splits = _splits(nq, len(uids) * per_block * _BN, k, dev, _BQ[variant]) if nq else 1
+    splits = _splits(nq, len(uids) * per_block * _BN, k, dev, _IVF_BQ[variant]) if nq else 1
     vals, idx, part_v, part_i = _launch_args(nq, k, splits, dev)
     if nq == 0:
         return vals, idx

@@ -22,7 +22,11 @@ operations, 105 GFLOP of fp32 against a 205 MB corpus read; K3 at
 N=1,000,000 by bytes, a 512/256/128 MB int8/int4/int2 corpus read, since
 the pairs a key mask admits need little of the tensor cores' integer rate.
 Both stream the corpus with O(Q*k) state and never write the (Q, N) score
-matrix (see the sources' notes).
+matrix (see the sources' notes). K2 reads only the corpus tiles that some
+query of a 64-query tile admits; the wrapper groups the queries by key
+first (:func:`group_by_key`) and puts the rows back after
+(:func:`ungroup_rows`), so where a key's corpus rows lie together, as the
+Evaluator's same-page search finds them, most tiles go unread.
 """
 
 from __future__ import annotations
@@ -35,14 +39,16 @@ from tpualign_torch.ops import build
 from tpualign_torch.ops.similarity import NEG_INF, WILDCARD_KEY, masked_topk
 
 __all__ = ["masked_sim_topk", "masked_sim_topk_quant", "masked_sim_topk_reference",
-           "quant_variant", "quantize_queries", "key_mask", "SENTINEL_IDX", "MAX_K"]
+           "quant_variant", "quantize_queries", "key_mask", "group_by_key", "ungroup_rows",
+           "SENTINEL_IDX", "MAX_K"]
 
 # Empty top-k slots carry this index (values carry NEG_INF).
 SENTINEL_IDX = 2**30
 MAX_K = 128
 _MERGE_MAX = 4096   # splits * k bound of the kernels' cross-range merge
-_BN = 64            # the kernels' corpus tile
-_BQ = {None: 32, "dequant": 32, "s8": 64, "int4": 64, "int2": 64}  # query tiles
+_BN = 64            # K3's and K4's corpus tile
+_K2_BN = 128        # K2's corpus tile
+_BQ = {None: 64, "dequant": 32, "s8": 64, "int4": 64, "int2": 64}  # query tiles
 # K3's variant codes (csrc/masked_sim_topk_quant.cu) and codes per byte
 _VARIANT_CODE = {"s8": 0, "int4": 1, "int2": 2, "dequant": 3}
 _PLANES = {"s8": 1, "int4": 2, "int2": 4}
@@ -79,7 +85,10 @@ def quantize_queries(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     ``qs = max(max|q| / 127, 1e-12)``, ``qq = clip(rint(q / qs), -127, 127)``
     in fp32 (``torch.round`` rounds half to even, like ``jnp.rint``).
     Returns ``(qq (Q, D) int8, qs (Q,) fp32)``."""
-    qs = torch.clamp_min(queries.abs().amax(dim=1, keepdim=True) / 127.0, 1e-12)
+    # the divisor goes in as a tensor: on CUDA torch divides by a Python
+    # scalar as a product with its reciprocal, which rounds differently
+    div = torch.full((), 127.0, dtype=torch.float32, device=queries.device)
+    qs = torch.clamp_min(queries.abs().amax(dim=1, keepdim=True) / div, 1e-12)
     qq = torch.clamp(torch.round(queries / qs), -127, 127).to(torch.int8)
     return qq, qs[:, 0]
 
@@ -143,6 +152,34 @@ def _splits(nq: int, n: int, k: int, device: torch.device, bq: int) -> int:
     n_tiles = max(1, -(-n // _BN))
     want = -(-2 * sms // q_tiles)
     return max(1, min(want, n_tiles, _MERGE_MAX // k))
+
+
+def _k2_splits(nq: int, n: int, k: int, device: torch.device) -> int:
+    """K2's corpus ranges per query tile: one block per SM (its running
+    lists take most of an SM's shared memory), rounded down so that the
+    grid is one wave, at least one corpus tile per range, within the
+    merge's bound."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    q_tiles = -(-nq // _BQ[None])
+    n_tiles = max(1, -(-n // _K2_BN))
+    return max(1, min(sms // q_tiles, n_tiles, _MERGE_MAX // k))
+
+
+def group_by_key(query_keys: torch.Tensor) -> torch.Tensor:
+    """The order that groups the queries by key: a stable ascending sort,
+    so the wildcard queries (WILDCARD_KEY < 0) come first, together, and
+    queries of one key keep their order. K2 takes the queries in this
+    order, so that a query tile admits few corpus tiles when the corpus
+    rows of a key lie together."""
+    return torch.sort(query_keys, stable=True).indices
+
+
+def ungroup_rows(rows: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Puts the rows computed for ``queries[order]`` back in the queries'
+    own order: ``out[order[i]] = rows[i]``."""
+    out = torch.empty_like(rows)
+    out[order] = rows
+    return out
 
 
 def _check(queries, query_keys, corpus, corpus_keys, corpus_scales):
@@ -220,20 +257,23 @@ def masked_sim_topk(queries: torch.Tensor, query_keys: torch.Tensor,
                                      corpus_scales, variant)
     nq, d = queries.shape
     n = corpus.shape[0]
-    splits = _splits(nq, n, k, dev, _BQ[None]) if nq else 1
+    splits = _k2_splits(nq, n, k, dev) if nq else 1
     vals, idx, part_v, part_i = _launch_args(nq, k, splits, dev)
     if nq == 0:
         return vals, idx
+    order = group_by_key(query_keys)
+    q, qk = queries[order], query_keys[order]
+    words = -(-max(1, -(-n // _K2_BN)) // 32)
+    admitted = torch.zeros((-(-nq // _BQ[None]), words), dtype=torch.int32, device=dev)
     rc = build.load("masked_sim_topk")(
-        queries.data_ptr(), query_keys.data_ptr(), corpus.data_ptr(),
-        corpus_keys.data_ptr(), nq, n, d, k, splits, _ptr(part_v), _ptr(part_i),
-        vals.data_ptr(), idx.data_ptr(), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream,
+        q.data_ptr(), qk.data_ptr(), corpus.data_ptr(), corpus_keys.data_ptr(), nq, n, d, k,
+        splits, admitted.data_ptr(), _ptr(part_v), _ptr(part_i), vals.data_ptr(),
+        idx.data_ptr(), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"masked_sim_topk kernel launch failed: CUDA error {rc}")
     masked_sim_topk.launches += 1
-    return vals, idx
+    return ungroup_rows(vals, order), ungroup_rows(idx, order)
 
 
 masked_sim_topk.launches = 0
