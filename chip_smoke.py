@@ -27,14 +27,14 @@ for the numbers in PERF.md). Phases, one JSON line each:
    N=1,000,000, D=512 (10,000 page keys, the mix of 3.), for int8 (s8),
    int8 (dequant), int4 and int2, k=10 and k=40, with times for the kernel,
    the plain version and ``torch._int_mm`` (or a dequantized matmul) +
-   ``torch.topk``;
+   ``torch.topk``, and the corpus tiles its key-aware skip reads;
 6. K4 ``ivf_probe_topk`` against its plain version: an ``IVFIndex`` built
    on the card over 1,000,000 seeded unit rows around 10,000 page topics
    (default geometry: 1,000 lists of capacity 1,536, 125 probes), each
    batch's own probes and union; s8 at Q=2/64/1,024 and k=10/40, fp32,
    dequant, int4 and int2 at Q=64, k=10; with times for the kernel, the
    plain version and a gather + ``torch._int_mm``/``matmul`` +
-   ``torch.topk`` yardstick, and the union size;
+   ``torch.topk`` yardstick, the union size and the union tiles it reads;
 7. K5 ``normalize_u8`` against its plain version, bit for bit, at one
    device-feed batch (B=256, 224x224x3 uint8 -> fp32), with times for the
    kernel and the plain version and its bound (no single PyTorch call
@@ -68,8 +68,10 @@ for the numbers in PERF.md). Phases, one JSON line each:
     /search_image_bytes, /stats and /healthz, and every answer is held
     against the plain path; then int4 and int2 rebuilds, recall@10 of each
     rung against exact fp32, and ``python -m tpualign_torch query
-    --image-id`` against the service; the launch counters are read around
-    the clients' run alone;
+    --image-id`` against the service; K3 at the shapes serving gives it
+    (the ``/search_image`` profile's two keyed image queries, and one
+    wildcard text query, k=40) against its plain version and the library
+    yardstick; the launch counters are read around the clients' run alone;
 11. serve_ivf, over the same store: ``python -m tpualign_torch index``
     (RETRIEVAL_INDEX=ivf, int8, refine 4, recall target 0.95) as a
     subprocess, the same build and calibration timed in this process (the
@@ -227,22 +229,19 @@ def compare_topk(vals, idx, rvals, ridx, what: str) -> float:
     return err
 
 
-def k2_admitted_tiles(qk, ck):
-    """(admitted, all) pairs of a K2 query tile and corpus tile for these
-    keys, the queries grouped by key as K2's wrapper groups them: the
-    corpus tiles K2 reads (it skips the rest unread)."""
-    from tpualign_torch.ops.sim_topk import _BQ, _K2_BN, group_by_key, key_mask
+def admitted_tile_count(qk, ck, variant):
+    """(admitted, all) pairs of a query tile and corpus tile for these keys
+    at the tiles of K2 (variant None) or K3, the queries grouped by key as
+    the wrappers group them: the corpus tiles the kernel reads (it skips
+    the rest unread)."""
+    from tpualign_torch.ops.sim_topk import (
+        _BN, _K2_BN, admitted_tiles, group_by_key, query_tile)
 
-    bq, bn = _BQ[None], _K2_BN
-    qk = qk[group_by_key(qk)]
-    n = ck.shape[0]
-    n_tiles = -(-n // bn)
-    admitted = 0
-    for q0 in range(0, len(qk), bq):
-        rows = torch.zeros(n_tiles * bn, dtype=torch.bool, device=ck.device)
-        rows[:n] = key_mask(qk[q0:q0 + bq], ck).any(dim=0)
-        admitted += int(rows.view(n_tiles, bn).any(dim=1).sum().item())
-    return admitted, n_tiles * -(-len(qk) // bq)
+    bq, bn = query_tile(variant, len(qk)), _K2_BN if variant is None else _BN
+    if len(qk) > bq:
+        qk = qk[group_by_key(qk)]
+    admitted = admitted_tiles(qk, ck, bq, bn)
+    return int(admitted.sum().item()), admitted.numel()
 
 
 def phase_k2(dev, gen):
@@ -253,7 +252,7 @@ def phase_k2(dev, gen):
     args = _sim_inputs(gen, dev, q, n, d, 1000)
     queries, qk, corpus, ck = args
     valid_pairs = int(key_mask(qk, ck).sum().item())
-    admitted, tiles = k2_admitted_tiles(qk, ck)
+    admitted, tiles = admitted_tile_count(qk, ck, None)
     rows = []
     for k in (10, 100):
         vals, idx = masked_sim_topk(*args, k)
@@ -306,8 +305,9 @@ def _in_slabs(fn, queries, qk, *rest, slab=K3_SLAB):
 
 def _k3_library(variant, queries, qk, corpus, ck, scales, k):
     """One PyTorch call per step for the same function: torch._int_mm (after
-    an unpack to s8 for int4/int2) or a dequantized matmul, the rescale, the
-    mask and torch.topk. A yardstick only; the port never calls it."""
+    an unpack to s8 for int4/int2; queries padded to its 17-row minimum) or
+    a dequantized matmul, the rescale, the mask and torch.topk. A yardstick
+    only; the port never calls it."""
     from tpualign_torch.ops.sim_topk import _unpack_codes, key_mask, quantize_queries
 
     if variant == "dequant":
@@ -315,60 +315,84 @@ def _k3_library(variant, queries, qk, corpus, ck, scales, k):
     else:
         qq, qs = quantize_queries(queries)
         codes = corpus if variant == "s8" else _unpack_codes(corpus, variant).to(torch.int8)
-        sims = torch._int_mm(qq, codes.T).float() * qs[:, None] * scales[None, :]
+        qq = torch.nn.functional.pad(qq, (0, 0, 0, max(0, 32 - len(qq))))
+        sims = (torch._int_mm(qq, codes.T)[:len(queries)].float() * qs[:, None]
+                * scales[None, :])
     return torch.topk(torch.where(key_mask(qk, ck), sims, -1e30), k, dim=1)
 
 
 def phase_k3(dev, gen):
     """K3 against its plain version: every variant at Q=1,024, N=1,000,000,
     D=512 over _sim_inputs' mix, k=10 and k=40."""
-    from tpualign_torch.ops.sim_topk import (
-        key_mask, masked_sim_topk, masked_sim_topk_quant, masked_sim_topk_reference)
-
     q, n, d, keys = K3_SHAPE
     queries, qk, corpus, ck = _sim_inputs(gen, dev, q, n, d, keys)
     host = corpus.cpu().numpy()
     del corpus
-    valid_pairs = int(sum(key_mask(qk[s:s + K3_SLAB], ck).sum().item()
-                          for s in range(0, q, K3_SLAB)))
     rows = []
     for name, quantize, mxu, variant in _k3_variants():
         codes, scales = (torch.from_numpy(a).to(dev) for a in quantize(host))
-        kw = dict(corpus_scales=scales, int8_mxu=mxu)
         for k in K3_KS:
-            before = masked_sim_topk_quant.launches
-            vals, idx = masked_sim_topk(queries, qk, codes, ck, k, **kw)
-            torch.cuda.synchronize()
-            check(masked_sim_topk_quant.launches == before + 1, f"K3 {name}: no launch")
-            rvals, ridx = _in_slabs(
-                lambda a, b: masked_sim_topk_reference(a, b, codes, ck, k, **kw), queries, qk)
-            if variant == "dequant":
-                err = compare_topk(vals, idx, rvals, ridx, f"K3 {name} k={k}")
-            else:
-                check(bool(torch.equal(idx, ridx)), f"K3 {name} k={k}: indices differ")
-                check(bool(torch.equal(vals, rvals)), f"K3 {name} k={k}: values differ")
-                err = 0.0
-            ms = time_ms(lambda: masked_sim_topk(queries, qk, codes, ck, k, **kw), 5)
-            plain_ms = time_ms(lambda: _in_slabs(
-                lambda a, b: masked_sim_topk_reference(a, b, codes, ck, k, **kw),
-                queries, qk), 1)
-            lib_ms = time_ms(lambda: _k3_library(variant, queries, qk, codes, ck, scales, k), 3)
-            qbytes = q * d * (4 if variant == "dequant" else 1) + q * 4
-            nbytes = qbytes + codes.numel() + n * 4 + (q + n) * 4 + q * k * 8
-            peak = PEAK_FLOPS[torch.float32] if variant == "dequant" else INT_PEAK_OPS
-            bms, by = bound_ms(nbytes, 2.0 * d * valid_pairs, peak)
-            dense_bms, _ = bound_ms(nbytes, 2.0 * d * q * n, peak)
-            rows.append({"variant": name, "kernel_variant": variant, "Q": q, "N": n, "D": d,
-                         "k": k, "corpus_bytes": codes.numel(), "valid_pairs": valid_pairs,
-                         "empty_slots": int((ridx == 2**30).sum().item()),
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-                         "dense_bound_ms": dense_bms,
-                         "tolerance": ({"values_atol": K2_TOL_VALUES, "tie_gap": K2_TIE_GAP}
-                                       if variant == "dequant" else "identical")})
+            rows.append({"variant": name, "Q": q, "N": n, "D": d, "k": k,
+                         **_k3_measure(f"K3 {name} k={k}", queries, qk, codes, ck, scales, mxu,
+                                       k)})
         del codes, scales
     emit({"phase": "k3_masked_sim_topk_quant", "results": rows})
     return rows
+
+
+def _k3_measure(what, queries, qk, codes, ck, scales, mxu, k) -> dict:
+    """One K3 launch against its plain version on the same inputs, then its
+    time, the plain version's, the library yardstick's, the bound and the
+    corpus tiles it reads.
+
+    The bound's bytes, as K4's: the corpus keys (4 B a row: every row's key
+    is read to admit it), the row and scale of each distinct row that some
+    query admits, the fp32 queries and their keys, and the outputs. Its
+    operations: 2·D for each admitted (query, row) pair."""
+    from tpualign_torch.ops.sim_topk import (
+        key_mask, masked_sim_topk, masked_sim_topk_quant, masked_sim_topk_reference,
+        quant_variant)
+
+    q, d = queries.shape
+    n = ck.shape[0]
+    variant = quant_variant(codes, d, scales, mxu)
+    kw = dict(corpus_scales=scales, int8_mxu=mxu)
+    before = masked_sim_topk_quant.launches
+    vals, idx = masked_sim_topk(queries, qk, codes, ck, k, **kw)
+    torch.cuda.synchronize()
+    check(masked_sim_topk_quant.launches == before + 1, f"{what}: no launch")
+
+    def plain():
+        return _in_slabs(lambda a, b: masked_sim_topk_reference(a, b, codes, ck, k, **kw),
+                         queries, qk)
+
+    rvals, ridx = plain()
+    if variant == "dequant":
+        err = compare_topk(vals, idx, rvals, ridx, what)
+    else:
+        check(bool(torch.equal(idx, ridx)), f"{what}: indices differ")
+        check(bool(torch.equal(vals, rvals)), f"{what}: values differ")
+        err = 0.0
+    ms = time_ms(lambda: masked_sim_topk(queries, qk, codes, ck, k, **kw), 5 if q > 16 else 50)
+    plain_ms = time_ms(plain, 1)
+    lib_ms = time_ms(lambda: _k3_library(variant, queries, qk, codes, ck, scales, k), 3)
+    pairs = 0
+    rows = torch.zeros(n, dtype=torch.bool, device=ck.device)
+    for s0 in range(0, q, K3_SLAB):
+        m = key_mask(qk[s0:s0 + K3_SLAB], ck)
+        pairs += int(m.sum().item())
+        rows |= m.any(dim=0)
+    distinct = int(rows.sum().item())
+    nbytes = n * 4 + distinct * (codes.shape[1] + 4) + q * d * 4 + q * 4 + q * k * 8
+    peak = PEAK_FLOPS[torch.float32] if variant == "dequant" else INT_PEAK_OPS
+    bms, by = bound_ms(nbytes, 2.0 * d * pairs, peak)
+    admitted, tiles = admitted_tile_count(qk, ck, variant)
+    return {"kernel_variant": variant, "corpus_bytes": codes.numel(), "admitted_rows": distinct,
+            "admitted_pairs": pairs, "admitted_tiles": admitted, "tiles": tiles,
+            "empty_slots": int((ridx == 2**30).sum().item()), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "tolerance": ({"values_atol": K2_TOL_VALUES, "tie_gap": K2_TIE_GAP}
+                          if variant == "dequant" else "identical")}
 
 
 K4_SHAPE = (1_000_000, 512, 10_000)  # N, D, page topics (the serve store's scale)
@@ -479,8 +503,9 @@ def _k4_measure(what, qv, qk, probe, uids, emb, ck, scales, mxu, k, cap, n_lists
     read), the queries, probes, uids and outputs. Its operations: 2·D for
     each admitted (query, row) pair."""
     from tpualign_torch.ops.ivf_topk import (
-        _membership, ivf_probe_topk, ivf_probe_topk_reference, union_rows)
-    from tpualign_torch.ops.sim_topk import key_mask, quant_variant
+        _membership, admitted_union_tiles, ivf_probe_topk, ivf_probe_topk_reference, union_rows)
+    from tpualign_torch.ops.sim_topk import (
+        _BN, _K2_BN, group_by_key, key_mask, quant_variant, query_tile)
 
     q, d = qv.shape
     variant = quant_variant(emb, d, scales, mxu)
@@ -515,6 +540,10 @@ def _k4_measure(what, qv, qk, probe, uids, emb, ck, scales, mxu, k, cap, n_lists
         pairs += int(m.sum().item())
         admitted |= m.any(dim=0)
     distinct = int(admitted.sum().item())
+    bq = query_tile(variant, q)
+    order = group_by_key(qk) if q > bq else torch.arange(q, device=qk.device)
+    tiles = admitted_union_tiles(qk[order], probe[order], uids, ck, cap, n_lists, bq,
+                                 _K2_BN if variant is None else _BN)
     row_bytes = emb.shape[1] * emb.element_size() + (4 if scales is not None else 0)
     qbytes = q * d * (1 if variant in ("s8", "int4", "int2") else 4) + q * 8
     nbytes = (len(urows) * 4 + distinct * row_bytes + qbytes + probe.numel() * 4
@@ -523,6 +552,7 @@ def _k4_measure(what, qv, qk, probe, uids, emb, ck, scales, mxu, k, cap, n_lists
     bms, by = bound_ms(nbytes, 2.0 * d * pairs, peak)
     return {"kernel_variant": variant or "fp32", "union_blocks": len(blocks),
             "union_rows": len(urows), "admitted_rows": distinct, "admitted_pairs": pairs,
+            "admitted_tiles": int(tiles.sum().item()), "tiles": tiles.numel(),
             "empty_slots": int((ridx == 2**30).sum().item()), "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
             "tolerance": ({"values_atol": K2_TOL_VALUES, "tie_gap": K2_TIE_GAP}
@@ -1095,6 +1125,23 @@ def phase_serve(dev, seed, root):
     # where one request's time goes (direct calls, uncached texts)
     profiles = _profiles(service, images, pngs)
 
+    # K3 at the shapes serving gives it, k * refine candidates: the
+    # /search_image profile's two keyed image queries, and one wildcard
+    # /search_text query
+    two = [images[1], images[2]]
+    qv = torch.from_numpy(img_emb[[service._images[im["image_id"]] for im in two]]).to(dev)
+    qk = torch.from_numpy(np.asarray(encode_keys(
+        [im["manual_id"] for im in two], [im["page"] for im in two], dict(index.vocab))[0],
+        np.int32)).to(dev)
+    text_q = torch.from_numpy(engine.encode_text_batch(SERVE_TEXTS[:1])).to(dev)
+    wild = torch.full((1,), WILDCARD_KEY, dtype=torch.int32, device=dev)
+    kf = 10 * index.refine
+    k3_serving = [{"query": what, "variant": "int8", "Q": len(qs), "k": kf, "N": index.n,
+                   "D": index.dim,
+                   **_k3_measure(f"K3 at the serving shape ({what})", qs, keys, index._corpus,
+                                 index._keys, index._corpus_scales, True, kf)}
+                  for what, qs, keys in (("search_image", qv, qk), ("search_text", text_q, wild))]
+
     # the int8 index again, standalone (its build time), and the int4/int2
     # rebuilds; keyed and global searches of each against the plain path
     store = EmbeddingStore(root)
@@ -1140,9 +1187,11 @@ def phase_serve(dev, seed, root):
           "encode_coalescer": run["stats"].get("encode_coalescer"),
           "query_cache": run["stats"].get("query_cache"),
           "refine_store": run["stats"].get("refine_store"),
-          "rungs": rungs, "cli_query_s": cli_s, "launches": launches})
-    return launches, {"engine": engine, "images": images, "pngs": pngs, "exact": exact,
-                      "chunk_emb": chunk_emb, "manuals": manuals, "pages": pages}
+          "rungs": rungs, "cli_query_s": cli_s, "k3_serving_shape": k3_serving,
+          "launches": launches})
+    return launches, k3_serving, {"engine": engine, "images": images, "pngs": pngs,
+                                  "exact": exact, "chunk_emb": chunk_emb, "manuals": manuals,
+                                  "pages": pages}
 
 
 def _profiles(service, images, pngs) -> dict:
@@ -1632,7 +1681,7 @@ def _check_evaluator_ranking(dev, store, eval_dir) -> dict:
     mask = key_mask(qk, ck)
     pairs = int(mask.sum().item())
     rows_read = int(mask.any(dim=0).sum().item())
-    admitted, tiles = k2_admitted_tiles(qk, ck)
+    admitted, tiles = admitted_tile_count(qk, ck, None)
     del mask
     nq, d = q.shape
 
@@ -1788,7 +1837,7 @@ def main() -> int:
         pipe_launches, k2_eval = phase_pipeline(dev, args.seed, root, feed_names)
         lap("pipeline")
     with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
-        serve_launches, shared = phase_serve(dev, args.seed, root)
+        serve_launches, k3_serve, shared = phase_serve(dev, args.seed, root)
         lap("serve")
         ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)
         lap("serve_ivf")
@@ -1822,7 +1871,13 @@ def main() -> int:
          "replaces": "tpualign/ops/pallas_kernels.py:523",
          "launches": serve_launches["masked_sim_topk_quant"], **{k: k3_head[k] for k in keys},
          "tolerance": k3_head["tolerance"],
-         "at": "int8 (s8) Q=1024 N=1000000 D=512 k=40; launches from the serve phase"},
+         "at": (f"int8 (s8) Q=1024 N=1000000 D=512 k=40, {k3_head['admitted_tiles']} of "
+                f"{k3_head['tiles']} tiles admitted; launches from the serve phase; at the "
+                f"serving shape (serve phase, N={k3_serve[0]['N']} k={k3_serve[0]['k']}): "
+                + "; ".join(
+                    f"{r['query']} Q={r['Q']} {r['ms']:.4f} ms, library {r['library_ms']:.4f} "
+                    f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                    f"{r['admitted_tiles']} of {r['tiles']} tiles admitted" for r in k3_serve))},
         {"name": "ivf_probe_topk", "route": "cuda",
          "source": "tpualign_torch/csrc/ivf_probe_topk.cu",
          "replaces": "tpualign/ops/pallas_kernels.py:778",

@@ -8,7 +8,8 @@ a fixture, never at import). On a machine with an H100 run
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 (``--noconftest``: the repo's conftest imports JAX, which these tests do
-not need). This file imports neither JAX nor ``tpualign``.
+not need). This file imports neither JAX nor ``tpualign``; the bf16
+tower case reads tpualign's embeddings from a fixture.
 """
 
 import numpy as np
@@ -515,3 +516,188 @@ def test_weak_supervision_on_the_card_matches_the_cpu(dev):
     for flags in ((False, True), (True, True)):
         assert (compute_alignments(images, chunks, ["filter", "bout"], *flags, device=dev)
                 == compute_alignments(images, chunks, ["filter", "bout"], *flags, device="cpu"))
+
+
+# -- K3 and K4 with the tile skip and the tensor-core product -----------------
+
+BATCHES = [1, 2, 16, 17, 64, 1024]   # one 16-query block, two 64-query blocks, ...
+
+
+def _paged_inputs(rng, q, n, d, rows_per_page=8):
+    """A page-ordered corpus (a page's rows together, as the store keeps
+    chunks) with unused rows, and a batch that mixes queries keyed to a
+    page, wildcards, queries without candidates and padding (-2) rows."""
+    cv = rng.normal(size=(n, d)).astype(np.float32)
+    cv /= np.linalg.norm(cv, axis=1, keepdims=True)
+    ck = (np.arange(n) // rows_per_page).astype(np.int32)
+    ck[5::13] = -1
+    qk = rng.integers(0, n // rows_per_page, q).astype(np.int32)
+    qv = cv[qk * rows_per_page] + 0.3 * rng.normal(size=(q, d)).astype(np.float32)
+    qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+    qk[::7] = WILDCARD_KEY
+    qk[3::11] = 10**6
+    qk[5::13] = -2
+    return qv, qk, cv, ck
+
+
+def _assert_same_topk(vals, idx, rv, ri, exact, what=""):
+    vals, idx, rv, ri = (t.cpu().numpy() for t in (vals, idx, rv, ri))
+    empty = ri == SENTINEL_IDX
+    assert (idx[empty] == SENTINEL_IDX).all() and (vals[empty] == np.float32(NEG_INF)).all(), what
+    if exact:
+        np.testing.assert_array_equal(idx, ri, err_msg=what)
+        np.testing.assert_array_equal(vals, rv, err_msg=what)
+    else:
+        near = np.zeros_like(empty)
+        close = np.abs(np.diff(rv, axis=1)) <= 1e-6
+        near[:, 1:] |= close
+        near[:, :-1] |= close
+        assert (idx[~near] == ri[~near]).all(), what
+        np.testing.assert_allclose(vals, rv, atol=1e-5, err_msg=what)
+
+
+def _k3_case(dev, variant, quantizer, mxu, qv, qk, cv, ck, k):
+    from tpualign_torch.ops.sim_topk import masked_sim_topk_quant
+    from tpualign_torch.parallel import retrieval
+
+    codes, scales = getattr(retrieval, quantizer)(cv)
+    args = [torch.from_numpy(a).to(dev) for a in (qv, qk, codes, ck)]
+    kw = dict(corpus_scales=torch.from_numpy(scales).to(dev), int8_mxu=mxu)
+    before = masked_sim_topk_quant.launches
+    vals, idx = masked_sim_topk(*args, k, **kw)
+    torch.cuda.synchronize()
+    assert masked_sim_topk_quant.launches == before + 1
+    rv, ri = masked_sim_topk_reference(*args, k, **kw)
+    _assert_same_topk(vals, idx, rv, ri, variant != "dequant", f"K3 {variant} Q={len(qv)}")
+    return vals, idx
+
+
+@pytest.mark.parametrize("q", BATCHES)
+@pytest.mark.parametrize("variant,quantizer,mxu", K3_VARIANTS)
+def test_k3_every_variant_and_batch_matches_plain(dev, variant, quantizer, mxu, q):
+    """K3 over a page-ordered corpus (most tiles skipped by the keyed
+    queries), every variant, batches of one 16-query block up to sixteen
+    64-query blocks."""
+    qv, qk, cv, ck = _paged_inputs(np.random.default_rng(q), q, 30000, 512)
+    _k3_case(dev, variant, quantizer, mxu, qv, qk, cv, ck, 40)
+
+
+@pytest.mark.parametrize("variant,quantizer,mxu", K3_VARIANTS)
+def test_k3_shuffled_corpus_gives_the_same_answers(dev, variant, quantizer, mxu):
+    """The skip is exact in any row order: a shuffled corpus admits other
+    tiles, and every answer still equals the plain version's, with the
+    same values as the page-ordered corpus."""
+    rng = np.random.default_rng(77)
+    qv, qk, cv, ck = _paged_inputs(rng, 70, 20000, 512)
+    perm = rng.permutation(len(cv))
+    vals, _ = _k3_case(dev, variant, quantizer, mxu, qv, qk, cv, ck, 10)
+    svals, sidx = _k3_case(dev, variant, quantizer, mxu, qv, qk, cv[perm], ck[perm], 10)
+    assert torch.equal(vals, svals)
+
+
+@pytest.mark.parametrize("variant,quantizer,mxu,d", [
+    ("s8", "_quantize_rows", True, 4), ("s8", "_quantize_rows", True, 20),
+    ("int4", "_quantize_rows_int4", True, 8), ("int2", "_quantize_rows_int2", True, 16),
+    ("dequant", "_quantize_rows", False, 3)])
+@pytest.mark.parametrize("q", [5, 70])
+def test_k3_smallest_depth(dev, variant, quantizer, mxu, d, q):
+    """D at the smallest multiple each variant takes (and an s8 D that is
+    no multiple of 16, loaded without 16-byte copies)."""
+    qv, qk, cv, ck = _paged_inputs(np.random.default_rng(d + q), q, 3000, d)
+    _k3_case(dev, variant, quantizer, mxu, qv, qk, cv, ck, 7)
+
+
+def _k4_paged(rng, q, d=512, n_lists=20, cap=200):
+    """_k4_inputs with page-ordered keys inside the blocks: keyed queries
+    admit few of the union's tiles."""
+    qv, qk, probes, uids, cv, ck, geom = _k4_inputs(rng, q, d=d, n_lists=n_lists, cap=cap)
+    ck = np.where(ck >= 0, np.arange(len(ck)) // 8, -1).astype(np.int32)
+    keyed = qk >= 0
+    keyed &= qk != 10**6
+    qk[keyed] = rng.integers(0, len(ck) // 8, int(keyed.sum()))
+    return qv, qk, probes, uids, cv, ck, geom
+
+
+def _k4_case(dev, variant, quantizer, mxu, inputs, k):
+    from tpualign_torch.ops.ivf_topk import ivf_probe_topk, ivf_probe_topk_reference
+    from tpualign_torch.parallel import retrieval
+
+    qv, qk, probes, uids, cv, ck, (cap, n_lists) = inputs
+    scales = None
+    if quantizer is not None:
+        cv, scales = getattr(retrieval, quantizer)(cv)
+        scales = torch.from_numpy(scales).to(dev)
+    args = [torch.from_numpy(a).to(dev) for a in (qv, qk, probes, uids, cv, ck)]
+    kw = dict(packed_scales=scales, int8_mxu=mxu)
+    before = ivf_probe_topk.launches
+    vals, idx = ivf_probe_topk(*args, k, cap, n_lists, **kw)
+    torch.cuda.synchronize()
+    assert ivf_probe_topk.launches == before + 1
+    rv, ri = ivf_probe_topk_reference(*args, k, cap, n_lists, **kw)
+    _assert_same_topk(vals, idx, rv, ri, variant not in ("fp32", "dequant"),
+                      f"K4 {variant} Q={len(qv)}")
+    return vals, idx
+
+
+@pytest.mark.parametrize("q", BATCHES)
+@pytest.mark.parametrize("variant,quantizer,mxu", K4_VARIANTS)
+def test_k4_every_variant_and_batch_matches_plain(dev, variant, quantizer, mxu, q):
+    """K4 over a layout with page-ordered keys, probes, spill and padding
+    blocks (capacity not a multiple of the tile), every variant and batch."""
+    _k4_case(dev, variant, quantizer, mxu, _k4_paged(np.random.default_rng(q), q), 40)
+
+
+@pytest.mark.parametrize("variant,quantizer,mxu", K4_VARIANTS)
+def test_k4_rows_shuffled_within_blocks_give_the_same_answers(dev, variant, quantizer, mxu):
+    rng = np.random.default_rng(78)
+    qv, qk, probes, uids, cv, ck, (cap, n_lists) = _k4_paged(rng, 70)
+    perm = np.concatenate([b * cap + rng.permutation(cap) for b in range(len(cv) // cap)])
+    vals, _ = _k4_case(dev, variant, quantizer, mxu,
+                       (qv, qk, probes, uids, cv, ck, (cap, n_lists)), 10)
+    svals, _ = _k4_case(dev, variant, quantizer, mxu,
+                        (qv, qk, probes, uids, cv[perm], ck[perm], (cap, n_lists)), 10)
+    assert torch.equal(vals, svals)
+
+
+@pytest.mark.parametrize("variant,quantizer,mxu,d", [
+    ("s8", "_quantize_rows", True, 4), ("int4", "_quantize_rows_int4", True, 8),
+    ("int2", "_quantize_rows_int2", True, 16), ("dequant", "_quantize_rows", False, 3),
+    ("fp32", None, False, 3)])
+def test_k4_smallest_depth(dev, variant, quantizer, mxu, d):
+    _k4_case(dev, variant, quantizer, mxu, _k4_paged(np.random.default_rng(d), 37, d=d), 7)
+
+
+# -- the port's bf16 towers against tpualign's bf16 ---------------------------
+
+
+def test_bf16_towers_against_tpualign_bf16(dev):
+    """ViT-B-32 from one seeded parameter tree: the port's bf16 towers on
+    the card against tpualign's bf16 towers on JAX's CPU backend, whose
+    embeddings tests/test_torch_bf16_parity.py wrote to its fixture (this
+    machine has no flax). The two round to bf16 at other places and sum in
+    other orders; the test prints the largest absolute and cosine gaps and
+    holds the cosine of every embedding pair to 0.99 (different inputs
+    reach 0.82-0.89 in the fixture)."""
+    import json
+
+    from test_torch_bf16_parity import FIXTURE, parity_inputs, seeded_tree
+    from tpualign_torch import config as torch_config
+    from tpualign_torch.models import CLIP, from_jax_params
+
+    port = CLIP(torch_config.CLIP_VARIANTS["ViT-B-32"], True, torch.bfloat16, True)
+    port = from_jax_params(port, seeded_tree(port)).to(dev).eval()
+    images, tokens = parity_inputs()
+    want = np.load(FIXTURE)
+    np.testing.assert_array_equal(want["tokens"], tokens)
+    gaps = {}
+    with torch.inference_mode():
+        for tower, x, enc in (("image", images, port.encode_image),
+                              ("text", tokens, port.encode_text)):
+            got = enc(torch.from_numpy(x).to(dev), normalize=True).float().cpu().numpy()
+            ref = want[tower]
+            cos = (got * ref).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(ref, axis=1)
+            gaps[tower] = {"max_abs": float(np.abs(got - ref).max()),
+                           "min_cosine": float(cos.min()), "rows": len(x)}
+    print("bf16_parity " + json.dumps(gaps))
+    for tower, gap in gaps.items():
+        assert gap["min_cosine"] >= 0.99, f"{tower}: {gap}"

@@ -1,0 +1,81 @@
+"""The port refuses what it cannot honour yet, where tpualign would compute
+something the port does not: a ``CLIP_CHECKPOINT`` (``EmbedEngine``,
+``Pipeline.engine`` and ``make_engine`` raise one error), and
+``CLIP_QUANT=int8|int8_qat`` (``build_clip`` raises). ``CLIP_QUANT`` is
+read and checked as tpualign reads and checks it."""
+
+import dataclasses
+
+import pytest
+
+from tests.test_models import TINY
+from tpualign import config as jax_config
+from tpualign.models.clip import build_clip as jax_build_clip
+from tpualign_torch import config as torch_config
+from tpualign_torch.models import build_clip
+from tpualign_torch.parallel.embed import EmbedEngine
+from tpualign_torch.pipeline import Pipeline
+from tpualign_torch.serving.server import make_engine
+
+pytestmark = pytest.mark.fast
+
+
+@pytest.fixture
+def tiny(monkeypatch):
+    monkeypatch.setitem(torch_config.CLIP_VARIANTS, "tiny",
+                        torch_config.ClipVariant(**dataclasses.asdict(TINY)))
+
+
+def test_embed_engine_refuses_a_checkpoint():
+    cfg = torch_config.ModelConfig(checkpoint_path="/nonexistent/x.safetensors")
+    with pytest.raises(NotImplementedError, match="CLIP_CHECKPOINT"):
+        EmbedEngine(cfg, device="cpu")
+
+
+def test_embed_pipeline_and_serve_refuse_one_checkpoint(tmp_path, tiny):
+    config = torch_config.load_config({
+        "CLIP_CHECKPOINT": str(tmp_path / "clip.safetensors"), "CLIP_MODEL": "tiny",
+        "STORE_DIR": str(tmp_path / "store"), "OUTPUT_DIR": str(tmp_path / "out")})
+    assert config.model.checkpoint_path == str(tmp_path / "clip.safetensors")
+    with pytest.raises(NotImplementedError) as embed:
+        EmbedEngine(config.model, device="cpu")
+    with pytest.raises(NotImplementedError) as pipeline:
+        Pipeline(config, device="cpu").engine
+    with pytest.raises(NotImplementedError) as serve:
+        make_engine(config, "cpu")
+    assert str(embed.value) == str(pipeline.value) == str(serve.value)
+    assert "CLIP_CHECKPOINT" in str(serve.value)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int8_qat"])
+def test_clip_quant_is_read_as_tpualign_reads_it(quant):
+    got = torch_config.load_config({"CLIP_QUANT": quant}).model.quant
+    want = jax_config.load_config(env_file=None, overrides={"CLIP_QUANT": quant}).model.quant
+    assert got == want == quant
+    assert torch_config.load_config({}).model.quant == "none"
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_qat"])
+def test_clip_quant_int8_raises_until_the_int8_towers_are_ported(quant, tiny):
+    cfg = torch_config.ModelConfig("tiny", quant=quant)
+    assert jax_build_clip(jax_config.ModelConfig(quant=quant)).quant == quant
+    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+        build_clip(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="CLIP_QUANT"):
+        EmbedEngine(cfg, device="cpu")
+
+
+def test_clip_quant_bogus_raises_value_error_as_tpualign(tiny):
+    with pytest.raises(ValueError, match="Unknown CLIP_QUANT mode 'bogus'") as want:
+        jax_build_clip(jax_config.ModelConfig(quant="bogus"))
+    with pytest.raises(ValueError, match="Unknown CLIP_QUANT mode 'bogus'") as got:
+        build_clip(torch_config.ModelConfig("tiny", quant="bogus"), "cpu")
+    assert str(got.value) == str(want.value)
+
+
+def test_parity_mode_builds_fp32_towers_over_int8(tiny):
+    """tpualign's parity mode forces CLIP_QUANT to none; so does the port's."""
+    assert jax_build_clip(jax_config.ModelConfig(parity_mode=True, quant="int8")).quant == "none"
+    model = build_clip(torch_config.ModelConfig("tiny", parity_mode=True, quant="int8"), "cpu")
+    assert model.visual.compute_dtype == model.text.compute_dtype
+    assert str(model.visual.compute_dtype) == "torch.float32"

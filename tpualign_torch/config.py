@@ -122,8 +122,12 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     parity_mode: bool = False
     fused_attention: Optional[bool] = None
-    # a CLIP_CHECKPOINT path; loading checkpoints is not yet ported
+    # a CLIP_CHECKPOINT path; loading checkpoints is not yet ported, and
+    # EmbedEngine raises when one is set
     checkpoint_path: Optional[str] = None
+    # CLIP_QUANT: "none", or "int8"/"int8_qat" (quantized GEMMs), which
+    # build_clip refuses until the int8 towers are ported
+    quant: str = "none"
 
     @property
     def variant(self) -> ClipVariant:
@@ -264,6 +268,7 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
         checkpoint_path=_env(env, "CLIP_CHECKPOINT", "") or None,
         compute_dtype=_env(env, "COMPUTE_DTYPE", "bfloat16"),
         parity_mode=_env_bool(env, "PARITY_MODE", False),
+        quant=_env(env, "CLIP_QUANT", "none"),
     )
     serve_auto_compact = _optional(env, "SERVE_AUTO_COMPACT", float, ("", "off", "none"))
     if serve_auto_compact is not None and not 0.0 < serve_auto_compact <= 1.0:

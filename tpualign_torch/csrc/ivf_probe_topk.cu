@@ -13,34 +13,39 @@
 // then packed row ascending (the JAX kernel's `col`), with empty slots
 // exactly (NEG_INF, SENTINEL_IDX).
 //
-// Design. The scorers, the running top-k (merge_tile), the cross-range
-// merge and the corpus readers are K2's and K3's (sim_topk_common.cuh, and
-// K3's integer tile and unpack, masked_sim_topk_quant.cu); the two sweeps
-// below are theirs with the corpus walked as the union's tiles. K2 and K3
-// keep their own sweeps: sharing one template changed their code and cost
-// K3's int4 variant a quarter of its speed on an H100 (chip_ab.py).
-// Tile t of the union is entry j = t / (C/64) and the 64-row offset
-// (t mod C/64) * 64 inside block uids[j] (UnionTiles), so its packed row
-// index is uid*C + r, the index the running list ranks ties by. Probe
-// membership: a 64-query tile with P = 125 probes cannot keep its probe
-// lists in shared memory beside the score tiles, so a prologue kernel
-// writes a bitmask over cluster ids, one (nq, ceil(n_lists/32)) u32 row per
-// query, from `probes` (one atomicOr per probe; equivalent to a mask over
-// union positions, and independent of the order of `uids`). Each tile reads
-// its block's bit for the block's queries into shared memory; a tile that
-// no query of the block probed is skipped whole, the others are masked per
-// query. Small batches (Q = 1..8 fill one query tile) cut the union's tiles
-// into ranges across blocks, merged by K2's cross-range merge. Integer
-// scores are (float(acc) * qs) * cs with one rounding per product, as in
-// K3, so they equal the plain version's bit for bit.
-//
 // Bound on the H100: bytes. At the serving geometry (N = 1M, D = 512,
-// 1,000 lists of up to 1,536 rows, 125 probes) a batch reads the union's
-// blocks once: about 240 blocks (180 MB of int8 rows) for two queries, all
-// 1,000 for 64 or more; the integer products the key mask admits are far
-// below the tensor cores' rate. This first kernel takes the products on the
-// CUDA cores as K3 does (__dp4a), and so is bound by them; wgmma with TMA
-// loads of the listed blocks is the next step.
+// about 1,000 lists of up to 1,536 rows) a calibrated probe count takes
+// most lists, about 1M union rows, yet two keyed image queries admit some
+// 16 of them: the 4 MB of keys that say which, not the 512 MB of rows, is
+// what the call must read.
+//
+// Design:
+// - The union's tiles (UnionTiles): tile t is entry j = t / ceil(C / BN)
+//   and the BN-row slice (t mod ceil(C / BN)) * BN inside block uids[j],
+//   so its packed row index is uid*C + r, the index the lists rank ties
+//   by. BN is 64 for the integer and dequant sweeps and 128 for the fp32
+//   sweep; C is a multiple of 128 in every layout IVFIndex builds, and a
+//   shorter last slice is masked row by row.
+// - Probe membership: a prologue (probe_bits_kernel) writes a bitmask over
+//   cluster ids, one (nq, ceil(n_lists / 32)) u32 row per query, from
+//   `probes` (one atomicOr per probe), independent of the order of uids.
+// - Key-aware tile skip: the admit prologue (sim_topk_common.cuh) marks a
+//   (query tile, union tile) pair when some query of the tile probed the
+//   tile's block (or it spilled) and admits one of its rows by key; the
+//   sweeps read the marked tiles alone and mask the rest per query. The
+//   wrapper groups the queries by key, so that a block covers few keys.
+// - The integer variants (s8, int4, int2) and the dequant variant take
+//   K3's sweeps (quant_sweep.cuh) with this locator: s8 products on the
+//   tensor cores (mma.sync m16n8k32) from a cp.async ring, 16- or
+//   64-query blocks; dequant by fp32 FMA chains.
+// - The fp32 variant takes its own copy of K2's sweep
+//   (masked_sim_topk.cu): 64 queries and 128 union rows a tile, 8 x 4
+//   scores a thread over 256 threads, full fp32 fmaf chains over D in
+//   ascending order (no TF32), a ring of three cp.async stages, and the
+//   running lists of sim_topk_common.cuh. K4 keeps a copy because a sweep
+//   template shared with K2 and K3 slowed K3 in a same-card A/B.
+// Integer scores are (float(acc) * qs) * cs with one rounding per product,
+// as in K3, so they equal the plain version's bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (tpualign_torch/ops/build.py).
@@ -48,25 +53,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sim_topk_common.cuh"
+#include "quant_sweep.cuh"
 
 namespace {
 
-using namespace simtopk;
+using simtopk::better;
+using simtopk::key_match;
+using simtopk::kNegInf;
+using simtopk::kSentinel;
+using simtopk::kSlots;
+using simtopk::Tile;
 
-// One 64-row tile of the union: its first packed row, its valid rows (0 to
-// skip it) and its block.
-struct Tile {
-  int row0;
-  int rows;
-  int block;
-};
-
-// The 64-row tiles of the blocks listed in uids, and the probe bitmask.
+// The BN-row tiles of the blocks listed in uids, and the probe bitmask.
+template <int BN>
 struct UnionTiles {
+  static constexpr int kRows = BN;
+  static constexpr bool kProbes = true;
   const int* uids;
   int n_uids;
-  int per_block;                 // tiles per block, ceil(C / 64)
+  int per_block;                 // tiles per block, ceil(C / BN)
   int capacity;
   int n_lists;
   int n_rows;                    // rows of the packed layout
@@ -78,20 +83,27 @@ struct UnionTiles {
   __device__ __forceinline__ Tile locate(int t) const {
     const int j = t / per_block;
     const int uid = __ldg(uids + j);
-    const int r0 = (t - j * per_block) * kBN;
+    const int r0 = (t - j * per_block) * BN;
     const long long row0 = (long long)uid * capacity + r0;
     int rows = 0;
     if (uid >= 0 && uid != n_lists && row0 < n_rows)
-      rows = (int)min((long long)min(kBN, capacity - r0), (long long)n_rows - row0);
+      rows = (int)min((long long)min(BN, capacity - r0), (long long)n_rows - row0);
     return {(int)row0, rows, uid};
   }
 
-  __device__ __forceinline__ bool member(int q, const Tile& at) const {
-    if (at.block > n_lists) return true;  // spill: every query scans it
-    const unsigned int w = __ldg(bits + (size_t)q * words + at.block / 32);
-    return (w >> (at.block % 32)) & 1u;
+  __device__ __forceinline__ bool member(int q, int block) const {
+    if (block > n_lists) return true;  // spill: every query scans it
+    const unsigned int w = __ldg(bits + (size_t)q * words + block / 32);
+    return (w >> (block % 32)) & 1u;
   }
 };
+
+template <int BN>
+UnionTiles<BN> union_tiles(const void* uids, int n_uids, int capacity, int n_lists, int n_rows,
+                           const unsigned* bits, int words) {
+  return {static_cast<const int*>(uids), n_uids, (capacity + BN - 1) / BN, capacity, n_lists,
+          n_rows, bits, words};
+}
 
 // One thread per (query, probe): sets the query's bit of each probed list.
 __global__ void probe_bits_kernel(const int* __restrict__ probes, int nq, int p, int n_lists,
@@ -103,366 +115,293 @@ __global__ void probe_bits_kernel(const int* __restrict__ probes, int nq, int p,
   if (l >= 0 && l < n_lists) atomicOr(bits + (size_t)q * words + l / 32, 1u << (l % 32));
 }
 
-// -- the fp32 sweep (K2's fp32_sweep_kernel over the union's tiles) -----------
+// -- the fp32 sweep: K2's, over the union's 128-row tiles ----------------------
 
-template <typename Corpus, int KP>
-__global__ void __launch_bounds__(kNT)
-ivf_fp32_kernel(const float* __restrict__ q, const int* __restrict__ qk, Corpus corpus,
-                const int* __restrict__ ck, UnionTiles tiles, int nq, int d, int k,
-                int tiles_per_split, float* __restrict__ out_v, int* __restrict__ out_i) {
-  extern __shared__ float smem[];
-  float* qs = smem;                           // [kDK][kQLD] query chunk, transposed
-  float* cs = qs + kDK * kQLD;                // [kDK][kCLD] corpus chunk, transposed
-  float* tv = cs + kDK * kCLD;                // [kBQ][kBN] tile candidates
-  int* ti = reinterpret_cast<int*>(tv + kBQ * kBN);
-  float* rv = reinterpret_cast<float*>(ti + kBQ * kBN);  // [kBQ][KP] running top-k
-  int* ri = reinterpret_cast<int*>(rv + kBQ * KP);
-  int* qkeys = ri + kBQ * KP;                 // [kBQ]
-  int* ckeys = qkeys + kBQ;                   // [kBN]
-  float* cscale = reinterpret_cast<float*>(ckeys + kBN);  // [kBN]
-  int* qmem = reinterpret_cast<int*>(cscale + kBN);       // [kBQ] probe membership
+constexpr int kBQ = 64;       // queries per block
+constexpr int kBN = 128;      // union rows per tile
+constexpr int kDK = 32;       // depth per stage
+constexpr int kLD = kDK + 4;  // row pitch of a stage, floats
+constexpr int kTM = 8;        // query rows a thread scores
+constexpr int kTN = 4;        // rows a thread scores
+constexpr int kNT = kBQ * kBN / (kTM * kTN);  // threads per block
+constexpr int kTY = kBQ / kTM;  // threads across the query tile
+constexpr int kTX = kBN / kTN;  // threads across the union tile
+static_assert(kTY == 8 && kTX == 4 * (kNT / 32), "a warp is 8 query x 4 row threads");
+constexpr int kStages = 3;    // depth chunks in flight: two loading while one is scored
+constexpr int kStage = (kBQ + kBN) * kLD;  // floats per stage: query rows, then union rows
+constexpr size_t kSmemBytes = sizeof(float) * kStages * kStage +
+                              (sizeof(float) + sizeof(int)) * (size_t)kBQ * kSlots +
+                              sizeof(int) * (4 * kBQ + kBN) + sizeof(float) * kBQ;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int tx = tid % 16;   // corpus columns tx*4 .. tx*4+3
-  const int ty = tid / 16;   // query rows ty*2, ty*2+1
+// Copies depth chunk `chunk` of the block's queries and of tile `at` into
+// a stage, zero past the last row and past D.
+template <bool kVec>
+__device__ __forceinline__ void load_stage(float* stage, const float* __restrict__ q,
+                                           const float* __restrict__ c, int q0, int nq,
+                                           const Tile& at, int d, int chunk) {
+  constexpr int kSegs = kDK / 4;
+  const int x0 = chunk * kDK;
+  for (int e = threadIdx.x; e < (kBQ + kBN) * kSegs; e += kNT) {
+    const int row = e / kSegs, x = x0 + (e % kSegs) * 4;
+    const bool is_q = row < kBQ;
+    const bool ok = (is_q ? q0 + row < nq : row - kBQ < at.rows) && x < d;
+    const float* src = ok ? (is_q ? q + (size_t)(q0 + row) * d
+                                  : c + (size_t)(at.row0 + row - kBQ) * d) + x
+                          : q;
+    float* dst = stage + row * kLD + (e % kSegs) * 4;
+    if (kVec) {
+      simtopk::cp_async16(dst, src, ok);
+    } else {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) dst[v] = ok && x + v < d ? src[v] : 0.f;
+    }
+  }
+}
+
+// acc[i][j] += q[ty + kTY i] . c[tx + kTX j] over one stage's depth chunk,
+// one fmaf per depth step in ascending order.
+__device__ __forceinline__ void score_stage(const float* stage, int tx, int ty,
+                                            float (&acc)[kTM][kTN]) {
+  const float* qs = stage;
+  const float* cs = stage + kBQ * kLD;
+#pragma unroll
+  for (int x = 0; x < kDK; x += 4) {
+    float4 a[kTM], b[kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(qs + (ty + kTY * i) * kLD + x);
+#pragma unroll
+    for (int j = 0; j < kTN; ++j)
+      b[j] = *reinterpret_cast<const float4*>(cs + (tx + kTX * j) * kLD + x);
+    // depth step by depth step, so that consecutive fmafs are independent
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float av = reinterpret_cast<const float*>(&a[i])[e];
+#pragma unroll
+        for (int j = 0; j < kTN; ++j)
+          acc[i][j] = fmaf(av, reinterpret_cast<const float*>(&b[j])[e], acc[i][j]);
+      }
+    }
+  }
+}
+
+// Candidates of columns tx + kTX j, j in half h, that beat their query's
+// k-th entry join its list; the four lanes that hold a row (one quad) take
+// their slots with one atomic. A padded query row has key -2, which admits
+// nothing; a query that did not probe the tile's block takes none.
+__device__ __forceinline__ void emit_half(const float (&acc)[kTM][kTN], int h, const Tile& at,
+                                          int k, int tx, int ty, int lane, const int* qkeys,
+                                          const int* qmem, const int* ckeys, const float* thv,
+                                          const int* thi, int* cnt, float* lv, int* li) {
+  constexpr int kHalf = kTN / 2;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = ty + kTY * i;
+    const float tv = thv[r];
+    const int ti = thi[r];
+    const int qkey = qmem[r] ? qkeys[r] : -2;
+    unsigned pass = 0;
+#pragma unroll
+    for (int j = h * kHalf; j < (h + 1) * kHalf; ++j) {
+      const int col = tx + kTX * j;
+      if (col < at.rows && key_match(qkey, ckeys[col]) &&
+          better(acc[i][j], at.row0 + col, tv, ti))
+        pass |= 1u << j;
+    }
+    if (!__any_sync(0xffffffffu, pass != 0)) continue;
+    const int mine = __popc(pass);
+    int incl = mine;  // inclusive prefix over the quad
+    int up = __shfl_up_sync(0xffffffffu, incl, 1, 4);
+    if ((lane & 3) >= 1) incl += up;
+    up = __shfl_up_sync(0xffffffffu, incl, 2, 4);
+    if ((lane & 3) >= 2) incl += up;
+    int base = 0;
+    if ((lane & 3) == 3 && incl > 0) base = atomicAdd(cnt + r, incl);
+    base = __shfl_sync(0xffffffffu, base, lane | 3);
+    int p = k + base + incl - mine;
+#pragma unroll
+    for (int j = h * kHalf; j < (h + 1) * kHalf; ++j) {
+      if (pass & (1u << j)) {
+        lv[r * kSlots + p] = acc[i][j];
+        li[r * kSlots + p] = at.row0 + tx + kTX * j;
+        ++p;
+      }
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kNT, 1)
+fp32_sweep_kernel(const float* __restrict__ q, const int* __restrict__ qk,
+                  const float* __restrict__ c, const int* __restrict__ ck,
+                  UnionTiles<kBN> tiles, int nq, int d, int k, int tiles_per_split, int words,
+                  const unsigned* __restrict__ admitted, float* __restrict__ out_v,
+                  int* __restrict__ out_i) {
+  extern __shared__ __align__(16) float smem[];
+  float* lv = smem + kStages * kStage;              // [kBQ][kSlots] list values
+  int* li = reinterpret_cast<int*>(lv + kBQ * kSlots);  // [kBQ][kSlots] list rows
+  int* cnt = li + kBQ * kSlots;                     // [kBQ] candidates past k
+  int* qkeys = cnt + kBQ;                           // [kBQ]
+  int* thi = qkeys + kBQ;                           // [kBQ] k-th entry, row
+  int* qmem = thi + kBQ;                            // [kBQ] takes the tile's block
+  int* ckeys = qmem + kBQ;                          // [kBN]
+  float* thv = reinterpret_cast<float*>(ckeys + kBN);  // [kBQ] k-th entry, value
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tx = warp * 4 + (lane & 3);  // columns tx + kTX j
+  const int ty = lane >> 2;              // rows ty + kTY i
   const int q0 = blockIdx.x * kBQ;
-  const int split = blockIdx.y;
-  const int splits = gridDim.y;
+  const int split = blockIdx.y, splits = gridDim.y;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(tiles.count(), t_begin + tiles_per_split);
+  const int n_chunks = (d + kDK - 1) / kDK;
+  const unsigned* bits = admitted + (size_t)blockIdx.x * words;
 
-  for (int e = tid; e < kBQ * KP; e += kNT) {
-    rv[e] = kNegInf;
-    ri[e] = kSentinel;
+  for (int e = tid; e < kBQ * kSlots; e += kNT) {
+    lv[e] = kNegInf;
+    li[e] = kSentinel;
   }
-  if (tid < kBQ) qkeys[tid] = (q0 + tid < nq) ? qk[q0 + tid] : -2;
+  if (tid < kBQ) {
+    cnt[tid] = 0;
+    thv[tid] = kNegInf;
+    thi[tid] = kSentinel;
+    qkeys[tid] = q0 + tid < nq ? qk[q0 + tid] : -2;
+  }
 
-  for (int tile = t_begin; tile < t_end; ++tile) {
+  // the issue cursor runs kStages - 1 chunks ahead of the one being
+  // scored, across tile boundaries; stage i % kStages holds chunk i
+  int tile = simtopk::next_admitted(bits, t_begin, t_end);
+  int it_tile = tile, it_chunk = 0;
+  Tile it_at = tile < t_end ? tiles.locate(tile) : Tile{0, 0, -1};
+  auto issue = [&](int stage) {
+    if (it_tile < t_end) {
+      load_stage<kVec>(smem + stage * kStage, q, c, q0, nq, it_at, d, it_chunk);
+      if (++it_chunk == n_chunks) {
+        it_tile = simtopk::next_admitted(bits, it_tile + 1, t_end);
+        it_chunk = 0;
+        if (it_tile < t_end) it_at = tiles.locate(it_tile);
+      }
+    }
+    simtopk::cp_async_commit();
+  };
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  int step = 0;
+  while (tile < t_end) {
     const Tile at = tiles.locate(tile);
-    if (at.rows <= 0) continue;  // padding: the same for every thread
-    const bool m = tid < kBQ && q0 + tid < nq && tiles.member(q0 + tid, at);
-    if (tid < kBQ) qmem[tid] = m;
-    if (!__syncthreads_or(m)) continue;  // no query of the block probed it
-    const int n0 = at.row0;
-    if (tid < kBN) {
-      ckeys[tid] = (tid < at.rows) ? ck[n0 + tid] : -1;
-      if (Corpus::kScaled) cscale[tid] = (tid < at.rows) ? corpus.scale(n0 + tid) : 0.f;
+    if (tid < kBN) ckeys[tid] = tid < at.rows ? ck[at.row0 + tid] : -1;
+    if (tid < kBQ) qmem[tid] = q0 + tid < nq && tiles.member(q0 + tid, at.block);
+    float acc[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+    for (int ch = 0; ch < n_chunks; ++ch, ++step) {
+      simtopk::cp_async_wait<kStages - 2>();
+      __syncthreads();  // chunk `step` landed; every thread is done with step - 1's stage
+      issue((step + kStages - 1) % kStages);
+      score_stage(smem + (step % kStages) * kStage, tx, ty, acc);
     }
 
-    float acc[2][4];
+    // the tile's candidates join the lists in two rounds of 64 columns,
+    // so that a list merges only once it could not take another 64
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-
-    for (int d0 = 0; d0 < d; d0 += kDK) {
+    for (int h = 0; h < 2; ++h) {
+      emit_half(acc, h, at, k, tx, ty, lane, qkeys, qmem, ckeys, thv, thi, cnt, lv, li);
       __syncthreads();
-      for (int e = tid; e < kBQ * kDK; e += kNT) {
-        const int r = e / kDK, x = e % kDK;
-        qs[x * kQLD + r] =
-            (q0 + r < nq && d0 + x < d) ? q[(size_t)(q0 + r) * d + d0 + x] : 0.f;
-      }
-      for (int e = tid; e < kBN * kDK; e += kNT) {
-        const int r = e / kDK, x = e % kDK;
-        cs[x * kCLD + r] = (r < at.rows && d0 + x < d)
-                               ? corpus.at(n0 + r, d0 + x, d, Corpus::kScaled ? cscale[r] : 1.f)
-                               : 0.f;
-      }
+      simtopk::merge_lists<kBQ, kNT / 32>(kSlots - kBN / 2 - k, k, warp, lane, cnt, lv, li,
+                                          thv, thi);
       __syncthreads();
-#pragma unroll 8
-      for (int x = 0; x < kDK; ++x) {
-        const float2 a = *reinterpret_cast<const float2*>(qs + x * kQLD + ty * 2);
-        const float4 b = *reinterpret_cast<const float4*>(cs + x * kCLD + tx * 4);
-        acc[0][0] = fmaf(a.x, b.x, acc[0][0]);
-        acc[0][1] = fmaf(a.x, b.y, acc[0][1]);
-        acc[0][2] = fmaf(a.x, b.z, acc[0][2]);
-        acc[0][3] = fmaf(a.x, b.w, acc[0][3]);
-        acc[1][0] = fmaf(a.y, b.x, acc[1][0]);
-        acc[1][1] = fmaf(a.y, b.y, acc[1][1]);
-        acc[1][2] = fmaf(a.y, b.z, acc[1][2]);
-        acc[1][3] = fmaf(a.y, b.w, acc[1][3]);
-      }
     }
-
-    // key mask and membership; a masked slot is the sentinel itself
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = ty * 2 + a;
-      const int qkey = qkeys[r];
-      const bool takes = qmem[r];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int col = tx * 4 + b;
-        const bool valid = takes && col < at.rows && key_match(qkey, ckeys[col]);
-        tv[r * kBN + col] = valid ? acc[a][b] : kNegInf;
-        ti[r * kBN + col] = valid ? n0 + col : kSentinel;
-      }
-    }
-    __syncthreads();
-
-    // merge: one warp per query row
-    for (int r = warp; r < kBQ; r += kNT / 32) {
-      if (q0 + r >= nq) break;
-      merge_tile<kBN, KP>(tv + r * kBN, ti + r * kBN, rv + r * KP, ri + r * KP, k, lane);
-    }
+    tile = simtopk::next_admitted(bits, tile + 1, t_end);
   }
+  simtopk::merge_lists<kBQ, kNT / 32>(0, k, warp, lane, cnt, lv, li, thv, thi);
   __syncthreads();
 
   for (int e = tid; e < kBQ * k; e += kNT) {
     const int r = e / k, j = e % k;
     if (q0 + r < nq) {
       const size_t o = ((size_t)(q0 + r) * splits + split) * k + j;
-      out_v[o] = rv[r * KP + j];
-      out_i[o] = ri[r * KP + j];
+      out_v[o] = lv[r * kSlots + j];
+      out_i[o] = li[r * kSlots + j];
     }
   }
 }
 
-template <typename Corpus, int KP>
-cudaError_t launch_fp32_kp(const float* q, const int* qk, Corpus corpus, const int* ck,
-                           UnionTiles tiles, int nq, int d, int k, int splits, float* out_v,
-                           int* out_i, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kDK * kQLD + (size_t)kDK * kCLD) +
-                      (sizeof(float) + sizeof(int)) * ((size_t)kBQ * kBN + (size_t)kBQ * KP) +
-                      sizeof(int) * (2 * kBQ + kBN) + sizeof(float) * kBN;
+template <bool kVec>
+cudaError_t launch_fp32_sweep(const float* q, const int* qk, const float* c, const int* ck,
+                              UnionTiles<kBN> tiles, int nq, int d, int k, int splits,
+                              const unsigned* admitted, float* out_v, int* out_i,
+                              cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(ivf_fp32_kernel<Corpus, KP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(
+        fp32_sweep_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const int tiles_per_split = (tiles.count() + splits - 1) / splits;
   dim3 grid((nq + kBQ - 1) / kBQ, splits);
-  ivf_fp32_kernel<Corpus, KP><<<grid, kNT, smem, stream>>>(q, qk, corpus, ck, tiles, nq, d, k,
-                                                           tiles_per_split, out_v, out_i);
+  fp32_sweep_kernel<kVec><<<grid, kNT, kSmemBytes, stream>>>(
+      q, qk, c, ck, tiles, nq, d, k, tiles_per_split, simtopk::admit_words(tiles.count()),
+      admitted, out_v, out_i);
   return cudaGetLastError();
 }
 
-template <typename Corpus>
-cudaError_t launch_fp32(const float* q, const int* qk, Corpus corpus, const int* ck,
-                        UnionTiles tiles, int nq, int d, int k, int splits, float* sv, int* si,
-                        cudaStream_t s) {
-#define TPUALIGN_IVF_FP32(KP) \
-  launch_fp32_kp<Corpus, KP>(q, qk, corpus, ck, tiles, nq, d, k, splits, sv, si, s)
-  if (k <= 16) return TPUALIGN_IVF_FP32(16);
-  if (k <= 32) return TPUALIGN_IVF_FP32(32);
-  if (k <= 64) return TPUALIGN_IVF_FP32(64);
-  return TPUALIGN_IVF_FP32(128);
-#undef TPUALIGN_IVF_FP32
-}
-
-// -- the integer sweep (K3's int_sweep_kernel over the union's tiles) ---------
-
-constexpr int kIQ = 64;       // queries per block
-constexpr int kIT = 256;      // threads per block
-constexpr int kUW = 16;       // unpacked s8 words (64 dims) per chunk
-constexpr int kILD = kBN + 4; // word stride of the transposed tiles
-
-// Plane p of a packed corpus word as four s8 values (K3's unpack). P =
-// codes per byte: 1 int8, 2 int4 (offset-8 nibbles), 4 int2 (c -> 2c - 3).
-template <int P>
-__device__ __forceinline__ int plane_word(unsigned int w, int p) {
-  if (P == 1) return (int)w;
-  if (P == 2) return (int)__vsub4((p == 0 ? w : w >> 4) & 0x0F0F0F0Fu, 0x08080808u);
-  return (int)__vsub4(((w >> (2 * p)) & 0x03030303u) << 1, 0x03030303u);
-}
-
-template <int P, int KP>
-__global__ void __launch_bounds__(kIT)
-ivf_int_kernel(const int* __restrict__ qw, const float* __restrict__ qscale,
-               const int* __restrict__ qk, const unsigned int* __restrict__ cw,
-               const float* __restrict__ cscale, const int* __restrict__ ck, UnionTiles tiles,
-               int nq, int d, int k, int tiles_per_split, float* __restrict__ out_v,
-               int* __restrict__ out_i) {
-  extern __shared__ int ismem[];
-  int* qs = ismem;                                       // [kUW][kILD] query words
-  int* cs = qs + kUW * kILD;                             // [kUW][kILD] corpus words
-  float* tv = reinterpret_cast<float*>(cs + kUW * kILD); // [kIQ][kBN] tile candidates
-  int* ti = reinterpret_cast<int*>(tv + kIQ * kBN);
-  float* rv = reinterpret_cast<float*>(ti + kIQ * kBN);  // [kIQ][KP] running top-k
-  int* ri = reinterpret_cast<int*>(rv + kIQ * KP);
-  int* qkeys = ri + kIQ * KP;                            // [kIQ]
-  float* qsc = reinterpret_cast<float*>(qkeys + kIQ);    // [kIQ]
-  int* ckeys = reinterpret_cast<int*>(qsc + kIQ);        // [kBN]
-  float* csc = reinterpret_cast<float*>(ckeys + kBN);    // [kBN]
-  int* qmem = reinterpret_cast<int*>(csc + kBN);         // [kIQ] probe membership
-
-  constexpr int kPW = kUW / P;   // packed words per row per chunk
-  const int ww = d / (4 * P);    // packed words per corpus row
-  const int qww = d / 4;         // words per query row
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int tx = tid % 16;   // corpus columns tx*4 .. tx*4+3
-  const int ty = tid / 16;   // query rows ty*4 .. ty*4+3
-  const int q0 = blockIdx.x * kIQ;
-  const int split = blockIdx.y;
-  const int splits = gridDim.y;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(tiles.count(), t_begin + tiles_per_split);
-
-  for (int e = tid; e < kIQ * KP; e += kIT) {
-    rv[e] = kNegInf;
-    ri[e] = kSentinel;
-  }
-  if (tid < kIQ) {
-    qkeys[tid] = (q0 + tid < nq) ? qk[q0 + tid] : -2;
-    qsc[tid] = (q0 + tid < nq) ? qscale[q0 + tid] : 0.f;
-  }
-
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const Tile at = tiles.locate(tile);
-    if (at.rows <= 0) continue;  // padding: the same for every thread
-    const bool m = tid < kIQ && q0 + tid < nq && tiles.member(q0 + tid, at);
-    if (tid < kIQ) qmem[tid] = m;
-    if (!__syncthreads_or(m)) continue;  // no query of the block probed it
-    const int n0 = at.row0;
-    if (tid < kBN) {
-      ckeys[tid] = (tid < at.rows) ? ck[n0 + tid] : -1;
-      csc[tid] = (tid < at.rows) ? cscale[n0 + tid] : 0.f;
-    }
-
-    int acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0;
-
-    for (int w0 = 0; w0 < ww; w0 += kPW) {
-      __syncthreads();
-      // query words: unpacked word u = p * kPW + x holds the query dims
-      // that meet plane p of packed word w0 + x
-      for (int e = tid; e < kIQ * kUW; e += kIT) {
-        const int r = e / kUW, u = e % kUW;
-        const int p = u / kPW, pw = w0 + u % kPW;
-        qs[u * kILD + r] = (q0 + r < nq && pw < ww)
-                               ? __ldg(qw + (size_t)(q0 + r) * qww + p * ww + pw)
-                               : 0;
-      }
-      for (int e = tid; e < kBN * kPW; e += kIT) {
-        const int r = e / kPW, x = e % kPW;
-        const int pw = w0 + x;
-        const bool in = r < at.rows && pw < ww;
-        const unsigned int w = in ? __ldg(cw + (size_t)(n0 + r) * ww + pw) : 0u;
-#pragma unroll
-        for (int p = 0; p < P; ++p) cs[(p * kPW + x) * kILD + r] = in ? plane_word<P>(w, p) : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int u = 0; u < kUW; ++u) {
-        const int4 a = *reinterpret_cast<const int4*>(qs + u * kILD + ty * 4);
-        const int4 b = *reinterpret_cast<const int4*>(cs + u * kILD + tx * 4);
-        const int av[4] = {a.x, a.y, a.z, a.w};
-        const int bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-      }
-    }
-
-    // rescale, (float(acc) * qs) * cs, the key mask and membership
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty * 4 + a;
-      const int qkey = qkeys[r];
-      const float s_q = qsc[r];
-      const bool takes = qmem[r];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int col = tx * 4 + b;
-        const bool valid = takes && col < at.rows && key_match(qkey, ckeys[col]);
-        tv[r * kBN + col] =
-            valid ? __fmul_rn(__fmul_rn(__int2float_rn(acc[a][b]), s_q), csc[col]) : kNegInf;
-        ti[r * kBN + col] = valid ? n0 + col : kSentinel;
-      }
-    }
-    __syncthreads();
-
-    // merge: one warp per query row
-    for (int r = warp; r < kIQ; r += kIT / 32) {
-      if (q0 + r >= nq) break;
-      merge_tile<kBN, KP>(tv + r * kBN, ti + r * kBN, rv + r * KP, ri + r * KP, k, lane);
-    }
-  }
-  __syncthreads();
-
-  for (int e = tid; e < kIQ * k; e += kIT) {
-    const int r = e / k, j = e % k;
-    if (q0 + r < nq) {
-      const size_t o = ((size_t)(q0 + r) * splits + split) * k + j;
-      out_v[o] = rv[r * KP + j];
-      out_i[o] = ri[r * KP + j];
-    }
-  }
-}
-
-template <int P, int KP>
-cudaError_t launch_int_kp(const void* q, const void* qs, const void* qk, const void* c,
-                          const void* cs, const void* ck, UnionTiles tiles, int nq, int d, int k,
-                          int splits, float* out_v, int* out_i, cudaStream_t stream) {
-  const size_t smem = sizeof(int) * 2 * kUW * kILD +
-                      (sizeof(float) + sizeof(int)) * ((size_t)kIQ * kBN + (size_t)kIQ * KP) +
-                      (sizeof(int) + sizeof(float)) * (kIQ + kBN) + sizeof(int) * kIQ;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ivf_int_kernel<P, KP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
-  const int tiles_per_split = (tiles.count() + splits - 1) / splits;
-  dim3 grid((nq + kIQ - 1) / kIQ, splits);
-  ivf_int_kernel<P, KP><<<grid, kIT, smem, stream>>>(
-      static_cast<const int*>(q), static_cast<const float*>(qs), static_cast<const int*>(qk),
-      static_cast<const unsigned int*>(c), static_cast<const float*>(cs),
-      static_cast<const int*>(ck), tiles, nq, d, k, tiles_per_split, out_v, out_i);
-  return cudaGetLastError();
-}
-
-template <int P>
-cudaError_t launch_int(const void* q, const void* qs, const void* qk, const void* c,
-                       const void* cs, const void* ck, UnionTiles tiles, int nq, int d, int k,
-                       int splits, float* sv, int* si, cudaStream_t s) {
-#define TPUALIGN_IVF_INT(KP) \
-  launch_int_kp<P, KP>(q, qs, qk, c, cs, ck, tiles, nq, d, k, splits, sv, si, s)
-  if (k <= 16) return TPUALIGN_IVF_INT(16);
-  if (k <= 32) return TPUALIGN_IVF_INT(32);
-  if (k <= 64) return TPUALIGN_IVF_INT(64);
-  return TPUALIGN_IVF_INT(128);
-#undef TPUALIGN_IVF_INT
+// The fp32 search: the admit prologue (64-query, 128-row tiles), the
+// sweep, the cross-range merge.
+cudaError_t fp32_search(const float* q, const int* qk, const float* c, const int* ck,
+                        UnionTiles<kBN> tiles, int nq, int d, int k, int splits,
+                        unsigned* admitted, void* part_v, void* part_i, void* out_v,
+                        void* out_i, cudaStream_t s) {
+  cudaError_t err = simtopk::launch_admit<kBQ>(qk, ck, tiles, nq, admitted, s);
+  if (err != cudaSuccess) return err;
+  float* sv = static_cast<float*>(splits > 1 ? part_v : out_v);
+  int* si = static_cast<int*>(splits > 1 ? part_i : out_i);
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  err = vec ? launch_fp32_sweep<true>(q, qk, c, ck, tiles, nq, d, k, splits, admitted, sv, si, s)
+            : launch_fp32_sweep<false>(q, qk, c, ck, tiles, nq, d, k, splits, admitted, sv, si,
+                                       s);
+  if (err != cudaSuccess || splits == 1) return err;
+  return simtopk::launch_merge(part_v, part_i, nq, splits, k, out_v, out_i, s);
 }
 
 }  // namespace
 
-// variant: 0 s8, 1 int4, 2 int2 (q: (nq, d) int8 quantized queries, qs their
-//   (nq,) fp32 scales; c: (n_rows, d) int8, (n_rows, d/2) or (n_rows, d/4)
-//   uint8 with d a multiple of 4, 8 or 16); 3 dequant (q: (nq, d) fp32, c:
-//   (n_rows, d) int8); 4 fp32 (q and c fp32, cs unused). cs: (n_rows,) fp32
-//   row scales; ck: (n_rows,) int32 keys, -1 unused.
+// variant: 0 s8, 1 int4, 2 int2 (q: (nq, d) fp32 queries, quantized into
+//   qq ((nq, d) int8 scratch) and qs ((nq,) fp32 scratch); c: (n_rows, d)
+//   int8, (n_rows, d/2) or (n_rows, d/4) uint8 with d a multiple of 4, 8 or
+//   16; bq 16 or 64); 3 dequant (q: (nq, d) fp32, c: (n_rows, d) int8;
+//   32-query blocks); 4 fp32 (q and c fp32, cs unused; 64-query blocks).
+//   cs: (n_rows,) fp32 row scales; ck: (n_rows,) int32 keys, -1 unused.
+// qk: (nq,) int32 keys, the queries grouped by key by the wrapper.
 // probes: (nq, p) int32 cluster ids; uids: (n_uids,) int32 block ids.
-// bits: (nq, ceil(n_lists / 32)) u32 scratch. part_v/part_i: (nq, splits,
-// k) scratch, used when splits > 1. out_v/out_i: (nq, k). k <= 128;
-// splits * k <= 4096. Returns a cudaError_t.
-extern "C" int tpualign_ivf_probe_topk(int variant, const void* q, const void* qs,
-                                       const void* qk, const void* probes, int p,
-                                       const void* uids, int n_uids, const void* c,
-                                       const void* cs, const void* ck, int n_rows,
-                                       int capacity, int n_lists, int nq, int d, int k,
-                                       int splits, void* bits, void* part_v, void* part_i,
+// bits: (nq, ceil(n_lists / 32)) u32 scratch. admitted: (ceil(nq / bq),
+// words) u32 scratch, bq as above, words = ceil(max(1, n_uids * ceil(C /
+// BN)) / 32) with BN 128 for fp32, 64 otherwise. part_v/part_i: (nq,
+// splits, k) scratch, used when splits > 1. out_v/out_i: (nq, k). k <= 128;
+// splits <= 4096. Returns a cudaError_t.
+extern "C" int tpualign_ivf_probe_topk(int variant, const void* q, const void* qk,
+                                       const void* probes, int p, const void* uids, int n_uids,
+                                       const void* c, const void* cs, const void* ck,
+                                       int n_rows, int capacity, int n_lists, int nq, int d,
+                                       int k, int splits, int bq, void* qq, void* qs,
+                                       void* bits, void* admitted, void* part_v, void* part_i,
                                        void* out_v, void* out_i, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (simtopk::bad_args(nq, n_rows, d, k, splits) || variant < 0 || variant > 4 || p < 0 ||
       n_uids < 0 || capacity <= 0 || n_lists <= 0 ||
-      (variant <= 2 && d % (4 << variant)))
+      (variant <= 2 && (d % (4 << variant) || (bq != 16 && bq != 64))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int words = (n_lists + 31) / 32;
-  unsigned int* b = static_cast<unsigned int*>(bits);
-  err = cudaMemsetAsync(b, 0, sizeof(unsigned int) * (size_t)nq * words, s);
+  unsigned* b = static_cast<unsigned*>(bits);
+  err = cudaMemsetAsync(b, 0, sizeof(unsigned) * (size_t)nq * words, s);
   if (err != cudaSuccess) return (int)err;
   const long long pairs = (long long)nq * p;
   if (pairs > 0) {
@@ -471,27 +410,27 @@ extern "C" int tpualign_ivf_probe_topk(int variant, const void* q, const void* q
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const UnionTiles tiles{static_cast<const int*>(uids), n_uids,
-                         (capacity + simtopk::kBN - 1) / simtopk::kBN,
-                         capacity, n_lists, n_rows, b, words};
-  float* sv = static_cast<float*>(splits > 1 ? part_v : out_v);
-  int* si = static_cast<int*>(splits > 1 ? part_i : out_i);
+  const float* qf = static_cast<const float*>(q);
+  const int* qki = static_cast<const int*>(qk);
+  const float* csf = static_cast<const float*>(cs);
+  const int* cki = static_cast<const int*>(ck);
+  unsigned* adm = static_cast<unsigned*>(admitted);
   if (variant == 4)
-    err = launch_fp32(static_cast<const float*>(q), static_cast<const int*>(qk),
-                      simtopk::Fp32Corpus{static_cast<const float*>(c)},
-                      static_cast<const int*>(ck),
-                      tiles, nq, d, k, splits, sv, si, s);
-  else if (variant == 3)
-    err = launch_fp32(static_cast<const float*>(q), static_cast<const int*>(qk),
-                      simtopk::Int8DequantCorpus{static_cast<const int8_t*>(c),
-                                                 static_cast<const float*>(cs)},
-                      static_cast<const int*>(ck), tiles, nq, d, k, splits, sv, si, s);
-  else if (variant == 0)
-    err = launch_int<1>(q, qs, qk, c, cs, ck, tiles, nq, d, k, splits, sv, si, s);
-  else if (variant == 1)
-    err = launch_int<2>(q, qs, qk, c, cs, ck, tiles, nq, d, k, splits, sv, si, s);
-  else
-    err = launch_int<4>(q, qs, qk, c, cs, ck, tiles, nq, d, k, splits, sv, si, s);
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return (int)simtopk::launch_merge(part_v, part_i, nq, splits, k, out_v, out_i, s);
+    return (int)fp32_search(qf, qki, static_cast<const float*>(c), cki,
+                            union_tiles<kBN>(uids, n_uids, capacity, n_lists, n_rows, b, words),
+                            nq, d, k, splits, adm, part_v, part_i, out_v, out_i, s);
+  const auto tiles =
+      union_tiles<simtopk::kIN>(uids, n_uids, capacity, n_lists, n_rows, b, words);
+  if (variant == 3)
+    return (int)simtopk::dequant_search(qf, qki, static_cast<const int8_t*>(c), csf, cki, tiles,
+                                        nq, d, k, splits, adm, part_v, part_i, out_v, out_i, s);
+  int8_t* qqi = static_cast<int8_t*>(qq);
+  float* qsf = static_cast<float*>(qs);
+#define TPUALIGN_K4_INT(P)                                                                  \
+  simtopk::int_search<P>(qf, qki, c, csf, cki, tiles, nq, d, k, splits, bq, qqi, qsf, adm, \
+                         part_v, part_i, out_v, out_i, s)
+  if (variant == 0) return (int)TPUALIGN_K4_INT(1);
+  if (variant == 1) return (int)TPUALIGN_K4_INT(2);
+  return (int)TPUALIGN_K4_INT(4);
+#undef TPUALIGN_K4_INT
 }

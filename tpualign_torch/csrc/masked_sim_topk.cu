@@ -17,7 +17,8 @@
 // alone.
 //
 // Design:
-// - Key-aware tile skip. A prologue kernel (admit_kernel) tests, for every
+// - Key-aware tile skip. A prologue kernel (admit_kernel, shared with K3
+//   and K4 in sim_topk_common.cuh) tests, for every
 //   (query tile, corpus tile) pair, whether any query of the tile admits
 //   any row of the corpus tile (one warp a pair, a ballot), and writes one
 //   bit per pair. The sweep reads only the corpus tiles whose bit is set.
@@ -39,7 +40,8 @@
 //   conflict-free. (8 x 8 scores a thread over 128 threads needs 254
 //   registers and leaves one warp a scheduler; it ran slower on the
 //   H100.)
-// - Merge work only for winners. Each query keeps a list of 256 slots in
+// - Merge work only for winners (the running lists of
+//   sim_topk_common.cuh). Each query keeps a list of 256 slots in
 //   shared memory: its running top-k, sorted, in [0, k), and then the
 //   candidates that beat its k-th entry, appended as they come (one atomic
 //   count per query and quad of lanes). Each thread tests its 32 scores
@@ -59,9 +61,10 @@
 //   the grid is one wave, each block writes its range's top-k, and the
 //   cross-range merge of sim_topk_common.cuh joins them.
 //
-// K3's dequant variant (masked_sim_topk_quant.cu) keeps the previous sweep
-// in sim_topk_common.cuh; K2 takes only its comparator, key test and
-// cross-range merge from there.
+// K2 takes the comparator, key test, cp.async, admit prologue, running
+// lists and cross-range merge from sim_topk_common.cuh; its sweep is its
+// own. K3 and K4 have their own sweeps (quant_sweep.cuh, and K4's copy of
+// this one for its fp32 variant).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (tpualign_torch/ops/build.py).
@@ -74,10 +77,11 @@
 namespace {
 
 using simtopk::better;
+using simtopk::cp_async16;
 using simtopk::key_match;
 using simtopk::kNegInf;
 using simtopk::kSentinel;
-using simtopk::kWildcard;
+using simtopk::kSlots;
 
 constexpr int kBQ = 64;       // queries per block
 constexpr int kBN = 128;      // corpus rows per tile
@@ -89,59 +93,11 @@ constexpr int kNT = kBQ * kBN / (kTM * kTN);  // threads per block
 constexpr int kTY = kBQ / kTM;  // threads across the query tile
 constexpr int kTX = kBN / kTN;  // threads across the corpus tile
 static_assert(kTY == 8 && kTX == 4 * (kNT / 32), "a warp is 8 query x 4 corpus threads");
-constexpr int kSlots = 256;   // a query's list: running top-k, then candidates
-constexpr int kAdmitWarps = 8;
 constexpr int kStages = 3;    // depth chunks in flight: two loading while one is scored
 constexpr int kStage = (kBQ + kBN) * kLD;  // floats per stage: query rows, then corpus rows
 constexpr size_t kSmemBytes = sizeof(float) * kStages * kStage +
                               (sizeof(float) + sizeof(int)) * (size_t)kBQ * kSlots +
                               sizeof(int) * (3 * kBQ + kBN) + sizeof(float) * kBQ;
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// One warp per (query tile, corpus tile): sets the pair's bit when any
-// query of the tile admits any row of the corpus tile.
-__global__ void __launch_bounds__(kAdmitWarps * 32)
-admit_kernel(const int* __restrict__ qk, const int* __restrict__ ck, int nq, int n,
-             int n_tiles, int words, unsigned* __restrict__ admitted) {
-  const int lane = threadIdx.x & 31;
-  const int tile = blockIdx.x * kAdmitWarps + (threadIdx.x >> 5);
-  if (tile >= n_tiles) return;
-  const int q0 = blockIdx.y * kBQ;
-  const int qa = q0 + lane < nq ? qk[q0 + lane] : -2;  // -2 admits nothing
-  const int qb = q0 + 32 + lane < nq ? qk[q0 + 32 + lane] : -2;
-  const bool wild = __any_sync(0xffffffffu, qa == kWildcard || qb == kWildcard);
-  int c[kBN / 32];
-  bool real = false;
-#pragma unroll
-  for (int e = 0; e < kBN / 32; ++e) {
-    const int row = tile * kBN + 32 * e + lane;
-    c[e] = row < n ? ck[row] : -1;
-    real |= c[e] >= 0;
-  }
-  bool hit = wild && real;
-  for (int s = 0; s < 32; ++s) {
-    const int ka = __shfl_sync(0xffffffffu, qa, s);
-    const int kb = __shfl_sync(0xffffffffu, qb, s);
-#pragma unroll
-    for (int e = 0; e < kBN / 32; ++e) hit |= c[e] >= 0 && (c[e] == ka || c[e] == kb);
-  }
-  if (__any_sync(0xffffffffu, hit) && lane == 0)
-    atomicOr(admitted + (size_t)blockIdx.y * words + tile / 32, 1u << (tile % 32));
-}
 
 // Copies depth chunk `chunk` of the block's queries and of corpus tile
 // `tile` into a stage, zero past the last row and past D.
@@ -196,90 +152,6 @@ __device__ __forceinline__ void score_stage(const float* stage, int tx, int ty,
   }
 }
 
-constexpr int kPer = kSlots / 32;  // list slots a lane holds while merging
-
-// One step of the bitonic network inside a lane: slots r and r + S.
-template <int S>
-__device__ __forceinline__ void inlane_step(float (&rv)[kPer], int (&ri)[kPer], int size,
-                                            int lane) {
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    if (r & S) continue;
-    const bool desc = ((lane * kPer + r) & size) == 0;  // better first
-    const int u = r + S;
-    if (desc ? better(rv[u], ri[u], rv[r], ri[r]) : better(rv[r], ri[r], rv[u], ri[u])) {
-      const float tv = rv[r];
-      rv[r] = rv[u];
-      rv[u] = tv;
-      const int ti = ri[r];
-      ri[r] = ri[u];
-      ri[u] = ti;
-    }
-  }
-}
-
-// One warp sorts a query's list (kSlots slots, descending) in registers,
-// keeps the first k as its running top-k, empties the rest, and publishes
-// the k-th entry. Lane l holds slots kPer l .. kPer l + kPer - 1: the
-// bitonic network's strides of kPer and more pair lanes by shuffles, the
-// smaller ones stay in a lane. The network runs as loops, not unrolled:
-// a merge runs once per call, so its instructions come from the
-// instruction cache's slow levels, and an unrolled network (thousands of
-// instructions) is bound by their fetch.
-__device__ __forceinline__ void merge_list(float* v, int* x, int* cnt, float* thv, int* thi,
-                                           int k, int lane) {
-  static_assert(kPer == 8, "two float4 and two int4 a lane");
-  float rv[kPer];
-  int ri[kPer];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float4 a = reinterpret_cast<const float4*>(v + lane * kPer)[h];
-    const int4 b = reinterpret_cast<const int4*>(x + lane * kPer)[h];
-    rv[4 * h] = a.x, rv[4 * h + 1] = a.y, rv[4 * h + 2] = a.z, rv[4 * h + 3] = a.w;
-    ri[4 * h] = b.x, ri[4 * h + 1] = b.y, ri[4 * h + 2] = b.z, ri[4 * h + 3] = b.w;
-  }
-#pragma unroll 1
-  for (int size = 2; size <= kSlots; size <<= 1) {
-#pragma unroll 1
-    for (int ls = size / (2 * kPer); ls > 0; ls >>= 1) {  // lane strides
-      const bool lower = (lane & ls) == 0;
-#pragma unroll
-      for (int r = 0; r < kPer; ++r) {
-        const bool desc = ((lane * kPer + r) & size) == 0;
-        const float pv = __shfl_xor_sync(0xffffffffu, rv[r], ls);
-        const int pi = __shfl_xor_sync(0xffffffffu, ri[r], ls);
-        if (lower == desc ? better(pv, pi, rv[r], ri[r]) : better(rv[r], ri[r], pv, pi)) {
-          rv[r] = pv;
-          ri[r] = pi;
-        }
-      }
-    }
-    if (size >= 8) inlane_step<4>(rv, ri, size, lane);
-    if (size >= 4) inlane_step<2>(rv, ri, size, lane);
-    inlane_step<1>(rv, ri, size, lane);
-  }
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const bool keep = lane * kPer + r < k;
-    rv[r] = keep ? rv[r] : kNegInf;
-    ri[r] = keep ? ri[r] : kSentinel;
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    reinterpret_cast<float4*>(v + lane * kPer)[h] =
-        make_float4(rv[4 * h], rv[4 * h + 1], rv[4 * h + 2], rv[4 * h + 3]);
-    reinterpret_cast<int4*>(x + lane * kPer)[h] =
-        make_int4(ri[4 * h], ri[4 * h + 1], ri[4 * h + 2], ri[4 * h + 3]);
-  }
-  __syncwarp();
-  if (lane == 0) {
-    *cnt = 0;
-    *thv = v[k - 1];
-    *thi = x[k - 1];
-  }
-  __syncwarp();
-}
-
 // Candidates of columns tx + kTX j, j in half h, that beat their query's
 // k-th entry join its list; the four lanes that hold a row (one quad) take
 // their slots with one atomic. A padded query row has key -2, which admits
@@ -324,43 +196,6 @@ __device__ __forceinline__ void emit_half(const float (&acc)[kTM][kTN], int h, i
   }
 }
 
-// The block's 64 lists whose count passes `pred`, one bit each; every
-// warp computes the same mask.
-template <typename Pred>
-__device__ __forceinline__ unsigned long long list_mask(const int* cnt, int lane, Pred pred) {
-  static_assert(kBQ == 64, "two ballots cover the block's lists");
-  return __ballot_sync(0xffffffffu, pred(cnt[lane])) |
-         (unsigned long long)__ballot_sync(0xffffffffu, pred(cnt[lane + 32])) << 32;
-}
-
-// Merges every list holding more than `limit` candidates, the lists dealt
-// out in turn to the block's warps. A merge stops the block, so the warps
-// that would wait fill their turn with lists more than half that full,
-// which then merge later or never: the same merges in fewer stops. Every
-// warp reads the same counts, and a barrier keeps the merges (which zero
-// them) until all have read them. Called by every thread of the block.
-__device__ __forceinline__ void merge_lists(int limit, int k, int warp, int lane, int* cnt,
-                                            float* lv, int* li, float* thv, int* thi) {
-  constexpr int kWarps = kNT / 32;
-  const unsigned long long due = list_mask(cnt, lane, [&](int c) { return c > limit; });
-  if (due == 0) return;
-  const unsigned long long early =
-      list_mask(cnt, lane, [&](int c) { return c > limit / 2; }) & ~due;
-  const int turns = kWarps * ((__popcll(due) + kWarps - 1) / kWarps);
-  __syncthreads();
-  int seen = 0;
-  for (unsigned long long m = due; m; m &= m - 1, ++seen) {
-    if (seen % kWarps != warp) continue;
-    const int r = __ffsll(static_cast<long long>(m)) - 1;
-    merge_list(lv + r * kSlots, li + r * kSlots, cnt + r, thv + r, thi + r, k, lane);
-  }
-  for (unsigned long long m = early; m && seen < turns; m &= m - 1, ++seen) {
-    if (seen % kWarps != warp) continue;
-    const int r = __ffsll(static_cast<long long>(m)) - 1;
-    merge_list(lv + r * kSlots, li + r * kSlots, cnt + r, thv + r, thi + r, k, lane);
-  }
-}
-
 template <bool kVec>
 __global__ void __launch_bounds__(kNT, 1)
 sweep_kernel(const float* __restrict__ q, const int* __restrict__ qk,
@@ -399,14 +234,7 @@ sweep_kernel(const float* __restrict__ q, const int* __restrict__ qk,
   }
 
   // the first admitted tile at or after t (t_end if none)
-  auto next_tile = [&](int t) {
-    while (t < t_end) {
-      const unsigned w = __ldg(bits + (t >> 5)) >> (t & 31);
-      if (w) return min(t + __ffs(static_cast<int>(w)) - 1, t_end);
-      t = (t | 31) + 1;
-    }
-    return t_end;
-  };
+  auto next_tile = [&](int t) { return simtopk::next_admitted(bits, t, t_end); };
 
   // the issue cursor runs kStages - 1 chunks ahead of the one being
   // scored, across tile boundaries; stage i % kStages holds chunk i
@@ -420,7 +248,7 @@ sweep_kernel(const float* __restrict__ q, const int* __restrict__ qk,
         it_chunk = 0;
       }
     }
-    cp_async_commit();
+    simtopk::cp_async_commit();
   };
   for (int i = 0; i < kStages - 1; ++i) issue(i);
 
@@ -435,7 +263,7 @@ sweep_kernel(const float* __restrict__ q, const int* __restrict__ qk,
       for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
 
     for (int ch = 0; ch < n_chunks; ++ch, ++step) {
-      cp_async_wait<kStages - 2>();
+      simtopk::cp_async_wait<kStages - 2>();
       __syncthreads();  // chunk `step` landed; every thread is done with step - 1's stage
       issue((step + kStages - 1) % kStages);
       score_stage(smem + (step % kStages) * kStage, tx, ty, acc);
@@ -447,12 +275,13 @@ sweep_kernel(const float* __restrict__ q, const int* __restrict__ qk,
     for (int h = 0; h < 2; ++h) {
       emit_half(acc, h, n0, n, k, tx, ty, lane, qkeys, ckeys, thv, thi, cnt, lv, li);
       __syncthreads();
-      merge_lists(kSlots - kBN / 2 - k, k, warp, lane, cnt, lv, li, thv, thi);
+      simtopk::merge_lists<kBQ, kNT / 32>(kSlots - kBN / 2 - k, k, warp, lane, cnt, lv, li,
+                                          thv, thi);
       __syncthreads();
     }
     tile = next_tile(tile + 1);
   }
-  merge_lists(0, k, warp, lane, cnt, lv, li, thv, thi);
+  simtopk::merge_lists<kBQ, kNT / 32>(0, k, warp, lane, cnt, lv, li, thv, thi);
   __syncthreads();
 
   for (int e = tid; e < kBQ * k; e += kNT) {
@@ -490,7 +319,7 @@ cudaError_t launch_sweep(const float* q, const int* qk, const float* c, const in
 // q, qk: the queries and their keys, grouped by key by the wrapper.
 // admitted: (ceil(nq / 64), words) int32 scratch, words =
 // ceil(max(1, ceil(n / 128)) / 32). part_v/part_i: (nq, splits, k) scratch,
-// used when splits > 1. out_v/out_i: (nq, k). k <= 128; splits * k <= 4096.
+// used when splits > 1. out_v/out_i: (nq, k). k <= 128; splits <= 4096.
 // Returns a cudaError_t.
 extern "C" int tpualign_masked_sim_topk(const void* q, const void* qk, const void* c,
                                         const void* ck, int nq, int n, int d, int k,
@@ -506,17 +335,9 @@ extern "C" int tpualign_masked_sim_topk(const void* q, const void* qk, const voi
   const int* qki = static_cast<const int*>(qk);
   const int* cki = static_cast<const int*>(ck);
   unsigned* bits = static_cast<unsigned*>(admitted);
-  const int n_tiles = (n + kBN - 1) / kBN;
-  const int q_tiles = (nq + kBQ - 1) / kBQ;
-  const int words = (max(n_tiles, 1) + 31) / 32;
-  err = cudaMemsetAsync(bits, 0, sizeof(unsigned) * (size_t)q_tiles * words, s);
+  const int words = simtopk::admit_words((n + kBN - 1) / kBN);
+  err = simtopk::launch_admit<kBQ>(qki, cki, simtopk::FlatTiles<kBN>{n}, nq, bits, s);
   if (err != cudaSuccess) return (int)err;
-  if (n_tiles > 0) {
-    admit_kernel<<<dim3((n_tiles + kAdmitWarps - 1) / kAdmitWarps, q_tiles), kAdmitWarps * 32,
-                   0, s>>>(qki, cki, nq, n, n_tiles, words, bits);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
   float* sv = static_cast<float*>(splits > 1 ? part_v : out_v);
   int* si = static_cast<int*>(splits > 1 ? part_i : out_i);
   const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&

@@ -61,8 +61,19 @@ def build_clip(config: ModelConfig, device: str | torch.device = "cuda") -> CLIP
 
     ``fused_attention=None`` takes the attention kernel (K1) on CUDA and
     the plain path on the CPU; ``parity_mode`` keeps the plain path, runs
-    fp32 and turns TF32 off for CUDA matmuls.
+    fp32 and turns TF32 off for CUDA matmuls. ``quant`` is read as the JAX
+    package reads it (``parity_mode`` forces ``"none"``); its int8 GEMMs are
+    not ported, so ``"int8"`` and ``"int8_qat"`` raise.
     """
+    quant = "none" if config.parity_mode else config.quant
+    if quant not in ("none", "int8", "int8_qat"):
+        raise ValueError(f"Unknown CLIP_QUANT mode {config.quant!r}; "
+                         "expected 'none', 'int8' or 'int8_qat' "
+                         "(QAT: trainable straight-through surrogate)")
+    if quant != "none":
+        raise NotImplementedError(f"CLIP_QUANT={quant}: the int8 towers are not yet ported to "
+                                  "tpualign_torch (ROADMAP queue 1, item 3); unset it to run "
+                                  "the bf16 towers")
     dev = resolve_device(device)
     if config.parity_mode:
         compute_dtype = torch.float32

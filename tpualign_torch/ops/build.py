@@ -42,11 +42,11 @@ _SIGNATURES = {
     "masked_sim_topk": ("tpualign_masked_sim_topk",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]),
     "masked_sim_topk_quant": ("tpualign_masked_sim_topk_quant",
-                              [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                               _I, _P]),
+                              [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                               _P, _P, _P, _I, _P]),
     "ivf_probe_topk": ("tpualign_ivf_probe_topk",
-                       [_I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _P, _P, _I, _P]),
+                       [_I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
     "normalize_u8": ("tpualign_normalize_u8",
                      [_P, _P, ctypes.c_longlong, _F, _F, _F, _F, _F, _F, _I, _P]),
 }

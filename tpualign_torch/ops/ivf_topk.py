@@ -19,7 +19,10 @@ int4 ``(rows, D/2)``; packed int2 ``(rows, D/4)``.
 
 On CUDA tensors it launches ``csrc/ivf_probe_topk.cu``; on CPU tensors it
 runs :func:`ivf_probe_topk_reference`, the plain version of every variant.
-The JAX kernel has no backward, and neither has this one.
+The kernel reads only the union tiles that some query of a block admits,
+by key and probe (:func:`admitted_union_tiles` is the plain version of
+that prologue); the wrapper groups the queries by key for it, as K3's
+does. The JAX kernel has no backward, and neither has this one.
 """
 
 from __future__ import annotations
@@ -30,16 +33,14 @@ import torch
 
 from tpualign_torch.ops import build
 from tpualign_torch.ops.sim_topk import (
-    _BN, _BQ, _PLANES, MAX_K, SENTINEL_IDX, _check, _launch_args, _ptr, _scores, _splits,
-    key_mask, quant_variant, quantize_queries)
+    _BN, _K2_BN, _PLANES, MAX_K, SENTINEL_IDX, _blocks_per_sm, _check, _scores, _splits,
+    _sweep_scratch, group_by_key, key_mask, quant_variant, query_tile, ungroup_rows)
 from tpualign_torch.ops.similarity import NEG_INF, masked_topk
 
-__all__ = ["ivf_probe_topk", "ivf_probe_topk_reference", "union_rows"]
+__all__ = ["ivf_probe_topk", "ivf_probe_topk_reference", "union_rows", "admitted_union_tiles"]
 
 # K4's variant codes (csrc/ivf_probe_topk.cu)
 _VARIANT_CODE = {"s8": 0, "int4": 1, "int2": 2, "dequant": 3, None: 4}
-# query tiles of K4's sweeps: its fp32 sweep keeps a 32-query tile
-_IVF_BQ = {**_BQ, None: 32}
 
 
 def union_rows(uids: torch.Tensor, capacity: int, n_lists: int
@@ -59,6 +60,34 @@ def _membership(probes: torch.Tensor, blocks: torch.Tensor, n_lists: int) -> tor
     probed.scatter_(1, torch.where(real, probes, n_lists).to(torch.int64), True)
     probed[:, n_lists] = False
     return probed[:, blocks.clamp(max=n_lists)] | (blocks > n_lists)[None, :]
+
+
+def admitted_union_tiles(query_keys, probes, uids, packed_keys, capacity: int, n_lists: int,
+                         bq: int, bn: int) -> torch.Tensor:
+    """Plain version of K4's admit prologue: a ``(ceil(Q / bq), U *
+    ceil(C / bn))`` bool matrix over the union's tiles (tile t is the
+    ``bn``-row slice ``t mod ceil(C / bn)`` of block ``uids[t //
+    ceil(C / bn)]``), true where some query of query tile i probed the
+    tile's block (or it spilled) and admits one of its rows by key. Padding
+    entries and rows past the layout hold nothing. Pass the queries in the
+    order the kernel takes them (grouped by key)."""
+    qk = query_keys.reshape(-1)
+    ck = packed_keys.reshape(-1)
+    nq, per_block = qk.shape[0], -(-capacity // bn)
+    q_tiles = -(-nq // bq)
+    offset = torch.arange(per_block * bn, device=ck.device)
+    blocks = uids.to(torch.int64)
+    rows = blocks[:, None] * capacity + offset[None, :]
+    real = ((blocks >= 0) & (blocks != n_lists))[:, None] & (offset < capacity)[None, :] \
+        & (rows < ck.shape[0])
+    keys = torch.where(real, ck[rows.clamp(0, ck.shape[0] - 1)], -1).reshape(-1)
+    member = _membership(probes, blocks.clamp(min=0), n_lists) & (blocks >= 0)[None, :]
+    out = torch.zeros((q_tiles, len(uids) * per_block), dtype=torch.bool, device=ck.device)
+    for i in range(q_tiles):
+        s = slice(i * bq, (i + 1) * bq)
+        m = key_mask(qk[s], keys) & member[s].repeat_interleave(per_block * bn, dim=1)
+        out[i] = m.any(dim=0).view(-1, bn).any(dim=1)
+    return out
 
 
 def ivf_probe_topk_reference(queries, query_keys, probes, uids, packed_emb, packed_keys,
@@ -130,30 +159,37 @@ def ivf_probe_topk(queries: torch.Tensor, query_keys: torch.Tensor, probes: torc
         raise ValueError("inputs must be contiguous")
     variant = quant_variant(packed_emb, queries.shape[1], packed_scales, int8_mxu)
     d = queries.shape[1]
-    if variant in _PLANES:
-        if d % (4 * _PLANES[variant]):
-            raise ValueError(f"the {variant} kernel needs D a multiple of "
-                             f"{4 * _PLANES[variant]}, got {d}")
-        qq, qs = quantize_queries(queries)
-    else:
-        qq, qs = queries, None
-    per_block = -(-capacity // _BN)
-    splits = _splits(nq, len(uids) * per_block * _BN, k, dev, _IVF_BQ[variant]) if nq else 1
-    vals, idx, part_v, part_i = _launch_args(nq, k, splits, dev)
+    quantized = variant in _PLANES
+    if quantized and d % (4 * _PLANES[variant]):
+        raise ValueError(f"the {variant} kernel needs D a multiple of "
+                         f"{4 * _PLANES[variant]}, got {d}")
+    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return vals, idx
-    bits = torch.empty((nq, -(-n_lists // 32)), dtype=torch.int32, device=dev)
+    bq = query_tile(variant, nq)
+    order = group_by_key(qk) if nq > bq else None
+    if order is not None:
+        queries, qk, probes = queries[order], qk[order], probes[order]
+    bn = _K2_BN if variant is None else _BN
+    n_tiles = len(uids) * -(-capacity // bn)
+    splits = _splits(nq, n_tiles, dev, bq, _blocks_per_sm(variant, bq))
+    buf, (qq, qs, bits, admitted, part_v, part_i) = _sweep_scratch(
+        dev, nq, d, k, splits, bq, n_tiles, quantized, nq * -(-n_lists // 32) * 4)
     rc = build.load("ivf_probe_topk")(
-        _VARIANT_CODE[variant], qq.data_ptr(), _ptr(qs), qk.data_ptr(), probes.data_ptr(),
-        probes.shape[1], uids.data_ptr(), len(uids), packed_emb.data_ptr(), _ptr(packed_scales),
-        ck.data_ptr(), packed_emb.shape[0], capacity, n_lists, nq, d, k, splits,
-        bits.data_ptr(), _ptr(part_v), _ptr(part_i), vals.data_ptr(), idx.data_ptr(),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+        _VARIANT_CODE[variant], queries.data_ptr(), qk.data_ptr(), probes.data_ptr(),
+        probes.shape[1], uids.data_ptr(), len(uids), packed_emb.data_ptr(),
+        None if packed_scales is None else packed_scales.data_ptr(), ck.data_ptr(),
+        packed_emb.shape[0], capacity, n_lists, nq, d, k, splits, bq, qq, qs, bits, admitted,
+        part_v, part_i, vals.data_ptr(), idx.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"ivf_probe_topk kernel launch failed: CUDA error {rc}")
     ivf_probe_topk.launches += 1
-    return vals, idx
+    if order is None:
+        return vals, idx
+    return ungroup_rows(vals, order), ungroup_rows(idx, order)
 
 
 ivf_probe_topk.launches = 0

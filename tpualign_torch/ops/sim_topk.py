@@ -22,11 +22,16 @@ operations, 105 GFLOP of fp32 against a 205 MB corpus read; K3 at
 N=1,000,000 by bytes, a 512/256/128 MB int8/int4/int2 corpus read, since
 the pairs a key mask admits need little of the tensor cores' integer rate.
 Both stream the corpus with O(Q*k) state and never write the (Q, N) score
-matrix (see the sources' notes). K2 reads only the corpus tiles that some
-query of a 64-query tile admits; the wrapper groups the queries by key
-first (:func:`group_by_key`) and puts the rows back after
+matrix (see the sources' notes). Both read only the corpus tiles that some
+query of a block admits (:func:`admitted_tiles` is the plain version of
+that prologue); the wrapper groups the queries by key first
+(:func:`group_by_key`) and puts the rows back after
 (:func:`ungroup_rows`), so where a key's corpus rows lie together, as the
-Evaluator's same-page search finds them, most tiles go unread.
+Evaluator's same-page search and serving's ``/search_image`` find them,
+most tiles go unread. K3 quantizes the queries inside the call (the
+kernel's codes and scales are :func:`quantize_queries`' bit for bit) and
+takes its integer products on the tensor cores; a batch of at most 16
+queries takes 16-query blocks (:func:`query_tile`).
 """
 
 from __future__ import annotations
@@ -40,15 +45,15 @@ from tpualign_torch.ops.similarity import NEG_INF, WILDCARD_KEY, masked_topk
 
 __all__ = ["masked_sim_topk", "masked_sim_topk_quant", "masked_sim_topk_reference",
            "quant_variant", "quantize_queries", "key_mask", "group_by_key", "ungroup_rows",
-           "SENTINEL_IDX", "MAX_K"]
+           "admitted_tiles", "query_tile", "SENTINEL_IDX", "MAX_K"]
 
 # Empty top-k slots carry this index (values carry NEG_INF).
 SENTINEL_IDX = 2**30
 MAX_K = 128
-_MERGE_MAX = 4096   # splits * k bound of the kernels' cross-range merge
-_BN = 64            # K3's and K4's corpus tile
+_MAX_SPLITS = 4096  # corpus ranges the kernels' cross-range merge takes
+_BN = 64            # K3's and K4's corpus tile (K4's fp32 sweep: _K2_BN)
 _K2_BN = 128        # K2's corpus tile
-_BQ = {None: 64, "dequant": 32, "s8": 64, "int4": 64, "int2": 64}  # query tiles
+_SMALL_Q = 16       # integer batches up to this size take 16-query blocks
 # K3's variant codes (csrc/masked_sim_topk_quant.cu) and codes per byte
 _VARIANT_CODE = {"s8": 0, "int4": 1, "int2": 2, "dequant": 3}
 _PLANES = {"s8": 1, "int4": 2, "int2": 4}
@@ -144,25 +149,36 @@ def masked_sim_topk_reference(queries, query_keys, corpus, corpus_keys, k: int,
     return vals, idx
 
 
-def _splits(nq: int, n: int, k: int, device: torch.device, bq: int) -> int:
-    """Corpus ranges per query tile: enough blocks for two per SM, at
-    least one corpus tile per range, within the merge's bound."""
+def query_tile(variant: Optional[str], nq: int) -> int:
+    """Queries a block of K3's or K4's sweep takes: 64 for fp32 (K2's
+    sweep, K4's copy), 32 for dequant, and for the integer variants 16
+    (the tensor-core product's M) when the batch fits one such block, else
+    64."""
+    if variant is None:
+        return 64
+    if variant == "dequant":
+        return 32
+    return 16 if nq <= _SMALL_Q else 64
+
+
+def _blocks_per_sm(variant: Optional[str], bq: int) -> int:
+    """Blocks of a sweep one SM runs at once, as their shared memory allows
+    (csrc/quant_sweep.cuh), times the waves the grid may take: the skip
+    leaves blocks uneven work, and later waves fill the SMs that finish
+    first. K2's sweep and K4's copy: one, in one wave."""
+    if variant is None:
+        return 1
+    if variant == "dequant":
+        return 2
+    return 3 if bq == 16 else 4
+
+
+def _splits(nq: int, n_tiles: int, device: torch.device, bq: int, per_sm: int = 1) -> int:
+    """Corpus ranges per query tile: ``per_sm`` blocks a SM over the grid,
+    at least one corpus tile per range, within the merge's bound."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_tiles = -(-nq // bq)
-    n_tiles = max(1, -(-n // _BN))
-    want = -(-2 * sms // q_tiles)
-    return max(1, min(want, n_tiles, _MERGE_MAX // k))
-
-
-def _k2_splits(nq: int, n: int, k: int, device: torch.device) -> int:
-    """K2's corpus ranges per query tile: one block per SM (its running
-    lists take most of an SM's shared memory), rounded down so that the
-    grid is one wave, at least one corpus tile per range, within the
-    merge's bound."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-nq // _BQ[None])
-    n_tiles = max(1, -(-n // _K2_BN))
-    return max(1, min(sms // q_tiles, n_tiles, _MERGE_MAX // k))
+    return max(1, min(per_sm * sms // q_tiles, max(1, n_tiles), _MAX_SPLITS))
 
 
 def group_by_key(query_keys: torch.Tensor) -> torch.Tensor:
@@ -172,6 +188,23 @@ def group_by_key(query_keys: torch.Tensor) -> torch.Tensor:
     order, so that a query tile admits few corpus tiles when the corpus
     rows of a key lie together."""
     return torch.sort(query_keys, stable=True).indices
+
+
+def admitted_tiles(query_keys: torch.Tensor, corpus_keys: torch.Tensor, bq: int,
+                   bn: int) -> torch.Tensor:
+    """Plain version of the kernels' admit prologue: a ``(ceil(Q / bq),
+    ceil(N / bn))`` bool matrix, true where some query of query tile i
+    admits some row of corpus tile j (:func:`key_mask`). The sweeps read
+    only those tiles; every other tile holds masked candidates alone. Pass
+    the keys in the order the kernel takes them (grouped by key)."""
+    nq, n = query_keys.shape[0], corpus_keys.shape[0]
+    q_tiles, n_tiles = -(-nq // bq), -(-n // bn)
+    qk = torch.nn.functional.pad(query_keys, (0, q_tiles * bq - nq), value=-2)
+    ck = torch.nn.functional.pad(corpus_keys, (0, n_tiles * bn - n), value=-1)
+    out = torch.zeros((q_tiles, n_tiles), dtype=torch.bool, device=query_keys.device)
+    for i in range(q_tiles):
+        out[i] = key_mask(qk[i * bq:(i + 1) * bq], ck).any(dim=0).view(n_tiles, bn).any(dim=1)
+    return out
 
 
 def ungroup_rows(rows: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -212,19 +245,26 @@ def _check(queries, query_keys, corpus, corpus_keys, corpus_scales):
     return dev, tensors
 
 
-def _launch_args(nq: int, k: int, splits: int, dev: torch.device):
-    """Outputs and the (nq, splits, k) scratch of a sweep with splits ranges."""
-    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    part_v = part_i = None
-    if splits > 1:
-        part_v = torch.empty((nq, splits, k), dtype=torch.float32, device=dev)
-        part_i = torch.empty((nq, splits, k), dtype=torch.int32, device=dev)
-    return vals, idx, part_v, part_i
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+def _sweep_scratch(dev, nq: int, d: int, k: int, splits: int, bq: int, n_tiles: int,
+                   quantized: bool, *extra: int):
+    """A sweep's scratch in one byte buffer, each region 256-byte aligned:
+    quantized queries and scales (K3's and K4's integer variants), ``extra``
+    regions, the admit bits of (ceil(nq / bq), words) query and corpus
+    tiles, and the (nq, splits, k) partial lists (none when splits == 1).
+    Returns ``(buffer, addresses)``, None for an empty region; the caller
+    keeps the buffer until the launch is queued, and the allocator reuses
+    it in stream order."""
+    words = -(-max(1, n_tiles) // 32)
+    part = nq * splits * k * 4 if splits > 1 else 0
+    sizes = (nq * d if quantized else 0, nq * 4 if quantized else 0, *extra,
+             -(-nq // bq) * words * 4, part, part)
+    addrs, total = [], 0
+    for size in sizes:
+        addrs.append(total if size else None)
+        total += -(-size // 256) * 256
+    buf = torch.empty(max(total, 1), dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    return buf, [None if a is None else base + a for a in addrs]
 
 
 def masked_sim_topk(queries: torch.Tensor, query_keys: torch.Tensor,
@@ -257,18 +297,20 @@ def masked_sim_topk(queries: torch.Tensor, query_keys: torch.Tensor,
                                      corpus_scales, variant)
     nq, d = queries.shape
     n = corpus.shape[0]
-    splits = _k2_splits(nq, n, k, dev) if nq else 1
-    vals, idx, part_v, part_i = _launch_args(nq, k, splits, dev)
+    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return vals, idx
     order = group_by_key(query_keys)
     q, qk = queries[order], query_keys[order]
-    words = -(-max(1, -(-n // _K2_BN)) // 32)
-    admitted = torch.zeros((-(-nq // _BQ[None]), words), dtype=torch.int32, device=dev)
+    bq, n_tiles = query_tile(None, nq), -(-n // _K2_BN)
+    splits = _splits(nq, n_tiles, dev, bq)
+    buf, (_, _, admitted, part_v, part_i) = _sweep_scratch(dev, nq, d, k, splits, bq, n_tiles,
+                                                           False)
     rc = build.load("masked_sim_topk")(
         q.data_ptr(), qk.data_ptr(), corpus.data_ptr(), corpus_keys.data_ptr(), nq, n, d, k,
-        splits, admitted.data_ptr(), _ptr(part_v), _ptr(part_i), vals.data_ptr(),
-        idx.data_ptr(), dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+        splits, admitted, part_v, part_i, vals.data_ptr(), idx.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"masked_sim_topk kernel launch failed: CUDA error {rc}")
@@ -286,33 +328,40 @@ def masked_sim_topk_quant(queries: torch.Tensor, query_keys: torch.Tensor,
     """K3 on CUDA tensors: :func:`masked_sim_topk` over a quantized corpus,
     ``variant`` as :func:`quant_variant` names it. The integer variants
     need D a multiple of 4 (s8), 8 (int4) or 16 (int2), the word layout of
-    the kernel's unpack."""
+    the kernel's unpack. A batch larger than one block goes in grouped by
+    key, and its rows come back in the queries' order."""
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"masked_sim_topk_quant runs on CUDA tensors, got {dev}")
     nq, d = queries.shape
     n = corpus.shape[0]
-    if variant in _PLANES:
-        if d % (4 * _PLANES[variant]):
-            raise ValueError(f"the {variant} kernel needs D a multiple of "
-                             f"{4 * _PLANES[variant]}, got {d}")
-        qq, qs = quantize_queries(queries)
-    else:
-        qq, qs = queries, None
-    splits = _splits(nq, n, k, dev, _BQ[variant]) if nq else 1
-    vals, idx, part_v, part_i = _launch_args(nq, k, splits, dev)
+    quantized = variant in _PLANES
+    if quantized and d % (4 * _PLANES[variant]):
+        raise ValueError(f"the {variant} kernel needs D a multiple of "
+                         f"{4 * _PLANES[variant]}, got {d}")
+    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return vals, idx
+    bq = query_tile(variant, nq)
+    order = group_by_key(query_keys) if nq > bq else None
+    q, qk = (queries, query_keys) if order is None else (queries[order], query_keys[order])
+    n_tiles = -(-n // _BN)
+    splits = _splits(nq, n_tiles, dev, bq, _blocks_per_sm(variant, bq))
+    buf, (qq, qs, admitted, part_v, part_i) = _sweep_scratch(dev, nq, d, k, splits, bq,
+                                                             n_tiles, quantized)
     rc = build.load("masked_sim_topk_quant")(
-        _VARIANT_CODE[variant], qq.data_ptr(), _ptr(qs), query_keys.data_ptr(),
-        corpus.data_ptr(), corpus_scales.data_ptr(), corpus_keys.data_ptr(),
-        nq, n, d, k, splits, _ptr(part_v), _ptr(part_i), vals.data_ptr(), idx.data_ptr(),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
+        _VARIANT_CODE[variant], q.data_ptr(), qk.data_ptr(), corpus.data_ptr(),
+        corpus_scales.data_ptr(), corpus_keys.data_ptr(), nq, n, d, k, splits, bq, qq, qs,
+        admitted, part_v, part_i, vals.data_ptr(), idx.data_ptr(), dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"masked_sim_topk_quant kernel launch failed: CUDA error {rc}")
     masked_sim_topk_quant.launches += 1
-    return vals, idx
+    if order is None:
+        return vals, idx
+    return ungroup_rows(vals, order), ungroup_rows(idx, order)
 
 
 masked_sim_topk_quant.launches = 0

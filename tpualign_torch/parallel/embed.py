@@ -63,7 +63,9 @@ class EmbedEngine:
 
     ``params``: the JAX package's parameter tree as nested dicts of numpy
     arrays (see ``tpualign_torch.models.convert``); None draws seeded
-    random weights (``init_clip_params``). ``preprocess`` is the image
+    random weights (``init_clip_params``), and raises
+    ``NotImplementedError`` when ``model_config.checkpoint_path`` is set,
+    where the JAX package would load it (not yet ported). ``preprocess`` is the image
     feed, ``"host"`` or ``"device"``; ``preprocess_bucket`` the edge of the
     device feed's uint8 buffers (larger images are shrunk on the host).
     ``device`` defaults to CUDA and raises when it is absent; pass
@@ -99,6 +101,9 @@ class EmbedEngine:
         self.tokenizer = tokenizer or ClipTokenizer(context_length=self.variant.context_length)
         self.batch_size = max(1, int(batch_size))
 
+        if params is None and model_config.checkpoint_path:
+            raise NotImplementedError("CLIP_CHECKPOINT: loading checkpoints is not yet ported to "
+                                      "tpualign_torch; unset it to serve seeded weights")
         self.model: CLIP = build_clip(model_config, self.device)
         if params is None:
             log.warning("No checkpoint configured: using seeded random weights "

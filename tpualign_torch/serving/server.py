@@ -595,12 +595,10 @@ def make_image_bytes_encoder(engine) -> Callable:
 
 def make_engine(config, device="cuda"):
     """The towers ``serve`` and ``query --text`` encode with: the configured
-    CLIP variant with seeded weights (checkpoint loading is a later slice)."""
+    CLIP variant with seeded weights (``EmbedEngine`` refuses a
+    ``CLIP_CHECKPOINT``: checkpoint loading is a later slice)."""
     from tpualign_torch.parallel.embed import EmbedEngine
 
-    if config.model.checkpoint_path:
-        raise NotImplementedError("CLIP_CHECKPOINT: loading checkpoints is not yet ported to "
-                                  "tpualign_torch; unset it to serve seeded weights")
     return EmbedEngine(config.model, batch_size=64,
                        text_buckets=getattr(config, "text_buckets", (16, 32, 77)),
                        seed=getattr(config, "seed", 0), device=device)
