@@ -39,48 +39,60 @@ for the numbers in PERF.md). Phases, one JSON line each:
    device-feed batch (B=256, 224x224x3 uint8 -> fp32), with times for the
    kernel and the plain version and its bound (no single PyTorch call
    computes it);
-8. device_feed: 2,048 seeded smooth PNG/JPEG files (96-1,200 px per side,
+8. checkpoint: ViT-B-32's seeded tree (the weights the port draws without
+   a checkpoint) written as an OpenCLIP-layout ``.pt`` file (a plain
+   tensor dict, ``torch.load(weights_only=True)`` reads it), read back by
+   the port's loader bit for bit (and as ``.safetensors`` where that
+   package is installed); the pipeline, serve and serve_ivf phases load
+   their towers from it;
+9. device_feed: 2,048 seeded smooth PNG/JPEG files (96-1,200 px per side,
    about a third above the 256 bucket) through ``embed_image_records``
    with the host feed, then the device feed: images/s of each, K5's
    launches, the profile of one batch of each, and 64 images' pixels on
    the card against the port's CPU path;
-9. pipeline: a processed corpus in tpualign's stage-1 format (512 manuals
-   x 8 pages, one image and eight chunks per page, 4,096 images and 32,768
-   chunks, and the lexical components) through ``python -m tpualign_torch
-   setup-db``, ``embed`` (IMAGE_PREPROCESS=device) and ``evaluate`` as
-   subprocesses, their kernel launch counters written at exit;
-   metrics.json's four schemas, vanilla_clip's metrics against a float64
-   recount from the stored embeddings, and every schema's alignment
-   records against the CPU ``compute_alignments``. The cartesian metrics
-   cannot see the ranking (every same-page chunk is true), so K2 is held
-   against its plain version at the Evaluator's own search (Q=4,096,
-   N=32,768, 4,096 page keys, k=100), timed beside the plain version and
-   the library yardstick (``torch.where(key_mask, q @ c.T, NEG_INF)`` +
-   ``torch.topk``) with its bound and the corpus tiles it reads, and the
-   weak-supervision schemas' ``gt="alignments"`` ranks, top-k and MRR,
-   which move with the ranking, against a float64 recount over the stored
-   alignments;
-10. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
+10. pipeline: 512 ``*.synthdoc.json`` manuals x 8 pages (one raster image,
+    a device_feed file's bytes, and eight word lines per page: 4,096
+    images and 32,768 chunks) written by the port's
+    ``write_synthetic_document``, through ``python -m tpualign_torch
+    process``, ``filter``, ``setup-db``, ``embed`` (IMAGE_PREPROCESS=device,
+    CLIP_CHECKPOINT) and ``evaluate`` as subprocesses, their kernel launch
+    counters written at exit; stage 1's records against what the writer
+    placed, the stored embeddings against ``EmbedEngine`` with the seeded
+    tree and no checkpoint, bit for bit; metrics.json's four schemas,
+    vanilla_clip's metrics against a float64 recount from the stored
+    embeddings, and every schema's alignment records against the CPU
+    ``compute_alignments``. The cartesian metrics cannot see the ranking
+    (every same-page chunk is true), so K2 is held against its plain
+    version at the Evaluator's own search (Q=4,096, N=32,768, 4,096 page
+    keys, k=100), timed beside the plain version and the library yardstick
+    (``torch.where(key_mask, q @ c.T, NEG_INF)`` + ``torch.topk``) with its
+    bound and the corpus tiles it reads, and the weak-supervision schemas'
+    ``gt="alignments"`` ranks, top-k and MRR, which move with the ranking,
+    against a float64 recount over the stored alignments. Then ``python -m
+    tpualign_torch run --non-interactive`` over 32 of the manuals into
+    fresh directories, its metrics against its own recount, and the same
+    command again, which must skip stages 1-4 and write the same metrics;
+11. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
     images, 100,000 weak alignments) is written to a temporary directory and
     served by ``build_service`` + ``serve_schemas`` at int8 with refine 4 and
-    the ViT-B-32 towers; eight clients send 32 requests each over
-    /search_text, /search_image (with and without rerank),
-    /search_image_bytes, /stats and /healthz, and every answer is held
-    against the plain path; then int4 and int2 rebuilds, recall@10 of each
-    rung against exact fp32, and ``python -m tpualign_torch query
-    --image-id`` against the service; K3 at the shapes serving gives it
+    the ViT-B-32 towers from the checkpoint (``/stats`` must report it);
+    eight clients send 32 requests each over /search_text, /search_image
+    (with and without rerank), /search_image_bytes, /stats and /healthz,
+    and every answer is held against the plain path; then int4 and int2
+    rebuilds, recall@10 of each rung against exact fp32, and ``python -m
+    tpualign_torch query --image-id`` against the service; K3 at the shapes serving gives it
     (the ``/search_image`` profile's two keyed image queries, and one
     wildcard text query, k=40) against its plain version and the library
     yardstick; the launch counters are read around the clients' run alone;
-11. serve_ivf, over the same store: ``python -m tpualign_torch index``
+12. serve_ivf, over the same store: ``python -m tpualign_torch index``
     (RETRIEVAL_INDEX=ivf, int8, refine 4, recall target 0.95) as a
     subprocess, the same build and calibration timed in this process (the
     same structure), ``build_service`` loading the artifact, the clients of
-    10. with every answer against the plain path (plain K4, exact rescore),
+    11. with every answer against the plain path (plain K4, exact rescore),
     recall@10 of int8/int4/int2 at the calibrated and default probe counts,
     and ``query --image-id`` through the artifact; the counters are read
     around the clients' run alone;
-12. the seconds of each phase, the kernels line, the card line, and
+13. the seconds of each phase, the kernels line, the card line, and
     ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -91,6 +103,7 @@ imports nothing of JAX or ``tpualign``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import multiprocessing
 import subprocess
@@ -559,15 +572,15 @@ def _k4_measure(what, qv, qk, probe, uids, emb, ck, scales, mxu, k, cap, n_lists
                           if variant in (None, "dequant") else "identical")}
 
 
-def _chunk_texts(rng, count):
+def _chunk_texts(rng, count, empty_every=97):
     """Texts whose byte-level token counts fill the 16, 32 and 77 buckets,
-    with every 97th text empty (a placeholder)."""
+    with every ``empty_every``-th text empty (a placeholder; 0: none)."""
     words = np.array(["oil", "filter", "bolt", "pakking", "vervang", "draai",
                       "los", "torque", "25", "Nm", "check", "peil", "pump",
                       "de", "het", "seal", "valve", "hose", "zie", "fig"])
     texts = []
     for i in range(count):
-        if i % 97 == 0:
+        if empty_every and i % empty_every == 0:
             texts.append("")
             continue
         n_words = (2, 5, 14)[i % 3] + int(rng.integers(0, 3))
@@ -1067,12 +1080,13 @@ def _query_cli(env, image_id, service, dev):
     return secs
 
 
-def phase_serve(dev, seed, root):
+def phase_serve(dev, seed, root, checkpoint):
     """The serving path: the port's store, build_service + serve_schemas at
-    int8 with refine 4 and ViT-B-32 towers, eight clients, every answer
-    held against the plain path; then int4 and int2 rebuilds, recall
-    against exact fp32, and the ``query --image-id`` CLI. Returns the
-    launches, and what serve_ivf reuses."""
+    int8 with refine 4 and ViT-B-32 towers loaded from the checkpoint
+    (``/stats`` reports it), eight clients, every answer held against the
+    plain path; then int4 and int2 rebuilds, recall against exact fp32,
+    and the ``query --image-id`` CLI. Returns the launches, and what
+    serve_ivf reuses."""
     from tpualign_torch.config import load_config
     from tpualign_torch.ops.attention import fused_mha
     from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
@@ -1091,7 +1105,7 @@ def phase_serve(dev, seed, root):
 
     config = load_config({"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8",
                           "RETRIEVAL_REFINE": "4", "CLIP_MODEL": "ViT-B-32",
-                          "SEED": str(seed)})
+                          "SEED": str(seed), "CLIP_CHECKPOINT": checkpoint})
     t0 = time.perf_counter()
     engine = make_engine(config, dev)
     text_enc = _Recorder(engine.encode_text_batch)
@@ -1108,6 +1122,8 @@ def phase_serve(dev, seed, root):
     checked = _check_answers(run, service, images, pngs, text_enc, image_enc, _plain_refined)
     check(launches["masked_sim_topk_quant"] > 0, "K3 was not launched while serving")
     check(launches["fused_mha"] > 0, "K1 was not launched while serving")
+    model = {"name": "ViT-B-32", "quant": "none", "checkpoint": checkpoint}
+    check(run["stats"].get("model") == model, f"/stats reports the model {run['stats']}")
 
     # the refine share of one coalesced-size search (8 queries)
     img_emb = service._image_embs
@@ -1176,7 +1192,8 @@ def phase_serve(dev, seed, root):
     cli_s = _query_cli({"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8",
                         "RETRIEVAL_REFINE": "4"}, images[7]["image_id"], service, dev)
 
-    emit({"phase": "serve", "model": "ViT-B-32", "precision": "int8", "refine": 4,
+    emit({"phase": "serve", "model": "ViT-B-32", "stats_model": run["stats"]["model"],
+          "precision": "int8", "refine": 4,
           "store_write_s": store_s, "service_build_s": build_s,
           "clients": SERVE_CLIENTS, "requests": len(run["results"]), "answers_checked": checked,
           "wall_s": run["wall"], "qps": len(run["results"]) / run["wall"],
@@ -1341,8 +1358,8 @@ def phase_serve_ivf(dev, seed, root, shared):
 K5_SHAPE = (256, 224, 224, 3)          # one device-feed batch at ViT-B-32
 FEED_IMAGES, FEED_BUCKET = 2048, 256   # files of the device_feed phase; IMAGE_PREPROCESS_BUCKET
 PIPE_MANUALS, PIPE_PAGES, PIPE_CHUNKS_PER_PAGE = 512, 8, 8
-PIPE_TERMS = ["oil", "filter", "bolt", "pakking", "vervang", "draai", "torque", "pump", "seal",
-              "valve", "hose", "peil", "check"]
+PIPE_EXCLUDE = "check"  # the operator's exclusion list for stage 2
+PIPE_RUN_MANUALS = 32  # the one-command run's subset
 
 
 def phase_k5(dev, gen):
@@ -1507,45 +1524,206 @@ def phase_device_feed(dev, seed, root):
     return names
 
 
-def _processed_corpus(root, seed, feed_dir, feed_names):
-    """tpualign's stage-1 outputs for 512 manuals x 8 pages, one image
-    (hard links to the device_feed files) and eight chunks per page, with
-    bboxes, and the lexical components."""
-    import json
+def _openclip_name(name: str, t: torch.Tensor):
+    """The port's parameter name and tensor -> OpenCLIP's (the layout
+    ``models.loader.convert_openclip_state_dict`` reads)."""
+    if name.startswith("text."):
+        name = name[len("text."):]
+        if name == "token_embedding":
+            return "token_embedding.weight", t
+    if name == "visual.conv1_kernel":  # HWIO -> OIHW
+        return "visual.conv1.weight", t.permute(3, 2, 0, 1)
+    head, _, leaf = name.rpartition(".")
+    if leaf == "in_proj_kernel":
+        return f"{head}.in_proj_weight", t.T
+    if leaf.endswith("_kernel"):
+        return f"{head}.{leaf[:-len('_kernel')]}.weight", t.T
+    if leaf.endswith("_bias") and leaf != "in_proj_bias":
+        return f"{head}.{leaf[:-len('_bias')]}.bias", t
+    if leaf == "scale":
+        return f"{head}.weight", t
+    return name, t
+
+
+def phase_checkpoint(root, seed) -> str:
+    """ViT-B-32's seeded tree (``init_clip_params(seed)``, the weights the
+    port draws without a checkpoint) written as an OpenCLIP-layout ``.pt``
+    file: a plain tensor dict that ``torch.load(weights_only=True)`` reads.
+    The port's loader must read it back bit for bit; where ``safetensors``
+    is installed, the same tree as ``.safetensors`` must load equal."""
     import os
 
-    out = os.path.join(root, "processed")
-    images_dir = os.path.join(out, "images")
-    os.makedirs(images_dir)
+    from tpualign_torch.config import ModelConfig
+    from tpualign_torch.models import CLIP, from_jax_params, init_clip_params
+    from tpualign_torch.models.loader import load_checkpoint_params
+
+    mc = ModelConfig("ViT-B-32")
+    t0 = time.perf_counter()
+    seeded = init_clip_params(CLIP(mc.variant, mc.use_quick_gelu), seed=seed)
+    sd = dict(_openclip_name(n, p.detach()) for n, p in seeded.named_parameters())
+    sd = {k: v.contiguous() for k, v in sd.items()}
+    path = os.path.join(root, "vit-b-32-openclip.pt")
+    torch.save(sd, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = load_checkpoint_params(dataclasses.replace(mc, checkpoint_path=path))
+    load_s = time.perf_counter() - t0
+    loaded = from_jax_params(CLIP(mc.variant, mc.use_quick_gelu), tree)
+    for (name, want), got in zip(seeded.named_parameters(), loaded.parameters()):
+        check(torch.equal(got, want), f"checkpoint round trip: {name} differs")
+    out = {"phase": "checkpoint", "layout": "openclip", "file": os.path.basename(path),
+           "bytes": os.path.getsize(path), "tensors": len(sd),
+           "params": sum(v.numel() for v in sd.values()), "export_s": export_s,
+           "load_s": load_s, "round_trip": "bit-identical"}
+    try:
+        from safetensors.torch import save_file
+    except ImportError:
+        out["safetensors"] = "not installed"
+    else:
+        st = os.path.join(root, "vit-b-32-openclip.safetensors")
+        save_file(sd, st)
+        other = load_checkpoint_params(dataclasses.replace(mc, checkpoint_path=st))
+        check(all(np.array_equal(a, b) for a, b in zip(_leaves(other), _leaves(tree))),
+              "the .safetensors file loads another tree than the .pt file")
+        out["safetensors"] = "same tree as .pt"
+    emit(out)
+    return path
+
+
+def _leaves(tree):
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _leaves(tree[key])
+        else:
+            yield tree[key]
+
+
+def _line_words(text, top):
+    """One line of positioned words, 12 points high, left to right."""
+    words, x = [], 50.0
+    for t in text.split():
+        words.append({"text": t, "x0": x, "x1": x + 7.0 * len(t), "top": top,
+                      "bottom": top + 12.0})
+        x += 7.0 * len(t) + 5.0
+    return words
+
+
+def _manual_corpus(root, seed, feed_dir, feed_names):
+    """512 ``*.synthdoc.json`` manuals x 8 pages, written by the port's
+    ``write_synthetic_document``. Each page holds one raster image (a
+    device_feed file's bytes) with a native rect, or on every 53rd page
+    only the page's image block (the processor's second bbox tier), and
+    eight word lines that chunking turns into one chunk each. Returns the
+    raw directory, what each page should give, and the corpus' bytes."""
+    import os
+
+    from tpualign_torch.data import write_synthetic_document
+
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw)
     rng = np.random.default_rng(seed + 1)
-    texts = _chunk_texts(rng, PIPE_MANUALS * PIPE_PAGES * PIPE_CHUNKS_PER_PAGE)
-    images, chunks = [], []
+    texts = _chunk_texts(rng, PIPE_MANUALS * PIPE_PAGES * PIPE_CHUNKS_PER_PAGE, empty_every=0)
+    pages_want = []
     for m in range(PIPE_MANUALS):
+        pages = []
         for p in range(PIPE_PAGES):
             page = m * PIPE_PAGES + p
             src = feed_names[page % len(feed_names)]
-            image_id = f"man{m:03d}_p{p}_img0"
-            name = f"{image_id}.{src.rsplit('.', 1)[1]}"
-            os.link(os.path.join(feed_dir, src), os.path.join(images_dir, name))
+            with open(os.path.join(feed_dir, src), "rb") as fh:
+                data = fh.read()
             x0, y0 = (int(v) for v in rng.integers(40, 400, 2))
-            bbox = None if page % 53 == 0 else [x0, y0, x0 + 160, y0 + 120]
-            images.append({"image_id": image_id, "manual_id": f"man{m:03d}", "page": p,
-                           "bbox": bbox, "bbox_source": "native", "caption": None,
-                           "filename": name, "image_type": "raster_image"})
-            for c in range(PIPE_CHUNKS_PER_PAGE):
-                top = int(rng.integers(40, 740))
-                chunks.append({"chunk_id": f"man{m:03d}_p{p}_c{c}", "manual_id": f"man{m:03d}",
-                               "page": p, "bbox": [50, top, 400, top + 12],
-                               "text": texts[page * PIPE_CHUNKS_PER_PAGE + c]})
-    counts = {t: sum(1 for c in chunks if t in c["text"].lower()) for t in PIPE_TERMS}
-    comps = [{"term": t, "count": n} for t, n in sorted(counts.items(), key=lambda kv: -kv[1])]
-    for fname, obj in (("image_metadata.json", images), ("text_chunks.json", chunks),
-                       ("lexical_components.json",
-                        {"total_components": len(comps),
-                         "total_occurrences": sum(counts.values()), "components": comps})):
-        with open(os.path.join(out, fname), "w") as f:
-            json.dump(obj, f)
-    return out, images, chunks, [c["term"] for c in comps]
+            bbox = [x0, y0, x0 + 160, y0 + 120]
+            native = page % 53 != 0
+            lines = texts[page * PIPE_CHUNKS_PER_PAGE:(page + 1) * PIPE_CHUNKS_PER_PAGE]
+            tops = 60.0 + 85.0 * np.arange(PIPE_CHUNKS_PER_PAGE) + rng.integers(0, 40, len(lines))
+            pages.append({
+                "width": 612, "height": 792,
+                "images": [{"data": data, "ext": src.rsplit(".", 1)[1],
+                            "rects": [bbox] if native else [],
+                            "dict_bbox": None if native else bbox}],
+                "drawings": [],
+                "words": [w for text, top in zip(lines, tops)
+                          for w in _line_words(text, float(top))],
+            })
+            pages_want.append({"manual_id": f"man{m:03d}", "page": p + 1, "bbox": bbox,
+                               "bbox_source": "native" if native else "dict_fallback",
+                               "src": src, "lines": lines})
+        write_synthetic_document(os.path.join(raw, f"man{m:03d}.synthdoc.json"), pages)
+    nbytes = sum(os.path.getsize(os.path.join(raw, n)) for n in os.listdir(raw))
+    return raw, pages_want, nbytes
+
+
+def _check_stage1(out, feed_dir, pages_want):
+    """Stage 1's records against what the writer placed: one image per page
+    with its manual, page, bbox and bytes, the page's eight lines as its
+    eight chunks in order, and a vocabulary; stage 2's filtered
+    vocabulary without the excluded term."""
+    import json
+    import os
+
+    with open(os.path.join(out, "image_metadata.json")) as f:
+        images = json.load(f)
+    with open(os.path.join(out, "text_chunks.json")) as f:
+        chunks = json.load(f)
+    with open(os.path.join(out, "lexical_components.json")) as f:
+        vocab = json.load(f)
+    with open(os.path.join(out, "filtered_lexical_components.json")) as f:
+        filtered = json.load(f)
+    check(len(images) == len(pages_want), f"stage 1 kept {len(images)} of "
+          f"{len(pages_want)} images")
+    by_page = {}
+    for c in chunks:
+        by_page.setdefault((c["manual_id"], c["page"]), []).append(c["text"])
+    for i, (img, want) in enumerate(zip(images, pages_want)):
+        image_id = f"{want['manual_id']}_p{want['page']}_img0"
+        check(img["image_id"] == image_id and img["manual_id"] == want["manual_id"]
+              and img["page"] == want["page"] and img["bbox"] == want["bbox"]
+              and img["bbox_source"] == want["bbox_source"]
+              and img["filename"] == f"{image_id}.{want['src'].rsplit('.', 1)[1]}",
+              f"stage 1 image {i}: {img} against {want}")
+        check(by_page.get((want["manual_id"], want["page"])) == want["lines"],
+              f"stage 1 chunks of {image_id}: {by_page.get((want['manual_id'], want['page']))}")
+        if i % 64 == 0:
+            with open(os.path.join(out, "images", img["filename"]), "rb") as a, \
+                    open(os.path.join(feed_dir, want["src"]), "rb") as b:
+                check(a.read() == b.read(), f"stage 1 image file {img['filename']} differs")
+    check(len(chunks) == len(pages_want) * PIPE_CHUNKS_PER_PAGE,
+          f"stage 1 wrote {len(chunks)} chunks")
+    check(vocab["total_components"] > 0, "stage 1 found no vocabulary")
+    terms = {c["term"] for c in filtered["components"]}
+    check(PIPE_EXCLUDE in {c["term"] for c in vocab["components"]} and PIPE_EXCLUDE not in terms
+          and filtered["excluded_terms"] == [PIPE_EXCLUDE],
+          f"stage 2 kept {sorted(terms)} (excluded {filtered['excluded_terms']})")
+    return ({"images": len(images), "chunks": len(chunks),
+             "dict_fallback_bboxes": sum(i["bbox_source"] == "dict_fallback" for i in images),
+             "captions": sum(i["caption"] is not None for i in images),
+             "vocabulary": vocab["total_components"], "filtered": len(terms)},
+            images, chunks, [c["term"] for c in filtered["components"]])
+
+
+def _check_embeddings_bitwise(dev, env, store, images, chunks, images_dir) -> dict:
+    """The embeddings that ``embed`` stored from the checkpoint against
+    ``EmbedEngine`` with the seeded tree and no checkpoint, built as the
+    stage builds it and run over the same records (so the same batches):
+    bit for bit."""
+    from tpualign_torch.config import load_config
+    from tpualign_torch.pipeline import Pipeline
+
+    engine = Pipeline(load_config({**env, "CLIP_CHECKPOINT": ""}), device=dev).engine
+    out = {}
+    for table, records, key, embed in (
+            ("images", images, "image_id",
+             lambda: engine.embed_image_records(images, images_dir)),
+            ("text_chunks", chunks, "chunk_id", lambda: engine.embed_chunk_records(chunks))):
+        ids, stored = store.embedding_matrix("vanilla_clip", table)
+        row = {k: i for i, k in enumerate(ids)}
+        stored = stored[[row[r[key]] for r in records]]
+        want = embed()
+        check(np.array_equal(stored, want),
+              f"{table}: {int((stored != want).any(axis=1).sum())} stored embeddings differ "
+              "from the seeded engine's")
+        out[table] = len(records)
+    return out
 
 
 _STAGE = """
@@ -1726,13 +1904,69 @@ def _check_evaluator_ranking(dev, store, eval_dir) -> dict:
     return {"k2_at_evaluator_search": k2, "alignments_gt": aligned}
 
 
-def phase_pipeline(dev, seed, root, feed_names):
-    """Stages 3-5 as a user runs them: ``python -m tpualign_torch
-    setup-db``, ``embed`` (IMAGE_PREPROCESS=device) and ``evaluate`` as
-    subprocesses over a processed corpus of 4,096 images and 32,768
-    chunks; metrics.json held against a float64 recount, the alignment
-    records against the CPU ``compute_alignments``. Returns the launches
-    of the three stages."""
+def _run_twice(dev, env, work) -> dict:
+    """``python -m tpualign_torch run --non-interactive`` over a fresh
+    output, store and evaluation directory: its metrics.json against its
+    own float64 recount. Then the same command again, which must skip
+    stages 1-4 through their completion checks (the manifest's input
+    fingerprint for stage 1) and launch no tower kernel; evaluation has no
+    completion check (as in tpualign), re-runs and must write the same
+    metrics."""
+    import json
+    import os
+
+    from tpualign_torch.store import SCHEMAS, EmbeddingStore
+
+    out = {}
+    for attempt in ("first", "second"):
+        secs, launches, done = _run_stage(["run", "--non-interactive", "--device", dev.type],
+                                          env, work)
+        with open(os.path.join(env["EVAL_OUTPUT_DIR"], "metrics.json")) as f:
+            metrics = json.load(f)
+        skipped = [line.split(": ", 1)[1] for line in done.stderr.splitlines()
+                   if "Skipping..." in line]
+        out[attempt] = {"s": secs, "launches": launches, "skipped": skipped,
+                        "metrics": metrics}
+    first, second = out["first"], out["second"]
+    check(sorted(first["metrics"]) == sorted(SCHEMAS), f"run wrote {sorted(first['metrics'])}")
+    check(first["launches"]["fused_mha"] > 0 and first["launches"]["normalize_u8"] > 0
+          and first["launches"]["masked_sim_topk"] > 0 and not first["skipped"],
+          f"the first run: launches {first['launches']}, skipped {first['skipped']}")
+    store = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
+    want = _recount(store, "vanilla_clip")
+    got = first["metrics"]["vanilla_clip"]
+    check(got["num_pairs"] == want["num_pairs"] > 0
+          and all(abs(got["top_k"][k] - want["top_k"][k]) <= 1e-6 for k in ("1", "5", "10"))
+          and abs(got["mrr"] - want["mrr"]) <= 1e-6
+          and abs(got["avg_similarity"] - want["avg_similarity"]) <= 1e-5,
+          f"run's metrics {got} against the recount {want}")
+    stages = ["Document processing already completed. Skipping...",
+              "Lexical components already filtered. Skipping...",
+              "Store schemas already set up. Skipping..."] + [
+        f"{schema} already has embeddings. Skipping..." for schema in SCHEMAS]
+    check(second["skipped"] == stages, f"the second run skipped {second['skipped']}")
+    check(second["launches"]["fused_mha"] == 0 and second["launches"]["normalize_u8"] == 0,
+          f"the second run launched {second['launches']}")
+    check(second["metrics"] == first["metrics"], "the second run's metrics differ")
+    return {"manuals": PIPE_RUN_MANUALS, "images": want["num_pairs"] // PIPE_CHUNKS_PER_PAGE,
+            "first": {k: first[k] for k in ("s", "launches")}, "recount": want,
+            "metrics_vanilla_clip": got,
+            "second": {"s": second["s"], "launches": second["launches"],
+                       "skipped": len(second["skipped"]),
+                       "evaluate": "re-run: no completion check, as in tpualign",
+                       "metrics_identical": True}}
+
+
+def phase_pipeline(dev, seed, root, feed_names, checkpoint):
+    """The pipeline as a user runs it, from raw manuals: ``python -m
+    tpualign_torch process``, ``filter``, ``setup-db``, ``embed``
+    (IMAGE_PREPROCESS=device) and ``evaluate`` as subprocesses over 512
+    synthdoc manuals (4,096 images, 32,768 chunks), the towers loaded from
+    the OpenCLIP checkpoint; stage 1's records against what the writer
+    placed, the stored embeddings against the seeded engine bit for bit,
+    metrics.json against a float64 recount, the alignment records against
+    the CPU ``compute_alignments``; then ``run`` in one command over 32 of
+    the manuals, twice. Returns the launches of the five stages."""
     import json
     import os
 
@@ -1742,16 +1976,29 @@ def phase_pipeline(dev, seed, root, feed_names):
 
     work = os.path.join(root, "pipeline")
     os.makedirs(work)
-    out, images, chunks, terms = _processed_corpus(work, seed, os.path.join(root, "feed"),
-                                                   feed_names)
-    env = {"OUTPUT_DIR": out, "INPUT_DIR": os.path.join(work, "raw"),
-           "STORE_DIR": os.path.join(work, "store"),
+    feed_dir = os.path.join(root, "feed")
+    t0 = time.perf_counter()
+    raw, pages_want, raw_bytes = _manual_corpus(work, seed, feed_dir, feed_names)
+    write_s = time.perf_counter() - t0
+    exclude = os.path.join(work, "exclude_terms.txt")
+    with open(exclude, "w") as f:
+        f.write(f"# the operator's exclusion list\n{PIPE_EXCLUDE}\n")
+    out = os.path.join(work, "processed")
+    env = {"INPUT_DIR": raw, "OUTPUT_DIR": out, "EXCLUDE_TERMS_FILE": exclude,
+           "STORE_DIR": os.path.join(work, "store"), "LANGUAGE": "nl",
            "EVAL_OUTPUT_DIR": os.path.join(work, "eval"), "IMAGE_PREPROCESS": "device",
-           "IMAGE_PREPROCESS_BUCKET": str(FEED_BUCKET), "SEED": str(seed)}
-    secs, launches = {}, {}
-    for argv in (["setup-db"], ["embed"], ["evaluate"]):
-        secs[argv[0]], launches[argv[0]], done = _run_stage(argv + ["--device", dev.type],
-                                                            env, work)
+           "IMAGE_PREPROCESS_BUCKET": str(FEED_BUCKET), "SEED": str(seed),
+           "CLIP_MODEL": "ViT-B-32", "CLIP_CHECKPOINT": checkpoint}
+    secs, launches, logs = {}, {}, {}
+    for argv in (["process"], ["filter"], ["setup-db"], ["embed"], ["evaluate"]):
+        device = [] if argv[0] in ("process", "filter") else ["--device", dev.type]
+        secs[argv[0]], launches[argv[0]], logs[argv[0]] = _run_stage(argv + device, env, work)
+        if argv[0] == "filter":
+            stage1, images, chunks, terms = _check_stage1(out, feed_dir, pages_want)
+    check(not any(launches["process"].values()) and not any(launches["filter"].values()),
+          f"stages 1-2 launched {launches['process']}, {launches['filter']}")
+    check(f"Loading OpenCLIP-layout checkpoint from {checkpoint}" in logs["embed"].stderr,
+          "embed did not load the checkpoint")
     total = {k: sum(c[k] for c in launches.values()) for k in launches["embed"]}
     check(launches["embed"]["normalize_u8"] == -(-len(images) // B),
           f"embed launched K5 {launches['embed']['normalize_u8']} times")
@@ -1760,6 +2007,10 @@ def phase_pipeline(dev, seed, root, feed_names):
         metrics = json.load(f)
     check(sorted(metrics) == sorted(SCHEMAS), f"metrics.json holds {sorted(metrics)}")
     store = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
+    t0 = time.perf_counter()
+    bitwise = _check_embeddings_bitwise(dev, env, store, images, chunks,
+                                        os.path.join(out, "images"))
+    bitwise["s"] = time.perf_counter() - t0
     want = _recount(store, "vanilla_clip")
     got = metrics["vanilla_clip"]
     check(got["num_pairs"] == want["num_pairs"] == len(images) * PIPE_CHUNKS_PER_PAGE,
@@ -1780,13 +2031,27 @@ def phase_pipeline(dev, seed, root, feed_names):
               f"{schema}: stored alignments differ from the CPU compute_alignments")
         n_records[schema] = len(records)
     t_cpu_align = time.perf_counter() - t0
-    check(n_records["clip_combined"] > 0 and n_records["clip_positional"] > 0,
-          f"weak supervision produced {n_records}")
-    emit({"phase": "pipeline", "model": "ViT-B-32", "images": len(images), "chunks": len(chunks),
-          "stage_s": secs, "launches": launches, "alignments": n_records,
-          "cpu_compute_alignments_s": t_cpu_align, "metrics": metrics, "recount": want,
-          **ranking,
-          "evaluate_warnings": [line for line in done.stderr.splitlines()
+    check(n_records["clip_combined"] > 0 and n_records["clip_positional"] > 0
+          and n_records["clip_lexical"] > 0, f"weak supervision produced {n_records}")
+
+    # run in one command over a subset of the manuals, into fresh directories
+    sub = os.path.join(work, "run")
+    os.makedirs(os.path.join(sub, "raw"))
+    for name in sorted(os.listdir(raw))[:PIPE_RUN_MANUALS]:
+        os.link(os.path.join(raw, name), os.path.join(sub, "raw", name))
+    one = _run_twice(dev, {**env, "INPUT_DIR": os.path.join(sub, "raw"),
+                           "OUTPUT_DIR": os.path.join(sub, "processed"),
+                           "STORE_DIR": os.path.join(sub, "store"),
+                           "EVAL_OUTPUT_DIR": os.path.join(sub, "eval")}, sub)
+    emit({"phase": "pipeline", "model": "ViT-B-32", "manuals": PIPE_MANUALS,
+          "pages": PIPE_MANUALS * PIPE_PAGES, "raw_corpus_bytes": raw_bytes,
+          "corpus_write_s": write_s, "checkpoint": os.path.basename(checkpoint),
+          "images": len(images), "chunks": len(chunks), "stage1": stage1,
+          "process_s": secs["process"], "filter_s": secs["filter"], "stage_s": secs,
+          "launches": launches, "embeddings_vs_seeded_engine": bitwise,
+          "alignments": n_records, "cpu_compute_alignments_s": t_cpu_align,
+          "metrics": metrics, "recount": want, **ranking, "run": one,
+          "evaluate_warnings": [line for line in logs["evaluate"].stderr.splitlines()
                                 if "WARNING" in line][:3]})
     return total, ranking["k2_at_evaluator_search"]
 
@@ -1831,17 +2096,21 @@ def main() -> int:
     lap("k4")
     k5 = phase_k5(dev, gen)
     lap("k5")
-    with tempfile.TemporaryDirectory(prefix="tpualign_feed_") as root:
-        feed_names = phase_device_feed(dev, args.seed, root)
-        lap("device_feed")
-        pipe_launches, k2_eval = phase_pipeline(dev, args.seed, root, feed_names)
-        lap("pipeline")
-    with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
-        serve_launches, k3_serve, shared = phase_serve(dev, args.seed, root)
-        lap("serve")
-        ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)
-        lap("serve_ivf")
-        del shared
+    with tempfile.TemporaryDirectory(prefix="tpualign_ckpt_") as ckpt_dir:
+        checkpoint = phase_checkpoint(ckpt_dir, args.seed)
+        lap("checkpoint")
+        with tempfile.TemporaryDirectory(prefix="tpualign_feed_") as root:
+            feed_names = phase_device_feed(dev, args.seed, root)
+            lap("device_feed")
+            pipe_launches, k2_eval = phase_pipeline(dev, args.seed, root, feed_names,
+                                                    checkpoint)
+            lap("pipeline")
+        with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
+            serve_launches, k3_serve, shared = phase_serve(dev, args.seed, root, checkpoint)
+            lap("serve")
+            ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)
+            lap("serve_ivf")
+            del shared
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t_start})
 
     k1_head = next(r for r in k1 if r["shape"] == "vision" and r["dtype"] == "bfloat16")

@@ -32,12 +32,18 @@ def test_imports_nothing_of_jax_or_tpualign():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpualign"))
         print(len(names), bad)
+        print(" ".join(names))
         sys.exit(1 if bad else 0)
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert int(out.stdout.split()[0]) >= 15  # every module was imported
+    imported = set(out.stdout.splitlines()[1].split())
+    for name in ("data.backends", "data.captions", "data.chunking", "data.filtering",
+                 "data.lexical", "data.ocr", "data.processor", "data.word", "models.loader",
+                 "utils.checks", "pipeline", "cli"):
+        assert f"tpualign_torch.{name}" in imported, name
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

@@ -1,12 +1,13 @@
-"""The port's pipeline stages 3-5 (``setup-db``, ``embed``, ``evaluate``)
-and its ``Evaluator`` against the JAX package on the CPU.
+"""The port's pipeline (``run``, ``process``, ``filter``, ``setup-db``,
+``embed``, ``evaluate``, ``check``) and its ``Evaluator`` against the JAX
+package on the CPU.
 
-Stages 1-2 (document processing, lexical filtering) run through
-``tpualign``'s ``Pipeline`` on the golden corpus into a processed
-directory; the port then runs stages 3-5 over it. With the golden test's
-``Sha256Engine`` the port's ``metrics.json`` must equal
+Stages 3-5 run over a directory that ``tpualign``'s stages 1-2 processed
+from the golden corpus, and ``run`` starts from the raw manuals. With the
+golden test's ``Sha256Engine`` the port's ``metrics.json`` must equal
 ``tests/golden/metrics.json``; with the port's own towers (the CLI, a
-tiny variant, the device image feed) the shape-only metrics must.
+tiny variant, the device image feed) the shape-only metrics must, and with
+a checkpoint file ``run`` must give tpualign's ``metrics.json``.
 """
 
 import dataclasses
@@ -111,9 +112,8 @@ def test_stages_skip_and_force(tmp_path, caplog):
     assert pipe.store.counts("vanilla_clip") == before
     pipe.step_insert_embeddings(force=True)
     assert all(pipe.check_embeddings_inserted(s) for s in SCHEMAS)
-    for step in (pipe.step_document_processing, pipe.step_lexical_filtering, pipe.run,
-                 pipe.ingest_cycle, pipe.watch):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for step in (pipe.ingest_cycle, pipe.watch):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
             step()
 
 
@@ -179,13 +179,23 @@ def test_evaluator_matches_jax(tmp_path):
 def test_pipeline_config_matches_jax(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     for overrides in ({}, {**_overrides(Path("/x")), "IMAGE_PREPROCESS": "device",
-                           "IMAGE_PREPROCESS_BUCKET": "320", "LANGUAGE": "en"}):
+                           "IMAGE_PREPROCESS_BUCKET": "320", "LANGUAGE": "en",
+                           "USE_OCR_FALLBACK": "yes", "MAX_FILE_SIZE_MB": "7",
+                           "ALLOWED_FILE_TYPES": " pdf, docx ,", "SOFFICE_PATH": "/o/soffice",
+                           "WORD_TO_PDF_TIMEOUT_SECONDS": "9", "CAPTION_LINKING": "spatial",
+                           "CLIP_CHECKPOINT": "/w/clip.pt",
+                           "CLIP_CHECKPOINT_ALLOW_PICKLE": "1"}):
         got = torch_config.load_config(overrides)
         want = jax_config.load_config(env_file=None, overrides=overrides)
         for name in ("image_preprocess", "image_preprocess_bucket", "eval_output_dir"):
             assert getattr(got, name) == getattr(want, name), name
-        for name in ("output_dir", "images_dir"):
-            assert getattr(got.data, name) == getattr(want.data, name), name
+        for field in dataclasses.fields(torch_config.DataConfig):
+            assert getattr(got.data, field.name) == getattr(want.data, field.name), field.name
+        assert got.data.images_dir == want.data.images_dir
+        for name in ("checkpoint_path", "checkpoint_allow_pickle"):
+            assert getattr(got.model, name) == getattr(want.model, name), name
+    assert ({f.name for f in dataclasses.fields(torch_config.DataConfig)}
+            == {f.name for f in dataclasses.fields(jax_config.DataConfig)})
 
 
 @pytest.fixture
@@ -252,6 +262,9 @@ def test_cli_stages_exit_nonzero_when_a_schema_fails(tmp_path, monkeypatch, caps
     assert torch_cli.main(["embed", "vanilla_clip", "--device", "cpu"]) == 0
     assert torch_cli.main(["embed", "--device", "cpu"]) == 1
     assert "failed for clip_lexical" in capsys.readouterr().err
+    assert torch_cli.main(["run", "--skip-pdf", "--skip-lexical", "--skip-eval", "--force",
+                           "--device", "cpu"]) == 1
+    assert "tpualign_torch run: failed for clip_lexical" in capsys.readouterr().err
     monkeypatch.setattr(torch_pipeline, "compute_alignments", real_alignments)
     assert torch_cli.main(["embed", "clip_lexical", "--force", "--device", "cpu"]) == 0
     assert torch_cli.main(["evaluate", "--device", "cpu"]) == 0
@@ -281,3 +294,258 @@ def test_cli_stages_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
         Pipeline(torch_config.load_config())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Evaluator(EmbeddingStore(str(tmp_path / "store")))
+
+
+# -- from raw manuals: stages 1-2, run, the manifest, process/filter/check ---------------
+
+def _raw(root: Path) -> dict:
+    """The golden corpus as raw manuals; returns the overrides for both
+    packages."""
+    (root / "raw").mkdir()
+    make_corpus(root / "raw", n_manuals=2, pages=2, imgs_per_page=2, lines_per_page=3)
+    (root / "exclude.txt").write_text("pagina\n")
+    return _overrides(root)
+
+
+def _port_pipeline(overrides: dict) -> Pipeline:
+    pipe = Pipeline(torch_config.load_config(overrides), engine=Sha256Engine(), device="cpu")
+    pipe.store.embed_dim = Sha256Engine.dim
+    return pipe
+
+
+def test_run_from_raw_manuals_gives_the_golden_metrics(tmp_path, capsys):
+    """``Pipeline.run`` from the raw manuals: tpualign's stage-1 and stage-2
+    files, the four schemas, and ``tests/golden/metrics.json``."""
+    overrides = _raw(tmp_path)
+    pipe = _port_pipeline(overrides)
+    assert pipe.run(non_interactive=True) == []
+    out = capsys.readouterr().out
+    assert "MULTIMODAL ALIGNMENT PIPELINE (tpualign_torch)" in out
+    assert "Found " in out and "PIPELINE COMPLETE!" in out
+    got = json.loads((tmp_path / "eval" / "metrics.json").read_text())
+    _assert_metrics_equal(got, json.loads(GOLDEN.read_text()))
+
+    jroot = tmp_path / "jax"
+    jroot.mkdir()
+    (jroot / "raw").symlink_to(tmp_path / "raw")
+    (jroot / "exclude.txt").write_text("pagina\n")
+    jpipe = JaxPipeline(jax_config.load_config(env_file=None, overrides=_overrides(jroot)),
+                        engine=Sha256Engine())
+    jpipe.store.embed_dim = Sha256Engine.dim
+    jpipe.run(non_interactive=True)
+    for name in ("image_metadata.json", "text_chunks.json", "lexical_components.json",
+                 "filtered_lexical_components.json"):
+        assert (json.loads((tmp_path / "processed" / name).read_text())
+                == json.loads((jroot / "processed" / name).read_text())), name
+    images = sorted(p.name for p in (tmp_path / "processed" / "images").iterdir())
+    assert images == sorted(p.name for p in (jroot / "processed" / "images").iterdir())
+    manifests = [json.loads((r / "processed" / ".tpualign_manifest.json").read_text())
+                 for r in (tmp_path, jroot)]
+    for m in manifests:
+        m["document_processing"].pop("completed_at")
+    assert manifests[0] == manifests[1]
+    for schema in SCHEMAS:
+        assert pipe.store.alignments(schema) == jpipe.store.alignments(schema), schema
+
+
+@pytest.mark.parametrize("package", ["tpualign", "tpualign_torch"])
+def test_manifest_resume_force_and_input_change(package, tmp_path, monkeypatch):
+    """``tests/test_pipeline.py``'s manifest cases, each through both
+    packages: a second run skips every stage, ``force`` recomputes the same
+    counts, a touched input re-runs document processing, a missing input
+    directory exits."""
+    import os
+    import time
+
+    overrides = _raw(tmp_path)
+    if package == "tpualign":
+        def make():
+            pipe = JaxPipeline(jax_config.load_config(env_file=None, overrides=overrides),
+                               engine=Sha256Engine())
+            pipe.store.embed_dim = Sha256Engine.dim
+            return pipe
+    else:
+        def make():
+            return _port_pipeline(overrides)
+    pipe = make()
+    pipe.run(non_interactive=True, skip_eval=True)
+    before = pipe.store.counts("vanilla_clip")
+
+    again = make()
+    called = []
+    monkeypatch.setattr(type(again.store), "insert_images",
+                        lambda *a, **k: called.append("insert") or 0)
+    monkeypatch.setattr(type(again.store), "setup", lambda *a, **k: called.append("setup"))
+    processed = sorted((p.name, p.stat().st_mtime_ns)
+                       for p in (tmp_path / "processed").glob("*.json"))
+    again.run(non_interactive=True, skip_eval=True)
+    assert called == []
+    assert processed == sorted((p.name, p.stat().st_mtime_ns)
+                               for p in (tmp_path / "processed").glob("*.json"))
+    monkeypatch.undo()
+
+    forced = make()
+    forced.run(non_interactive=True, skip_eval=True, force=True)
+    assert forced.store.counts("vanilla_clip") == before
+
+    assert forced.check_document_processing()
+    target = next((tmp_path / "raw").glob("*.synthdoc.json"))
+    time.sleep(0.01)
+    os.utime(target)
+    assert not forced.check_document_processing()
+    forced.step_document_processing()
+    assert forced.check_document_processing()
+
+    missing = {**overrides, "INPUT_DIR": str(tmp_path / "nope"),
+               "OUTPUT_DIR": str(tmp_path / "out2")}
+    pipe = (JaxPipeline(jax_config.load_config(env_file=None, overrides=missing),
+                        engine=Sha256Engine()) if package == "tpualign"
+            else Pipeline(torch_config.load_config(missing), engine=Sha256Engine(),
+                          device="cpu"))
+    with pytest.raises(SystemExit):
+        pipe.step_document_processing()
+
+
+def test_filtering_pause_and_skip(tmp_path, monkeypatch, capsys):
+    """The operator's pause: Enter filters with the exclusion list,
+    ``skip`` keeps every term unfiltered, as tpualign's."""
+    overrides = _raw(tmp_path)
+    pipe = _port_pipeline(overrides)
+    with pytest.raises(SystemExit):
+        pipe.step_lexical_filtering()  # nothing processed yet
+    pipe.step_document_processing()
+    monkeypatch.setattr("builtins.input", lambda: "skip")
+    pipe.step_lexical_filtering()
+    assert not pipe.check_lexical_filtering()
+    assert "exclude.txt" in capsys.readouterr().out
+    monkeypatch.setattr("builtins.input", lambda: "")
+    pipe.step_lexical_filtering()
+    filtered = json.loads(pipe.filtered_lexical_file.read_text())
+    assert filtered["excluded_terms"] == ["pagina"]
+    assert all(c["term"] != "pagina" for c in filtered["components"])
+
+
+def test_process_and_filter_cli_match_tpualign(tmp_path, monkeypatch, capsys):
+    import tpualign.cli as jax_cli
+
+    _raw(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "more.txt").write_text("regel\n# a comment\n")
+    outs = {}
+    for name, main in (("jax", jax_cli.main), ("port", torch_cli.main)):
+        out = tmp_path / name
+        argv = ["--env-file", "", "--input-dir", str(tmp_path / "raw"), "--output-dir",
+                str(out), "--language", "nl"]
+        assert main(["process", *argv]) == 0
+        assert main(["filter", *argv, "--exclude-file", str(tmp_path / "more.txt")]) == 0
+        outs[name] = ({p.name: p.read_bytes() for p in out.glob("*.json")},
+                      {p.name: p.read_bytes() for p in (out / "images").iterdir()},
+                      capsys.readouterr().out)
+    assert outs["port"][1] == outs["jax"][1]
+    assert outs["port"][2] == outs["jax"][2] and "Top 20 most frequent terms" in outs["port"][2]
+    assert sorted(outs["port"][0]) == sorted(outs["jax"][0])
+    for name in outs["jax"][0]:
+        want, got = (json.loads(outs[k][0][name]) for k in ("jax", "port"))
+        if name == ".tpualign_manifest.json":
+            for m in (want, got):
+                m["document_processing"].pop("completed_at")
+        assert got == want, name
+    filtered = json.loads(outs["port"][0]["filtered_lexical_components.json"])
+    assert filtered["excluded_terms"] == ["regel"]
+
+
+def test_cli_run_with_a_checkpoint_matches_tpualign(tmp_path, monkeypatch, capsys,
+                                                    tiny_variant):
+    """``python -m tpualign_torch run --non-interactive --device cpu`` with a
+    tiny CLIP_CHECKPOINT (OpenCLIP layout) against ``tpualign run`` with the
+    same file: the same metrics.json."""
+    import tpualign.cli as jax_cli
+    from tests.test_models import TINY as JAX_TINY
+    from tests.test_torch_loader import save, to_openclip
+    from tpualign.models.clip import CLIP as JaxCLIP
+    from tpualign.models.clip import init_clip_params as jax_init
+
+    jax_tiny = dataclasses.replace(JAX_TINY, context_length=77)
+    monkeypatch.setitem(jax_config.CLIP_VARIANTS, "tiny", jax_tiny)
+    import jax
+    import jax.numpy as jnp
+
+    tree = jax.tree.map(np.asarray, jax_init(
+        JaxCLIP(variant=jax_tiny, use_quick_gelu=True, compute_dtype=jnp.float32), seed=3))
+    ckpt = save(to_openclip(tree), tmp_path / "clip", "pt")
+    (tmp_path / "raw").mkdir()
+    make_corpus(tmp_path / "raw", n_manuals=2, pages=2, imgs_per_page=2, lines_per_page=3)
+    (tmp_path / "exclude.txt").write_text("pagina\n")
+    monkeypatch.chdir(tmp_path)
+    for key, value in {"CLIP_MODEL": "tiny", "CLIP_CHECKPOINT": ckpt,
+                       "COMPUTE_DTYPE": "float32", "BATCH_SIZE": "4", "LANGUAGE": "nl",
+                       "INPUT_DIR": str(tmp_path / "raw"),
+                       "EXCLUDE_TERMS_FILE": str(tmp_path / "exclude.txt")}.items():
+        monkeypatch.setenv(key, value)
+    metrics = {}
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", torch_cli.main, ["--device", "cpu"])):
+        for key, sub in (("OUTPUT_DIR", "processed"), ("STORE_DIR", "store"),
+                         ("EVAL_OUTPUT_DIR", "eval")):
+            monkeypatch.setenv(key, str(tmp_path / name / sub))
+        assert main(["run", "--non-interactive", "--env-file", "", *extra]) == 0
+        metrics[name] = json.loads((tmp_path / name / "eval" / "metrics.json").read_text())
+    _assert_metrics_equal(metrics["port"], metrics["jax"])
+    _assert_metrics_equal(metrics["port"], json.loads(GOLDEN.read_text()), avg_similarity=False)
+    assert "PIPELINE COMPLETE!" in capsys.readouterr().out
+
+
+def test_check_exits_as_tpualign(tmp_path, monkeypatch, capsys):
+    """``check`` prints tpualign's sections and exits 0 when the imports
+    and the devices are there, 1 when they are not: the port asks for a
+    CUDA card, tpualign for JAX devices."""
+    import jax
+
+    import tpualign.cli as jax_cli
+
+    overrides = _raw(tmp_path)
+    _port_pipeline(overrides).run(non_interactive=True, skip_eval=True)
+    monkeypatch.chdir(tmp_path)
+    for key, value in overrides.items():
+        monkeypatch.setenv(key, value)
+    sections = ["imports:", "devices:", "directories:", "native:", "store:", "bbox quality:"]
+
+    def run(main):
+        code = main(["check", "--env-file", ""])
+        out = capsys.readouterr().out
+        assert [line for line in out.splitlines() if line in sections] == sections
+        return code, out
+
+    code, out = run(jax_cli.main)
+    assert code == 0 and "RESULT: healthy" in out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    code, out = run(torch_cli.main)
+    assert code == 1 and "RESULT: PROBLEMS FOUND" in out and "CUDA is not available" in out
+    assert "images with valid bbox: 8/8 (100.00%)" in out and "vanilla_clip: {" in out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    code, out = run(torch_cli.main)
+    assert code == 0 and "RESULT: healthy" in out and "cuda:0 NVIDIA H100 80GB HBM3" in out
+
+    def no_devices(*a, **k):
+        raise RuntimeError("no backend")
+
+    monkeypatch.setattr(jax, "devices", no_devices)
+    code, out = run(jax_cli.main)
+    assert code == 1 and "RESULT: PROBLEMS FOUND" in out
+
+
+def test_run_needs_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """``run`` raises without a card unless ``--device cpu`` is given;
+    ``process`` and ``filter`` are host work and need none."""
+    overrides = _raw(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    for key, value in overrides.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        torch_cli.main(["run", "--non-interactive", "--env-file", ""])
+    assert torch_cli.main(["process", "--env-file", ""]) == 0
+    assert torch_cli.main(["filter", "--env-file", ""]) == 0
+    assert (tmp_path / "processed" / "filtered_lexical_components.json").exists()

@@ -1,11 +1,13 @@
-"""The port refuses what it cannot honour yet, where tpualign would compute
-something the port does not: a ``CLIP_CHECKPOINT`` (``EmbedEngine``,
-``Pipeline.engine`` and ``make_engine`` raise one error), and
-``CLIP_QUANT=int8|int8_qat`` (``build_clip`` raises). ``CLIP_QUANT`` is
-read and checked as tpualign reads and checks it."""
+"""The port refuses what it cannot honour, where tpualign would compute
+something the port does not: a ``CLIP_CHECKPOINT`` that fails to load
+(``EmbedEngine``, ``Pipeline.engine`` and ``make_engine`` raise one error;
+no seeded weights take its place), and ``CLIP_QUANT=int8|int8_qat``
+(``build_clip`` raises until the int8 towers are ported). ``CLIP_QUANT``
+is read and checked as tpualign reads and checks it."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 
 from tests.test_models import TINY
@@ -27,24 +29,33 @@ def tiny(monkeypatch):
 
 
 def test_embed_engine_refuses_a_checkpoint():
+    """A checkpoint that cannot be read raises; it is never replaced by the
+    seeded weights."""
     cfg = torch_config.ModelConfig(checkpoint_path="/nonexistent/x.safetensors")
-    with pytest.raises(NotImplementedError, match="CLIP_CHECKPOINT"):
+    with pytest.raises(FileNotFoundError, match="x.safetensors"):
         EmbedEngine(cfg, device="cpu")
 
 
 def test_embed_pipeline_and_serve_refuse_one_checkpoint(tmp_path, tiny):
+    """The three entry points load ``CLIP_CHECKPOINT`` through one loader,
+    so a file they cannot load (here: no CLIP layout) fails all three
+    with one error."""
+    from safetensors.numpy import save_file
+
+    path = str(tmp_path / "clip.safetensors")
+    save_file({"unrelated.weight": np.ones(3, np.float32)}, path)
     config = torch_config.load_config({
-        "CLIP_CHECKPOINT": str(tmp_path / "clip.safetensors"), "CLIP_MODEL": "tiny",
+        "CLIP_CHECKPOINT": path, "CLIP_MODEL": "tiny",
         "STORE_DIR": str(tmp_path / "store"), "OUTPUT_DIR": str(tmp_path / "out")})
-    assert config.model.checkpoint_path == str(tmp_path / "clip.safetensors")
-    with pytest.raises(NotImplementedError) as embed:
+    assert config.model.checkpoint_path == path
+    with pytest.raises(ValueError) as embed:
         EmbedEngine(config.model, device="cpu")
-    with pytest.raises(NotImplementedError) as pipeline:
+    with pytest.raises(ValueError) as pipeline:
         Pipeline(config, device="cpu").engine
-    with pytest.raises(NotImplementedError) as serve:
+    with pytest.raises(ValueError) as serve:
         make_engine(config, "cpu")
     assert str(embed.value) == str(pipeline.value) == str(serve.value)
-    assert "CLIP_CHECKPOINT" in str(serve.value)
+    assert "Unrecognized checkpoint layout" in str(serve.value)
 
 
 @pytest.mark.parametrize("quant", ["none", "int8", "int8_qat"])

@@ -472,3 +472,33 @@ def test_index_cli_then_query_matches_jax(jax_store, tmp_path, monkeypatch, caps
     assert got.splitlines()[0] == "top-6 chunks for img4:" and "no prebuilt" not in got
     ids = [[line.split()[1] for line in out.splitlines()[1:]] for out in (got, want)]
     assert len(ids[0]) == 6 and ids[0] == ids[1]
+
+
+@pytest.mark.parametrize("overrides", [{}, {"CLIP_CHECKPOINT": "/w/clip.safetensors",
+                                        "CLIP_QUANT": "int8"}])
+def test_stats_model_block_matches_jax(jax_store, overrides):
+    """``/stats``'s ``model`` block is tpualign's ``{name, quant,
+    checkpoint}``: where a checkpoint shows."""
+    from tpualign.serving.server import build_service as jax_build
+    from tpualign_torch.serving.server import build_service
+
+    env = {"STORE_DIR": str(jax_store), "CLIP_MODEL": "ViT-B-32", **overrides}
+    want = jax_build(jax_config.load_config(env_file=None, overrides=env), "vanilla_clip",
+                     text_tower=False).stats()["model"]
+    service = build_service(torch_config.load_config(env), "vanilla_clip", text_tower=False,
+                            device="cpu")
+    assert service.stats()["model"] == want
+    assert want == {"name": "ViT-B-32", "quant": overrides.get("CLIP_QUANT", "none"),
+                    "checkpoint": overrides.get("CLIP_CHECKPOINT")}
+    httpd = serve(service, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/stats"
+        with urllib.request.urlopen(url, timeout=30) as r:
+            assert json.loads(r.read())["model"] == want
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()

@@ -1,16 +1,20 @@
 """tpualign_torch: the PyTorch/CUDA port of tpualign for NVIDIA Hopper.
 
-The port embeds images and text chunks with the CLIP towers, scores weak
-supervision, fills and evaluates the store, searches exactly or over
-quantized corpora, and serves a store, on one GPU:
+The port processes manuals, embeds images and text chunks with the CLIP
+towers, scores weak supervision, fills and evaluates the store, searches
+exactly or over quantized corpora, and serves a store, on one GPU:
 
 - ``tpualign_torch.parallel.EmbedEngine``: ``encode_text_batch``,
   ``encode_image_batch``, ``embed_image_records`` (host or device image
   feed), ``embed_chunk_records``;
-- ``tpualign_torch.pipeline.Pipeline``: stages 3-5 (store setup, one
-  embedding pass with weak supervision for the four schemas, evaluation to
-  ``metrics.json``), and ``python -m tpualign_torch setup-db`` / ``embed``
-  / ``evaluate``;
+- ``tpualign_torch.pipeline.Pipeline``: the five stages from raw manuals
+  (document processing and lexical filtering on the host,
+  ``tpualign_torch.data``; store setup; one embedding pass with weak
+  supervision for the four schemas; evaluation to ``metrics.json``), and
+  ``python -m tpualign_torch run`` / ``process`` / ``filter`` /
+  ``setup-db`` / ``embed`` / ``evaluate`` / ``check``;
+- ``tpualign_torch.models.loader``: OpenCLIP and HuggingFace checkpoint
+  files (``CLIP_CHECKPOINT``) for the towers;
 - ``tpualign_torch.parallel.RetrievalIndex`` / ``build_index``: ``search``
   at fp32, int8, int4 or int2, with ``refine``, or over an IVF index;
 - ``tpualign_torch.store.EmbeddingStore``: tpualign's on-disk store format;

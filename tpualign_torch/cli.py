@@ -1,12 +1,13 @@
 """Command-line interface: ``python -m tpualign_torch <command>``.
 
-``setup-db``, ``embed`` and ``evaluate`` (the pipeline's stages 3-5, over
-the processed outputs that ``python -m tpualign process``/``filter``
-write), ``serve``, ``query`` and ``index`` are tpualign's, with the same
-flags, environment keys and output; they run on the GPU unless
-``--device cpu`` is given. The other subcommands of ``python -m tpualign``
-(run, process, filter, check, train, ingest, watch, calibrate) are later
-slices of the port: they print so and exit with 2.
+``run`` (the whole pipeline, from raw manuals to ``metrics.json``, with
+``--skip-*``, ``--force`` and ``--non-interactive``), the stages
+``process``, ``filter``, ``setup-db``, ``embed`` and ``evaluate``,
+``check``, ``serve``, ``query`` and ``index`` are tpualign's, with the same
+flags, environment keys and output. The commands that compute run on the
+GPU unless ``--device cpu`` is given; ``process`` and ``filter`` are host
+work and take no device. ``train``, ``ingest``, ``watch`` and
+``calibrate`` are later slices of the port: they print so and exit with 2.
 """
 
 from __future__ import annotations
@@ -20,23 +21,28 @@ from typing import Optional, Sequence
 from tpualign_torch.config import load_config
 from tpualign_torch.store import SCHEMAS
 
-_NOT_PORTED = ("run", "process", "filter", "check", "train", "ingest", "watch", "calibrate")
+_NOT_PORTED = ("train", "ingest", "watch", "calibrate")
 
 
-def _add_common(p: argparse.ArgumentParser) -> None:
+def _add_common(p: argparse.ArgumentParser, device: bool = True) -> None:
     p.add_argument("--env-file", default=".env", help="env file with configuration")
+    p.add_argument("--input-dir", default=None)
     p.add_argument("--output-dir", default=None)
     p.add_argument("--store-dir", default=None)
     p.add_argument("--model", default=None, help="CLIP model name (e.g. ViT-B-32)")
+    p.add_argument("--language", default=None)
     p.add_argument("--batch-size", type=int, default=None)
-    p.add_argument("--device", default="cuda",
-                   help="cuda (the default) or cpu, where the kernels' plain versions run")
+    if device:
+        p.add_argument("--device", default="cuda",
+                       help="cuda (the default) or cpu, where the kernels' plain versions run")
 
 
 def _config_from(args):
     overrides = {}
-    for attr, env in (("output_dir", "OUTPUT_DIR"), ("store_dir", "STORE_DIR"),
-                      ("model", "CLIP_MODEL"), ("batch_size", "BATCH_SIZE")):
+    for attr, env in (("input_dir", "INPUT_DIR"), ("output_dir", "OUTPUT_DIR"),
+                      ("store_dir", "STORE_DIR"), ("model", "CLIP_MODEL"),
+                      ("language", "LANGUAGE"), ("batch_size", "BATCH_SIZE"),
+                      ("exclude_file", "EXCLUDE_TERMS_FILE")):
         v = getattr(args, attr, None)
         if v is not None:
             overrides[env] = str(v)
@@ -46,10 +52,29 @@ def _config_from(args):
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="tpualign_torch",
-        description="tpualign on an NVIDIA GPU: embed processed manuals into the store, "
+        description="tpualign on an NVIDIA GPU: process manuals, embed them into the store, "
                     "evaluate, index, serve and query it",
     )
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p_run = sub.add_parser("run", help="run the complete pipeline")
+    _add_common(p_run)
+    p_run.add_argument("--skip-pdf", action="store_true", help="skip document processing")
+    p_run.add_argument("--skip-lexical", action="store_true", help="skip lexical filtering")
+    p_run.add_argument("--skip-db", action="store_true", help="skip store setup")
+    p_run.add_argument("--skip-embeddings", action="store_true", help="skip embedding insertion")
+    p_run.add_argument("--skip-eval", action="store_true", help="skip evaluation")
+    p_run.add_argument("--force", action="store_true", help="re-run all steps")
+    p_run.add_argument("--non-interactive", action="store_true",
+                       help="no operator pause during lexical filtering")
+
+    p_proc = sub.add_parser("process", help="stage 1: document processing only")
+    _add_common(p_proc, device=False)
+
+    p_filter = sub.add_parser("filter", help="stage 2: lexical filtering only")
+    _add_common(p_filter, device=False)
+    p_filter.add_argument("--exclude-file", default=None,
+                          help="operator exclusion list (one term per line)")
 
     p_setup = sub.add_parser("setup-db", help="stage 3: create store schemas")
     _add_common(p_setup)
@@ -63,6 +88,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     p_eval = sub.add_parser("evaluate", help="stage 5: metrics + charts")
     _add_common(p_eval)
+
+    p_check = sub.add_parser("check", help="installation/store diagnostics")
+    _add_common(p_check, device=False)
 
     p_serve = sub.add_parser(
         "serve", help="retrieval daemon: device-resident index over HTTP/JSON")
@@ -108,8 +136,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"tpualign_torch {args.command}: not yet ported to the GPU package; "
               f"run `python -m tpualign {args.command}`")
         return 2
-    if args.command in ("setup-db", "embed", "evaluate"):
+    if args.command in ("run", "process", "filter", "setup-db", "embed", "evaluate"):
         return _run_stage(args)
+    if args.command == "check":
+        from tpualign_torch.utils.checks import run_checks
+
+        return run_checks(_config_from(args))
     if args.command == "serve":
         return _run_serve(args)
     if args.command == "index":
@@ -118,26 +150,37 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 
 def _run_stage(args) -> int:
-    """Stages 3-5 of the pipeline, as ``tpualign setup-db|embed|evaluate``.
-    The stages log a schema's failure and go on with the next, as
-    tpualign's do; the exit code is 1 when a schema failed to fill
-    (``embed``) or has no metrics (``evaluate``)."""
+    """The pipeline's stages, as ``tpualign run|process|filter|setup-db|
+    embed|evaluate``. The stages log a schema's failure and go on with the
+    next, as tpualign's do; the exit code is 1 when a schema failed to fill
+    (``embed``, ``run``) or has no metrics (``evaluate``, ``run``)."""
     from tpualign_torch.pipeline import Pipeline
 
     if args.command == "embed" and args.schema is not None and args.schema not in SCHEMAS:
         print(f"Unknown schema: {args.schema}")
         print(f"Available schemas: {', '.join(SCHEMAS)}")
         return 1
-    pipe = Pipeline(_config_from(args), device=args.device)
+    # stages 1-2 are host work and touch no device
+    pipe = Pipeline(_config_from(args), device=getattr(args, "device", "cpu"))
+    if args.command == "process":
+        pipe.step_document_processing(force=True)
+        return 0
+    if args.command == "filter":
+        pipe.step_lexical_filtering(force=True, non_interactive=True)
+        return 0
     if args.command == "setup-db":
         pipe.step_store_setup(force=args.force)
         return 0
-    if args.command == "embed":
+    if args.command == "run":
+        failed = pipe.run(skip_pdf=args.skip_pdf, skip_lexical=args.skip_lexical,
+                          skip_db=args.skip_db, skip_embeddings=args.skip_embeddings,
+                          skip_eval=args.skip_eval, force=args.force,
+                          non_interactive=args.non_interactive)
+    elif args.command == "embed":
         failed = pipe.step_insert_embeddings(force=args.force,
                                              schemas=[args.schema] if args.schema else None)
     else:
-        metrics = pipe.step_evaluation() or {}
-        failed = [s for s in SCHEMAS if pipe.store.schema_exists(s) and s not in metrics]
+        failed = pipe.unevaluated(pipe.step_evaluation())
     if failed:
         print(f"tpualign_torch {args.command}: failed for {', '.join(failed)}; "
               "see the errors above", file=sys.stderr)

@@ -3,13 +3,14 @@
 The subset of ``tpualign.config`` that the port's paths read: the CLIP
 variant table, :class:`ModelConfig`, :class:`DataConfig`,
 :class:`StoreConfig`, and a :class:`PipelineConfig` with the pipeline,
-embed, store, retrieval and serving keys (``CLIP_MODEL``, ``BATCH_SIZE``,
-``TEXT_BUCKETS``, ``IMAGE_PREPROCESS*``, ``OUTPUT_DIR``,
-``EVAL_OUTPUT_DIR``, ``STORE_DIR``, ``RETRIEVAL_*``, ``IVF_*``,
-``SERVE_*``, ...). The values are copied, not imported,
-so the port loads without JAX; ``tests/test_torch_models.py`` and
-``tests/test_torch_serving.py`` hold the two packages' tables and configs
-equal.
+document-processing, embed, store, retrieval and serving keys
+(``CLIP_MODEL``, ``CLIP_CHECKPOINT*``, ``BATCH_SIZE``, ``TEXT_BUCKETS``,
+``IMAGE_PREPROCESS*``, ``INPUT_DIR``, ``LANGUAGE``, ``OUTPUT_DIR``,
+``EXCLUDE_TERMS_FILE``, ``EVAL_OUTPUT_DIR``, ``STORE_DIR``,
+``RETRIEVAL_*``, ``IVF_*``, ``SERVE_*``, ...). The values are copied, not
+imported, so the port loads without JAX; ``tests/test_torch_models.py``,
+``tests/test_torch_pipeline.py`` and ``tests/test_torch_serving.py`` hold
+the two packages' tables and configs equal.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import os
 import re
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 __all__ = [
     "ClipVariant",
@@ -122,9 +123,12 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     parity_mode: bool = False
     fused_attention: Optional[bool] = None
-    # a CLIP_CHECKPOINT path; loading checkpoints is not yet ported, and
-    # EmbedEngine raises when one is set
+    # a CLIP_CHECKPOINT file (OpenCLIP or HuggingFace layout) that
+    # EmbedEngine loads in place of the seeded weights
     checkpoint_path: Optional[str] = None
+    # CLIP_CHECKPOINT_ALLOW_PICKLE: unpickle a .pt/.bin file that
+    # torch.load(weights_only=True) refuses (runs code from the file)
+    checkpoint_allow_pickle: bool = False
     # CLIP_QUANT: "none", or "int8"/"int8_qat" (quantized GEMMs), which
     # build_clip refuses until the int8 towers are ported
     quant: str = "none"
@@ -148,11 +152,25 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Where stages 3-5 read the processed outputs of stages 1-2
-    (``image_metadata.json``, ``text_chunks.json``, the lexical components
-    and ``images/``)."""
+    """Document processing (stages 1-2) and where stages 3-5 read its
+    outputs (``image_metadata.json``, ``text_chunks.json``, the lexical
+    components and ``images/``): tpualign's fields and defaults."""
 
+    input_dir: str = "data/raw/manuals"
     output_dir: str = "data/processed"
+    language: str = "nl"
+    use_ocr_fallback: bool = False
+    max_file_size_mb: int = 50
+    allowed_file_types: Sequence[str] = ("pdf", "docx", "doc")
+    soffice_path: str = "soffice"
+    word_to_pdf_timeout_seconds: int = 120
+    min_image_size: int = 5  # a vector figure's least width and height
+    exclude_terms_file: Optional[str] = None  # the operator's exclusion list
+    # chunk-length bounds in characters; None keeps every chunk
+    min_chunk_length: Optional[int] = None
+    max_chunk_length: Optional[int] = None
+    # caption -> image: "first_image" (the reference's rule) or "spatial"
+    caption_linking: str = "first_image"
 
     @property
     def images_dir(self) -> str:
@@ -266,6 +284,7 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
         model_name=normalize_model_name(_env(env, "CLIP_MODEL", "ViT-B-32")),
         pretrained=_env(env, "CLIP_PRETRAINED", "openai"),
         checkpoint_path=_env(env, "CLIP_CHECKPOINT", "") or None,
+        checkpoint_allow_pickle=_env_bool(env, "CLIP_CHECKPOINT_ALLOW_PICKLE", False),
         compute_dtype=_env(env, "COMPUTE_DTYPE", "bfloat16"),
         parity_mode=_env_bool(env, "PARITY_MODE", False),
         quant=_env(env, "CLIP_QUANT", "none"),
@@ -277,7 +296,19 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
             f"autovacuum scale factor analogue), got {serve_auto_compact}")
     return PipelineConfig(
         model=model,
-        data=DataConfig(output_dir=_env(env, "OUTPUT_DIR", "data/processed")),
+        data=DataConfig(
+            input_dir=_env(env, "INPUT_DIR", "data/raw/manuals"),
+            output_dir=_env(env, "OUTPUT_DIR", "data/processed"),
+            language=_env(env, "LANGUAGE", "nl"),
+            use_ocr_fallback=_env_bool(env, "USE_OCR_FALLBACK", False),
+            max_file_size_mb=int(_env(env, "MAX_FILE_SIZE_MB", "50")),
+            caption_linking=_env(env, "CAPTION_LINKING", "first_image"),
+            allowed_file_types=tuple(t.strip() for t in _env(
+                env, "ALLOWED_FILE_TYPES", "pdf,docx,doc").split(",") if t.strip()),
+            soffice_path=_env(env, "SOFFICE_PATH", "soffice"),
+            word_to_pdf_timeout_seconds=int(_env(env, "WORD_TO_PDF_TIMEOUT_SECONDS", "120")),
+            exclude_terms_file=_env(env, "EXCLUDE_TERMS_FILE", "") or None,
+        ),
         store=StoreConfig(root=_env(env, "STORE_DIR", "data/store")),
         eval_output_dir=_env(env, "EVAL_OUTPUT_DIR", "evaluation_results"),
         batch_size=int(_env(env, "BATCH_SIZE", "256")),

@@ -28,6 +28,7 @@ import torch
 from tpualign_torch.config import ModelConfig
 from tpualign_torch.models.clip import CLIP, build_clip, init_clip_params
 from tpualign_torch.models.convert import from_jax_params
+from tpualign_torch.models.loader import load_checkpoint_params
 from tpualign_torch.ops.preprocess import pad_to_bucket, preprocess_device, preprocess_host
 from tpualign_torch.tokenizer import ClipTokenizer
 from tpualign_torch.utils.device import resolve_device
@@ -62,10 +63,10 @@ class EmbedEngine:
     """CLIP embedding engine on one device.
 
     ``params``: the JAX package's parameter tree as nested dicts of numpy
-    arrays (see ``tpualign_torch.models.convert``); None draws seeded
-    random weights (``init_clip_params``), and raises
-    ``NotImplementedError`` when ``model_config.checkpoint_path`` is set,
-    where the JAX package would load it (not yet ported). ``preprocess`` is the image
+    arrays (see ``tpualign_torch.models.convert``); None loads
+    ``model_config.checkpoint_path`` when it is set (an OpenCLIP or
+    HuggingFace file, ``models.loader``; a file that fails to load raises),
+    else draws seeded random weights (``init_clip_params``). ``preprocess`` is the image
     feed, ``"host"`` or ``"device"``; ``preprocess_bucket`` the edge of the
     device feed's uint8 buffers (larger images are shrunk on the host).
     ``device`` defaults to CUDA and raises when it is absent; pass
@@ -102,8 +103,7 @@ class EmbedEngine:
         self.batch_size = max(1, int(batch_size))
 
         if params is None and model_config.checkpoint_path:
-            raise NotImplementedError("CLIP_CHECKPOINT: loading checkpoints is not yet ported to "
-                                      "tpualign_torch; unset it to serve seeded weights")
+            params = load_checkpoint_params(model_config)
         self.model: CLIP = build_clip(model_config, self.device)
         if params is None:
             log.warning("No checkpoint configured: using seeded random weights "

@@ -1,31 +1,36 @@
-"""Pipeline orchestrator (the port's ``tpualign.pipeline``), stages 3-5.
+"""Pipeline orchestrator (the port's ``tpualign.pipeline``).
 
-tpualign's five stages (3-5 with their completion checks and skip/force
-rules):
+tpualign's five stages, with their completion checks, skip/force rules
+and the operator's pause:
 
-1. document processing (the three JSONs and ``images/``);
-2. lexical filtering (the filtered vocabulary);
+1. document processing: done iff the three JSONs exist, ``images/`` is
+   not empty and the raw inputs' fingerprint matches the manifest's;
+2. lexical filtering: done iff the filtered vocabulary exists;
 3. store setup: done iff all four schemas exist;
 4. embedding insertion: per schema, done iff it holds embeddings;
 5. evaluation: ``metrics.json`` and three charts.
 
-The port runs stages 3-5 (``setup-db``, ``embed``, ``evaluate``) over the
-processed outputs of stages 1-2, on one device. Embeddings are computed
-once and shared by the four schemas. Document extraction needs PDF
-libraries, so stages 1-2, ``run`` and ingestion raise
-``NotImplementedError``; ``python -m tpualign process``/``filter`` write
-the processed directory in the same format.
+Stages 1-2 are host work, as in tpualign; stages 3-5 run on one device
+(CUDA unless the caller asks for the CPU). Embeddings are computed once
+and shared by the four schemas. ``run`` chains the five stages, from the
+raw manuals to ``metrics.json``. Incremental ingestion (``ingest_cycle``,
+``watch``) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import sys
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from tpualign_torch.config import PipelineConfig
+from tpualign_torch.data.filtering import filter_lexical_components, load_exclude_terms
+from tpualign_torch.data.processor import DocumentProcessor
 from tpualign_torch.store import SCHEMAS, EmbeddingStore
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
@@ -43,25 +48,29 @@ SCHEMA_FLAGS: Dict[str, tuple] = {
     "clip_combined": (True, True),
 }
 
-_NOT_PORTED = ("not yet ported to tpualign_torch (ROADMAP §2.6, 'document processing, "
-               "filtering and run'); run `python -m tpualign process` and `filter`, then "
-               "`python -m tpualign_torch setup-db`, `embed` and `evaluate`")
+_INGEST_LATER = ("not yet ported to tpualign_torch (ROADMAP queue 1, item 5: ingest and "
+                 "watch); `run` processes the whole input directory")
 
 
 class Pipeline:
-    """Stages 3-5 over a config, on ``device`` (CUDA by default; raises
-    when it is absent unless ``device="cpu"``). ``engine`` replaces the
-    embedding engine (any object with ``embed_image_records`` and
-    ``embed_chunk_records``)."""
+    """The five stages over a config; stages 3-5 on ``device`` (CUDA by
+    default; raises when it is absent unless ``device="cpu"``). ``engine``
+    replaces the embedding engine (any object with ``embed_image_records``
+    and ``embed_chunk_records``). ``nlp`` and ``lexical_fallback`` go to
+    the ``DocumentProcessor`` of stage 1: ``"auto"`` loads spaCy for the
+    configured language and, without it, the heuristic noun extractor."""
 
     def __init__(self, config: PipelineConfig, engine=None,
                  store: Optional[EmbeddingStore] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", nlp="auto",
+                 lexical_fallback: str = "heuristic"):
         self.config = config
         self.device = resolve_device(device)
         self._engine = engine
         self.store = store or EmbeddingStore(config.store.root,
                                              embed_dim=config.model.variant.embed_dim)
+        self._nlp = nlp
+        self._lexical_fallback = lexical_fallback
         out = Path(config.data.output_dir)
         self.image_metadata_file = out / "image_metadata.json"
         self.text_chunks_file = out / "text_chunks.json"
@@ -87,7 +96,53 @@ class Pipeline:
             )
         return self._engine
 
+    # -- the step manifest: a fingerprint of the raw inputs, so that an
+    # edited or added manual re-runs document processing without --force
+
+    @property
+    def _manifest_file(self) -> Path:
+        return Path(self.config.data.output_dir) / ".tpualign_manifest.json"
+
+    def _inputs_fingerprint(self) -> str:
+        raw = Path(self.config.data.input_dir)
+        h = hashlib.sha256()
+        if raw.exists():
+            for p in sorted(raw.glob("*")):
+                st = p.stat()
+                h.update(f"{p.name}:{st.st_size}:{st.st_mtime_ns}".encode())
+        return h.hexdigest()
+
+    def _read_manifest(self) -> dict:
+        if self._manifest_file.exists():
+            try:
+                return json.loads(self._manifest_file.read_text())
+            except (OSError, json.JSONDecodeError):
+                return {}
+        return {}
+
+    def _record_step(self, step: str, **extra) -> None:
+        manifest = self._read_manifest()
+        manifest[step] = {"completed_at": time.time(), **extra}
+        self._manifest_file.parent.mkdir(parents=True, exist_ok=True)
+        self._manifest_file.write_text(json.dumps(manifest, indent=2))
+
     # -- completion checks ---------------------------------------------------------------
+
+    def check_document_processing(self) -> bool:
+        files_ok = (self.image_metadata_file.exists() and self.text_chunks_file.exists()
+                    and self.lexical_file.exists() and self.images_dir.exists()
+                    and any(self.images_dir.glob("*")))
+        if not files_ok:
+            return False
+        recorded = self._read_manifest().get("document_processing", {})
+        fingerprint = recorded.get("inputs_fingerprint")
+        if fingerprint is not None and fingerprint != self._inputs_fingerprint():
+            log.info("Raw inputs changed since last processing; re-running")
+            return False
+        return True
+
+    def check_lexical_filtering(self) -> bool:
+        return self.filtered_lexical_file.exists()
 
     def check_store_setup(self) -> bool:
         return all(self.store.schema_exists(s) for s in SCHEMAS)
@@ -95,22 +150,66 @@ class Pipeline:
     def check_embeddings_inserted(self, schema: str) -> bool:
         return self.store.has_embeddings(schema)
 
-    # -- stages 1-2, run and ingestion: not ported ----------------------------------------
+    # -- stages 1-2: host work -------------------------------------------------------------
 
     def step_document_processing(self, force: bool = False) -> None:
-        raise NotImplementedError(f"document processing is {_NOT_PORTED}")
+        """Stage 1. Exits (``SystemExit(1)``) when the input directory is
+        missing or empty, or when processing produced no data."""
+        if not force and self.check_document_processing():
+            log.info("Document processing already completed. Skipping...")
+            return
+        raw = Path(self.config.data.input_dir)
+        if not raw.exists() or not any(raw.glob("*")):
+            log.error("No files found in %s", raw)
+            raise SystemExit(1)
+        proc = DocumentProcessor(self.config.data, nlp=self._nlp,
+                                 lexical_fallback=self._lexical_fallback)
+        summary = proc.process_all_documents()
+        if summary["images"] == 0 and summary["chunks"] == 0:
+            log.error("Document processing produced no data")
+            raise SystemExit(1)
+        self._record_step("document_processing",
+                          inputs_fingerprint=self._inputs_fingerprint(), **summary)
 
     def step_lexical_filtering(self, force: bool = False, non_interactive: bool = False) -> None:
-        raise NotImplementedError(f"lexical filtering is {_NOT_PORTED}")
+        """Stage 2: prints the top terms, then (unless ``non_interactive``)
+        waits for the operator to edit the exclusion list and press Enter,
+        or type ``skip`` to keep every term unfiltered."""
+        if not force and self.check_lexical_filtering():
+            log.info("Lexical components already filtered. Skipping...")
+            return
+        if not self.lexical_file.exists():
+            log.error("Lexical components not found. Run document processing first.")
+            raise SystemExit(1)
 
-    def run(self, **_flags) -> None:
-        raise NotImplementedError(f"Pipeline.run is {_NOT_PORTED}")
+        with open(self.lexical_file) as f:
+            lexical_data = json.load(f)
+        print(f"\nFound {lexical_data['total_components']} unique lexical components")
+        print("Top 20 most frequent terms:")
+        for i, comp in enumerate(lexical_data["components"][:20], 1):
+            print(f"  {i:2d}. {comp['term']:30s} (count: {comp['count']})")
+
+        if not non_interactive:
+            exclude_path = self.config.data.exclude_terms_file or "exclude_terms.txt"
+            print(f"\nTo filter non-relevant terms, add them to {exclude_path} "
+                  "(one per line), then press Enter to continue — or type 'skip' "
+                  "to use all components.")
+            try:
+                response = input().strip().lower()
+            except EOFError:
+                response = ""
+            if response == "skip":
+                log.warning("Skipping lexical filtering. Using all components.")
+                return
+
+        exclude = load_exclude_terms(self.config.data.exclude_terms_file)
+        filter_lexical_components(self.lexical_file, self.filtered_lexical_file, exclude)
 
     def ingest_cycle(self, evaluate: bool = False) -> dict:
-        raise NotImplementedError(f"incremental ingestion is {_NOT_PORTED}")
+        raise NotImplementedError(f"incremental ingestion is {_INGEST_LATER}")
 
     def watch(self, *args, **kwargs) -> None:
-        raise NotImplementedError(f"watch mode is {_NOT_PORTED}")
+        raise NotImplementedError(f"watch mode is {_INGEST_LATER}")
 
     # -- stages 3-5 ------------------------------------------------------------------------
 
@@ -197,3 +296,51 @@ class Pipeline:
         except Exception as e:
             log.warning("Evaluation completed with warnings (no charts): %s", e)
         return metrics
+
+    def unevaluated(self, metrics: Optional[dict]) -> List[str]:
+        """The schemas of the store that ``metrics`` (what
+        ``step_evaluation`` returned) holds no result for."""
+        return [s for s in SCHEMAS if self.store.schema_exists(s) and s not in (metrics or {})]
+
+    # -- run ---------------------------------------------------------------------------
+
+    def run(self, skip_pdf: bool = False, skip_lexical: bool = False, skip_db: bool = False,
+            skip_embeddings: bool = False, skip_eval: bool = False, force: bool = False,
+            non_interactive: bool = False) -> List[str]:
+        """The five stages in order, each skipped by its flag or when its
+        completion check holds (all re-run with ``force``). A schema that
+        fails to fill or to evaluate is logged and the run goes on, as in
+        tpualign; returns the schemas that failed (empty on success)."""
+        print("\n" + "=" * 80)
+        print("MULTIMODAL ALIGNMENT PIPELINE (tpualign_torch)")
+        print("=" * 80 + "\n")
+        failed: List[str] = []
+        try:
+            if not skip_pdf:
+                self.step_document_processing(force=force)
+            else:
+                log.info("Skipping document processing")
+            if not skip_lexical:
+                self.step_lexical_filtering(force=force, non_interactive=non_interactive)
+            else:
+                log.info("Skipping lexical filtering")
+            if not skip_db:
+                self.step_store_setup(force=force)
+            else:
+                log.info("Skipping store setup")
+            if not skip_embeddings:
+                failed += self.step_insert_embeddings(force=force)
+            else:
+                log.info("Skipping embedding insertion")
+            if not skip_eval:
+                failed += [s for s in self.unevaluated(self.step_evaluation())
+                           if s not in failed]
+            else:
+                log.info("Skipping evaluation")
+            print("\n" + "=" * 80)
+            print("PIPELINE COMPLETE!")
+            print("=" * 80)
+        except KeyboardInterrupt:
+            log.error("Pipeline interrupted by user")
+            sys.exit(1)
+        return failed

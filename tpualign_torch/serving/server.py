@@ -595,8 +595,8 @@ def make_image_bytes_encoder(engine) -> Callable:
 
 def make_engine(config, device="cuda"):
     """The towers ``serve`` and ``query --text`` encode with: the configured
-    CLIP variant with seeded weights (``EmbedEngine`` refuses a
-    ``CLIP_CHECKPOINT``: checkpoint loading is a later slice)."""
+    CLIP variant, its weights loaded from ``CLIP_CHECKPOINT`` when it is
+    set, else seeded (``EmbedEngine``)."""
     from tpualign_torch.parallel.embed import EmbedEngine
 
     return EmbedEngine(config.model, batch_size=64,
@@ -638,7 +638,8 @@ def build_service(config, schema: str, mesh=None, text_tower: bool = True,
         query_cache=getattr(config, "serve_query_cache", 1024),
         auto_compact=getattr(config, "serve_auto_compact", None),
         **index_kwargs(config, schema),
-        model_info={"name": config.model.model_name, "weights": "seeded"},
+        model_info={"name": config.model.model_name, "quant": config.model.quant,
+                    "checkpoint": config.model.checkpoint_path},
         device=device,
     )
 
