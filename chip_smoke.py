@@ -23,6 +23,11 @@ for the numbers in PERF.md). Phases, one JSON line each:
    images and 8,192 chunk records, ``RetrievalIndex`` runs the Evaluator's
    keyed k=100 search and the ``query --text`` global k=10 search; the
    kernels' launch counters are read around this phase alone;
+   int8_towers: the same towers at ``CLIP_QUANT=int8`` (every projection
+   through ``torch._int_mm``, every attention through K1) against the bf16
+   towers over 1,024 images and 4,096 chunks (images/s, chunks/s, largest
+   gap, smallest cosine), and one batch's first projection against the
+   CPU ``int8_dot`` (the same codes, an ulp at most);
 5. K3 ``masked_sim_topk_quant`` against its plain version at Q=1,024,
    N=1,000,000, D=512 (10,000 page keys, the mix of 3.), for int8 (s8),
    int8 (dequant), int4 and int2, k=10 and k=40, with times for the kernel,
@@ -72,6 +77,10 @@ for the numbers in PERF.md). Phases, one JSON line each:
     tpualign_torch run --non-interactive`` over 32 of the manuals into
     fresh directories, its metrics against its own recount, and the same
     command again, which must skip stages 1-4 and write the same metrics;
+    then, over that run's store: ``ingest`` once, ``serve`` as a
+    subprocess, 16 new manuals and ``ingest --notify <daemon>``; the
+    daemon's ``/stats`` must show the new chunks and images, and its
+    answers must equal a freshly started daemon's;
 11. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
     images, 100,000 weak alignments) is written to a temporary directory and
     served by ``build_service`` + ``serve_schemas`` at int8 with refine 4 and
@@ -92,6 +101,15 @@ for the numbers in PERF.md). Phases, one JSON line each:
     recall@10 of int8/int4/int2 at the calibrated and default probe counts,
     and ``query --image-id`` through the artifact; the counters are read
     around the clients' run alone;
+    live, over the same store: the int8 exact service and its IVF twin
+    behind HTTP with SERVE_AUTO_COMPACT=0.2: /add of 20,000 rows by
+    embeddings and 256 by text, /remove of 25 % in four requests (the
+    last compacts automatically), /remove of 1 % and /compact, /sync of a
+    snapshot with 4,096 new chunks and 1,024 gone; after each step the
+    served answers against a fresh int8 index over the live rows (exact),
+    the plain K4 version on the grown layout and a dense search at full
+    probe (IVF); /search_image p50 and the tiles K3 and K4 read, before
+    and after;
 13. the seconds of each phase, the kernels line, the card line, and
     ``{"ok": true, ...}`` last.
 
@@ -700,6 +718,91 @@ def phase_slice(dev, seed):
         check(count > 0, f"{name} was not launched on the main path")
     phase_profile(engine, images, texts)
     return launches
+
+
+INT8_IMAGES, INT8_CHUNKS = 1024, 4096
+
+
+def phase_int8_towers(dev, seed):
+    """CLIP_QUANT=int8: ViT-B-32's towers (seeded weights, bf16 stream) with
+    every projection of every block through ``int8_dot`` (``torch._int_mm``)
+    and every attention through K1, against the bf16 towers on the same
+    inputs: images/s, chunks/s, the largest gap and the smallest cosine;
+    the launches (one K1 and four ``_int_mm`` per block and forward); and
+    one batch's first projection on the card against the CPU ``int8_dot``
+    on the same input: the same codes, outputs within an ulp."""
+    from tpualign_torch.config import ModelConfig
+    from tpualign_torch.models.layers import MultiHeadAttention
+    from tpualign_torch.ops import quant
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.parallel import EmbedEngine
+
+    rng = np.random.default_rng(seed + 7)
+    images = rng.normal(size=(INT8_IMAGES, 224, 224, 3)).astype(np.float32)
+    texts = _chunk_texts(rng, INT8_CHUNKS, empty_every=0)
+    engines = {q: EmbedEngine(ModelConfig("ViT-B-32", quant=q), device=dev, seed=seed)
+               for q in ("none", "int8")}
+    check(engines["int8"].model.quant == "int8", "the int8 towers were not built")
+    for eng in engines.values():  # warm-up, untimed
+        eng.encode_image_batch(images[:B])
+        eng.encode_text_batch(texts[:B])
+    out, launches = {}, {}
+    for q, eng in engines.items():
+        fused_mha.launches = quant.int8_dot.int_mm_calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = eng.encode_image_batch(images)
+        t_img = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        txt = eng.encode_text_batch(texts)
+        t_txt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches[q] = {"fused_mha": fused_mha.launches, "int_mm": quant.int8_dot.int_mm_calls}
+        for name, emb in (("images", img), ("chunks", txt)):
+            check(bool(np.isfinite(emb).all()), f"{q} {name}: non-finite embeddings")
+        out[q] = {"images_per_s": INT8_IMAGES / t_img, "chunks_per_s": INT8_CHUNKS / t_txt,
+                  "image_s": t_img, "chunk_s": t_txt, "img": img, "txt": txt}
+    l8 = launches["int8"]
+    check(l8["fused_mha"] > 0 and l8["int_mm"] == 4 * l8["fused_mha"],
+          f"int8 towers: {l8} (one K1 and four _int_mm per block and forward)")
+    check(launches["none"]["int_mm"] == 0, f"bf16 towers called _int_mm: {launches['none']}")
+    gap, cos = {}, {}
+    for name in ("img", "txt"):
+        a, b = out["int8"][name], out["none"][name]
+        gap[name] = float(np.abs(a - b).max())
+        cos[name] = float((a * b).sum(axis=1).min())
+        check(cos[name] > 0.99, f"int8 {name} tower: smallest cosine to bf16 {cos[name]:.5f}")
+
+    # one batch's first vision projection: the card against the CPU
+    attn = next(m for m in engines["int8"].model.visual.modules()
+                if isinstance(m, MultiHeadAttention))
+    seen = {}
+    hook = attn.register_forward_pre_hook(lambda m, args: seen.setdefault("x", args[0]))
+    engines["int8"].encode_image_batch(images[:B])
+    hook.remove()
+    x = seen["x"].float()
+    kernel, bias = attn.in_proj_kernel.detach(), attn.in_proj_bias.detach()
+    card = quant.int8_dot(x, kernel, bias)
+    cpu = quant.int8_dot(x.cpu(), kernel.cpu(), bias.cpu())
+    codes = torch.equal(quant._quantize_rows(x.reshape(-1, x.shape[-1]))[0].cpu(),
+                        quant._quantize_rows(x.cpu().reshape(-1, x.shape[-1]))[0])
+    ulps = int((card.cpu().view(torch.int32).long() - cpu.view(torch.int32).long()).abs().max())
+    check(codes and ulps <= 1, f"int8_dot on the card against the CPU: codes equal {codes}, "
+                               f"{ulps} ulps")
+    x2 = x.reshape(-1, x.shape[-1])
+    k_bf = kernel.to(torch.bfloat16)
+    dot_ms = time_ms(lambda: quant.int8_dot(x2, kernel, bias), 20)
+    bf16_ms = time_ms(lambda: torch.mm(x2.to(torch.bfloat16), k_bf,
+                                       out_dtype=torch.float32) + bias, 20)
+    emit({"phase": "int8_towers", "model": "ViT-B-32", "quant": "int8", "batch_size": B,
+          "images": INT8_IMAGES, "chunks": INT8_CHUNKS,
+          **{f"{q}_{k}": out[q][k] for q in ("int8", "none")
+             for k in ("images_per_s", "chunks_per_s", "image_s", "chunk_s")},
+          "max_abs_gap_to_bf16": gap, "min_cosine_to_bf16": cos, "launches": launches,
+          "int8_dot_vs_cpu": {"shape": list(x2.shape) + [kernel.shape[1]],
+                              "codes_equal": codes, "max_ulps": ulps},
+          "in_proj_ms": {"int8_dot": dot_ms, "bf16_mm": bf16_ms}})
+    return launches["int8"]
 
 
 def profile_window(fn, top: int = 8) -> dict:
@@ -1354,6 +1457,375 @@ def phase_serve_ivf(dev, seed, root, shared):
     return launches, k4_serving
 
 
+# the live corpus (phase live): rows added by embeddings and by text, the
+# share removed, the auto-compaction threshold, /sync's delta
+LIVE_ADD, LIVE_ADD_BATCH, LIVE_TEXT, LIVE_TEXT_BATCH = 20_000, 4_000, 256, 64
+LIVE_ADD_PAGES = 40  # the stored images whose pages take the added rows
+LIVE_REMOVE, LIVE_REMOVE_BATCHES, LIVE_AUTO_COMPACT = 0.25, 4, 0.2
+LIVE_SYNC_NEW, LIVE_SYNC_GONE, LIVE_CHECK_IMAGES, LIVE_P50_REQUESTS = 4096, 1024, 64, 64
+
+
+class _LiveRows:
+    """The rows a live service should hold: every row it was ever given
+    (fp32, host), its chunk id, manual and page, and which are alive, in
+    the service's order (ascending id; compactions keep it)."""
+
+    def __init__(self, emb, ids, manuals, pages):
+        self.emb, self.ids = [emb], list(ids)
+        self.manuals, self.pages = list(manuals), list(pages)
+        self.order = list(range(len(ids)))  # live rows in the service's order
+
+    def add(self, emb, ids, manuals, pages):
+        base = len(self.ids)
+        self.emb.append(np.asarray(emb, np.float32))
+        self.ids += list(ids)
+        self.manuals += list(manuals)
+        self.pages += list(pages)
+        self.order += range(base, base + len(ids))
+
+    def remove(self, ids):
+        gone = set(ids)
+        self.order = [r for r in self.order if self.ids[r] not in gone]
+
+    def rows(self):
+        return np.concatenate(self.emb) if len(self.emb) > 1 else self.emb[0]
+
+
+class _LiveTake:
+    """The live rows' fp32 copy as a refine corpus (``take``/``len``)."""
+
+    def __init__(self, rows, order):
+        self.rows, self.order = rows, np.asarray(order, np.int64)
+
+    def __len__(self):
+        return len(self.order)
+
+    def take(self, idx):
+        return self.rows[self.order[np.asarray(idx, np.int64)]]
+
+
+def _live_check(dev, live, services, images, img_emb, step, counters) -> dict:
+    """The served answers against fresh indexes over the live rows: the
+    exact int8 service's /search_image and global /search answers equal a
+    fresh ``RetrievalIndex`` (int8, refine 4) over the live rows; the IVF
+    service's equal the plain K4 version over its own layout, and its
+    full-probe search equals a dense search over the live rows' int8
+    dequantization with the same exact rescore (the union route's
+    function at full probe). The references' kernel launches are taken
+    back out of ``counters``: only the served requests count."""
+    from tpualign_torch.ops.sim_topk import masked_sim_topk_reference
+    from tpualign_torch.parallel.retrieval import (
+        WILDCARD_KEY, RetrievalIndex, _refine_rescore, encode_keys)
+
+    t0 = time.perf_counter()
+    sel = np.arange(0, len(images), len(images) // LIVE_CHECK_IMAGES)[:LIVE_CHECK_IMAGES]
+    q_img, q_glob = img_emb[sel], img_emb[sel[:8]]
+    image_ids = [images[i]["image_id"] for i in sel]
+    served = {name: (_as_pairs(_post(services[name + "_url"], "/search_image",
+                                     {"image_ids": image_ids, "k": 10})["results"]),
+                     _as_pairs(_post(services[name + "_url"], "/search",
+                                     {"embeddings": q_glob.tolist(), "k": 10,
+                                      "global": True})["results"]))
+              for name in ("exact", "ivf")}
+    torch.cuda.synchronize()
+    saved = [fn.launches for fn in counters]
+    rows, order = live.rows(), live.order
+    ids = [live.ids[r] for r in order]
+    fresh = RetrievalIndex(rows[order], [live.manuals[r] for r in order],
+                           [live.pages[r] for r in order], precision="int8", refine=4,
+                           device=dev)
+    alive = {name: services[name].index.n - services[name].index.dead for name in ("exact", "ivf")}
+    check(fresh.n == alive["exact"] == alive["ivf"], f"{step}: live rows {fresh.n}, {alive}")
+    want_img = _pairs(*fresh.search(q_img, [images[i]["manual_id"] for i in sel],
+                                    [images[i]["page"] for i in sel], k=10), ids)
+    want_glob = _pairs(*fresh.search(q_glob, k=10, global_search=True), ids)
+    # the live rows' int8 dequantization: the fresh index's per-row codes
+    deq = fresh._corpus.float() * fresh._corpus_scales[:, None]
+    del fresh
+    check(served["exact"] == (want_img, want_glob),
+          f"{step}: the exact service differs from a fresh index over the live rows")
+    svc = services["ivf"]
+    index = svc.index
+    keys = encode_keys([images[i]["manual_id"] for i in sel],
+                       [images[i]["page"] for i in sel], dict(index.vocab))[0]
+    check(served["ivf"][0] == _pairs(*_plain_refined_ivf(index, q_img, keys), svc.chunk_ids),
+          f"{step}: the IVF service differs from the plain K4 version on its layout")
+    # full probe: the service's index against a dense search of the live rows
+    wild = np.full(len(q_glob), WILDCARD_KEY, np.int32)
+    full = _pairs(*index.search_encoded(q_glob, wild, 10, n_probes=index.n_lists),
+                  svc.chunk_ids)
+    _, cand = masked_sim_topk_reference(
+        torch.from_numpy(q_glob).to(dev), torch.from_numpy(wild).to(dev), deq,
+        torch.zeros(deq.shape[0], dtype=torch.int32, device=dev), 10 * index.refine)
+    del deq
+    cand = cand.cpu().numpy().astype(np.int64)
+    v, i = _refine_rescore(q_glob, np.zeros(cand.shape, np.float32), cand,
+                           _LiveTake(rows, order), 10)
+    check(full == _pairs(v, i, ids),
+          f"{step}: the IVF index at full probe differs from the dense search")
+    torch.cuda.synchronize()
+    for fn, n in zip(counters, saved):
+        fn.launches = n
+    return {"check_s": time.perf_counter() - t0, "live_rows": len(order),
+            "ivf_spill": index.spill, "ivf_spill_blocks": index.spill_blocks,
+            "ivf_dead": index.dead, "exact_dead": services["exact"].index.dead,
+            "exact_capacity": int(services["exact"].index._corpus.shape[0])}
+
+
+def _post(base, path, payload):
+    """POST a JSON body; the JSON answer."""
+    import urllib.request
+
+    req = urllib.request.Request(f"{base}{path}", json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def _timed_post(base, path, payload):
+    """``_post`` and its wall seconds, the request's encoding included."""
+    t0 = time.perf_counter()
+    out = _post(base, path, payload)
+    return out, time.perf_counter() - t0
+
+
+def _search_image_p50(base, images, rng) -> float:
+    """p50 ms of LIVE_P50_REQUESTS serial /search_image requests of two
+    random stored images."""
+    lat = []
+    for _ in range(LIVE_P50_REQUESTS):
+        ids = [images[int(i)]["image_id"] for i in rng.integers(0, len(images), 2)]
+        lat.append(_timed_post(base, "/search_image", {"image_ids": ids, "k": 10})[1])
+    return _pct(lat, 0.5)
+
+
+def _live_kernels(dev, services, images):
+    """K3 and K4 at the /search_image shape (two keyed image queries, k *
+    refine) over the current corpora, each against its plain version: the
+    times and the corpus tiles read."""
+    from tpualign_torch.parallel.ivf import _probe, _union
+    from tpualign_torch.parallel.retrieval import encode_keys
+
+    out = {}
+    two = [images[1], images[2]]
+    for name in ("exact", "ivf"):
+        svc = services[name]
+        index = svc.index
+        qv = torch.from_numpy(svc._image_embs[[svc._images[im["image_id"]] for im in two]]).to(dev)
+        qk = torch.from_numpy(np.asarray(encode_keys(
+            [im["manual_id"] for im in two], [im["page"] for im in two], dict(index.vocab))[0],
+            np.int32)).to(dev)
+        kf = 10 * index.refine
+        if name == "exact":
+            r = _k3_measure("K3 over the live corpus", qv, qk, index._corpus, index._keys,
+                            index._corpus_scales, True, kf)
+        else:
+            probe = _probe(qv, qk, index.centroids, index.n_probes, index.n_lists)
+            r = _k4_measure("K4 over the live layout", qv, qk, probe,
+                            _union(probe, index.n_lists, index.spill_blocks), index._emb,
+                            index._keys, index._scales, index.int8_mxu, kf, index.capacity,
+                            index.n_lists)
+        out[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "admitted_tiles", "tiles")
+                     if k in r}
+        out[name]["N"] = index.n
+        if name == "ivf":
+            out[name]["spill_blocks"] = index.spill_blocks
+    return out
+
+
+def phase_live(dev, seed, root, shared):
+    """The live corpus on the serve phase's 1M-chunk store: the int8
+    (refine 4) exact service and its IVF twin (the serve_ivf artifact),
+    each behind HTTP with SERVE_AUTO_COMPACT=0.2. /add 20,000 rows by
+    embeddings and 256 by text, /remove 25 % of the corpus (the fourth of
+    four requests crosses the threshold and compacts), /remove 1 % more
+    and /compact, then /sync from a store snapshot with 4,096 new chunks
+    and 1,024 gone. After each step the served answers are held against
+    fresh indexes over the live rows (:func:`_live_check`); /search_image
+    p50 and the tiles K3 and K4 read, before and after; the kernels'
+    launches across the mutations and checks."""
+    import os
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.ivf_topk import ivf_probe_topk
+    from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
+    from tpualign_torch.serving.server import _ServiceBox, build_service, serve_schemas
+
+    env = {"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8", "RETRIEVAL_REFINE": "4",
+           "CLIP_MODEL": "ViT-B-32", "SEED": str(seed),
+           "SERVE_AUTO_COMPACT": str(LIVE_AUTO_COMPACT)}
+    engine, images = shared["engine"], shared["images"]
+    text_enc = _Recorder(engine.encode_text_batch)
+    snapshot = {}
+    services, servers = {}, []
+    t0 = time.perf_counter()
+    for name, extra in (("exact", {}), ("ivf", {
+            "RETRIEVAL_INDEX": "ivf", "RETRIEVAL_RECALL_TARGET": "0.95",
+            "IVF_CACHE": os.path.join(root, "vanilla_clip.ivf.npz")})):
+        svc = build_service(load_config({**env, **extra}), "vanilla_clip", encoder=text_enc,
+                            device=dev)
+        check(svc.auto_compact == LIVE_AUTO_COMPACT, f"SERVE_AUTO_COMPACT: {svc.auto_compact}")
+        httpd = serve_schemas({"vanilla_clip": _ServiceBox(
+            svc, fetch=lambda: snapshot["chunks"])}, "vanilla_clip", "127.0.0.1", 0,
+            max_body_bytes=256 * 2**20)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers.append(httpd)
+        services[name] = svc
+        services[name + "_url"] = f"http://127.0.0.1:{httpd.server_address[1]}"
+    build_s = time.perf_counter() - t0
+    check(type(services["ivf"].index).__name__ == "IVFIndex", "the IVF twin is not IVF")
+    img_emb = services["exact"]._image_embs
+    live = _LiveRows(shared["chunk_emb"], services["exact"].chunk_ids, shared["manuals"],
+                     shared["pages"])
+    rng = np.random.default_rng(seed + 11)
+    steps, timings = {}, {}
+    try:
+        before = {name: _search_image_p50(services[name + "_url"], images, rng)
+                  for name in ("exact", "ivf")}
+        kernels_before = _live_kernels(dev, services, images)
+        spill_blocks = services["ivf"].index.spill_blocks
+        counters = (fused_mha, masked_sim_topk, masked_sim_topk_quant, ivf_probe_topk)
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+
+        def both(path, payload):
+            outs = {}
+            for name in ("exact", "ivf"):
+                out, secs = _timed_post(services[name + "_url"], path, payload)
+                timings.setdefault(f"{name}{path}", []).append(secs)
+                outs[name] = out
+            return outs
+
+        # /add by embeddings: rows near the pages of 40 stored images, so
+        # that the keyed searches meet them and their IVF lists overflow
+        # into the spill tail
+        pick = rng.choice(len(images), LIVE_ADD_PAGES, replace=False)[
+            rng.integers(0, LIVE_ADD_PAGES, LIVE_ADD)]
+        noise = rng.normal(size=(LIVE_ADD, img_emb.shape[1])).astype(np.float32)
+        new = img_emb[pick] + 0.05 * noise / np.sqrt(img_emb.shape[1])
+        new /= np.linalg.norm(new, axis=1, keepdims=True)
+        new_ids = [f"live-{i:05d}" for i in range(LIVE_ADD)]
+        new_man = [images[i]["manual_id"] for i in pick]
+        new_pg = [images[i]["page"] for i in pick]
+        for s0 in range(0, LIVE_ADD, LIVE_ADD_BATCH):
+            sl = slice(s0, s0 + LIVE_ADD_BATCH)
+            outs = both("/add", {"chunk_ids": new_ids[sl], "manuals": new_man[sl],
+                                 "pages": new_pg[sl], "embeddings": new[sl].tolist()})
+            check(all(o["added"] == LIVE_ADD_BATCH for o in outs.values()), f"/add: {outs}")
+        live.add(new, new_ids, new_man, new_pg)
+        check(services["ivf"].index.spill_blocks > spill_blocks,
+              f"the IVF spill tail did not grow: {spill_blocks} blocks")
+        # the grown corpora: /search_image p50, and K3 and K4 at its shape
+        # (their comparisons with the plain versions are not counted)
+        grown = {name: _search_image_p50(services[name + "_url"], images, rng)
+                 for name in ("exact", "ivf")}
+        torch.cuda.synchronize()
+        saved = [fn.launches for fn in counters]
+        kernels_grown = _live_kernels(dev, services, images)
+        torch.cuda.synchronize()
+        for fn, n in zip(counters, saved):
+            fn.launches = n
+        # /add by text: the daemon's text tower embeds them
+        pick = rng.integers(0, len(images), LIVE_TEXT)
+        texts = [f"{SERVE_TEXTS[i % len(SERVE_TEXTS)]} (live {i})" for i in range(LIVE_TEXT)]
+        t_ids = [f"live-text-{i:03d}" for i in range(LIVE_TEXT)]
+        t_man = [images[i]["manual_id"] for i in pick]
+        t_pg = [images[i]["page"] for i in pick]
+        for s0 in range(0, LIVE_TEXT, LIVE_TEXT_BATCH):
+            sl = slice(s0, s0 + LIVE_TEXT_BATCH)
+            both("/add", {"chunk_ids": t_ids[sl], "manuals": t_man[sl], "pages": t_pg[sl],
+                          "texts": texts[sl]})
+        t_emb = np.stack([text_enc.seen[t][0] for t in texts])
+        check(all(len(text_enc.seen[t]) == 2 and np.array_equal(*text_enc.seen[t])
+                  for t in texts), "the two services' text embeddings differ")
+        live.add(t_emb, t_ids, t_man, t_pg)
+        steps["added"] = _live_check(dev, live, services, images, img_emb, "after /add",
+                                       counters)
+
+        # /remove 25 % of the corpus in four requests; the fourth crosses
+        # SERVE_AUTO_COMPACT and compacts
+        n_now = len(live.order)
+        victims = [live.ids[r] for r in rng.choice(live.order, int(LIVE_REMOVE * n_now),
+                                                   replace=False)]
+        parts = np.array_split(np.asarray(victims, dtype=object), LIVE_REMOVE_BATCHES)
+        for j, part in enumerate(parts):
+            outs = both("/remove", {"chunk_ids": list(part)})
+            live.remove(part)
+            last = j == len(parts) - 1
+            check(all(("auto_compacted" in o) == last for o in outs.values()),
+                  f"/remove {j}: auto-compaction {outs}")
+            if j == len(parts) - 2:
+                check(services["exact"].index.dead == services["ivf"].index.dead
+                      == sum(len(p) for p in parts[:-1]), "tombstones")
+                steps["tombstoned"] = _live_check(dev, live, services, images, img_emb,
+                                                  "with tombstones", counters)
+        steps["auto_compacted"] = _live_check(dev, live, services, images, img_emb,
+                                              "after the auto-compaction", counters)
+        # /remove 1 % more, then /compact
+        victims = [live.ids[r] for r in rng.choice(live.order, len(live.order) // 100,
+                                                   replace=False)]
+        both("/remove", {"chunk_ids": victims})
+        live.remove(victims)
+        outs = both("/compact", {})
+        check(all(o["compacted"] == len(victims) for o in outs.values()), f"/compact: {outs}")
+        steps["compacted"] = _live_check(dev, live, services, images, img_emb,
+                                         "after /compact", counters)
+
+        # /sync from a store snapshot: 4,096 new chunks, 1,024 gone
+        gone = set(live.ids[r] for r in rng.choice(live.order, LIVE_SYNC_GONE, replace=False))
+        pick = rng.integers(0, len(images), LIVE_SYNC_NEW)
+        s_new = img_emb[pick] + rng.normal(size=(LIVE_SYNC_NEW, img_emb.shape[1])).astype(
+            np.float32) * 0.05
+        s_new /= np.linalg.norm(s_new, axis=1, keepdims=True)
+        s_ids = [f"sync-{i:04d}" for i in range(LIVE_SYNC_NEW)]
+        s_man = [images[i]["manual_id"] for i in pick]
+        s_pg = [images[i]["page"] for i in pick]
+        keep = [r for r in live.order if live.ids[r] not in gone]
+        rows = live.rows()
+        snapshot["chunks"] = ([live.ids[r] for r in keep] + s_ids,
+                              [live.manuals[r] for r in keep] + s_man,
+                              [live.pages[r] for r in keep] + s_pg,
+                              np.concatenate([rows[keep], s_new]))
+        outs = both("/sync", {})
+        check(all(o["synced"] and o["added"] == LIVE_SYNC_NEW and o["removed"] == LIVE_SYNC_GONE
+                  for o in outs.values()), f"/sync: {outs}")
+        live.remove(gone)
+        live.add(s_new, s_ids, s_man, s_pg)
+        steps["synced"] = _live_check(dev, live, services, images, img_emb, "after /sync",
+                                      counters)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        after = {name: _search_image_p50(services[name + "_url"], images, rng)
+                 for name in ("exact", "ivf")}
+        kernels_after = _live_kernels(dev, services, images)
+        stats = {name: services[name].stats() for name in ("exact", "ivf")}
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+    for name in ("fused_mha", "masked_sim_topk_quant", "ivf_probe_topk"):
+        check(launches[name] > 0, f"{name} was not launched on the live path")
+    emit({"phase": "live", "model": "ViT-B-32", "precision": "int8", "refine": 4,
+          "auto_compact": LIVE_AUTO_COMPACT, "services_build_s": build_s,
+          "add_rows": LIVE_ADD, "add_text_rows": LIVE_TEXT,
+          "removed_share": LIVE_REMOVE, "sync_new": LIVE_SYNC_NEW, "sync_gone": LIVE_SYNC_GONE,
+          "timings_s": timings,
+          "add_ms_per_1k_rows": {
+              name: {"embeddings": 1e3 * sum(timings[f"{name}/add"][:LIVE_ADD // LIVE_ADD_BATCH])
+                     / (LIVE_ADD / 1000),
+                     "text": 1e3 * sum(timings[f"{name}/add"][LIVE_ADD // LIVE_ADD_BATCH:])
+                     / (LIVE_TEXT / 1000)} for name in ("exact", "ivf")},
+          "search_image_p50_ms": {"before": before, "after_adds": grown, "after": after},
+          "kernels_at_search_image": {"before": kernels_before, "after_adds": kernels_grown,
+                                      "after": kernels_after},
+          "steps": steps, "launches": launches,
+          "stats": {name: {k: st.get(k) for k in ("corpus_size", "dead_rows", "ivf")}
+                    for name, st in stats.items()}})
+    return launches
+
+
 # K5 and the device image feed
 K5_SHAPE = (256, 224, 224, 3)          # one device-feed batch at ViT-B-32
 FEED_IMAGES, FEED_BUCKET = 2048, 256   # files of the device_feed phase; IMAGE_PREPROCESS_BUCKET
@@ -1617,14 +2089,25 @@ def _manual_corpus(root, seed, feed_dir, feed_names):
     raw directory, what each page should give, and the corpus' bytes."""
     import os
 
-    from tpualign_torch.data import write_synthetic_document
-
     raw = os.path.join(root, "raw")
     os.makedirs(raw)
-    rng = np.random.default_rng(seed + 1)
-    texts = _chunk_texts(rng, PIPE_MANUALS * PIPE_PAGES * PIPE_CHUNKS_PER_PAGE, empty_every=0)
+    pages_want = _write_manuals(raw, range(PIPE_MANUALS), np.random.default_rng(seed + 1),
+                                feed_dir, feed_names)
+    nbytes = sum(os.path.getsize(os.path.join(raw, n)) for n in os.listdir(raw))
+    return raw, pages_want, nbytes
+
+
+def _write_manuals(raw, numbers, rng, feed_dir, feed_names):
+    """Manuals ``man<m>`` for each m of ``numbers``, as :func:`_manual_corpus`
+    describes them; returns what each page should give."""
+    import os
+
+    from tpualign_torch.data import write_synthetic_document
+
+    numbers = list(numbers)
+    texts = _chunk_texts(rng, len(numbers) * PIPE_PAGES * PIPE_CHUNKS_PER_PAGE, empty_every=0)
     pages_want = []
-    for m in range(PIPE_MANUALS):
+    for i, m in enumerate(numbers):
         pages = []
         for p in range(PIPE_PAGES):
             page = m * PIPE_PAGES + p
@@ -1634,7 +2117,8 @@ def _manual_corpus(root, seed, feed_dir, feed_names):
             x0, y0 = (int(v) for v in rng.integers(40, 400, 2))
             bbox = [x0, y0, x0 + 160, y0 + 120]
             native = page % 53 != 0
-            lines = texts[page * PIPE_CHUNKS_PER_PAGE:(page + 1) * PIPE_CHUNKS_PER_PAGE]
+            at = (i * PIPE_PAGES + p) * PIPE_CHUNKS_PER_PAGE
+            lines = texts[at:at + PIPE_CHUNKS_PER_PAGE]
             tops = 60.0 + 85.0 * np.arange(PIPE_CHUNKS_PER_PAGE) + rng.integers(0, 40, len(lines))
             pages.append({
                 "width": 612, "height": 792,
@@ -1649,8 +2133,7 @@ def _manual_corpus(root, seed, feed_dir, feed_names):
                                "bbox_source": "native" if native else "dict_fallback",
                                "src": src, "lines": lines})
         write_synthetic_document(os.path.join(raw, f"man{m:03d}.synthdoc.json"), pages)
-    nbytes = sum(os.path.getsize(os.path.join(raw, n)) for n in os.listdir(raw))
-    return raw, pages_want, nbytes
+    return pages_want
 
 
 def _check_stage1(out, feed_dir, pages_want):
@@ -2039,10 +2522,11 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
     os.makedirs(os.path.join(sub, "raw"))
     for name in sorted(os.listdir(raw))[:PIPE_RUN_MANUALS]:
         os.link(os.path.join(raw, name), os.path.join(sub, "raw", name))
-    one = _run_twice(dev, {**env, "INPUT_DIR": os.path.join(sub, "raw"),
-                           "OUTPUT_DIR": os.path.join(sub, "processed"),
-                           "STORE_DIR": os.path.join(sub, "store"),
-                           "EVAL_OUTPUT_DIR": os.path.join(sub, "eval")}, sub)
+    sub_env = {**env, "INPUT_DIR": os.path.join(sub, "raw"),
+               "OUTPUT_DIR": os.path.join(sub, "processed"),
+               "STORE_DIR": os.path.join(sub, "store"), "EVAL_OUTPUT_DIR": os.path.join(sub, "eval")}
+    one = _run_twice(dev, sub_env, sub)
+    ingest = _ingest_notify(dev, sub_env, sub, feed_dir, feed_names, seed)
     emit({"phase": "pipeline", "model": "ViT-B-32", "manuals": PIPE_MANUALS,
           "pages": PIPE_MANUALS * PIPE_PAGES, "raw_corpus_bytes": raw_bytes,
           "corpus_write_s": write_s, "checkpoint": os.path.basename(checkpoint),
@@ -2050,10 +2534,151 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
           "process_s": secs["process"], "filter_s": secs["filter"], "stage_s": secs,
           "launches": launches, "embeddings_vs_seeded_engine": bitwise,
           "alignments": n_records, "cpu_compute_alignments_s": t_cpu_align,
-          "metrics": metrics, "recount": want, **ranking, "run": one,
+          "metrics": metrics, "recount": want, **ranking, "run": one, "ingest": ingest,
           "evaluate_warnings": [line for line in logs["evaluate"].stderr.splitlines()
                                 if "WARNING" in line][:3]})
-    return total, ranking["k2_at_evaluator_search"]
+    return total, ranking["k2_at_evaluator_search"], ingest["launches"]["ingest"]
+
+
+INGEST_MANUALS = 16  # manuals added to the run subset for ingest --notify
+
+
+class _Daemon:
+    """``python -m tpualign_torch serve --port 0`` as a subprocess, through
+    the stage wrapper (its kernel counters are written when SIGINT ends
+    it); ``url`` once it prints its address."""
+
+    def __init__(self, env, cwd, name, device):
+        import os
+        import queue
+        import re
+
+        self.counters = os.path.join(cwd, f"counters-{name}.json")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
+        self.log = open(os.path.join(cwd, f"{name}.err"), "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _STAGE, self.counters, "serve", "--device", device,
+             "--port", "0"], stdout=subprocess.PIPE, stderr=self.log, text=True, cwd=cwd,
+            env=dict(os.environ, PYTHONPATH=path, **env))
+        lines = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(x) for x in self.proc.stdout],
+                         daemon=True).start()
+        self.url = None
+        deadline = time.monotonic() + 300
+        while self.url is None and time.monotonic() < deadline and self.proc.poll() is None:
+            try:
+                m = re.search(r"on (http://127\.0\.0\.1:\d+)", lines.get(timeout=1.0))
+            except queue.Empty:
+                continue
+            self.url = m.group(1) if m else None
+        self.start_s = time.perf_counter() - t0
+        if self.url is None:
+            self.stop()
+            raise AssertionError(f"serve did not start: {open(self.log.name).read()[-2000:]}")
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + path, timeout=60) as r:
+            return json.loads(r.read())
+
+    def stop(self) -> dict:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+        try:
+            with open(self.counters) as f:
+                return json.load(f)
+        except OSError:
+            return {}
+
+
+def _ingest_notify(dev, env, work, feed_dir, feed_names, seed) -> dict:
+    """The live pipeline on the run subset's store: ``ingest`` once (the
+    first cycle after ``run`` reprocesses every manual, as tpualign's does,
+    and records the ingest manifest), ``serve`` as a subprocess, 16 new
+    manuals, then ``ingest --notify <daemon>``: the daemon's /stats must
+    show the new chunks and images, and its /search_text and /search_image
+    answers must equal a freshly started daemon's over the same store."""
+    import os
+
+    from tpualign_torch.store import EmbeddingStore
+
+    warm_s, _, warm = _run_stage(["ingest", "--device", dev.type], env, work)
+    check(f"ingested {PIPE_RUN_MANUALS} file(s); 0 unchanged" in warm.stdout,
+          f"the first ingest printed {warm.stdout[-300:]}")
+    store_before = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
+    ids_before, emb_before = store_before.embedding_matrix("vanilla_clip", "text_chunks")
+    daemon = _Daemon(env, work, "daemon", dev.type)
+    try:
+        before = daemon.get("/stats")
+        _write_manuals(env["INPUT_DIR"], range(PIPE_MANUALS, PIPE_MANUALS + INGEST_MANUALS),
+                       np.random.default_rng(seed + 5), feed_dir, feed_names)
+        seen = {}
+
+        def poll():
+            while "t" not in seen and "stop" not in seen:
+                if daemon.get("/stats")["corpus_size"] > before["corpus_size"]:
+                    seen["t"] = time.perf_counter()
+                time.sleep(0.02)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        t0 = time.perf_counter()
+        poller.start()
+        secs, launches, out = _run_stage(["ingest", "--notify", daemon.url, "--device",
+                                          dev.type], env, work)
+        poller.join(timeout=30)
+        seen["stop"] = True
+        check(f"ingested {INGEST_MANUALS} file(s); {PIPE_RUN_MANUALS} unchanged" in out.stdout,
+              f"ingest printed {out.stdout[-300:]}")
+        check("serve sync: +" in out.stderr, f"ingest did not sync: {out.stderr[-2000:]}")
+        after = daemon.get("/stats")
+        grew = (after["corpus_size"] - before["corpus_size"],
+                after["num_images"] - before["num_images"])
+        want = (INGEST_MANUALS * PIPE_PAGES * PIPE_CHUNKS_PER_PAGE, INGEST_MANUALS * PIPE_PAGES)
+        check(grew == want and "t" in seen, f"/stats grew by {grew}, want {want}")
+        store = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
+        ids_after, emb_after = store.embedding_matrix("vanilla_clip", "text_chunks")
+        check(list(ids_after[:len(ids_before)]) == list(ids_before), "the store reordered chunks")
+        same_old = bool(np.array_equal(emb_after[:len(ids_before)], emb_before))
+        new_images = [im["image_id"] for im in store.images("vanilla_clip")
+                      if int(im["manual_id"][3:]) >= PIPE_MANUALS][:16]
+        fresh = _Daemon(env, work, "fresh", dev.type)
+        try:
+            answers, gap = [], 0.0
+            for path, body in (("/search_text", {"texts": SERVE_TEXTS, "k": 10, "global": True}),
+                               ("/search_image", {"image_ids": new_images, "k": 10})):
+                got, want_rows = (_post(d.url, path, body)["results"] for d in (daemon, fresh))
+                check([[h["chunk_id"] for h in r] for r in got]
+                      == [[h["chunk_id"] for h in r] for r in want_rows],
+                      f"{path}: the synced daemon's ids differ from a fresh daemon's")
+                gap = max([gap] + [abs(a["score"] - b["score"]) for ra, rb in zip(got, want_rows)
+                                   for a, b in zip(ra, rb)])
+                answers.append(len(got))
+            check(gap <= (0.0 if same_old else 1e-5), f"scores differ by {gap}")
+            check(fresh.get("/stats")["corpus_size"] == after["corpus_size"], "corpus sizes")
+        finally:
+            fresh_launches = fresh.stop()
+    finally:
+        daemon_launches = daemon.stop()
+    return {"manuals_added": INGEST_MANUALS, "first_ingest_s": warm_s, "ingest_s": secs,
+            "ingest_to_stats_s": seen["t"] - t0, "daemon_start_s": daemon.start_s,
+            "fresh_daemon_start_s": fresh.start_s, "stats_growth": {"chunks": grew[0],
+                                                                     "images": grew[1]},
+            "old_chunk_embeddings_unchanged": same_old, "max_score_gap_to_fresh": gap,
+            "answers_compared": answers, "launches": {"ingest": launches,
+                                                      "daemon": daemon_launches,
+                                                      "fresh_daemon": fresh_launches},
+            "dir": os.path.basename(work)}
 
 
 def main() -> int:
@@ -2090,6 +2715,8 @@ def main() -> int:
     lap("k2")
     launches = phase_slice(dev, args.seed)
     lap("slice")
+    int8_launches = phase_int8_towers(dev, args.seed)
+    lap("int8_towers")
     k3 = phase_k3(dev, gen)
     lap("k3")
     k4 = phase_k4(dev, gen)
@@ -2102,14 +2729,16 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="tpualign_feed_") as root:
             feed_names = phase_device_feed(dev, args.seed, root)
             lap("device_feed")
-            pipe_launches, k2_eval = phase_pipeline(dev, args.seed, root, feed_names,
-                                                    checkpoint)
+            pipe_launches, k2_eval, ingest_launches = phase_pipeline(
+                dev, args.seed, root, feed_names, checkpoint)
             lap("pipeline")
         with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
             serve_launches, k3_serve, shared = phase_serve(dev, args.seed, root, checkpoint)
             lap("serve")
             ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)
             lap("serve_ivf")
+            live_launches = phase_live(dev, args.seed, root, shared)
+            lap("live")
             del shared
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t_start})
 
@@ -2122,12 +2751,22 @@ def main() -> int:
         {"name": "fused_mha", "route": "cuda", "source": "tpualign_torch/csrc/fused_mha.cu",
          "replaces": "tpualign/ops/pallas_attention.py:162",
          "launches": launches["fused_mha"], **{k: k1_head[k] for k in keys},
+         "launches_by_phase": {"slice": launches["fused_mha"],
+                               "int8_towers": int8_launches["fused_mha"],
+                               "serve": serve_launches["fused_mha"],
+                               "serve_ivf": ivf_launches["fused_mha"],
+                               "pipeline": pipe_launches["fused_mha"],
+                               "ingest": ingest_launches["fused_mha"],
+                               "live": live_launches["fused_mha"]},
          "tolerance": {"atol": k1_head["atol"], "rtol": k1_head["rtol"]},
          "at": "ViT-B-32 vision, B=256 T=50 D=768 H=12, bf16"},
         {"name": "masked_sim_topk", "route": "cuda",
          "source": "tpualign_torch/csrc/masked_sim_topk.cu",
          "replaces": "tpualign/ops/pallas_kernels.py:329",
          "launches": launches["masked_sim_topk"], **{k: k2_head[k] for k in keys},
+         "launches_by_phase": {"slice": launches["masked_sim_topk"],
+                               "pipeline": pipe_launches["masked_sim_topk"],
+                               "live": live_launches["masked_sim_topk"]},
          "tolerance": {"values_atol": K2_TOL_VALUES, "tie_gap": K2_TIE_GAP},
          "at": (f"fp32 Q=1024 N=100000 D=512 k=100, {k2_head['admitted_tiles']} of "
                 f"{k2_head['tiles']} tiles admitted; at the "
@@ -2139,6 +2778,9 @@ def main() -> int:
          "source": "tpualign_torch/csrc/masked_sim_topk_quant.cu",
          "replaces": "tpualign/ops/pallas_kernels.py:523",
          "launches": serve_launches["masked_sim_topk_quant"], **{k: k3_head[k] for k in keys},
+         "launches_by_phase": {"serve": serve_launches["masked_sim_topk_quant"],
+                               "serve_ivf": ivf_launches["masked_sim_topk_quant"],
+                               "live": live_launches["masked_sim_topk_quant"]},
          "tolerance": k3_head["tolerance"],
          "at": (f"int8 (s8) Q=1024 N=1000000 D=512 k=40, {k3_head['admitted_tiles']} of "
                 f"{k3_head['tiles']} tiles admitted; launches from the serve phase; at the "
@@ -2151,6 +2793,8 @@ def main() -> int:
          "source": "tpualign_torch/csrc/ivf_probe_topk.cu",
          "replaces": "tpualign/ops/pallas_kernels.py:778",
          "launches": ivf_launches["ivf_probe_topk"], **{k: k4_head[k] for k in keys},
+         "launches_by_phase": {"serve_ivf": ivf_launches["ivf_probe_topk"],
+                               "live": live_launches["ivf_probe_topk"]},
          "tolerance": k4_head["tolerance"],
          "at": (f"int8 (s8) Q=2 k={k4_head['k']}, the serve_ivf store's two keyed image "
                 f"queries at its calibrated {k4_head['n_probes']} probes, N={k4_head['N']} "
@@ -2160,6 +2804,8 @@ def main() -> int:
         {"name": "normalize_u8", "route": "cuda", "source": "tpualign_torch/csrc/normalize_u8.cu",
          "replaces": "tpualign/ops/pallas_kernels.py:805",
          "launches": pipe_launches["normalize_u8"], **{k: k5[k] for k in keys},
+         "launches_by_phase": {"pipeline": pipe_launches["normalize_u8"],
+                               "ingest": ingest_launches["normalize_u8"]},
          "tolerance": "bit-identical",
          "at": "u8 (256, 224, 224, 3) -> fp32, one device-feed batch of ViT-B-32; launches "
                "from the pipeline phase's embed stage (IMAGE_PREPROCESS=device)"},

@@ -491,6 +491,19 @@ def test_preprocess_device_on_the_card_matches_the_cpu(dev, method, boxes):
     assert draw.mean() <= 1e-4, draw.mean()
 
 
+def _first_positional_difference(a, b, got, want) -> str:
+    """The first (image, chunk) pair whose card and CPU scores differ: its
+    boxes, both scores (and their bits) and the branch the pair takes."""
+    i, j = [int(x) for x in torch.nonzero(got != want)[0]]
+    ba, bb = a[i], b[j]
+    inside = (min(ba[2], bb[2]) > max(ba[0], bb[0])) and (min(ba[3], bb[3]) > max(ba[1], bb[1]))
+    bits = [int(np.float32(t[i, j]).view(np.int32)) for t in (got, want)]
+    return (f"{int((got != want).sum())} pairs differ; first ({i}, {j}): image box "
+            f"{ba.tolist()}, chunk box {bb.tolist()}, card {float(got[i, j])!r} "
+            f"(bits {bits[0]}), CPU {float(want[i, j])!r} (bits {bits[1]}), branch "
+            f"{'IoU' if inside else 'distance'}")
+
+
 def test_weak_supervision_on_the_card_matches_the_cpu(dev):
     """Positional grids on the card equal the CPU's bit for bit (divisors
     go in as tensors: CUDA multiplies by a Python scalar's reciprocal), so
@@ -507,7 +520,8 @@ def test_weak_supervision_on_the_card_matches_the_cpu(dev):
     a, b = boxes(300), boxes(700)
     got = positional_scores(torch.from_numpy(a).to(dev), b)
     assert got.device.type == "cuda"
-    assert torch.equal(got.cpu(), positional_scores(a, b))
+    want = positional_scores(a, b)
+    assert torch.equal(got.cpu(), want), _first_positional_difference(a, b, got.cpu(), want)
     images = [{"image_id": f"i{i}", "manual_id": f"m{i % 5}", "page": i % 7,
                "bbox": a[i].tolist()} for i in range(300)]
     chunks = [{"chunk_id": f"c{j}", "manual_id": f"m{j % 5}", "page": j % 7,
@@ -701,3 +715,68 @@ def test_bf16_towers_against_tpualign_bf16(dev):
     print("bf16_parity " + json.dumps(gaps))
     for tower, gap in gaps.items():
         assert gap["min_cosine"] >= 0.99, f"{tower}: {gap}"
+
+
+# -- the int8 towers and the live corpus on the card ----------------------------
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 300])
+def test_int8_dot_on_the_card_matches_the_cpu(dev, m):
+    """torch._int_mm (rows padded past 16) against the CPU's int32 product:
+    the same codes, the exact integer product, and the epilogue within an
+    ulp (an FMA on the card, float64 rounded once on the CPU)."""
+    from tpualign_torch.ops import quant
+
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy((rng.normal(size=(m, 768)) * 3).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(768, 2304)) * 0.02).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(2304,)).astype(np.float32))
+    calls = quant.int8_dot.int_mm_calls
+    got = quant.int8_dot(x.to(dev), w.to(dev), bias.to(dev)).cpu()
+    assert quant.int8_dot.int_mm_calls == calls + 1
+    want = quant.int8_dot(x, w, bias)
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs().max()
+    assert int(ulps) <= 1
+    card_q, card_s = quant._quantize_rows(x.to(dev))
+    cpu_q, cpu_s = quant._quantize_rows(x)
+    assert torch.equal(card_q.cpu(), cpu_q) and torch.equal(card_s.cpu(), cpu_s)
+    wq, ws = quant.quantize_weight(w.to(dev))
+    cq, cs = quant.quantize_weight(w)
+    assert torch.equal(wq.cpu(), cq) and torch.equal(ws.cpu(), cs)
+    assert torch.equal(quant._int_matmul(card_q, wq).cpu(), quant._int_matmul(cpu_q, cq))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8", "int4", "int2"])
+def test_index_mutations_on_the_card_match_the_cpu(dev, precision):
+    """Adds (through growth and into slack), tombstones and a compaction on
+    the card give the CPU index's ids, and K2/K3/K4 over the mutated
+    corpora give their plain versions' answers."""
+    from tpualign_torch.parallel.ivf import IVFIndex
+    from tpualign_torch.parallel.retrieval import RetrievalIndex
+
+    rng = np.random.default_rng(3)
+    rows = rng.normal(size=(6000, 64)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    manuals = [f"m{i % 7}" for i in range(6000)]
+    pages = [i % 11 for i in range(6000)]
+    q = rows[::97][:40] + 0.05
+    for cls, kw in ((RetrievalIndex, {"refine": 4}), (IVFIndex, {"n_lists": 16, "iters": 3})):
+        kw = dict(kw, precision=precision)
+        if precision == "fp32":
+            kw.pop("refine", None)
+        card = cls(rows[:4000], manuals[:4000], pages[:4000], device=dev, **kw)
+        cpu = cls(rows[:4000], manuals[:4000], pages[:4000], device="cpu", **kw)
+        steps = (lambda x: x.add(rows[4000:5500], manuals[4000:5500], pages[4000:5500]),
+                 lambda x: x.remove(np.arange(0, 5500, 3)),
+                 lambda x: x.add(rows[5500:], manuals[5500:], pages[5500:]),
+                 lambda x: x.compact())
+        for step in steps:
+            got, want = step(card), step(cpu)
+            if isinstance(got, np.ndarray):
+                assert np.array_equal(got, want)
+            search = (dict(n_probes=5) if cls is IVFIndex else {})
+            for args in ((manuals[::97][:40], pages[::97][:40]), (None, None)):
+                gv, gi = card.search(q, *args, k=10, global_search=args[0] is None, **search)
+                wv, wi = cpu.search(q, *args, k=10, global_search=args[0] is None, **search)
+                assert np.array_equal(gi, wi), (cls.__name__, precision)
+                np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-5)

@@ -42,7 +42,7 @@ def test_imports_nothing_of_jax_or_tpualign():
     imported = set(out.stdout.splitlines()[1].split())
     for name in ("data.backends", "data.captions", "data.chunking", "data.filtering",
                  "data.lexical", "data.ocr", "data.processor", "data.word", "models.loader",
-                 "utils.checks", "pipeline", "cli"):
+                 "utils.checks", "pipeline", "cli", "ops.quant"):
         assert f"tpualign_torch.{name}" in imported, name
 
 
@@ -95,3 +95,12 @@ def test_ivf_cpu_tensors_take_the_plain_version():
                                torch.zeros(8, dtype=torch.int32), 3, 4, 1)
     assert ivf_probe_topk.launches == before
     assert idx.tolist() == [[0, 1, 2]] * 2 and vals.dtype == torch.float32
+
+
+def test_int8_dot_on_cpu_tensors_takes_the_plain_product():
+    from tpualign_torch.ops.quant import int8_dot
+
+    before = int8_dot.int_mm_calls
+    out = int8_dot(torch.ones(2, 8), torch.ones(8, 8))
+    assert int8_dot.int_mm_calls == before
+    assert torch.equal(out, torch.full((2, 8), 8.0))

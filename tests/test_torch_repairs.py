@@ -1,9 +1,9 @@
 """The port refuses what it cannot honour, where tpualign would compute
 something the port does not: a ``CLIP_CHECKPOINT`` that fails to load
 (``EmbedEngine``, ``Pipeline.engine`` and ``make_engine`` raise one error;
-no seeded weights take its place), and ``CLIP_QUANT=int8|int8_qat``
-(``build_clip`` raises until the int8 towers are ported). ``CLIP_QUANT``
-is read and checked as tpualign reads and checks it."""
+no seeded weights take its place). ``CLIP_QUANT`` is read and checked as
+tpualign reads and checks it, and its int8 modes build (their numbers
+against tpualign's are in ``tests/test_torch_int8.py``)."""
 
 import dataclasses
 
@@ -67,13 +67,15 @@ def test_clip_quant_is_read_as_tpualign_reads_it(quant):
 
 
 @pytest.mark.parametrize("quant", ["int8", "int8_qat"])
-def test_clip_quant_int8_raises_until_the_int8_towers_are_ported(quant, tiny):
+def test_clip_quant_int8_builds_as_tpualign_builds_it(quant, tiny):
     cfg = torch_config.ModelConfig("tiny", quant=quant)
     assert jax_build_clip(jax_config.ModelConfig(quant=quant)).quant == quant
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        build_clip(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="CLIP_QUANT"):
-        EmbedEngine(cfg, device="cpu")
+    model = build_clip(cfg, "cpu")
+    assert model.quant == quant
+    block = model.visual.transformer.resblocks[0]
+    assert block.attn.quant == block.mlp.quant == quant
+    engine = EmbedEngine(cfg, device="cpu")
+    assert engine.model.quant == quant
 
 
 def test_clip_quant_bogus_raises_value_error_as_tpualign(tiny):
@@ -88,5 +90,6 @@ def test_parity_mode_builds_fp32_towers_over_int8(tiny):
     """tpualign's parity mode forces CLIP_QUANT to none; so does the port's."""
     assert jax_build_clip(jax_config.ModelConfig(parity_mode=True, quant="int8")).quant == "none"
     model = build_clip(torch_config.ModelConfig("tiny", parity_mode=True, quant="int8"), "cpu")
+    assert model.quant == "none"
     assert model.visual.compute_dtype == model.text.compute_dtype
     assert str(model.visual.compute_dtype) == "torch.float32"

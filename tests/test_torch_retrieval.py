@@ -118,9 +118,9 @@ def test_empty_corpus_and_queries():
 
 
 def test_deferred_options_raise():
-    """A mesh, the mesh strategies and the index mutations are later
-    slices; precision, recall_target, refine and refine_store now work
-    (tests/test_torch_quant.py)."""
+    """A mesh and the mesh strategies are later slices; precision,
+    recall_target, refine and refine_store work (tests/test_torch_quant.py),
+    and so do the mutations (tests/test_torch_mutations.py)."""
     emb, manuals, pages = _corpus(n=20)
     with pytest.raises(NotImplementedError, match="mesh"):
         RetrievalIndex(emb, manuals, pages, device="cpu", mesh=object())
@@ -134,6 +134,9 @@ def test_deferred_options_raise():
         port.search(emb[:2], k=3, strategy="ring")
     with pytest.raises(ValueError, match="strategy"):
         port.search(emb[:2], k=3, strategy="bogus")
-    for call in (lambda: port.add(emb[:1]), lambda: port.remove([0]), port.compact):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+    ref = JaxIndex(emb, manuals, pages, refine=1)
+    for index in (port, ref):
+        index.add(emb[:1], manuals[:1], pages[:1])
+        assert index.remove([0]) == 1
+    np.testing.assert_array_equal(port.compact(), ref.compact())
+    assert port.n == ref.n == len(emb)

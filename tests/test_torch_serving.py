@@ -22,6 +22,7 @@ import tpualign_torch.config as torch_config
 import tpualign.parallel.ivf as jax_ivf
 import tpualign.parallel.retrieval as jax_retrieval
 from tpualign.serving import RetrievalService as JaxService
+from tpualign.serving import serve as jax_serve
 from tpualign.serving.server import index_kwargs as jax_index_kwargs
 from tpualign.serving.server import make_image_bytes_encoder as jax_image_encoder
 from tpualign.store import EmbeddingStore as JaxStore
@@ -323,10 +324,41 @@ def test_http_routes(http_service):
 
 
 @pytest.mark.parametrize("route", ["/add", "/remove", "/sync", "/compact", "/reload"])
-def test_http_mutations_answer_501(http_service, route):
-    base = http_service[0]
-    code, body = _status(lambda: _post(f"{base}{route}", {"chunk_ids": ["c1"]}))
-    assert code == 501 and "not yet ported" in body["error"]
+def test_http_mutations_answer_as_tpualign(route):
+    """The mutating routes answer 200 with tpualign's bodies, and the
+    searches after them give tpualign's answers (tests/test_torch_live.py
+    holds every service mutation to tpualign's in more depth)."""
+    port, ref, emb, manuals, pages = _services("int8", 4, coalesce=None)
+    new = np.roll(emb[:2], 1, axis=1)
+    snapshot = ([f"c{i}" for i in range(1, len(emb))] + ["n0"], manuals[1:] + ["m1"],
+                pages[1:] + [2], np.concatenate([emb[1:], new[:1]]))
+    bodies = {"/add": {"chunk_ids": ["n0", "n1"], "manuals": ["m1", "m1"], "pages": [2, 2],
+                       "embeddings": new.tolist()},
+              "/remove": {"chunk_ids": ["c1", "nope"]}, "/compact": {}, "/sync": {},
+              "/reload": {}}
+    answers = []
+    for svc, make, server in ((port, lambda: _services("int8", 4, coalesce=None)[0], serve),
+                              (ref, lambda: _services("int8", 4, coalesce=None)[1], jax_serve)):
+        if route == "/compact":
+            svc.remove_chunks(["c1", "c7"])
+        httpd = server(svc, host="127.0.0.1", port=0, rebuild=make, fetch=lambda: snapshot)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            out = _post(f"http://127.0.0.1:{httpd.server_address[1]}{route}", bodies[route])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join()
+        if route == "/reload":
+            out = {key: out[key] for key in ("reloaded", "corpus_size", "dead_rows",
+                                              "precision", "refine", "num_images")}
+        answers.append((out, svc if route != "/reload" else None))
+    (got, _), (want, _) = answers
+    assert got == want
+    if route != "/reload":
+        _same_rows(port.search_embeddings(emb[:6], None, None, k=5, global_search=True),
+                   ref.search_embeddings(emb[:6], None, None, k=5, global_search=True), True)
 
 
 def test_http_body_limit(http_service):

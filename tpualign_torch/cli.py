@@ -3,11 +3,13 @@
 ``run`` (the whole pipeline, from raw manuals to ``metrics.json``, with
 ``--skip-*``, ``--force`` and ``--non-interactive``), the stages
 ``process``, ``filter``, ``setup-db``, ``embed`` and ``evaluate``,
-``check``, ``serve``, ``query`` and ``index`` are tpualign's, with the same
-flags, environment keys and output. The commands that compute run on the
-GPU unless ``--device cpu`` is given; ``process`` and ``filter`` are host
-work and take no device. ``train``, ``ingest``, ``watch`` and
-``calibrate`` are later slices of the port: they print so and exit with 2.
+``check``, ``serve``, ``query``, ``index``, ``ingest`` (incremental, with
+``--evaluate`` and ``--notify``) and ``watch`` (``--interval``,
+``--max-cycles``) are tpualign's, with the same flags, environment keys
+and output. The commands that compute run on the GPU unless ``--device
+cpu`` is given; ``process`` and ``filter`` are host work and take no
+device. ``train`` and ``calibrate`` are later slices of the port: they
+print so and exit with 2.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Optional, Sequence
 from tpualign_torch.config import load_config
 from tpualign_torch.store import SCHEMAS
 
-_NOT_PORTED = ("train", "ingest", "watch", "calibrate")
+_NOT_PORTED = ("train", "calibrate")
 
 
 def _add_common(p: argparse.ArgumentParser, device: bool = True) -> None:
@@ -89,6 +91,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p_eval = sub.add_parser("evaluate", help="stage 5: metrics + charts")
     _add_common(p_eval)
 
+    p_ingest = sub.add_parser("ingest",
+                              help="incremental ingestion: process new/changed files only")
+    _add_common(p_ingest)
+    p_ingest.add_argument("--evaluate", action="store_true",
+                          help="re-run evaluation after ingesting")
+    p_ingest.add_argument("--notify", metavar="URL", default=None,
+                          help="POST /sync to a running serve after ingesting "
+                               "(incremental pickup)")
+
+    p_watch = sub.add_parser("watch", help="watchdog: poll the input dir and ingest on change")
+    _add_common(p_watch)
+    p_watch.add_argument("--interval", type=float, default=30.0,
+                         help="poll interval in seconds")
+    p_watch.add_argument("--evaluate", action="store_true")
+    p_watch.add_argument("--notify", metavar="URL", default=None,
+                         help="POST /sync to a running serve after each ingesting cycle")
+    p_watch.add_argument("--max-cycles", type=int, default=None,
+                         help="stop after N cycles (default: run forever)")
+
     p_check = sub.add_parser("check", help="installation/store diagnostics")
     _add_common(p_check, device=False)
 
@@ -138,6 +159,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     if args.command in ("run", "process", "filter", "setup-db", "embed", "evaluate"):
         return _run_stage(args)
+    if args.command in ("ingest", "watch"):
+        return _run_ingest(args)
     if args.command == "check":
         from tpualign_torch.utils.checks import run_checks
 
@@ -188,6 +211,28 @@ def _run_stage(args) -> int:
     return 0
 
 
+def _run_ingest(args) -> int:
+    """``ingest`` (one incremental cycle, then ``POST /sync`` to
+    ``--notify``) and ``watch`` (cycles every ``--interval`` seconds), as
+    tpualign's."""
+    from tpualign_torch.pipeline import Pipeline, notify_sync
+
+    pipe = Pipeline(_config_from(args), device=args.device)
+    if args.command == "watch":
+        try:
+            pipe.watch(interval_seconds=args.interval, evaluate=args.evaluate,
+                       max_cycles=args.max_cycles, notify=args.notify)
+        except KeyboardInterrupt:
+            pass
+        return 0
+    summary = pipe.ingest_cycle(evaluate=args.evaluate)
+    ingested = summary.get("ingested", [])
+    if ingested and args.notify:
+        notify_sync(args.notify, token=pipe.config.serve_token)
+    print(f"ingested {len(ingested)} file(s); {summary.get('skipped_unchanged', 0)} unchanged")
+    return 0
+
+
 def _run_index(args) -> int:
     """Build (or load) the schema's IVF artifact and print one JSON line
     with its geometry, as ``tpualign index`` does."""
@@ -212,7 +257,8 @@ def _run_index(args) -> int:
 
 def _run_serve(args) -> int:
     from tpualign_torch.serving.server import (
-        _ServiceBox, build_service, make_engine, make_image_bytes_encoder, serve_schemas)
+        _ServiceBox, build_service, fetch_snapshot, make_engine, make_image_bytes_encoder,
+        serve_schemas)
     from tpualign_torch.store import EmbeddingStore
 
     config = _config_from(args)
@@ -252,7 +298,12 @@ def _run_serve(args) -> int:
             # configuration errors exit cleanly, not with a traceback
             print(f"error building {schema}: {e}")
             return 1
-        boxes[schema] = _ServiceBox(service)
+        boxes[schema] = _ServiceBox(
+            service,
+            rebuild=lambda s=schema: build_service(
+                config, s, encoder=encoder, image_encoder=img_encoder,
+                text_tower=not args.no_text_tower, device=args.device),
+            fetch=lambda s=schema: fetch_snapshot(config, s))
     default = schemas[0]
     httpd = serve_schemas(boxes, default, host=args.host, port=args.port,
                           token=config.serve_token, idle_timeout=config.serve_idle_timeout,

@@ -23,18 +23,19 @@ class CLIP(nn.Module):
 
     def __init__(self, variant: ClipVariant, use_quick_gelu: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 use_fused_attention: bool = False):
+                 use_fused_attention: bool = False, quant: str = "none"):
         super().__init__()
         v = variant
         self.variant = v
+        self.quant = quant
         self.visual = VisionTransformer(
             v.image_size, v.patch_size, v.vision_width, v.vision_layers,
             v.vision_heads, v.embed_dim, use_quick_gelu, compute_dtype,
-            use_fused_attention, v.vision_mlp_dim)
+            use_fused_attention, v.vision_mlp_dim, quant)
         self.text = TextTransformer(
             v.context_length, v.vocab_size, v.text_width, v.text_layers,
             v.text_heads, v.embed_dim, use_quick_gelu, compute_dtype,
-            use_fused_attention, v.text_mlp_dim)
+            use_fused_attention, v.text_mlp_dim, quant)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False) -> torch.Tensor:
@@ -62,18 +63,15 @@ def build_clip(config: ModelConfig, device: str | torch.device = "cuda") -> CLIP
     ``fused_attention=None`` takes the attention kernel (K1) on CUDA and
     the plain path on the CPU; ``parity_mode`` keeps the plain path, runs
     fp32 and turns TF32 off for CUDA matmuls. ``quant`` is read as the JAX
-    package reads it (``parity_mode`` forces ``"none"``); its int8 GEMMs are
-    not ported, so ``"int8"`` and ``"int8_qat"`` raise.
+    package reads it (``parity_mode`` forces ``"none"``): ``"int8"`` and
+    ``"int8_qat"`` route every projection of both towers' blocks through
+    ``tpualign_torch.ops.quant``.
     """
     quant = "none" if config.parity_mode else config.quant
     if quant not in ("none", "int8", "int8_qat"):
         raise ValueError(f"Unknown CLIP_QUANT mode {config.quant!r}; "
                          "expected 'none', 'int8' or 'int8_qat' "
                          "(QAT: trainable straight-through surrogate)")
-    if quant != "none":
-        raise NotImplementedError(f"CLIP_QUANT={quant}: the int8 towers are not yet ported to "
-                                  "tpualign_torch (ROADMAP queue 1, item 3); unset it to run "
-                                  "the bf16 towers")
     dev = resolve_device(device)
     if config.parity_mode:
         compute_dtype = torch.float32
@@ -86,7 +84,7 @@ def build_clip(config: ModelConfig, device: str | torch.device = "cuda") -> CLIP
     fused = config.fused_attention
     if fused is None:
         fused = (not config.parity_mode) and dev.type == "cuda"
-    model = CLIP(config.variant, config.use_quick_gelu, compute_dtype, fused)
+    model = CLIP(config.variant, config.use_quick_gelu, compute_dtype, fused, quant)
     return model.to(dev)
 
 

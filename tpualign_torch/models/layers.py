@@ -7,7 +7,10 @@ copies (``tpualign_torch.models.convert``). The casts follow the JAX
 towers: the residual stream stays in the compute dtype, LayerNorm
 statistics are fp32 and cast back, projections take products in the
 compute dtype with fp32 accumulation and add the bias in fp32, and QKV is
-cast to the compute dtype before attention.
+cast to the compute dtype before attention. Under ``quant="int8"`` (or
+``"int8_qat"``) the four projections of a block go through
+``tpualign_torch.ops.quant.int8_dot`` (``int8_dot_qat``), which hands back
+the stream's dtype, as tpualign's layers do; attention stays K1.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from torch import nn
 
 from tpualign_torch.ops.attention import fused_mha, fused_mha_reference
 from tpualign_torch.ops.dense import matmul_f32acc
+from tpualign_torch.ops.quant import int8_dot, int8_dot_qat
 
 __all__ = ["quick_gelu", "get_activation", "LayerNorm", "MultiHeadAttention",
            "MLP", "ResidualBlock", "Transformer", "dense"]
@@ -36,9 +40,15 @@ def get_activation(use_quick_gelu: bool) -> Callable[[torch.Tensor], torch.Tenso
     return lambda x: F.gelu(x, approximate="none")
 
 
+_QUANT_DOTS = {"int8": int8_dot, "int8_qat": int8_dot_qat}
+
+
 def dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
-          compute_dtype: torch.dtype) -> torch.Tensor:
-    """``x @ kernel (+ bias)``: products in ``compute_dtype``, fp32 out."""
+          compute_dtype: torch.dtype, quant: str = "none") -> torch.Tensor:
+    """``x @ kernel (+ bias)``: products in ``compute_dtype``, fp32 out; or,
+    with ``quant``, tpualign's int8 product in ``x``'s dtype."""
+    if quant != "none":
+        return _QUANT_DOTS[quant](x, kernel, bias)
     out = matmul_f32acc(x.to(compute_dtype), kernel.to(compute_dtype))
     return out if bias is None else out + bias
 
@@ -66,13 +76,14 @@ class MultiHeadAttention(nn.Module):
     ``use_fused_attention``, else its plain version."""
 
     def __init__(self, width: int, num_heads: int, compute_dtype: torch.dtype,
-                 use_fused_attention: bool = False):
+                 use_fused_attention: bool = False, quant: str = "none"):
         super().__init__()
         if width % num_heads:
             raise ValueError("width must divide heads")
         self.num_heads = num_heads
         self.compute_dtype = compute_dtype
         self.use_fused_attention = use_fused_attention
+        self.quant = quant
         self.in_proj_kernel = nn.Parameter(torch.empty(width, 3 * width))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj_kernel = nn.Parameter(torch.empty(width, width))
@@ -80,19 +91,21 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         cdt = self.compute_dtype
-        qkv = dense(x, self.in_proj_kernel, self.in_proj_bias, cdt).to(cdt)
+        qkv = dense(x, self.in_proj_kernel, self.in_proj_bias, cdt, self.quant).to(cdt)
         attend = fused_mha if self.use_fused_attention else fused_mha_reference
         ctx = attend(qkv, self.num_heads, mask)
-        return dense(ctx, self.out_proj_kernel, self.out_proj_bias, cdt).to(x.dtype)
+        return dense(ctx, self.out_proj_kernel, self.out_proj_bias, cdt,
+                     self.quant).to(x.dtype)
 
 
 class MLP(nn.Module):
     """c_fc (``hidden``, 4x width by default) -> activation -> c_proj."""
 
     def __init__(self, width: int, hidden: int, use_quick_gelu: bool,
-                 compute_dtype: torch.dtype):
+                 compute_dtype: torch.dtype, quant: str = "none"):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.quant = quant
         self.act = get_activation(use_quick_gelu)
         self.c_fc_kernel = nn.Parameter(torch.empty(width, hidden))
         self.c_fc_bias = nn.Parameter(torch.zeros(hidden))
@@ -101,8 +114,8 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
-        y = self.act(dense(x, self.c_fc_kernel, self.c_fc_bias, cdt))
-        y = dense(y, self.c_proj_kernel, self.c_proj_bias, cdt)
+        y = self.act(dense(x, self.c_fc_kernel, self.c_fc_bias, cdt, self.quant))
+        y = dense(y, self.c_proj_kernel, self.c_proj_bias, cdt, self.quant)
         return y.to(x.dtype)
 
 
@@ -111,13 +124,13 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, width: int, num_heads: int, mlp_hidden: int,
                  use_quick_gelu: bool, compute_dtype: torch.dtype,
-                 use_fused_attention: bool):
+                 use_fused_attention: bool, quant: str = "none"):
         super().__init__()
         self.ln_1 = LayerNorm(width)
         self.attn = MultiHeadAttention(width, num_heads, compute_dtype,
-                                       use_fused_attention)
+                                       use_fused_attention, quant)
         self.ln_2 = LayerNorm(width)
-        self.mlp = MLP(width, mlp_hidden, use_quick_gelu, compute_dtype)
+        self.mlp = MLP(width, mlp_hidden, use_quick_gelu, compute_dtype, quant)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attn(self.ln_1(x), mask)
@@ -130,12 +143,13 @@ class Transformer(nn.Module):
 
     def __init__(self, width: int, num_layers: int, num_heads: int,
                  mlp_hidden: Optional[int], use_quick_gelu: bool,
-                 compute_dtype: torch.dtype, use_fused_attention: bool):
+                 compute_dtype: torch.dtype, use_fused_attention: bool,
+                 quant: str = "none"):
         super().__init__()
         hidden = mlp_hidden or 4 * width
         self.resblocks = nn.ModuleList(
             ResidualBlock(width, num_heads, hidden, use_quick_gelu,
-                          compute_dtype, use_fused_attention)
+                          compute_dtype, use_fused_attention, quant)
             for _ in range(num_layers)
         )
 

@@ -33,14 +33,15 @@ class TextTransformer(nn.Module):
                  use_quick_gelu: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  use_fused_attention: bool = False,
-                 mlp_hidden: Optional[int] = None):
+                 mlp_hidden: Optional[int] = None, quant: str = "none"):
         super().__init__()
         self.context_length = context_length
         self.compute_dtype = compute_dtype
         self.token_embedding = nn.Parameter(torch.empty(vocab_size, width))
         self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
         self.transformer = Transformer(width, num_layers, num_heads, mlp_hidden,
-                                       use_quick_gelu, compute_dtype, use_fused_attention)
+                                       use_quick_gelu, compute_dtype, use_fused_attention,
+                                       quant)
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 

@@ -28,7 +28,7 @@ class VisionTransformer(nn.Module):
                  use_quick_gelu: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  use_fused_attention: bool = False,
-                 mlp_hidden: Optional[int] = None):
+                 mlp_hidden: Optional[int] = None, quant: str = "none"):
         super().__init__()
         self.image_size = image_size
         self.patch_size = patch_size
@@ -40,7 +40,8 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, width))
         self.ln_pre = LayerNorm(width)
         self.transformer = Transformer(width, num_layers, num_heads, mlp_hidden,
-                                       use_quick_gelu, compute_dtype, use_fused_attention)
+                                       use_quick_gelu, compute_dtype, use_fused_attention,
+                                       quant)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 

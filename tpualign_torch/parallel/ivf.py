@@ -29,11 +29,22 @@ mask as the exact index.
   rescores over-fetched candidates exactly on the host, as
   :class:`~tpualign_torch.parallel.retrieval.RetrievalIndex` does.
 
-Meshes and ``add``/``remove``/``compact`` are later slices of the port.
+- **Mutations**: ``add`` puts each new row after the used slots of its
+  nearest centroid's block, or in the spill tail when the block is full
+  (the tail grows by whole blocks); ``remove`` tombstones slots (key -2);
+  ``compact`` re-packs the survivors around the existing centroids (no
+  k-means; spilled rows go back to their nearest list) and renumbers them
+  in ascending old-id order. As in ``RetrievalIndex``, each is
+  copy-on-write: new key and id tensors, rows written in place only into
+  slots every older key tensor masks (-1), and one ``__dict__`` update;
+  searches run on a snapshot (:meth:`IVFIndex._snapshot`).
+
+Meshes are a later slice of the port.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
 from typing import Dict, Optional, Sequence, Tuple
@@ -45,7 +56,8 @@ from tpualign_torch.ops.ivf_topk import _membership, ivf_probe_topk
 from tpualign_torch.ops.sim_topk import SENTINEL_IDX, _unpack_codes, key_mask
 from tpualign_torch.ops.similarity import NEG_INF, WILDCARD_KEY
 from tpualign_torch.parallel.retrieval import (
-    _QUANTIZERS, _pad_results, _refine_rescore, _sentinel, _setup_refine, _tensor, encode_keys)
+    _QUANTIZERS, _pad_results, _refine_rescore, _round_up, _sentinel, _setup_refine, _tensor,
+    encode_keys)
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
 
@@ -54,6 +66,9 @@ log = get_logger("parallel.ivf")
 __all__ = ["IVFIndex"]
 
 KMEANS_BLOCK = 1 << 14  # corpus rows per k-means step
+# A packed int4 byte that decodes to (0, 0): the fill of grown spill blocks
+# over packed layouts (tpualign's INT4_ZERO_BYTE)
+INT4_ZERO_BYTE = 0x88
 
 
 def _corpus_fingerprint(rows, dtype=None) -> Tuple[str, str]:
@@ -68,10 +83,6 @@ def _corpus_fingerprint(rows, dtype=None) -> Tuple[str, str]:
         step = max(1, shape[0] // 64)
         h.update(np.ascontiguousarray(np.asarray(rows[::step], dtype)).tobytes())
     return h.hexdigest(), str(dtype)
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _max_capacity(dim: int, itemsize: int, budget: int = 12 * 2**20,
@@ -401,19 +412,159 @@ class IVFIndex:
         at = self._ids.clamp(min=0).to(torch.int64)
         return rows[at], None if scales is None else scales[at]
 
-    # -- mutations and meshes: later slices ------------------------------------------
+    def _snapshot(self) -> "IVFIndex":
+        """A shallow copy holding one consistent set of fields (see
+        ``RetrievalIndex._snapshot``)."""
+        return copy.copy(self)
 
-    def add(self, embeddings, manuals=None, pages=None) -> None:
-        raise NotImplementedError("IVFIndex.add is not yet ported to tpualign_torch (the "
-                                  "index-mutation slice); rebuild the index")
+    def _nearest_list(self, rows: torch.Tensor) -> np.ndarray:
+        """Each row's nearest centroid, by the fp32 product and the first
+        maximum, as the k-means assignment takes it."""
+        return torch.argmax(rows @ self.centroids.T, dim=1).cpu().numpy()
+
+    # -- mutations --------------------------------------------------------------------
+
+    def add(self, embeddings, manuals: Optional[Sequence[str]] = None,
+            pages: Optional[Sequence[Optional[int]]] = None) -> None:
+        """Append rows as IVFFlat does, without retraining: each joins its
+        nearest centroid's block after the block's used slots (a block
+        keeps ascending ids), rows that find their block full go to the
+        spill tail (which every query scans, so a full-probe search stays
+        exact over the combined corpus), and a full tail grows by whole
+        blocks. New rows take ids ``n..n+m-1``."""
+        rows = np.asarray(embeddings, np.float32)
+        if rows.ndim != 2 or rows.shape[1] != self.dim:
+            raise ValueError(f"embeddings must be (M, {self.dim}); got {rows.shape}")
+        m = len(rows)
+        if m == 0:
+            return
+        if manuals is not None:
+            new_keys, _ = encode_keys(manuals, pages, self.vocab)
+        else:
+            new_keys = np.zeros((m,), np.int32)
+        dev, cap, n_lists = self.device, self.capacity, self.n_lists
+        assign = self._nearest_list(_tensor(rows, dev))
+        # used slots of each block, contiguous from slot 0
+        used = (self._keys.reshape(-1, cap) != -1).sum(dim=1).cpu().numpy()
+        order = np.argsort(assign, kind="stable")
+        a_sorted = assign[order]
+        starts = np.searchsorted(a_sorted, np.arange(n_lists), side="left")
+        slot = used[a_sorted] + np.arange(m) - starts[a_sorted]
+        in_main = slot < cap
+        dest_sorted = a_sorted.astype(np.int64) * cap + slot
+        emb, keys, ids, scales = self._emb, self._keys, self._ids, self._scales
+        spill_blocks = self.spill_blocks
+        n_over = int((~in_main).sum())
+        if n_over:
+            spill_start = (n_lists + 1) * cap
+            spill_used = int(used[n_lists + 1:].sum())  # the tail fills contiguously
+            need = spill_start + spill_used + n_over
+            if need > ids.shape[0]:
+                add_blocks = -(-(need - ids.shape[0]) // cap)
+                grow = add_blocks * cap
+                fill = INT4_ZERO_BYTE if emb.dtype == torch.uint8 else 0
+                emb = torch.cat([emb, emb.new_full((grow, emb.shape[1]), fill)])
+                keys = torch.cat([keys, keys.new_full((grow,), -1)])
+                ids = torch.cat([ids, ids.new_full((grow,), -1)])
+                if scales is not None:
+                    scales = torch.cat([scales, scales.new_ones((grow,))])
+                spill_blocks += add_blocks
+                log.info("IVF add: the spill tail grew by %d block(s) to hold %d overflow "
+                         "row(s)", add_blocks, n_over)
+            dest_sorted[~in_main] = spill_start + spill_used + np.arange(n_over)
+        dest = np.empty(m, np.int64)
+        dest[order] = dest_sorted
+        new_rows, new_scales = self._quantize_new_rows(rows)
+        at = torch.from_numpy(dest).to(dev)
+        keys = keys.clone() if keys is self._keys else keys
+        ids = ids.clone() if ids is self._ids else ids
+        # the destination slots are keyed -1 in every key tensor this layout
+        # has had, so the in-place row writes are invisible until the new
+        # keys go in
+        emb[at] = _tensor(new_rows, dev)
+        if scales is not None:
+            scales[at] = _tensor(new_scales, dev)
+        keys[at] = _tensor(np.asarray(new_keys, np.int32), dev)
+        ids[at] = torch.arange(self.n, self.n + m, dtype=torch.int32, device=dev)
+        state = {"_emb": emb, "_keys": keys, "_ids": ids, "_scales": scales, "n": self.n + m,
+                 "spill": self.spill + n_over, "spill_blocks": spill_blocks,
+                 "_positions_cache": None, "_corpus_fp": None}
+        if self._refine_corpus is not None:
+            state["_refine_corpus"] = self._refine_corpus.appended(rows)
+        self.__dict__.update(state)
+
+    def _quantize_new_rows(self, rows: np.ndarray):
+        """New fp32 rows on the build's per-row grid, so a full-probe search
+        over an added index equals a fresh build over the combined corpus."""
+        if self.precision in _QUANTIZERS:
+            return _QUANTIZERS[self.precision](rows)
+        return rows, None
 
     def remove(self, corpus_ids) -> int:
-        raise NotImplementedError("IVFIndex.remove is not yet ported to tpualign_torch (the "
-                                  "index-mutation slice); rebuild the index")
+        """Tombstone rows by corpus id (pgvector's DELETE): the slot's key
+        becomes -2, so the row is never returned, and the slot stays used
+        (``!= -1``), which keeps a block's used slots contiguous for
+        :meth:`add`. Returns the rows newly tombstoned; unknown and already
+        removed ids are ignored."""
+        ids = np.unique(np.asarray(corpus_ids, np.int64))
+        ids = ids[(ids >= 0) & (ids < self.n)]
+        if ids.size == 0:
+            return 0
+        want = torch.from_numpy(ids).to(self.device)
+        pos = self._positions[want].to(torch.int64)
+        live = self._ids[pos] == want.to(torch.int32)
+        removed = int((live & (self._keys[pos] != -2)).sum())
+        keys = self._keys.clone()
+        keys[pos[live]] = -2
+        self.__dict__.update({"_keys": keys})
+        return removed
+
+    @property
+    def dead(self) -> int:
+        """Tombstoned rows awaiting :meth:`compact`."""
+        return int((self._keys == -2).sum())
 
     def compact(self) -> np.ndarray:
-        raise NotImplementedError("IVFIndex.compact is not yet ported to tpualign_torch (the "
-                                  "index-mutation slice); rebuild the index")
+        """Reclaim tombstoned slots without k-means (pgvector's VACUUM for
+        the IVF rung): the survivors re-pack around the existing centroids
+        (a block's rows keep their list, spilled rows take their nearest
+        centroid, so a shrunken corpus re-absorbs its spill), renumbered in
+        ascending old-id order. Capacity stays; the spill tail re-sizes.
+        Returns the ascending surviving old ids. Raises ValueError when it
+        would empty the index (rebuild from the store instead)."""
+        ids_h = self._ids.cpu().numpy()
+        keys_h = self._keys.cpu().numpy()
+        live_old = np.sort(ids_h[(ids_h >= 0) & (keys_h != -2)]).astype(np.int64)
+        if live_old.size == 0:
+            raise ValueError("compact would empty the index — rebuild from the store instead")
+        dev, cap = self.device, self.capacity
+        pos = self._positions[torch.from_numpy(live_old).to(dev)].to(torch.int64)
+        pos_h = pos.cpu().numpy()
+        emb_rows = self._emb[pos]  # ascending old-id order
+        scale_rows = None if self._scales is None else self._scales[pos]
+        key_rows = torch.from_numpy(keys_h[pos_h]).to(dev)
+        blk = pos_h // cap
+        assign = np.where(blk < self.n_lists, blk, -1).astype(np.int64)
+        spill_sel = np.flatnonzero(assign < 0)
+        if spill_sel.size:
+            sel = torch.from_numpy(spill_sel).to(dev)
+            assign[spill_sel] = self._nearest_list(_dequant(
+                emb_rows[sel], None if scale_rows is None else scale_rows[sel], self.dim))
+        sizes = np.bincount(assign, minlength=self.n_lists)
+        overflow = int(np.maximum(sizes - cap, 0).sum())
+        spill_blocks = max(1, -(-overflow // cap))
+        pids, pkeys = _pack(key_rows, torch.from_numpy(assign).to(dev), self.n_lists, cap,
+                            spill_blocks)
+        # _pack's ids index emb_rows, whose order is the new numbering
+        at = pids.clamp(min=0).to(torch.int64)
+        state = {"_emb": emb_rows[at], "_keys": pkeys, "_ids": pids,
+                 "_scales": None if scale_rows is None else scale_rows[at],
+                 "n": int(live_old.size), "spill": overflow, "spill_blocks": spill_blocks,
+                 "_positions_cache": None, "_corpus_fp": None}
+        if self._refine_corpus is not None:
+            state["_refine_corpus"] = self._refine_corpus.selected(live_old)
+        self.__dict__.update(state)
+        return live_old
 
     # -- search ------------------------------------------------------------------------
 
@@ -445,11 +596,12 @@ class IVFIndex:
         """Host-array search with pre-encoded keys (the serving coalescer's
         call). With ``refine`` it over-fetches ``k*refine`` candidates and
         rescores them exactly on the host."""
-        if self.refine > 1 and k > 0 and len(queries):
-            kf = min(max(k, k * self.refine), self.n)
-            vals, idx = self._search_encoded_raw(queries, qk, kf, n_probes)
-            return _refine_rescore(queries, vals, idx, self._refine_corpus, k)
-        return self._search_encoded_raw(queries, qk, k, n_probes)
+        snap = self._snapshot()
+        if snap.refine > 1 and k > 0 and len(queries):
+            kf = min(max(k, k * snap.refine), snap.n)
+            vals, idx = snap._search_encoded_raw(queries, qk, kf, n_probes)
+            return _refine_rescore(queries, vals, idx, snap._refine_corpus, k)
+        return snap._search_encoded_raw(queries, qk, k, n_probes)
 
     def _search_encoded_raw(self, queries: np.ndarray, qk: np.ndarray, k: int,
                             n_probes: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -470,15 +622,16 @@ class IVFIndex:
         """Device-resident probed search: tensors in, ``(vals (Q, k), corpus
         ids (Q, k) int64)`` out on the index's device, ``(NEG_INF, -1)`` in
         empty slots."""
-        p = self.n_probes if n_probes is None else min(int(n_probes), self.n_lists)
-        exact_ties = p == self.n_lists
-        q = query_embeddings.to(self.device, torch.float32).contiguous()
-        qk = query_keys.to(self.device, torch.int32).contiguous()
-        args = (q, qk, self.centroids, self._emb, self._keys, self._ids, self._scales, k, p,
-                self.n_lists, self.capacity, self.spill_blocks)
-        if self._kernel_path(exact_ties, k):
-            return _ivf_kernel_search(*args, int8_mxu=self.int8_mxu)
-        return _ivf_union_search(*args, self.cluster_chunk, exact_ties)
+        snap = self._snapshot()
+        p = snap.n_probes if n_probes is None else min(int(n_probes), snap.n_lists)
+        exact_ties = p == snap.n_lists
+        q = query_embeddings.to(snap.device, torch.float32).contiguous()
+        qk = query_keys.to(snap.device, torch.int32).contiguous()
+        args = (q, qk, snap.centroids, snap._emb, snap._keys, snap._ids, snap._scales, k, p,
+                snap.n_lists, snap.capacity, snap.spill_blocks)
+        if snap._kernel_path(exact_ties, k):
+            return _ivf_kernel_search(*args, int8_mxu=snap.int8_mxu)
+        return _ivf_union_search(*args, snap.cluster_chunk, exact_ties)
 
     # -- probe calibration -------------------------------------------------------------
 

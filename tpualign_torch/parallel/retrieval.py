@@ -16,12 +16,23 @@ rescores them exactly, in float64 on the host, from a :class:`_RefineCorpus`
 ``recall_target`` keeps tpualign's meaning off the TPU: there
 ``jax.lax.approx_max_k`` lowers to an exact top-k, and so the port's top-k
 is exact too. ``build_index`` also builds the IVF index
-(``tpualign_torch.parallel.ivf``). Meshes, HNSW and add/remove/compact are
-later slices.
+(``tpualign_torch.parallel.ivf``). Meshes and HNSW are later slices.
+
+``add``, ``remove`` and ``compact`` change the corpus in place of a
+rebuild, as pgvector's INSERT, DELETE and VACUUM do: appended rows take the
+next ids (capacity grows by ``GROWTH``, its slack rows keyed -1), removed
+rows are keyed -2 (tombstones no query matches), and ``compact`` drops both
+and renumbers the survivors in ascending old-id order. Every mutation is
+copy-on-write: it builds new key tensors (rows are written in place only
+into capacity slack, which every older key tensor masks) and swaps its
+fields in with one ``__dict__`` update; a search works on a shallow copy
+taken in one step (:meth:`RetrievalIndex._snapshot`), so it sees the corpus
+before or after a mutation, never a mix.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import re
 import tempfile
@@ -58,6 +69,10 @@ STREAM_ONLY_SIM_BYTES = 4 * 1024**3
 REFINE_MAX_STREAM_K = 64
 
 _QUANTIZED = ("int8", "int4", "int2")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def encode_keys(
@@ -326,13 +341,17 @@ def _write_refine_memmap(n: int, dim: int, get_rows, dtype=np.float32) -> _Memma
 
 class _RefineCorpus:
     """Host rows backing the refine rescore (see the storage notes above).
-    Immutable; the port's index builds it once and never mutates it."""
+    Immutable: ``appended`` and ``selected`` return new corpora, so a search
+    keeps rescoring against the snapshot it captured. memmap snapshots share
+    one file; appends go to a RAM tail (fp32, or fp16 for ``memmap16``);
+    ``selected`` streams the selection into a fresh file."""
 
-    __slots__ = ("mode", "dim", "_base", "_file", "__weakref__")
+    __slots__ = ("mode", "dim", "_base", "_tail", "_file", "__weakref__")
 
-    def __init__(self, mode: str, base, file=None):
+    def __init__(self, mode: str, base, tail=None, file=None):
         self.mode = mode
         self._base = base
+        self._tail = tail
         self._file = file
         self.dim = int(base.shape[1])
 
@@ -359,22 +378,66 @@ class _RefineCorpus:
             log.info("refine corpus: %d x %d %s memmapped at %s (%.1f GB on disk, ~0 resident)",
                      rows.shape[0], rows.shape[1], np.dtype(dt).name, f.path,
                      rows.shape[0] * rows.shape[1] * np.dtype(dt).itemsize / 2**30)
-            return cls(mode, f.arr, f)
+            return cls(mode, f.arr, None, f)
         return cls("ram", np.array(rows, np.float32))
 
     def __len__(self) -> int:
-        return int(self._base.shape[0])
+        return int(self._base.shape[0]) + (0 if self._tail is None else int(self._tail.shape[0]))
 
     @property
     def nbytes_resident(self) -> int:
         """Host RAM pinned by this corpus (memmap pages ride the OS cache)."""
-        return 0 if self.mode.startswith("memmap") else int(self._base.nbytes)
+        n = 0 if self.mode.startswith("memmap") else int(self._base.nbytes)
+        return n + (0 if self._tail is None else int(self._tail.nbytes))
 
     def take(self, idx) -> np.ndarray:
         """Gather rows as fp32; ``idx`` keeps its shape + (D,)."""
         idx = np.asarray(idx, np.int64)
-        out = np.asarray(self._base[idx.reshape(-1)], np.float32)
+        flat = idx.reshape(-1)
+        nb = int(self._base.shape[0])
+        if self._tail is None or flat.size == 0 or int(flat.max(initial=0)) < nb:
+            out = np.asarray(self._base[flat], np.float32)
+        else:
+            out = np.empty((flat.size, self.dim), np.float32)
+            m = flat < nb
+            out[m] = self._base[flat[m]]
+            out[~m] = self._tail[flat[~m] - nb]
         return out.reshape(idx.shape + (self.dim,))
+
+    def appended(self, rows) -> "_RefineCorpus":
+        """This corpus with ``rows`` after its last row."""
+        rows = np.asarray(rows, np.float32)
+        if self.mode.startswith("memmap"):
+            if self.mode == "memmap16":
+                rows = rows.astype(np.float16)
+            tail = rows if self._tail is None else np.concatenate([self._tail, rows])
+            return _RefineCorpus(self.mode, self._base, np.ascontiguousarray(tail), self._file)
+        return _RefineCorpus(self.mode, np.concatenate([self._base,
+                                                        rows.astype(self._base.dtype)]))
+
+    def selected(self, sel) -> "_RefineCorpus":
+        """The rows at ``sel`` (indices or a boolean mask), in the same mode
+        (``compact``'s counterpart); memmap streams into a fresh file."""
+        sel = np.asarray(sel)
+        if sel.dtype == bool:
+            sel = np.flatnonzero(sel)
+        sel = sel.astype(np.int64)
+        if self.mode.startswith("memmap"):
+            if sel.size == 0:
+                return self.empty()
+            f = _write_refine_memmap(sel.size, self.dim, lambda s, e: self.take(sel[s:e]),
+                                     dtype=np.float16 if self.mode == "memmap16" else np.float32)
+            return _RefineCorpus(self.mode, f.arr, None, f)
+        rows = self.take(sel)
+        if self.mode == "fp16":
+            return _RefineCorpus("fp16", rows.astype(np.float16))
+        return _RefineCorpus("ram", rows)
+
+    def empty(self) -> "_RefineCorpus":
+        """No rows, in this corpus's RAM mode."""
+        mode = {"memmap": "ram", "memmap16": "fp16"}.get(self.mode, self.mode)
+        return _RefineCorpus(mode, np.zeros((0, self.dim),
+                                            np.float16 if mode == "fp16" else np.float32))
 
 
 def _setup_refine(refine: int, precision: str, fp32_rows, keep_on_fp32: bool = False,
@@ -441,38 +504,139 @@ class RetrievalIndex:
         self.device = resolve_device(device)
         self.precision = precision
         self.recall_target = recall_target
+        self._refine_store = refine_store
         corpus = np.asarray(corpus_embeddings, np.float32)
         self.vocab: Dict[str, int] = {}
         keys, self.vocab = encode_keys(corpus_manuals, corpus_pages, self.vocab)
-        self.n = len(corpus)
-        self.dim = corpus.shape[1] if corpus.ndim == 2 else 0
-        self.refine, self._refine_corpus = _setup_refine(
-            refine, precision, corpus, keep_on_fp32=recall_target is not None,
-            store=refine_store)
-        self._corpus = self._keys = self._corpus_scales = None
-        if self.n == 0:
-            return
-        if precision in _QUANTIZED:
-            codes, scales = _QUANTIZERS[precision](corpus)
-            self._corpus = _tensor(codes, self.device)
-            self._corpus_scales = _tensor(scales, self.device)
+        self.__dict__.update(self._fields(corpus, keys, refine))
+
+    def _fields(self, corpus: np.ndarray, keys: np.ndarray, refine: int) -> dict:
+        """The corpus fields of an index over ``corpus``: its size, the
+        refine stage, and the device rows (quantized at int8/int4/int2),
+        scales and keys (None when empty)."""
+        n = len(corpus)
+        refine, rc = _setup_refine(refine, self.precision, corpus,
+                                   keep_on_fp32=self.recall_target is not None,
+                                   store=self._refine_store)
+        out = {"n": n, "dim": corpus.shape[1] if corpus.ndim == 2 else 0, "refine": refine,
+               "_refine_corpus": rc, "_corpus": None, "_keys": None, "_corpus_scales": None}
+        if n == 0:
+            return out
+        if self.precision in _QUANTIZED:
+            codes, scales = _QUANTIZERS[self.precision](corpus)
+            out["_corpus"] = _tensor(codes, self.device)
+            out["_corpus_scales"] = _tensor(scales, self.device)
         else:
-            self._corpus = _tensor(corpus, self.device)
-        self._keys = _tensor(keys, self.device)
+            out["_corpus"] = _tensor(corpus, self.device)
+        out["_keys"] = _tensor(np.asarray(keys, np.int32), self.device)
+        return out
 
-    # -- mutations: a later slice ------------------------------------------------
+    def _snapshot(self) -> "RetrievalIndex":
+        """A shallow copy holding one consistent set of fields. Mutations
+        swap their fields in with one ``__dict__`` update and the copy
+        takes the dict in one step, so a search on the copy sees the
+        corpus before or after a mutation, never a mix."""
+        return copy.copy(self)
 
-    def add(self, embeddings, manuals=None, pages=None) -> None:
-        raise NotImplementedError("RetrievalIndex.add is not yet ported to tpualign_torch "
-                                  "(the index-mutation slice); rebuild the index")
+    # -- mutations -------------------------------------------------------------------
+
+    # Capacity growth: an add past the allocated rows reallocates to GROWTH x
+    # the rows needed, rounded up to 1024; slack rows carry key -1 (masked by
+    # every scorer), so most adds write into slack and reallocate nothing.
+    GROWTH = 1.25
+
+    def add(self, embeddings, manuals: Optional[Sequence[str]] = None,
+            pages: Optional[Sequence[Optional[int]]] = None) -> None:
+        """Append rows (pgvector's INSERT): they take corpus indices
+        ``n..n+m-1`` and the index's per-row quantization, so results equal
+        (ties included) those of an index built over the combined corpus in
+        one go. New manual ids extend the vocab; without ``manuals`` the
+        rows take key 0. An empty index is built by its first add."""
+        rows = np.asarray(embeddings, np.float32)
+        if rows.ndim != 2:
+            raise ValueError(f"embeddings must be (M, D); got {rows.shape}")
+        m = len(rows)
+        if m == 0:
+            return
+        if manuals is not None:
+            keys, _ = encode_keys(manuals, pages, self.vocab)  # extends the vocab
+        else:
+            keys = np.zeros((m,), np.int32)
+        if self.n == 0:
+            self.__dict__.update(self._fields(rows, keys, self.refine))
+            return
+        if rows.shape[1] != self.dim:
+            raise ValueError(f"embedding dim {rows.shape[1]} != index dim {self.dim}")
+        if self.precision in _QUANTIZED:
+            new_rows, new_scales = _QUANTIZERS[self.precision](rows)
+        else:
+            new_rows, new_scales = rows, None
+        corpus, scales = self._corpus, self._corpus_scales
+        cap, total = int(corpus.shape[0]), self.n + m
+        if total > cap:
+            grow = _round_up(max(total, int(cap * self.GROWTH)), 1024) - cap
+            corpus = torch.cat([corpus, corpus.new_zeros((grow, corpus.shape[1]))])
+            if scales is not None:
+                scales = torch.cat([scales, scales.new_ones((grow,))])
+            ckeys = torch.cat([self._keys, self._keys.new_full((grow,), -1)])
+        else:
+            ckeys = self._keys.clone()
+        # rows n..total are slack, keyed -1 in every key tensor this corpus
+        # has had, so the in-place write is invisible until the new keys go in
+        corpus[self.n:total] = _tensor(new_rows, self.device)
+        if scales is not None:
+            scales[self.n:total] = _tensor(new_scales, self.device)
+        ckeys[self.n:total] = _tensor(np.asarray(keys, np.int32), self.device)
+        fields = {"_corpus": corpus, "_keys": ckeys, "_corpus_scales": scales, "n": total}
+        if self._refine_corpus is not None:
+            fields["_refine_corpus"] = self._refine_corpus.appended(rows)
+        self.__dict__.update(fields)
 
     def remove(self, corpus_indices) -> int:
-        raise NotImplementedError("RetrievalIndex.remove is not yet ported to tpualign_torch "
-                                  "(the index-mutation slice); rebuild the index")
+        """Tombstone rows (pgvector's DELETE): their keys become -2, which
+        no query key equals, so they are never returned; the slots stay
+        until :meth:`compact`. Returns the rows newly tombstoned;
+        out-of-range and already removed indices are ignored."""
+        idx = np.unique(np.asarray(corpus_indices, np.int64))
+        idx = idx[(idx >= 0) & (idx < self.n)]
+        if idx.size == 0 or self.n == 0:
+            return 0
+        at = torch.from_numpy(idx).to(self.device)
+        removed = int((self._keys[at] != -2).sum())
+        keys = self._keys.clone()
+        keys[at] = -2
+        self.__dict__.update({"_keys": keys})
+        return removed
+
+    @property
+    def dead(self) -> int:
+        """Tombstoned rows awaiting :meth:`compact` (``/stats``' dead_rows)."""
+        if self.n == 0:
+            return 0
+        return int((self._keys == -2).sum())
 
     def compact(self) -> np.ndarray:
-        raise NotImplementedError("RetrievalIndex.compact is not yet ported to tpualign_torch "
-                                  "(the index-mutation slice); rebuild the index")
+        """Drop the tombstoned rows and the capacity slack (pgvector's
+        VACUUM), renumber the survivors ``0..L-1`` in ascending old-id
+        order, and return those old ids (the caller remaps its id-aligned
+        state with them). Quantized rows move as they are, so the rankings
+        over the survivors do not change."""
+        if self.n == 0:
+            return np.zeros((0,), np.int64)
+        live = np.flatnonzero(self._keys[:self.n].cpu().numpy() != -2).astype(np.int64)
+        if live.size == self.n and int(self._corpus.shape[0]) == self.n:
+            return live  # no tombstones and no slack
+        fields = {"n": int(live.size), "_corpus": None, "_keys": None, "_corpus_scales": None}
+        if live.size:
+            at = torch.from_numpy(live).to(self.device)
+            fields.update(_corpus=self._corpus[at], _keys=self._keys[at],
+                          _corpus_scales=(None if self._corpus_scales is None
+                                          else self._corpus_scales[at]))
+        if self._refine_corpus is not None:
+            fields["_refine_corpus"] = (self._refine_corpus.selected(live) if live.size
+                                        else self._refine_corpus.empty())
+        self.__dict__.update(fields)
+        return live
 
     # -- search --------------------------------------------------------------------
 
@@ -497,14 +661,14 @@ class RetrievalIndex:
             # codes beyond the corpus range (match nothing) and the index's
             # vocab is never mutated
             qk, _ = encode_keys(query_manuals, query_pages, dict(self.vocab))
-        return self._search_encoded(queries, qk, k, strategy)
+        return self._snapshot()._search_encoded(queries, qk, k, strategy)
 
     def search_encoded(self, queries: np.ndarray, qk: np.ndarray, k: int,
                        strategy: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
         """Host-array search with pre-encoded int32 keys (see
         :func:`encode_keys`; WILDCARD_KEY = unrestricted). The serving
         coalescer batches concurrent requests at this level."""
-        return self._search_encoded(queries, qk, k, strategy)
+        return self._snapshot()._search_encoded(queries, qk, k, strategy)
 
     def search_device(self, query_embeddings: torch.Tensor, query_keys: torch.Tensor,
                       k: int, strategy: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -512,16 +676,17 @@ class RetrievalIndex:
         device. Returns ``(vals (Q, min(k, n)) fp32, idx int32)``, where
         slots without a candidate hold ``(NEG_INF, SENTINEL_IDX)``."""
         self._check_strategy(strategy)
-        kk = min(k, self.n)
-        q = query_embeddings.to(self.device, torch.float32).contiguous()
-        qk = query_keys.to(self.device, torch.int32).contiguous()
-        scored = dict(corpus_scales=self._corpus_scales, int8_mxu=True)
+        snap = self._snapshot()
+        kk = min(k, snap.n)
+        q = query_embeddings.to(snap.device, torch.float32).contiguous()
+        qk = query_keys.to(snap.device, torch.int32).contiguous()
+        scored = dict(corpus_scales=snap._corpus_scales, int8_mxu=True)
         if kk <= MAX_K:
-            return masked_sim_topk(q, qk, self._corpus, self._keys, kk, **scored)
+            return masked_sim_topk(q, qk, snap._corpus, snap._keys, kk, **scored)
         # dense route, in query slabs that bound the (Q, N) matrix and its sort
-        slab = max(1, DENSE_SLAB_BYTES // (16 * self.n))
+        slab = max(1, DENSE_SLAB_BYTES // (16 * int(snap._corpus.shape[0])))
         parts = [masked_sim_topk_reference(q[s:s + slab], qk[s:s + slab],
-                                           self._corpus, self._keys, kk, **scored)
+                                           snap._corpus, snap._keys, kk, **scored)
                  for s in range(0, len(q), slab)]
         return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 

@@ -13,8 +13,10 @@ and the operator's pause:
 Stages 1-2 are host work, as in tpualign; stages 3-5 run on one device
 (CUDA unless the caller asks for the CPU). Embeddings are computed once
 and shared by the four schemas. ``run`` chains the five stages, from the
-raw manuals to ``metrics.json``. Incremental ingestion (``ingest_cycle``,
-``watch``) is not ported yet and raises.
+raw manuals to ``metrics.json``. ``ingest_cycle`` processes only new or
+changed manuals and re-embeds; ``watch`` polls the input directory and
+ingests on change, and ``notify_sync`` tells a running ``serve`` to pick
+the delta up (``POST /sync``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from tpualign_torch.weaksup import compute_alignments
 
 log = get_logger("pipeline")
 
-__all__ = ["Pipeline", "SCHEMA_FLAGS"]
+__all__ = ["Pipeline", "SCHEMA_FLAGS", "notify_sync"]
 
 SCHEMA_FLAGS: Dict[str, tuple] = {
     # schema -> (use_lexical, use_positional)
@@ -48,8 +50,30 @@ SCHEMA_FLAGS: Dict[str, tuple] = {
     "clip_combined": (True, True),
 }
 
-_INGEST_LATER = ("not yet ported to tpualign_torch (ROADMAP queue 1, item 5: ingest and "
-                 "watch); `run` processes the whole input directory")
+
+
+def notify_sync(base_url: str, timeout: float = 60.0,
+                token: Optional[str] = None) -> Optional[dict]:
+    """POST ``/sync`` to a running ``serve`` so that it picks up the store's
+    delta without a rebuild; ``token`` is its ``SERVE_TOKEN``, when it needs
+    one. A failure is logged and gives None: an ingest never fails because
+    the daemon is down."""
+    import urllib.request
+
+    url = base_url.rstrip("/") + "/sync"
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    try:
+        req = urllib.request.Request(url, b"{}", headers)
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            out = json.loads(r.read())
+        log.info("serve sync: +%s -%s (corpus %s)", out.get("added"), out.get("removed"),
+                 out.get("corpus_size"))
+        return out
+    except Exception as e:
+        log.warning("serve sync against %s failed: %s", url, e)
+        return None
 
 
 class Pipeline:
@@ -205,11 +229,72 @@ class Pipeline:
         exclude = load_exclude_terms(self.config.data.exclude_terms_file)
         filter_lexical_components(self.lexical_file, self.filtered_lexical_file, exclude)
 
-    def ingest_cycle(self, evaluate: bool = False) -> dict:
-        raise NotImplementedError(f"incremental ingestion is {_INGEST_LATER}")
+    # -- incremental ingestion -----------------------------------------------------------
 
-    def watch(self, *args, **kwargs) -> None:
-        raise NotImplementedError(f"watch mode is {_INGEST_LATER}")
+    def ingest_cycle(self, evaluate: bool = False) -> dict:
+        """One incremental pass: process new or changed manuals (deduplicated
+        by content hash), re-filter the vocabulary without a pause, re-embed
+        the merged corpus (store upserts, so it is idempotent), and
+        evaluate when asked. Returns the processor's summary, whose
+        ``ingested`` is empty when nothing changed; a store left behind by
+        an interrupted cycle is re-embedded even then."""
+        proc = DocumentProcessor(self.config.data, nlp=self._nlp,
+                                 lexical_fallback=self._lexical_fallback)
+        summary = proc.process_incremental()
+        if not summary.get("ingested"):
+            if self._store_in_sync():
+                return summary
+            log.warning("Store out of sync with processed outputs (interrupted ingest?); "
+                        "re-embedding")
+        self._record_step("document_processing", inputs_fingerprint=self._inputs_fingerprint(),
+                          **{k: v for k, v in summary.items()
+                             if k in ("images", "chunks", "lexical_terms")})
+        self.step_lexical_filtering(force=True, non_interactive=True)
+        self.step_store_setup(force=False)
+        self.step_insert_embeddings(force=True)
+        if evaluate:
+            self.step_evaluation()
+        return summary
+
+    def _store_in_sync(self) -> bool:
+        """True when every schema's row counts match the processed JSONs
+        (and when nothing is processed yet)."""
+        try:
+            images, chunks, _ = self._load_processed()
+        except Exception:
+            return True
+        for schema in SCHEMAS:
+            if not self.store.schema_exists(schema):
+                return False
+            counts = self.store.counts(schema)
+            if counts["images"] != len(images) or counts["text_chunks"] != len(chunks):
+                return False
+        return True
+
+    def watch(self, interval_seconds: float = 30.0, evaluate: bool = False,
+              max_cycles: Optional[int] = None, notify: Optional[str] = None) -> None:
+        """Poll the input directory and ingest on change (polling keeps it
+        free of dependencies and safe on NFS). ``max_cycles`` bounds the
+        loop; ``notify`` (a ``serve`` base URL) gets ``POST /sync`` after
+        every cycle that ingested something. A failed cycle is logged and
+        the loop goes on."""
+        cycles = 0
+        log.info("Watching %s every %.0fs (Ctrl-C to stop)", self.config.data.input_dir,
+                 interval_seconds)
+        while max_cycles is None or cycles < max_cycles:
+            try:
+                summary = self.ingest_cycle(evaluate=evaluate)
+                if summary.get("ingested"):
+                    log.info("Ingested: %s", ", ".join(summary["ingested"]))
+                    if notify:
+                        notify_sync(notify, token=self.config.serve_token)
+            except KeyboardInterrupt:
+                raise
+            except Exception as e:
+                log.error("Ingest cycle failed: %s", e)
+            cycles += 1
+            if max_cycles is None or cycles < max_cycles:
+                time.sleep(interval_seconds)
 
     # -- stages 3-5 ------------------------------------------------------------------------
 

@@ -6,9 +6,11 @@ from tpualign_torch.serving.server import (
     TextEncodeCoalescer,
     build_index_artifact,
     build_service,
+    fetch_chunks,
+    fetch_snapshot,
     serve,
     serve_schemas,
 )
 
 __all__ = ["BatchCoalescer", "RetrievalService", "TextEncodeCoalescer", "build_index_artifact",
-           "build_service", "serve", "serve_schemas"]
+           "build_service", "fetch_chunks", "fetch_snapshot", "serve", "serve_schemas"]

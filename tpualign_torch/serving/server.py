@@ -18,8 +18,22 @@ endpoints and transport limits:
 
 Concurrent requests coalesce: :class:`BatchCoalescer` merges searches and
 :class:`TextEncodeCoalescer` text encodes into one device dispatch each.
-The mutating routes (``/add``, ``/remove``, ``/sync``, ``/compact``,
-``/reload``) belong to a later slice of the port and answer 501.
+
+The live corpus, as pgvector's INSERT, DELETE and VACUUM keep one:
+
+- ``POST /add``: chunks by embeddings, or by ``texts`` the daemon's text
+  tower embeds;
+- ``POST /remove``: tombstones by chunk id, compacted automatically once
+  the dead share reaches ``SERVE_AUTO_COMPACT``;
+- ``POST /compact``: drops the tombstones and remaps the chunk ids (400
+  when it would empty the index);
+- ``POST /sync``: applies the store's delta (new and vanished chunks, new
+  images, the weak scores) through add and remove, with no rebuild;
+- ``POST /reload``: rebuilds the service from the store.
+
+A compaction runs on a shallow copy of the index and swaps in a whole new
+``(index, chunk_ids, coalescer)`` snapshot, so a request in flight formats
+its winners against the snapshot it searched.
 
 Threads and the card: the handler runs one thread per connection and a
 coalescer's leader runs its batch on whichever thread leads. Every kernel
@@ -30,6 +44,7 @@ copied to the host (which waits for it) before it is formatted.
 
 from __future__ import annotations
 
+import copy
 import json
 import threading
 import time
@@ -47,10 +62,9 @@ from tpualign_torch.weaksup.rerank import build_weak_lookup, rerank_with_weak_sc
 log = get_logger("serving")
 
 __all__ = ["RetrievalService", "BatchCoalescer", "TextEncodeCoalescer", "RequestMetrics",
-           "build_index_artifact", "build_service", "index_kwargs", "make_image_bytes_encoder",
-           "schema_cache_path", "serve", "serve_schemas"]
-
-_LATER = "not yet ported to tpualign_torch (the index-mutation slice)"
+           "build_index_artifact", "build_service", "fetch_chunks", "fetch_snapshot",
+           "index_kwargs", "make_image_bytes_encoder", "schema_cache_path", "serve",
+           "serve_schemas"]
 
 
 class RequestMetrics:
@@ -234,7 +248,9 @@ class TextEncodeCoalescer(_LeaderFollowerBatcher):
 class _CorpusSnapshot:
     """One consistent (index, chunk_ids, coalescer) view of the served
     corpus: a request captures it once, and dispatch and format use that
-    capture."""
+    capture. A compaction swaps in a new snapshot; add and remove change
+    the current one (a search racing them sees ids without rows, or
+    tombstones that stop matching, both harmless)."""
 
     __slots__ = ("index", "chunk_ids", "coalescer")
 
@@ -295,9 +311,7 @@ class RetrievalService:
             hnsw_ef_search=hnsw_ef_search, hnsw_cache=hnsw_cache, device=device,
         )
         self._coalesce_window_ms = coalesce_window_ms
-        coalescer = (BatchCoalescer(index.search_encoded, window_ms=coalesce_window_ms)
-                     if coalesce_window_ms is not None else None)
-        self._snap = _CorpusSnapshot(index, list(chunk_ids), coalescer)
+        self._snap = self._make_snap(index, list(chunk_ids))
         self._encode_coalescer = (
             TextEncodeCoalescer(text_encoder, window_ms=coalesce_window_ms)
             if (coalesce_window_ms is not None and text_encoder is not None) else None)
@@ -308,9 +322,22 @@ class RetrievalService:
         self._image_embs = (np.asarray(image_embeddings, np.float32)
                             if image_embeddings is not None else None)
         self.weak_lookup = weak_lookup or {}
-        # tpualign's autovacuum threshold; compaction is a later slice here
+        self._add_lock = threading.Lock()
+        self._removed_ids: set = set()
+        # the dead-row share that compacts after a delete (postgres
+        # autovacuum's scale factor; None: POST /compact only)
         self.auto_compact = auto_compact
 
+    def _make_snap(self, index, chunk_ids, prev_coalescer=None) -> _CorpusSnapshot:
+        coalescer = None
+        if self._coalesce_window_ms is not None:
+            coalescer = BatchCoalescer(index.search_encoded, window_ms=self._coalesce_window_ms)
+            if prev_coalescer is not None:  # the counters survive a compaction
+                coalescer.dispatches = prev_coalescer.dispatches
+                coalescer.batched_queries = prev_coalescer.batched_queries
+        return _CorpusSnapshot(index, chunk_ids, coalescer)
+
+    # request paths capture self._snap once and use its fields, never these
     @property
     def index(self):
         return self._snap.index
@@ -323,16 +350,133 @@ class RetrievalService:
     def coalescer(self):
         return self._snap.coalescer
 
-    # -- mutations: a later slice ----------------------------------------------------
+    # -- the live corpus --------------------------------------------------------------
 
-    def add_chunks(self, chunk_ids, manuals, pages, embeddings) -> dict:
-        raise NotImplementedError(f"adding chunks to a served index is {_LATER}")
+    def add_chunks(self, chunk_ids: Sequence[str], manuals: Sequence[str],
+                   pages: Optional[Sequence[Optional[int]]], embeddings) -> dict:
+        """Insert chunks without a rebuild (pgvector's INSERT), through the
+        index's ``add``; new manual ids extend its vocab. A chunk id added
+        twice serves both copies until the next /reload."""
+        emb = np.asarray(embeddings, np.float32)
+        if emb.ndim != 2:
+            raise ValueError(f"embeddings must be (M, D); got {emb.shape}")
+        if not (len(chunk_ids) == len(manuals) == len(emb)) or (
+                pages is not None and len(pages) != len(emb)):
+            raise ValueError("chunk_ids, manuals, pages and embeddings must have "
+                             "matching lengths")
+        with self._add_lock:
+            # ids first: a search racing the add may see ids without rows,
+            # never rows without ids
+            self.chunk_ids.extend(str(c) for c in chunk_ids)
+            self.index.add(emb, list(manuals), list(pages) if pages is not None else None)
+            self._removed_ids.difference_update(str(c) for c in chunk_ids)
+        self._query_cache_clear()  # cached rankings predate the insert
+        return {"added": len(emb), "corpus_size": self.index.n}
+
+    def add_chunks_text(self, chunk_ids: Sequence[str], manuals: Sequence[str],
+                        pages: Optional[Sequence[Optional[int]]],
+                        texts: Sequence[str]) -> dict:
+        """Insert by content: the daemon's text tower embeds ``texts``."""
+        if self.text_encoder is None:
+            raise RuntimeError("no text encoder loaded (serve --no-text-tower?)")
+        if len(texts) != len(chunk_ids):
+            raise ValueError("chunk_ids and texts must have matching lengths")
+        emb = np.asarray(self.text_encoder(list(texts)), np.float32)
+        return self.add_chunks(chunk_ids, manuals, pages, emb)
+
+    def live_chunk_ids(self) -> set:
+        """The servable chunk ids: added, not tombstoned."""
+        return set(self.chunk_ids) - self._removed_ids
+
+    def add_images(self, metas: Sequence[dict], embeddings) -> int:
+        """Register new stored images for ``/search_image`` (image ids
+        already known are skipped). Returns how many were added."""
+        embs = np.asarray(embeddings, np.float32)
+        new = [(m, e) for m, e in zip(metas, embs) if m["image_id"] not in self._images]
+        if not new:
+            return 0
+        with self._add_lock:
+            base = len(self._image_meta)
+            self._image_meta.extend(m for m, _ in new)
+            for j, (m, _) in enumerate(new):
+                self._images[m["image_id"]] = base + j
+            rows = np.stack([e for _, e in new])
+            self._image_embs = (rows if self._image_embs is None
+                                else np.concatenate([self._image_embs, rows]))
+        return len(new)
 
     def remove_chunks(self, chunk_ids: Sequence[str]) -> dict:
-        raise NotImplementedError(f"removing chunks from a served index is {_LATER}")
+        """Tombstone chunks by id (pgvector's DELETE): they stop matching at
+        once; their rows go at the next compaction (POST /compact, the
+        ``auto_compact`` threshold, or /reload). Unknown ids are reported.
+        Of a chunk id added twice, the later copy is removed."""
+        wanted = [str(c) for c in chunk_ids]
+        with self._add_lock:
+            # positions under the same lock as the remove: a compaction
+            # renumbers rows
+            pos_of = {cid: i for i, cid in enumerate(self.chunk_ids)}
+            found = [pos_of[c] for c in wanted if c in pos_of]
+            removed = self.index.remove(found) if found else 0
+            self._removed_ids.update(c for c in wanted if c in pos_of)
+            out = {"removed": removed, "unknown": [c for c in wanted if c not in pos_of],
+                   "corpus_size": self.index.n}
+        self._query_cache_clear()  # cached rankings may hold removed rows
+        compacted = self._maybe_auto_compact()
+        if compacted is not None:
+            out["auto_compacted"] = compacted["compacted"]
+            out["corpus_size"] = compacted["corpus_size"]
+        return out
+
+    def _maybe_auto_compact(self) -> Optional[dict]:
+        """Compact once the dead share reaches ``auto_compact`` (postgres
+        autovacuum). The check and the compaction share one hold of the
+        lock, so two deletes that both cross the threshold compact once.
+        A compaction that would empty the index is left to /reload."""
+        threshold = self.auto_compact
+        if threshold is None:
+            return None
+        with self._add_lock:
+            index = self._snap.index
+            n, dead = index.n, index.dead
+            if n == 0 or dead < threshold * n or dead >= n:
+                return None
+            try:
+                out = self._compact_locked()
+            except ValueError as e:  # would empty an IVF index
+                log.warning("auto-compact skipped: %s", e)
+                return None
+            log.info("auto-compact (%s): %d/%d rows dead >= %.0f%% threshold", self.schema,
+                     dead, n, threshold * 100)
+        self._query_cache_clear()
+        return out
 
     def compact(self) -> dict:
-        raise NotImplementedError(f"compacting a served index is {_LATER}")
+        """Reclaim tombstoned rows (pgvector's VACUUM): the index drops its
+        dead slots and the chunk-id list is remapped to the survivors. Safe
+        under live traffic (see :meth:`_compact_locked`)."""
+        with self._add_lock:
+            out = self._compact_locked()
+        self._query_cache_clear()  # cached rankings hold old positions
+        return out
+
+    def _compact_locked(self) -> dict:
+        """Compact the current snapshot (the caller holds ``_add_lock``).
+        The index compacts on a shallow copy, whose mutation is
+        copy-on-write, so searches holding the old snapshot keep its index
+        and id list; the new pair goes in as one new snapshot."""
+        old = self._snap
+        new_index = copy.copy(old.index)
+        before = new_index.n
+        live = new_index.compact()
+        self._snap = self._make_snap(new_index, [old.chunk_ids[i] for i in live],
+                                     prev_coalescer=old.coalescer)
+        self._removed_ids.clear()
+        return {"compacted": int(before - len(live)), "corpus_size": new_index.n}
+
+    def _query_cache_clear(self) -> None:
+        if self._qc_cap > 0:
+            with self._qc_lock:
+                self._query_cache.clear()
 
     # -- queries ---------------------------------------------------------------------
 
@@ -485,7 +629,7 @@ class RetrievalService:
             "refine_store": ({"mode": rc.mode, "rows": len(rc),
                               "resident_bytes": rc.nbytes_resident}
                              if rc is not None else None),
-            "dead_rows": 0,  # no tombstones until the index-mutation slice
+            "dead_rows": self.index.dead,
             "auto_compact": self.auto_compact,
         }
         if hasattr(self.index, "n_lists"):  # IVF geometry
@@ -645,17 +789,62 @@ def build_service(config, schema: str, mesh=None, text_tower: bool = True,
 
 
 class _ServiceBox:
-    """Holder of the live service; reloading it and syncing it with the
-    store are a later slice."""
+    """Holder of the live service: ``POST /reload`` swaps in a fresh one
+    (``rebuild``) while requests in flight finish against the old, and
+    ``POST /sync`` applies the store's delta to it (``fetch``)."""
 
-    def __init__(self, service: RetrievalService):
+    def __init__(self, service: RetrievalService,
+                 rebuild: Optional[Callable[[], RetrievalService]] = None,
+                 fetch: Optional[Callable[[], object]] = None):
         self.service = service
+        self.rebuild = rebuild
+        self.fetch = fetch
+        self._lock = threading.Lock()
 
     def reload(self) -> dict:
-        raise NotImplementedError(f"POST /reload is {_LATER}")
+        if self.rebuild is None:
+            raise RuntimeError("reload not configured (serve() was built without a rebuild "
+                               "callable)")
+        with self._lock:  # one rebuild at a time; queries keep flowing
+            fresh = self.rebuild()
+            fresh.metrics = self.service.metrics  # the counters survive a reload
+            self.service = fresh
+        return self.service.stats()
 
     def sync(self) -> dict:
-        raise NotImplementedError(f"POST /sync is {_LATER}")
+        """Diff the store's chunk snapshot against the served corpus and
+        apply it through add and remove, with no rebuild. A tuple fetch
+        ``(ids, manuals, pages, embeddings)`` covers chunks; a dict fetch
+        (:func:`fetch_snapshot`) also adds images and swaps the weak
+        scores."""
+        if self.fetch is None:
+            raise RuntimeError("sync not configured (serve() was built without a fetch "
+                               "callable)")
+        with self._lock:
+            snap = self.fetch()
+            if not isinstance(snap, dict):
+                ids, manuals, pages, emb = snap
+                snap = {"chunk_ids": ids, "manuals": manuals, "pages": pages,
+                        "embeddings": emb}
+            ids = snap["chunk_ids"]
+            svc = self.service
+            live = svc.live_chunk_ids()
+            pos = [i for i, cid in enumerate(ids) if cid not in live]
+            gone = sorted(live - set(ids))
+            out = {"added": 0, "removed": 0, "images_added": 0}
+            if pos:
+                out["added"] = svc.add_chunks(
+                    [ids[i] for i in pos], [snap["manuals"][i] for i in pos],
+                    [snap["pages"][i] for i in pos],
+                    np.asarray(snap["embeddings"], np.float32)[pos])["added"]
+            if gone:
+                out["removed"] = svc.remove_chunks(gone)["removed"]
+            if snap.get("images") is not None:
+                out["images_added"] = svc.add_images(snap["images"], snap["image_embeddings"])
+            if snap.get("weak_lookup") is not None:
+                svc.weak_lookup = snap["weak_lookup"]
+            out["corpus_size"] = svc.index.n
+            return out
 
 
 class _ServiceRegistry:
@@ -810,20 +999,47 @@ def _make_handler(registry: _ServiceRegistry, token: Optional[str] = None,
                 self._reply(400, {"error": str(e)})
                 return
             service = box.service
-            mutations = {
-                "/add": lambda: service.add_chunks(req.get("chunk_ids"), req.get("manuals"),
-                                                   req.get("pages"), req.get("embeddings")),
-                "/remove": lambda: service.remove_chunks(req.get("chunk_ids", [])),
-                "/compact": service.compact, "/reload": box.reload, "/sync": box.sync,
-            }
-            if self.path in mutations:
+            if self.path in ("/reload", "/sync"):
+                name = "reloaded" if self.path == "/reload" else "synced"
                 try:
-                    mutations[self.path]()
-                except NotImplementedError as e:
-                    self._reply(501, {"error": str(e)})
+                    out = box.reload() if self.path == "/reload" else box.sync()
+                    self._reply(200, {name: True, **out})
+                except Exception as e:
+                    box.service.metrics.record_error()
+                    log.exception("%s failed; serving the old snapshot", self.path)
+                    self._reply(500, {name: False, "error": str(e)})
+                return
+            if self.path == "/compact":
+                try:
+                    out = service.compact()
+                except (NotImplementedError, ValueError) as e:  # would empty the index
+                    service.metrics.record_error()
+                    self._reply(400, {"error": str(e)})
+                    return
+                except Exception as e:  # pragma: no cover - defensive
+                    service.metrics.record_error()
+                    log.exception("compact failed; serving the old snapshot")
+                    self._reply(500, {"error": str(e)})
+                    return
+                service.metrics.record(self.path, out["compacted"], time.perf_counter() - t0)
+                self._reply(200, out)
                 return
             try:
                 k = int(req.get("k", 10))
+                if self.path in ("/add", "/remove"):
+                    if self.path == "/remove":
+                        out = service.remove_chunks(req["chunk_ids"])
+                    elif "embeddings" in req:
+                        out = service.add_chunks(req["chunk_ids"], req["manuals"],
+                                                 req.get("pages"),
+                                                 np.asarray(req["embeddings"], np.float32))
+                    else:  # insert by content: the daemon embeds the texts
+                        out = service.add_chunks_text(req["chunk_ids"], req["manuals"],
+                                                      req.get("pages"), req["texts"])
+                    count = out["removed" if self.path == "/remove" else "added"]
+                    service.metrics.record(self.path, count, time.perf_counter() - t0)
+                    self._reply(200, out)
+                    return
                 if self.path == "/search":
                     results = service.search_embeddings(
                         np.asarray(req["embeddings"], np.float32), req.get("manuals"),
@@ -908,12 +1124,15 @@ class _Server(ThreadingHTTPServer):
 
 
 def serve(service: RetrievalService, host: str = "127.0.0.1", port: int = 8321,
-          token: Optional[str] = None, idle_timeout: float = 60.0,
-          max_body_bytes: int = 64 * 2**20, max_connections: int = 128,
-          request_deadline: float = 30.0) -> ThreadingHTTPServer:
+          rebuild: Optional[Callable[[], RetrievalService]] = None,
+          fetch: Optional[Callable[[], object]] = None, token: Optional[str] = None,
+          idle_timeout: float = 60.0, max_body_bytes: int = 64 * 2**20,
+          max_connections: int = 128, request_deadline: float = 30.0) -> ThreadingHTTPServer:
     """Create (but do not start) the HTTP server for one service; call
-    ``serve_forever`` on the result, or run it in a thread."""
-    return serve_schemas({service.schema: _ServiceBox(service)}, service.schema, host, port,
+    ``serve_forever`` on the result, or run it in a thread. ``rebuild``
+    backs ``POST /reload`` and ``fetch`` ``POST /sync``."""
+    return serve_schemas({service.schema: _ServiceBox(service, rebuild=rebuild, fetch=fetch)},
+                         service.schema, host, port,
                          token=token, idle_timeout=idle_timeout,
                          max_body_bytes=max_body_bytes, max_connections=max_connections,
                          request_deadline=request_deadline)
@@ -932,3 +1151,25 @@ def serve_schemas(boxes: Dict[str, _ServiceBox], default: str, host: str = "127.
                       request_deadline=request_deadline),
         max_connections=max_connections,
     )
+
+
+def fetch_chunks(config, schema: str):
+    """The store's chunks for ``POST /sync``: ``(chunk_ids, manuals, pages,
+    embeddings)`` in the embedding matrix's row order (the order of every
+    metadata column)."""
+    store = EmbeddingStore(config.store.root, embed_dim=config.model.variant.embed_dim)
+    ids, emb = store.embedding_matrix(schema, "text_chunks")
+    return (list(ids), store.column(schema, "text_chunks", "manual_id"),
+            store.column(schema, "text_chunks", "page"), emb)
+
+
+def fetch_snapshot(config, schema: str) -> dict:
+    """The store's snapshot for ``POST /sync`` (``serve`` wires it): the
+    chunks, the stored images and their embeddings, and the weak lookup."""
+    store = EmbeddingStore(config.store.root, embed_dim=config.model.variant.embed_dim)
+    ids, manuals, pages, emb = fetch_chunks(config, schema)
+    img_ids, img_emb = store.embedding_matrix(schema, "images")
+    by_id = {im["image_id"]: im for im in store.images(schema)}
+    return {"chunk_ids": ids, "manuals": manuals, "pages": pages, "embeddings": emb,
+            "images": [by_id[i] for i in img_ids], "image_embeddings": img_emb,
+            "weak_lookup": build_weak_lookup(store.alignments(schema))}
