@@ -1,4 +1,4 @@
-"""Drives tpualign_torch's embed-and-search, pipeline and serving paths on one NVIDIA GPU.
+"""Drives tpualign_torch's embed-and-search, pipeline, training and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -110,7 +110,23 @@ for the numbers in PERF.md). Phases, one JSON line each:
     the plain K4 version on the grown layout and a dense search at full
     probe (IVF); /search_image p50 and the tiles K3 and K4 read, before
     and after;
-13. the seconds of each phase, the kernels line, the card line, and
+13. train, over the pipeline phase's store (``clip_combined``'s weak pairs,
+    the towers from the checkpoint, ViT-B-32 bf16, B=256): K1 forward with
+    the autograd backward (the plain path's recompute) against the plain
+    version's autograd (vision T=50, text T=77 causal; fp32 and bf16: dqkv
+    identical) and the recompute's time; ``matmul_f32acc``'s bf16 gradients
+    against the widened fp32 product; one train step with K1 against the
+    plain attention, and GRAD_ACCUM_STEPS=4 against the full batch (loss,
+    grad_norm, every gradient leaf); timed steps in this process with the
+    device feed, then the host feed (step ms, the feed's wait, pairs/s,
+    peak memory, the model-FLOP share); then ``python -m tpualign_torch
+    train`` as processes: 40 steps (device feed, held-out evaluation every
+    20), 5 with LORA_RANK=8, 5 at CLIP_QUANT=int8_qat, their K1, K1
+    backward and K5 counts; each checkpoint directory as CLIP_CHECKPOINT
+    of ``embed`` (the int8_qat one at CLIP_QUANT=int8) over the run
+    subset, the stored embeddings against the trainer's export params bit
+    for bit;
+14. the seconds of each phase, the kernels line, the card line, and
     ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -2218,20 +2234,21 @@ path = sys.argv[1]
 def _dump():
     with open(path, "w") as f:
         json.dump({"fused_mha": fused_mha.launches, "masked_sim_topk": masked_sim_topk.launches,
-                   "normalize_u8": normalize_u8.launches}, f)
+                   "normalize_u8": normalize_u8.launches,
+                   "fused_mha_backward": fused_mha.backward_recomputes}, f)
 atexit.register(_dump)
 sys.argv = ["tpualign_torch"] + sys.argv[2:]
 runpy.run_module("tpualign_torch", run_name="__main__", alter_sys=True)
 """
 
 
-def _run_stage(argv, env, cwd):
+def _run_stage(argv, env, cwd, tag=""):
     """``python -m tpualign_torch <argv>`` as a subprocess whose kernel
     launch counters are written at exit. Returns (wall s, counters)."""
     import json
     import os
 
-    counters = os.path.join(cwd, f"counters-{argv[0]}.json")
+    counters = os.path.join(cwd, f"counters-{argv[0]}{tag}.json")
     repo = os.path.dirname(os.path.abspath(__file__))
     path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
     t0 = time.perf_counter()
@@ -2681,6 +2698,327 @@ def _ingest_notify(dev, env, work, feed_dir, feed_names, seed) -> dict:
             "dir": os.path.basename(work)}
 
 
+# steps of the train process and of the LoRA and int8_qat runs (those cut
+# from 10 to keep the script's time: 904 s with 10 on an H100, PERF.md)
+TRAIN_STEPS, TRAIN_SIDE_STEPS = 40, 5
+TRAIN_TIMED_STEPS = 4                    # in-process steps timed per feed, after one warm-up
+TRAIN_GRAD_REL, TRAIN_LOSS_REL = 5e-2, 1e-2  # bf16 towers: K1 against plain, accumulation
+K1_TRAIN_SHAPES = [("vision", 50, 768, 12, False), ("text77", 77, 512, 8, True)]
+
+
+def _train_env(root, checkpoint, seed, **extra) -> dict:
+    import os
+
+    work = os.path.join(root, "pipeline")
+    env = {"STORE_DIR": os.path.join(work, "store"), "OUTPUT_DIR": os.path.join(work, "processed"),
+           "CLIP_MODEL": "ViT-B-32", "CLIP_CHECKPOINT": checkpoint, "SEED": str(seed),
+           "IMAGE_PREPROCESS_BUCKET": str(FEED_BUCKET), "TRAIN_IMAGE_FEED": "device",
+           "LEARNING_RATE": "1e-5", "WARMUP_STEPS": "4", "TOTAL_STEPS": str(TRAIN_STEPS)}
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _k1_backward(dev, gen) -> list:
+    """K1 forward under autograd against the plain version at ViT-B-32's
+    shapes, B=256, within K1's bound; the recompute's time. The backward
+    recomputes ``fused_mha_reference`` by design, so its dqkv equal to the
+    plain autograd's is a check of the wiring (the mask and the cotangent
+    reach the recompute, which runs and is counted once per backward), not
+    of a kernel: the whole step against plain is held in ``_step_grads``."""
+    from tpualign_torch.models.text import causal_mask
+    from tpualign_torch.ops.attention import fused_mha, fused_mha_reference
+
+    rows = []
+    for name, t, d, heads, causal in K1_TRAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(B, t, 3 * d, generator=gen, device=dev).to(dtype).requires_grad_()
+            g = torch.randn(B, t, d, generator=gen, device=dev).to(dtype)
+            mask = causal_mask(t, dev) if causal else None
+            out = fused_mha(qkv, heads, mask)
+            before = fused_mha.backward_recomputes
+            (got,) = torch.autograd.grad(out, qkv, g)
+            check(fused_mha.backward_recomputes == before + 1,
+                  f"K1 {name} {dtype}: the backward did not recompute once")
+            ref = fused_mha_reference(qkv, heads, mask)
+            (want,) = torch.autograd.grad(ref, qkv, g)
+            atol, rtol = K1_TOL[dtype]
+            err = (out.float() - ref.float()).abs()
+            check(bool((err <= atol + rtol * ref.float().abs()).all()),
+                  f"K1 {name} {dtype} forward under autograd: max abs error {err.max().item():.3g}")
+            check(torch.equal(got, want), f"K1 {name} {dtype}: the backward's wiring: dqkv "
+                  f"differs from the plain autograd's (max "
+                  f"{(got.float() - want.float()).abs().max().item():.3g})")
+            bwd_ms = time_ms(lambda: torch.autograd.grad(
+                fused_mha_reference(qkv, heads, mask), qkv, g), 10)
+            fwd_ms = time_ms(lambda: fused_mha(qkv.detach(), heads, mask), 20)
+            rows.append({"shape": name, "dtype": str(dtype).split(".")[-1], "B": B, "T": t,
+                         "fwd_ms": fwd_ms, "backward_recompute_ms": bwd_ms,
+                         "max_abs_err_fwd": err.max().item(),
+                         "dqkv": "the plain autograd's (wiring)"})
+    return rows
+
+
+def _matmul_grads(dev, gen) -> dict:
+    """``matmul_f32acc``'s bf16 gradients at the vision in_proj's shape
+    against the fp32 product of the widened operands."""
+    from tpualign_torch.ops.dense import matmul_f32acc
+
+    a = torch.randn(B * 50, 768, generator=gen, device=dev).bfloat16().requires_grad_()
+    b = (torch.randn(768, 2304, generator=gen, device=dev) * 0.03).bfloat16().requires_grad_()
+    g = torch.randn(B * 50, 2304, generator=gen, device=dev)
+    da, db = torch.autograd.grad(matmul_f32acc(a, b), (a, b), g)
+    a32, b32 = a.detach().float().requires_grad_(), b.detach().float().requires_grad_()
+    wa, wb = torch.autograd.grad(a32 @ b32, (a32, b32), g)
+    out = {"shape": "(12800, 768) x (768, 2304) bf16", "bound": "2^-7 x max |value|"}
+    for name, got, want in (("dA", da, wa), ("dB", db, wb)):
+        err = (got.float() - want).abs().max().item()
+        check(got.dtype == torch.bfloat16 and err <= 2**-7 * want.abs().max().item(),
+              f"matmul_f32acc {name}: {got.dtype}, max abs error {err:.3g}")
+        out[f"{name}_max_abs_err"] = err
+    return out
+
+
+def _step_grads(trainer, cfg, batch, fused: bool):
+    """One train step from the trainer's starting params with K1 or the
+    plain attention: (loss, grad_norm, {name: fp32 gradient})."""
+    from tpualign_torch.train import step as S
+
+    model = trainer.model
+    for blk in list(model.visual.transformer.resblocks) + list(model.text.transformer.resblocks):
+        blk.attn.use_fused_attention = fused
+    state = S.create_train_state(model, S.model_params(model), cfg)
+    grads = {}
+    real = state.apply_gradients
+
+    def keep(g, n):
+        grads.update({k: v.float().clone() for k, v in g.items()})
+        return real(g, n)
+
+    state.apply_gradients = keep
+    _, m = S.train_step(state, model, *batch, cfg)
+    out = (float(m["loss"]), float(m["grad_norm"]), grads)
+    for blk in list(model.visual.transformer.resblocks) + list(model.text.transformer.resblocks):
+        blk.attn.use_fused_attention = True
+    del state
+    return out
+
+
+def _compare_steps(what, a, b) -> dict:
+    (la, na, ga), (lb, nb, gb) = a, b
+    check(abs(la - lb) <= TRAIN_LOSS_REL * abs(lb) and abs(na - nb) <= TRAIN_LOSS_REL * abs(nb),
+          f"{what}: loss {la} / {lb}, grad_norm {na} / {nb}")
+    worst = 0.0
+    for k, want in gb.items():
+        rel = (ga[k] - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+        check(rel <= TRAIN_GRAD_REL, f"{what}: gradient {k} off by {rel:.3g} of its max")
+        worst = max(worst, rel)
+    return {"loss": [la, lb], "grad_norm": [na, nb], "worst_leaf_rel": worst,
+            "leaves": len(gb), "bounds": {"loss_grad_norm_rel": TRAIN_LOSS_REL,
+                                          "leaf_rel_to_max": TRAIN_GRAD_REL}}
+
+
+def _device_batch(trainer, item):
+    imgs, tokens, weights = item[:3]
+    dev = trainer.device
+    if isinstance(imgs, tuple):
+        imgs = tuple(torch.from_numpy(x).to(dev) for x in imgs)
+    else:
+        imgs = torch.from_numpy(imgs).to(dev)
+    return imgs, torch.from_numpy(tokens).long().to(dev), torch.from_numpy(weights).to(dev)
+
+
+def _timed_steps(trainer, triples, seed) -> dict:
+    """One warm-up step, then ``TRAIN_TIMED_STEPS`` steps at B=256 through
+    the feed: the wait for each batch (decode, upload) and the step on the
+    card (synchronised), peak memory, and the kernels' launches."""
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.normalize import normalize_u8
+
+    it = trainer.batches(triples, B, seed=seed)
+    feed_s, step_s = [], []
+    try:
+        for i in range(TRAIN_TIMED_STEPS + 1):
+            if i == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fused_mha.launches = fused_mha.backward_recomputes = normalize_u8.launches = 0
+            t0 = time.perf_counter()
+            batch = _device_batch(trainer, next(it))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            trainer.state, m = trainer._step(trainer.state, *batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            check(np.isfinite(loss), f"timed step {i}: loss {loss}")
+            if i:
+                feed_s.append(t1 - t0)
+                step_s.append(t2 - t1)
+    finally:
+        it.close()
+    step_ms = 1e3 * float(np.mean(step_s))
+    feed_ms = 1e3 * float(np.mean(feed_s))
+    return {"step_ms": step_ms, "feed_wait_ms": feed_ms, "step_ms_each": [1e3 * x for x in step_s],
+            "feed_share": feed_ms / (feed_ms + step_ms),
+            "pairs_per_s_device": B / (step_ms / 1e3),
+            "pairs_per_s_with_feed": B / ((step_ms + feed_ms) / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {"fused_mha": fused_mha.launches,
+                         "fused_mha_backward": fused_mha.backward_recomputes,
+                         "normalize_u8": normalize_u8.launches}}
+
+
+def _embeds_like_export(dev, env, train_env, ckpt_dir, quant, records, images_dir, work,
+                        tag) -> dict:
+    """``embed vanilla_clip`` as a process with ``CLIP_CHECKPOINT=<ckpt_dir>``
+    (and ``CLIP_QUANT=quant``) into a fresh store; the stored embeddings
+    against the stage's own engine carrying the export params of a trainer
+    (configured by ``train_env``) restored from that directory, bit for
+    bit."""
+    import os
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.models.convert import from_jax_params, to_jax_layout
+    from tpualign_torch.pipeline import Pipeline
+    from tpualign_torch.store import SCHEMAS, EmbeddingStore
+    from tpualign_torch.train.checkpoint import restore_checkpoint
+    from tpualign_torch.train.trainer import Trainer
+
+    store_dir = os.path.join(work, f"store-{tag}")
+    EmbeddingStore(store_dir, embed_dim=512).setup(SCHEMAS)
+    embed_env = {**env, "STORE_DIR": store_dir, "CLIP_CHECKPOINT": ckpt_dir,
+                 "CLIP_QUANT": quant, "IMAGE_PREPROCESS": "device"}
+    secs, launches, done = _run_stage(["embed", "vanilla_clip", "--device", dev.type],
+                                      embed_env, work, tag=f"-{tag}")
+    check("Loading trained params from checkpoint directory" in done.stderr,
+          f"embed ({tag}) did not load the checkpoint directory")
+    trainer = Trainer(load_config(train_env), device=dev)
+    check(restore_checkpoint(ckpt_dir, trainer.state) is not None, f"{tag}: nothing to restore")
+    export = to_jax_layout(trainer.export_params)
+    del trainer
+    engine = Pipeline(load_config({**embed_env, "CLIP_CHECKPOINT": ""}), device=dev).engine
+    from_jax_params(engine.model, export)
+    images, chunks = records
+    store = EmbeddingStore(store_dir, embed_dim=512)
+    for table, recs, key, embed in (
+            ("images", images, "image_id", lambda: engine.embed_image_records(images, images_dir)),
+            ("text_chunks", chunks, "chunk_id", lambda: engine.embed_chunk_records(chunks))):
+        ids, stored = store.embedding_matrix("vanilla_clip", table)
+        row = {k: i for i, k in enumerate(ids)}
+        stored = stored[[row[r[key]] for r in recs]]
+        want = embed()
+        check(np.array_equal(stored, want),
+              f"{tag}: {int((stored != want).any(axis=1).sum())} stored {table} embeddings "
+              "differ from the export params'")
+    return {"embed_s": secs, "images": len(images), "chunks": len(chunks), "quant": quant,
+            "launches": launches, "bit_identical_to_export_params": True}
+
+
+def _train_process(dev, env, work, tag, steps, extra_args=()) -> tuple:
+    import json
+    import os
+
+    ckpt_dir = os.path.join(work, f"ckpt-{tag}")
+    metrics = os.path.join(work, f"metrics-{tag}.jsonl")
+    argv = ["train", "--device", dev.type, "--steps", str(steps), "--train-batch-size", str(B),
+            "--ckpt-dir", ckpt_dir, "--metrics-file", metrics, "--log-every", "10",
+            *extra_args]
+    secs, launches, done = _run_stage(argv, env, work, tag=f"-{tag}")
+    with open(metrics) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows if r["kind"] in ("train", "final")]
+    check(losses and all(np.isfinite(losses)), f"train ({tag}): losses {losses}")
+    final = rows[-1]
+    check(final["kind"] == "final" and final["step"] == steps, f"train ({tag}): {final}")
+    check(launches["fused_mha_backward"] == 24 * steps,
+          f"train ({tag}): {launches['fused_mha_backward']} K1 backward recomputes in {steps} "
+          "steps of 24 blocks")
+    check(launches["normalize_u8"] == steps, f"train ({tag}): K5 launched "
+          f"{launches['normalize_u8']} times in {steps} device-feed steps")
+    return ckpt_dir, {"s": secs, "steps": steps, "losses": losses, "launches": launches,
+                      "heldout": [r for r in rows if r["kind"] == "heldout"],
+                      "final": final}
+
+
+def phase_train(dev, seed, root, checkpoint, card) -> dict:
+    """Training on the pipeline phase's store (``clip_combined``'s weak
+    pairs over its 4,096 images), the towers from the checkpoint: the card
+    checks (K1's backward, ``matmul_f32acc``'s gradients, one step with K1
+    against the plain attention, GRAD_ACCUM_STEPS=4 against the full
+    batch), timed in-process steps with the host and the device feed, then
+    ``python -m tpualign_torch train`` as processes (40 steps with held-out
+    evaluation; 5 with LORA_RANK=8; 5 at CLIP_QUANT=int8_qat), each
+    checkpoint directory as ``CLIP_CHECKPOINT`` for ``embed`` against the
+    trainer's export params, bit for bit."""
+    import dataclasses as dc
+    import os
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.pipeline import Pipeline
+    from tpualign_torch.train.trainer import Trainer, build_pair_dataset
+    from tpualign_torch.utils.flops import clip_pair_flops, device_peak_flops
+
+    work = os.path.join(root, "pipeline")
+    env = _train_env(root, checkpoint, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"phase": "train", "card": card, "model": "ViT-B-32", "batch": B}
+    out["k1_backward"] = _k1_backward(dev, gen)
+    out["matmul_f32acc_grads"] = _matmul_grads(dev, gen)
+
+    trainer = Trainer(load_config(env), device=dev)
+    triples = build_pair_dataset(trainer.store, "clip_combined", trainer.config.data.images_dir)
+    check(len(triples) >= 4 * B, f"clip_combined has {len(triples)} trainable pairs")
+    out["pairs"] = len(triples)
+    it = trainer.batches(triples, B, seed=seed)
+    batch = _device_batch(trainer, next(it))
+    it.close()
+    cfg = trainer.config.train
+    k1_step = _step_grads(trainer, cfg, batch, fused=True)
+    out["step_k1_vs_plain"] = _compare_steps("one step, K1 against plain", k1_step,
+                                             _step_grads(trainer, cfg, batch, fused=False))
+    accum = _step_grads(trainer, dc.replace(cfg, grad_accum_steps=4), batch, fused=True)
+    out["accum4_vs_full_batch"] = _compare_steps("GRAD_ACCUM_STEPS=4 against the full batch",
+                                                 accum, k1_step)
+    del k1_step, accum
+
+    timed = {"device": _timed_steps(trainer, triples, seed)}
+    del trainer
+    host = Trainer(load_config({**env, "TRAIN_IMAGE_FEED": "host"}), device=dev)
+    timed["host"] = _timed_steps(host, triples, seed)
+    del host
+    torch.cuda.empty_cache()
+    peak = device_peak_flops(torch.cuda.get_device_name(0))
+    step_flops = 3 * clip_pair_flops(load_config(env).model.variant) * B
+    for row in timed.values():
+        row["model_flop_share"] = (None if peak is None
+                                   else step_flops / (row["step_ms"] / 1e3) / peak)
+    out["timed"] = timed
+    out["model_flops"] = {"per_step": step_flops, "peak": peak,
+                          "peak_source": "NVIDIA H100 SXM data sheet, dense bf16 989 TFLOP/s "
+                                         "(utils/flops.py)"}
+
+    # (tag, training env, steps, extra flags, CLIP_QUANT for embed)
+    cases = (("full", env, TRAIN_STEPS, ("--eval-fraction", "0.05", "--eval-every",
+                                         str(TRAIN_STEPS // 2)), "none"),
+             ("lora", {**env, "LORA_RANK": "8"}, TRAIN_SIDE_STEPS, (), "none"),
+             ("int8_qat", {**env, "CLIP_QUANT": "int8_qat"}, TRAIN_SIDE_STEPS, (), "int8"))
+    runs, ckpts = {}, {}
+    for tag, case_env, steps, flags, _ in cases:
+        ckpts[tag], runs[tag] = _train_process(dev, case_env, work, tag, steps, flags)
+    check(len(runs["full"]["heldout"]) == 3, f"held-out evaluations {runs['full']['heldout']}")
+    out["processes"] = runs
+
+    sub = {"OUTPUT_DIR": os.path.join(work, "run", "processed")}
+    images, chunks, _ = Pipeline(load_config({**env, **sub}), device=dev)._load_processed()
+    images_dir = os.path.join(sub["OUTPUT_DIR"], "images")
+    out["embed_from_checkpoint_dir"] = {
+        tag: _embeds_like_export(dev, {**env, **sub}, case_env, ckpts[tag], quant,
+                                 (images, chunks), images_dir, work, tag)
+        for tag, case_env, _, _, quant in cases}
+    emit(out)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2732,6 +3070,8 @@ def main() -> int:
             pipe_launches, k2_eval, ingest_launches = phase_pipeline(
                 dev, args.seed, root, feed_names, checkpoint)
             lap("pipeline")
+            train = phase_train(dev, args.seed, root, checkpoint, card)
+            lap("train")
         with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
             serve_launches, k3_serve, shared = phase_serve(dev, args.seed, root, checkpoint)
             lap("serve")
@@ -2743,6 +3083,7 @@ def main() -> int:
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t_start})
 
     k1_head = next(r for r in k1 if r["shape"] == "vision" and r["dtype"] == "bfloat16")
+    train_launches = train["processes"]["full"]["launches"]
     k2_head = next(r for r in k2 if r["k"] == 100)
     k3_head = next(r for r in k3 if r["variant"] == "int8" and r["k"] == 40)
     k4_125 = next(r for r in k4 if r["variant"] == "int8" and r["Q"] == 2 and r["k"] == 40)
@@ -2757,7 +3098,12 @@ def main() -> int:
                                "serve_ivf": ivf_launches["fused_mha"],
                                "pipeline": pipe_launches["fused_mha"],
                                "ingest": ingest_launches["fused_mha"],
-                               "live": live_launches["fused_mha"]},
+                               "live": live_launches["fused_mha"],
+                               "train": train_launches["fused_mha"]},
+         "train_backward_recomputes": train_launches["fused_mha_backward"],
+         "training": {"backward": "recomputes the plain attention (as tpualign's custom_vjp)",
+                      "rows": train["k1_backward"],
+                      "launches_in_process_steps": train["timed"]["device"]["launches"]},
          "tolerance": {"atol": k1_head["atol"], "rtol": k1_head["rtol"]},
          "at": "ViT-B-32 vision, B=256 T=50 D=768 H=12, bf16"},
         {"name": "masked_sim_topk", "route": "cuda",
@@ -2805,7 +3151,8 @@ def main() -> int:
          "replaces": "tpualign/ops/pallas_kernels.py:805",
          "launches": pipe_launches["normalize_u8"], **{k: k5[k] for k in keys},
          "launches_by_phase": {"pipeline": pipe_launches["normalize_u8"],
-                               "ingest": ingest_launches["normalize_u8"]},
+                               "ingest": ingest_launches["normalize_u8"],
+                               "train": train_launches["normalize_u8"]},
          "tolerance": "bit-identical",
          "at": "u8 (256, 224, 224, 3) -> fp32, one device-feed batch of ViT-B-32; launches "
                "from the pipeline phase's embed stage (IMAGE_PREPROCESS=device)"},

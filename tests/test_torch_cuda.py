@@ -105,8 +105,11 @@ def test_fused_mha_rejects(dev):
         fused_mha(qkv, 2)
     with pytest.raises(ValueError, match="sequence length"):
         fused_mha(torch.zeros(1, 300, 3 * 64, device=dev), 1)
-    with pytest.raises(NotImplementedError):
-        fused_mha(torch.zeros(1, 4, 3 * 64, device=dev, requires_grad=True), 1)
+    # under autograd it trains (the backward recomputes the plain path) and
+    # still rejects what the kernel does not take
+    assert fused_mha(torch.zeros(1, 4, 3 * 64, device=dev, requires_grad=True), 1).requires_grad
+    with pytest.raises(ValueError, match="head dim"):
+        fused_mha(torch.zeros(1, 4, 3 * 2 * 32, device=dev, requires_grad=True), 2)
 
 
 def _sim_inputs(rng, q, n, d, groups, dup=0):
@@ -780,3 +783,115 @@ def test_index_mutations_on_the_card_match_the_cpu(dev, precision):
                 wv, wi = cpu.search(q, *args, k=10, global_search=args[0] is None, **search)
                 assert np.array_equal(gi, wi), (cls.__name__, precision)
                 np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-5)
+
+
+# -- training: K1 under autograd, the bf16 products' gradients, one step --------------
+
+
+@pytest.mark.parametrize("t,d,heads,causal", [(50, 768, 12, False), (77, 512, 8, True),
+                                              (25, 768, 12, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mha_backward_matches_plain_autograd(dev, t, d, heads, causal, dtype):
+    """K1 forward, then the backward that recomputes the plain attention:
+    its dqkv equals the plain version's autograd exactly (the same
+    recompute on the same inputs and cotangent), one recompute counted;
+    the forward within K1's bound."""
+    gen = torch.Generator(device=dev).manual_seed(t)
+    qkv = torch.randn(8, t, 3 * d, generator=gen, device=dev).to(dtype).requires_grad_()
+    mask = causal_mask(t, dev) if causal else None
+    launches, recomputes = fused_mha.launches, fused_mha.backward_recomputes
+    out = fused_mha(qkv, heads, mask)
+    g = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    assert fused_mha.launches == launches + 1
+    assert fused_mha.backward_recomputes == recomputes + 1
+    ref = fused_mha_reference(qkv, heads, mask)
+    (want,) = torch.autograd.grad(ref, qkv, g)
+    assert got.dtype == dtype and torch.equal(got, want)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("b_shape", [(768, 2304), (6, 50, 64, 50)])
+def test_matmul_f32acc_gradients_on_the_card(dev, b_shape):
+    """The bf16 product's transpose rule on the card against the fp32
+    product of the widened operands: dA and dB within the bf16 rounding of
+    the cotangent and of the result (2^-7 of the largest |value|)."""
+    from tpualign_torch.ops.dense import matmul_f32acc
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a_shape = (256, 50, 768) if len(b_shape) == 2 else (6, 50, 50, 64)
+    a = torch.randn(a_shape, generator=gen, device=dev).bfloat16().requires_grad_()
+    b = (torch.randn(b_shape, generator=gen, device=dev) * 0.05).bfloat16().requires_grad_()
+    out = matmul_f32acc(a, b)
+    assert out.dtype == torch.float32
+    g = torch.randn(out.shape, generator=gen, device=dev)
+    da, db = torch.autograd.grad(out, (a, b), g)
+    assert da.dtype == db.dtype == torch.bfloat16
+    a32, b32 = a.detach().float().requires_grad_(), b.detach().float().requires_grad_()
+    wa, wb = torch.autograd.grad(torch.matmul(a32, b32), (a32, b32), g)
+    for got, want in ((da, wa), (db, wb)):
+        err = (got.float() - want).abs().max().item()
+        assert err <= 2**-7 * want.abs().max().item(), err
+
+
+def test_int8_qat_carries_gradients_on_the_card(dev):
+    from tpualign_torch.ops.quant import int8_dot_qat
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(64, 128, generator=gen, device=dev).bfloat16().requires_grad_()
+    w = torch.randn(128, 96, generator=gen, device=dev).requires_grad_()
+    out = int8_dot_qat(x, w)
+    gx, gw = torch.autograd.grad(out.float().sum(), (x, w))
+    assert float(gx.float().abs().max()) > 0 and float(gw.abs().max()) > 0
+    assert torch.isfinite(gx.float()).all() and torch.isfinite(gw).all()
+
+
+def _small_clip(fused):
+    from tpualign_torch.config import ClipVariant
+    from tpualign_torch.models.clip import CLIP, init_clip_params
+
+    v = ClipVariant(name="small", embed_dim=64, image_size=32, patch_size=8, vision_width=128,
+                    vision_layers=2, vision_heads=2, context_length=16, vocab_size=1000,
+                    text_width=128, text_layers=2, text_heads=2)
+    return init_clip_params(CLIP(v, True, torch.bfloat16, fused), seed=0).to("cuda")
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_bf16_train_step_with_k1_matches_plain(dev, accum):
+    """One bf16 step with K1 against the same step on the plain attention
+    (head dim 64): loss and grad_norm within 1e-2 relative, every gradient
+    leaf within 5e-2 of its largest |g| (bf16 towers: an ulp of a bf16
+    activation is 2^-8 relative)."""
+    from tpualign_torch.config import TrainConfig
+    from tpualign_torch.train import step as S
+
+    gen = np.random.default_rng(2)
+    images = torch.from_numpy(gen.normal(size=(8, 32, 32, 3)).astype(np.float32)).to(dev)
+    tokens = np.zeros((8, 16), np.int64)
+    tokens[:, 0], tokens[:, 1], tokens[:, 2] = 998, gen.integers(1, 100, 8), 999
+    tokens = torch.from_numpy(tokens).to(dev)
+    weak = torch.from_numpy(gen.random(8).astype(np.float32)).to(dev)
+    cfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10,
+                      grad_accum_steps=accum)
+    out = {}
+    for fused in (True, False):
+        model = _small_clip(fused).requires_grad_(False)
+        state = S.create_train_state(model, S.model_params(model), cfg)
+        grads = {}
+        real = state.apply_gradients
+
+        def keep(g, n, real=real, grads=grads):
+            grads.update({k: v.float().clone() for k, v in g.items()})
+            return real(g, n)
+
+        state.apply_gradients = keep
+        before = fused_mha.launches
+        state, m = S.train_step(state, model, images, tokens, weak, cfg)
+        assert (fused_mha.launches > before) == fused
+        out[fused] = (float(m["loss"]), float(m["grad_norm"]), grads)
+    (l1, n1, g1), (l0, n0, g0) = out[True], out[False]
+    assert abs(l1 - l0) <= 1e-2 * abs(l0) and abs(n1 - n0) <= 1e-2 * abs(n0)
+    for k, want in g0.items():
+        err = (g1[k] - want).abs().max().item()
+        assert err <= 5e-2 * want.abs().max().item() + 1e-12, (k, err)

@@ -30,7 +30,7 @@ def test_imports_nothing_of_jax_or_tpualign():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpualign"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpualign"))
         print(len(names), bad)
         print(" ".join(names))
         sys.exit(1 if bad else 0)
@@ -42,8 +42,26 @@ def test_imports_nothing_of_jax_or_tpualign():
     imported = set(out.stdout.splitlines()[1].split())
     for name in ("data.backends", "data.captions", "data.chunking", "data.filtering",
                  "data.lexical", "data.ocr", "data.processor", "data.word", "models.loader",
-                 "utils.checks", "pipeline", "cli", "ops.quant"):
+                 "utils.checks", "pipeline", "cli", "ops.quant", "train.loss", "train.optim",
+                 "train.step", "train.lora", "train.checkpoint", "train.trainer",
+                 "utils.profiling", "utils.flops"):
         assert f"tpualign_torch.{name}" in imported, name
+
+
+def test_no_source_line_imports_jax_flax_optax_or_tpualign():
+    """No ``import``/``from`` line of the package or ``chip_smoke.py``
+    names JAX, Flax, optax or tpualign, lazy imports inside functions
+    included."""
+    import re
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|tpualign)\b")
+    files = sorted((root / "tpualign_torch").rglob("*.py")) + [root / "chip_smoke.py"]
+    hits = [f"{f.relative_to(root)}:{i}" for f in files
+            for i, line in enumerate(f.read_text(encoding="utf-8").splitlines(), 1)
+            if pattern.match(line)]
+    assert len(files) > 60 and not hits, hits
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -57,6 +75,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         build_index(emb, ["m"] * 4, [1] * 4, precision="int8", refine=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RetrievalService(emb, list("abcd"), ["m"] * 4, [1] * 4)
+    from tpualign_torch.config import load_config
+    from tpualign_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(load_config({"CLIP_MODEL": "ViT-B-32"}))
     index = RetrievalIndex(emb, ["m"] * 4, [1] * 4, device="cpu")
     assert index.search(emb[:1], ["m"], [1], k=2)[1].tolist() == [[0, 1]]
 

@@ -270,9 +270,10 @@ def test_load_errors(tmp_path, tiny_variant):
     cfg = torch_config.ModelConfig("tiny")
     with pytest.raises(FileNotFoundError, match="CLIP_CHECKPOINT"):
         torch_loader.load_checkpoint_params(cfg)
-    with pytest.raises(IsADirectoryError, match="training"):
+    # a directory is a training run's checkpoints; one without steps raises
+    with pytest.raises(FileNotFoundError, match="no checkpoint steps"):
         torch_loader.load_checkpoint_params(cfg, str(tmp_path))
-    with pytest.raises(IsADirectoryError):
+    with pytest.raises(FileNotFoundError, match="no checkpoint steps"):
         EmbedEngine(torch_config.ModelConfig("tiny", checkpoint_path=str(tmp_path)),
                     device="cpu")
     path = str(tmp_path / "other.safetensors")

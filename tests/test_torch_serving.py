@@ -466,7 +466,7 @@ def test_cli_needs_cuda_unless_cpu_is_asked(jax_store, tmp_path):
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
         env=dict(os.environ, STORE_DIR=str(jax_store), PYTHONPATH=REPO))
     assert out.returncode != 0 and "CUDA is not available" in out.stderr
-    out = subprocess.run([sys.executable, "-m", "tpualign_torch", "train"],
+    out = subprocess.run([sys.executable, "-m", "tpualign_torch", "calibrate"],
                          capture_output=True, text=True, timeout=300, cwd=tmp_path,
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert out.returncode == 2 and "not yet ported" in out.stdout

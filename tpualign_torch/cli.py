@@ -5,11 +5,12 @@
 ``process``, ``filter``, ``setup-db``, ``embed`` and ``evaluate``,
 ``check``, ``serve``, ``query``, ``index``, ``ingest`` (incremental, with
 ``--evaluate`` and ``--notify``) and ``watch`` (``--interval``,
-``--max-cycles``) are tpualign's, with the same flags, environment keys
-and output. The commands that compute run on the GPU unless ``--device
-cpu`` is given; ``process`` and ``filter`` are host work and take no
-device. ``train`` and ``calibrate`` are later slices of the port: they
-print so and exit with 2.
+``--max-cycles``) and ``train`` (fine-tuning on a schema's pairs, with
+``--ckpt-dir``, LoRA, distillation and held-out evaluation) are
+tpualign's, with the same flags, environment keys and output. The commands
+that compute run on the GPU unless ``--device cpu`` is given; ``process``
+and ``filter`` are host work and take no device. ``calibrate`` is a later
+slice of the port: it prints so and exits with 2.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Optional, Sequence
 from tpualign_torch.config import load_config
 from tpualign_torch.store import SCHEMAS
 
-_NOT_PORTED = ("train", "calibrate")
+_NOT_PORTED = ("calibrate",)
 
 
 def _add_common(p: argparse.ArgumentParser, device: bool = True) -> None:
@@ -44,7 +45,11 @@ def _config_from(args):
     for attr, env in (("input_dir", "INPUT_DIR"), ("output_dir", "OUTPUT_DIR"),
                       ("store_dir", "STORE_DIR"), ("model", "CLIP_MODEL"),
                       ("language", "LANGUAGE"), ("batch_size", "BATCH_SIZE"),
-                      ("exclude_file", "EXCLUDE_TERMS_FILE")):
+                      ("exclude_file", "EXCLUDE_TERMS_FILE"),
+                      ("lora_rank", "LORA_RANK"), ("lora_alpha", "LORA_ALPHA"),
+                      ("distill_from", "DISTILL_CHECKPOINT"),
+                      ("distill_model", "DISTILL_MODEL"),
+                      ("distill_weight", "DISTILL_WEIGHT")):
         v = getattr(args, attr, None)
         if v is not None:
             overrides[env] = str(v)
@@ -113,6 +118,33 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p_check = sub.add_parser("check", help="installation/store diagnostics")
     _add_common(p_check, device=False)
 
+    p_train = sub.add_parser("train", help="weak-supervision-weighted contrastive fine-tuning")
+    _add_common(p_train)
+    p_train.add_argument("--schema", default="clip_combined", choices=list(SCHEMAS))
+    p_train.add_argument("--steps", type=int, default=100)
+    p_train.add_argument("--train-batch-size", type=int, default=None)
+    p_train.add_argument("--ckpt-dir", default=None)
+    p_train.add_argument("--lora-rank", type=int, default=None,
+                         help="LoRA rank (>0: freeze base, train adapters)")
+    p_train.add_argument("--lora-alpha", type=float, default=None,
+                         help="LoRA merge strength (scale = alpha/rank)")
+    p_train.add_argument("--distill-from", default=None,
+                         help="teacher checkpoint: train the (smaller) student to match its "
+                              "retrieval structure")
+    p_train.add_argument("--distill-model", default=None,
+                         help="teacher model name (default: the student's)")
+    p_train.add_argument("--distill-weight", type=float, default=None,
+                         help="KD mix weight in [0,1]; 1.0 = pure distill")
+    p_train.add_argument("--eval-every", type=int, default=0,
+                         help="held-out retrieval eval every N steps")
+    p_train.add_argument("--metrics-file", default=None,
+                         help="append one JSON line per log interval (training history for "
+                              "dashboards)")
+    p_train.add_argument("--log-every", type=int, default=10,
+                         help="steps between progress logs / metric lines")
+    p_train.add_argument("--eval-fraction", type=float, default=0.0,
+                         help="fraction of pairs held out for validation")
+
     p_serve = sub.add_parser(
         "serve", help="retrieval daemon: device-resident index over HTTP/JSON")
     _add_common(p_serve)
@@ -165,6 +197,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from tpualign_torch.utils.checks import run_checks
 
         return run_checks(_config_from(args))
+    if args.command == "train":
+        return _run_train(args)
     if args.command == "serve":
         return _run_serve(args)
     if args.command == "index":
@@ -208,6 +242,20 @@ def _run_stage(args) -> int:
         print(f"tpualign_torch {args.command}: failed for {', '.join(failed)}; "
               "see the errors above", file=sys.stderr)
         return 1
+    return 0
+
+
+def _run_train(args) -> int:
+    """Fine-tune on ``--schema``'s pairs and print the final metrics, as
+    ``tpualign train`` does (one device: a mesh is multi-GPU work)."""
+    from tpualign_torch.train.trainer import Trainer
+
+    trainer = Trainer(_config_from(args), device=args.device)
+    metrics = trainer.train(schema=args.schema, steps=args.steps,
+                            batch_size=args.train_batch_size, ckpt_dir=args.ckpt_dir,
+                            eval_every=args.eval_every, eval_fraction=args.eval_fraction,
+                            metrics_file=args.metrics_file, log_every=args.log_every)
+    print({k: (round(v, 4) if isinstance(v, float) else v) for k, v in metrics.items()})
     return 0
 
 

@@ -7,7 +7,9 @@ document-processing, embed, store, retrieval and serving keys
 (``CLIP_MODEL``, ``CLIP_CHECKPOINT*``, ``BATCH_SIZE``, ``TEXT_BUCKETS``,
 ``IMAGE_PREPROCESS*``, ``INPUT_DIR``, ``LANGUAGE``, ``OUTPUT_DIR``,
 ``EXCLUDE_TERMS_FILE``, ``EVAL_OUTPUT_DIR``, ``STORE_DIR``,
-``RETRIEVAL_*``, ``IVF_*``, ``SERVE_*``, ...). The values are copied, not
+``RETRIEVAL_*``, ``IVF_*``, ``SERVE_*``, ...), and :class:`TrainConfig`
+with the training keys (``LEARNING_RATE`` ... ``DISTILL_TEMPERATURE``,
+``TRAIN_*``, ``LORA_*``). The values are copied, not
 imported, so the port loads without JAX; ``tests/test_torch_models.py``,
 ``tests/test_torch_pipeline.py`` and ``tests/test_torch_serving.py`` hold
 the two packages' tables and configs equal.
@@ -27,6 +29,7 @@ __all__ = [
     "ModelConfig",
     "DataConfig",
     "StoreConfig",
+    "TrainConfig",
     "PipelineConfig",
     "normalize_model_name",
     "load_env_file",
@@ -185,6 +188,42 @@ class StoreConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Weak-supervision-weighted contrastive fine-tuning: tpualign's
+    fields and defaults (see ``tpualign.config.TrainConfig`` for each)."""
+
+    learning_rate: float = 1e-5
+    weight_decay: float = 0.2
+    batch_size: int = 256
+    warmup_steps: int = 200
+    total_steps: int = 2000
+    weak_score_temperature: float = 0.5
+    label_smoothing: float = 0.0
+    # FLIP visible-patch ratio to MASK during training (0 = off)
+    patch_mask_ratio: float = 0.0
+    loss_type: str = "clip"          # "clip" (InfoNCE) or "siglip"
+    siglip_bias: float = -10.0
+    # cached-feature accumulation microsteps per optimizer step (1 = off)
+    grad_accum_steps: int = 1
+    ema_decay: float = 0.0           # 0 = no EMA
+    moments_dtype: str = "float32"   # AdamW's first moment: float32/bfloat16
+    lora_rank: int = 0               # > 0: frozen base, low-rank adapters
+    lora_alpha: float = 16.0
+    seed: int = 0
+    distill_checkpoint: str = ""
+    distill_model: str = ""
+    distill_weight: float = 0.5
+    distill_temperature: float = 1.0
+    feed_workers: int = 0            # decode pool (0 = min(8, cores))
+    feed_cache_mb: int = 2048
+    image_feed: str = "host"         # "host" pixels or "device" uint8 buckets
+    augment: str = "none"            # "rrc": device feed only
+    lora_base_dtype: str = "float32"
+    # parsed for tpualign's keys; the port's trainer raises on it (one card)
+    fsdp: bool = False
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     """What the port's entry points read: the pipeline's directories, the
     embed batch and image feed, the store, and the retrieval and serving
@@ -194,6 +233,7 @@ class PipelineConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     store: StoreConfig = field(default_factory=StoreConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     eval_output_dir: str = "evaluation_results"
     batch_size: int = 256
     # image feed: "host" (PIL bicubic per image) or "device" (uint8
@@ -271,6 +311,56 @@ def _optional(env: Mapping[str, str], key: str, cast, off=("",)):
     return None if raw.strip().lower() in off else cast(raw)
 
 
+def _train_config(env: Mapping[str, str]) -> TrainConfig:
+    """The training keys, with tpualign's defaults and validation errors."""
+    train = TrainConfig(
+        learning_rate=float(_env(env, "LEARNING_RATE", "1e-5")),
+        weight_decay=float(_env(env, "WEIGHT_DECAY", "0.2")),
+        batch_size=int(_env(env, "TRAIN_BATCH_SIZE", "")
+                       or _env(env, "BATCH_SIZE", "256") or "256"),
+        warmup_steps=int(_env(env, "WARMUP_STEPS", "200")),
+        total_steps=int(_env(env, "TOTAL_STEPS", "2000")),
+        weak_score_temperature=float(_env(env, "WEAK_SCORE_TEMPERATURE", "0.5")),
+        label_smoothing=float(_env(env, "LABEL_SMOOTHING", "0.0")),
+        patch_mask_ratio=float(_env(env, "PATCH_MASK_RATIO", "0.0")),
+        loss_type=_env(env, "LOSS_TYPE", "clip"),
+        siglip_bias=float(_env(env, "SIGLIP_BIAS", "-10.0")),
+        grad_accum_steps=int(_env(env, "GRAD_ACCUM_STEPS", "1")),
+        ema_decay=float(_env(env, "EMA_DECAY", "0.0")),
+        moments_dtype=_env(env, "MOMENTS_DTYPE", "float32"),
+        fsdp=_env_bool(env, "TRAIN_FSDP", False),
+        seed=int(_env(env, "SEED", "0")),
+        feed_workers=int(_env(env, "TRAIN_FEED_WORKERS", "0")),
+        feed_cache_mb=int(_env(env, "TRAIN_FEED_CACHE_MB", "2048")),
+        image_feed=_env(env, "TRAIN_IMAGE_FEED", "host"),
+        augment=_env(env, "TRAIN_AUGMENT", "none"),
+        lora_rank=int(_env(env, "LORA_RANK", "0")),
+        lora_alpha=float(_env(env, "LORA_ALPHA", "16.0")),
+        lora_base_dtype=_env(env, "LORA_BASE_DTYPE", "float32"),
+        distill_checkpoint=_env(env, "DISTILL_CHECKPOINT", ""),
+        distill_model=_env(env, "DISTILL_MODEL", ""),
+        distill_weight=float(_env(env, "DISTILL_WEIGHT", "0.5")),
+        distill_temperature=float(_env(env, "DISTILL_TEMPERATURE", "1.0")),
+    )
+    if not 0.0 <= train.distill_weight <= 1.0:
+        raise ValueError(f"DISTILL_WEIGHT must be in [0, 1], got {train.distill_weight}")
+    if train.distill_temperature <= 0.0:
+        raise ValueError(f"DISTILL_TEMPERATURE must be > 0, got {train.distill_temperature}")
+    if train.distill_model and not train.distill_checkpoint:
+        raise ValueError(
+            "DISTILL_MODEL is set but DISTILL_CHECKPOINT is not — a teacher "
+            "needs weights (set DISTILL_CHECKPOINT to the teacher checkpoint)")
+    if train.image_feed not in ("host", "device"):
+        raise ValueError(f"TRAIN_IMAGE_FEED must be host|device, got {train.image_feed!r}")
+    if train.augment not in ("none", "rrc"):
+        raise ValueError(f"TRAIN_AUGMENT must be none|rrc, got {train.augment!r}")
+    if train.augment == "rrc" and train.image_feed != "device":
+        raise ValueError(
+            "TRAIN_AUGMENT=rrc needs TRAIN_IMAGE_FEED=device (crop boxes "
+            "fold into the on-device resize weights)")
+    return train
+
+
 def load_config(overrides: Optional[Mapping[str, str]] = None,
                 env_file: Optional[str] = None) -> PipelineConfig:
     """Build a :class:`PipelineConfig` from defaults, ``env_file`` (a
@@ -289,6 +379,7 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
         parity_mode=_env_bool(env, "PARITY_MODE", False),
         quant=_env(env, "CLIP_QUANT", "none"),
     )
+    train = _train_config(env)
     serve_auto_compact = _optional(env, "SERVE_AUTO_COMPACT", float, ("", "off", "none"))
     if serve_auto_compact is not None and not 0.0 < serve_auto_compact <= 1.0:
         raise ValueError(
@@ -310,6 +401,7 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
             exclude_terms_file=_env(env, "EXCLUDE_TERMS_FILE", "") or None,
         ),
         store=StoreConfig(root=_env(env, "STORE_DIR", "data/store")),
+        train=train,
         eval_output_dir=_env(env, "EVAL_OUTPUT_DIR", "evaluation_results"),
         batch_size=int(_env(env, "BATCH_SIZE", "256")),
         image_preprocess=_env(env, "IMAGE_PREPROCESS", "host"),

@@ -4,6 +4,7 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -38,8 +39,9 @@ class CLIP(nn.Module):
             use_fused_attention, v.text_mlp_dim, quant)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
-    def encode_image(self, images: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-        feats = self.visual(images)
+    def encode_image(self, images: torch.Tensor, normalize: bool = False,
+                     patch_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+        feats = self.visual(images, patch_indices)
         if normalize:
             feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
         return feats
@@ -50,8 +52,9 @@ class CLIP(nn.Module):
             feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
         return feats
 
-    def forward(self, images: torch.Tensor, token_ids: torch.Tensor):
-        return (self.encode_image(images, normalize=True),
+    def forward(self, images: torch.Tensor, token_ids: torch.Tensor,
+                patch_indices: Optional[torch.Tensor] = None):
+        return (self.encode_image(images, normalize=True, patch_indices=patch_indices),
                 self.encode_text(token_ids, normalize=True),
                 self.logit_scale.exp())
 

@@ -3,7 +3,8 @@ package's parameter layout (the port's copy of ``tpualign.models.loader``).
 
 ``CLIP_CHECKPOINT`` names a local file: an OpenCLIP/OpenAI ``state_dict``
 (``.pt`` / ``.bin`` through torch, ``.safetensors`` through safetensors)
-or a HuggingFace ``CLIPModel`` state dict. It is converted into nested
+or a HuggingFace ``CLIPModel`` state dict, or a training run's checkpoint
+directory (``train/checkpoint.py``). It is converted into nested
 dicts of float32 numpy arrays in the JAX tree's names and layouts, which
 :func:`tpualign_torch.models.convert.from_jax_params` loads into the
 port's towers. Without a checkpoint, ``EmbedEngine`` draws seeded random
@@ -187,17 +188,19 @@ def load_checkpoint_params(config: ModelConfig, path: str | None = None) -> Para
     """Load and convert the checkpoint file ``path`` (default:
     ``config.checkpoint_path``) for ``config``'s variant. The layout is
     detected from the keys: ``visual.`` is OpenCLIP, ``vision_model.`` is
-    HuggingFace. A directory (a training run's orbax checkpoints) raises:
-    restoring those comes with training."""
+    HuggingFace. A directory is a training run's checkpoints
+    (``python -m tpualign_torch train --ckpt-dir``): its newest step's
+    params load through ``train.checkpoint.load_trained_params`` (the EMA
+    when tracked, LoRA merged)."""
     path = path or config.checkpoint_path
     if not path:
         raise FileNotFoundError("No checkpoint path configured (set CLIP_CHECKPOINT or "
                                 "ModelConfig.checkpoint_path)")
     if os.path.isdir(path):
-        raise IsADirectoryError(
-            f"CLIP_CHECKPOINT {path!r} is a directory: restoring a training run's orbax "
-            "checkpoints comes with training (ROADMAP queue 1, item 8); point it at an "
-            "OpenCLIP or HuggingFace checkpoint file")
+        from tpualign_torch.train.checkpoint import load_trained_params
+
+        log.info("Loading trained params from checkpoint directory %s", path)
+        return load_trained_params(path)
     sd = _read_state_dict(path, allow_pickle=config.checkpoint_allow_pickle)
     keys = set(sd.keys())
     variant = config.variant

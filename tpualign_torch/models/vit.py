@@ -3,7 +3,8 @@
 Images are NHWC, as in the JAX package. The patch embedding is the
 convolution's arithmetic written as a matmul over (h, w, c)-ordered
 patches, so no cuDNN convolution (TF32 by default in fp32) is involved.
-FLIP patch masking is training only and waits for the training slice.
+FLIP patch masking (training only): ``patch_indices`` keeps the visible
+patches and their positional rows, as tpualign's ``take_along_axis``.
 """
 
 from __future__ import annotations
@@ -45,8 +46,13 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: (B, H, W, 3) float, already normalized -> (B, embed) fp32."""
+    def forward(self, images: torch.Tensor,
+                patch_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """images: (B, H, W, 3) float, already normalized -> (B, embed) fp32.
+
+        ``patch_indices``: optional (B, K) integer indices of the VISIBLE
+        patches (FLIP masking, arXiv:2212.00794): the transformer runs on
+        the class token and those K patches only. None keeps them all."""
         b, h, w, ch = images.shape
         p, s = self.patch_size, self.image_size
         if (h, w, ch) != (s, s, 3):
@@ -58,7 +64,14 @@ class VisionTransformer(nn.Module):
         kernel = self.conv1_kernel.reshape(p * p * 3, self.width).to(cdt)
         x = matmul_f32acc(x, kernel).to(cdt)
         cls = self.class_embedding.to(cdt).expand(b, 1, self.width)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(cdt)[None]
+        pos = self.positional_embedding.to(cdt)
+        if patch_indices is not None:
+            # gather the visible patches and their positional rows (row 0 is CLS)
+            idx = patch_indices.long()
+            x = torch.take_along_dim(x, idx[..., None], dim=1)
+            x = torch.cat([cls + pos[None, :1], x + pos[1:][idx]], dim=1)
+        else:
+            x = torch.cat([cls, x], dim=1) + pos[None]
         x = self.ln_pre(x)
         x = self.transformer(x)
         x = self.ln_post(x[:, 0, :])

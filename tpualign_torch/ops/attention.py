@@ -10,8 +10,13 @@ Bound on the H100 (ViT-B-32, B=256): memory, one read of the packed QKV
 and one write of the context per launch, about 24 us at 3.35 TB/s. bf16
 runs on the tensor cores (``mma.sync``, the scores in registers), fp32 on
 the CUDA cores (see the source's notes).
-Forward only: the backward, which recomputes through the plain path as
-``pallas_attention.py``'s ``custom_vjp`` does, comes with training.
+
+Under autograd (training) the forward still launches K1 and the backward
+recomputes through :func:`fused_mha_reference`, as ``pallas_attention.py``'s
+``custom_vjp`` (``_fused_mha_bwd``) recomputes through
+``_xla_reference_mha``: tpualign has no backward kernel either.
+``fused_mha.launches`` counts K1's launches, ``fused_mha.backward_recomputes``
+the backward passes.
 """
 
 from __future__ import annotations
@@ -56,6 +61,33 @@ def fused_mha_reference(qkv: torch.Tensor, num_heads: int,
     return ctx.transpose(1, 2).reshape(b, t, d).to(qkv.dtype)
 
 
+class _FusedMHA(torch.autograd.Function):
+    """K1 forward; the backward recomputes the plain attention under
+    autograd and takes its vector-Jacobian product, as ``_fused_mha_bwd``
+    does."""
+
+    @staticmethod
+    def forward(ctx, qkv, mask, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv, mask)
+        return _launch(qkv, num_heads, mask)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            q = qkv.detach().requires_grad_(True)
+            m = None
+            if mask is not None:
+                m = mask.detach().requires_grad_(ctx.needs_input_grad[1])
+            out = fused_mha_reference(q, ctx.num_heads, m)
+            wrt = [q] + ([m] if m is not None and m.requires_grad else [])
+            grads = torch.autograd.grad(out, wrt, grad)
+        fused_mha.backward_recomputes += 1
+        dmask = grads[1] if len(grads) > 1 else None
+        return grads[0], dmask, None
+
+
 def fused_mha(qkv: torch.Tensor, num_heads: int,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention over packed QKV ``(B, T, 3D)`` -> context ``(B, T, D)``.
@@ -63,8 +95,9 @@ def fused_mha(qkv: torch.Tensor, num_heads: int,
     ``mask``: optional additive ``(T, T)`` (or ``(1, 1, T, T)``) fp32 mask,
     e.g. the text tower's causal mask. CUDA tensors launch K1 (fp32 or
     bf16, T <= 257, head dim in ``HEAD_DIMS``, a bf16 ``qkv`` starting on a
-    16-byte boundary) and raise on anything it does not take; CPU tensors
-    take :func:`fused_mha_reference`.
+    16-byte boundary) and raise on anything it does not take; under
+    autograd the backward recomputes through :func:`fused_mha_reference`.
+    CPU tensors take :func:`fused_mha_reference`.
     """
     if qkv.dim() != 3 or qkv.shape[2] % 3:
         raise ValueError(f"qkv must be (B, T, 3*D); got {tuple(qkv.shape)}")
@@ -85,10 +118,6 @@ def fused_mha(qkv: torch.Tensor, num_heads: int,
         return fused_mha_reference(qkv, num_heads, mask)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_mha: unsupported device {qkv.device}")
-    if qkv.requires_grad:
-        raise NotImplementedError(
-            "fused_mha is forward only; run under torch.no_grad() or "
-            "torch.inference_mode()")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd}: the kernel takes {HEAD_DIMS}")
     if not 0 < t <= MAX_SEQ:
@@ -98,6 +127,17 @@ def fused_mha(qkv: torch.Tensor, num_heads: int,
     if qkv.dtype == torch.bfloat16 and qkv.data_ptr() % 16:
         raise ValueError("bf16 qkv must start on a 16-byte boundary (the kernel copies "
                          "16 bytes at a time)")
+    if torch.is_grad_enabled() and (qkv.requires_grad
+                                    or (mask is not None and mask.requires_grad)):
+        return _FusedMHA.apply(qkv, mask, num_heads)
+    return _launch(qkv, num_heads, mask)
+
+
+def _launch(qkv: torch.Tensor, num_heads: int, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """One K1 launch on checked CUDA inputs."""
+    b, t, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // num_heads
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
         return out
@@ -114,3 +154,4 @@ def fused_mha(qkv: torch.Tensor, num_heads: int,
 
 
 fused_mha.launches = 0
+fused_mha.backward_recomputes = 0
