@@ -1,4 +1,4 @@
-"""Drives tpualign_torch's embed-and-search, pipeline, training and serving paths on one NVIDIA GPU.
+"""Drives tpualign_torch's embed-and-search, pipeline, training, serving and HNSW paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,7 +7,8 @@ for the numbers in PERF.md). Phases, one JSON line each:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 1. build: the five kernels compiled from ``tpualign_torch/csrc/``, in
-   parallel;
+   parallel, and the native host library (``tpualign_torch/native``, g++)
+   beside them;
 2. K1 ``fused_mha`` against its plain version at ViT-B-32's shapes (B=256:
    vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal), fp32
    (the CUDA-core kernel) and bf16 (the tensor-core kernel): eight rows,
@@ -126,7 +127,27 @@ for the numbers in PERF.md). Phases, one JSON line each:
     of ``embed`` (the int8_qat one at CLIP_QUANT=int8) over the run
     subset, the stored embeddings against the trainer's export params bit
     for bit;
-14. the seconds of each phase, the kernels line, the card line, and
+14. hnsw, over the pipeline phase's store after ``train`` (which reads the
+    weak scores ``calibrate --write`` rewrites): the native library
+    (built by g++ in 1.) times the tokenizer with and without its BPE
+    merge core (8,192 texts of the slice's generator, then 1,024 texts of
+    unseen words; identical ids) and the lexical counts native and in
+    Python over the store's 32,768 chunks and vocabulary; ``python -m
+    tpualign_torch index`` with RETRIEVAL_INDEX=hnsw, a 0.95 recall target
+    and HNSW_CACHE as a subprocess (build and calibration seconds, the ef
+    and recall it reached, memory); ``build_service`` loading the artifact
+    with the towers from the checkpoint, the clients of 11., every answer
+    against a direct ``HNSWIndex.search_encoded`` call, keyed answers
+    against the exact fp32 index (K2), every score against the unit rows'
+    dot; /add of 4,096 rows by embeddings and 64 by text, /remove of 25 %
+    and /compact, each step's keyed answers against an exact index over
+    the live rows; the fp16 rung against fp32 over 8,192 rows (memory,
+    recall@10, keyed answers against the fp16-rounded exact index); and
+    ``calibrate --schema clip_combined``, a dry run through the CLI's
+    ``main`` in this process, then ``--write`` as a subprocess (the pairs,
+    the written scores against a float64 fit: equal after the float32
+    cast, monotone, the fit's sum that of the pair cosines);
+15. the seconds of each phase, the kernels line, the card line, and
     ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -199,12 +220,27 @@ def card_line() -> str:
 
 
 def phase_build():
+    """The five kernels (one nvcc each, all started together) and, on a
+    thread beside them, the native host library (g++)."""
+    from tpualign_torch.native import build as native_build
     from tpualign_torch.ops import build
 
+    native = {}
+
+    def build_native():
+        t0 = time.perf_counter()
+        native["path"] = native_build.build()
+        native["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    thread.start()
     libs = build.build_all()
+    thread.join()
     secs = time.perf_counter() - t0
-    emit({"phase": "build", "seconds": secs, "libraries": {k: v.name for k, v in libs.items()}})
+    check(native["path"] is not None, "the native library did not build (g++)")
+    emit({"phase": "build", "seconds": secs, "libraries": {k: v.name for k, v in libs.items()},
+          "native_library": native["path"].name, "native_build_s": native["s"]})
 
 
 def phase_k1(dev, gen):
@@ -3019,6 +3055,486 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
     return out
 
 
+HNSW_TARGET = 0.95      # RETRIEVAL_RECALL_TARGET of the hnsw phase's index
+HNSW_FP16_ROWS = 8192   # rows of the fp16 rung against fp32
+HNSW_ADD_ROWS, HNSW_ADD_TEXTS = 4096, 64
+HNSW_REMOVE_SHARE = 0.25
+HNSW_CHECK_QUERIES = 256  # keyed image queries held against the exact index per step
+HNSW_BPE_WORDS = 1500   # words whose letter chains make the tokenizer's merges table
+HNSW_COLD_TEXTS = 1024  # texts of 8 words each, unseen by the tokenizer's caches
+
+
+def _host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (vendor, family and model
+    where a virtual machine hides the model name), and the CPUs visible."""
+    import os
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{fields.get('vendor_id', 'unknown')} family {fields.get('cpu family', '?')} "
+                f"model {fields.get('model', '?')}")
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def _words(rng, count):
+    """Lower-case words of 3-12 letters, drawn by a Dutch-like frequency."""
+    letters = np.array(list("eeeaaanrrtoodsilgkvhmubpwjzcf"))
+    return ["".join(rng.choice(letters, int(n))) for n in rng.integers(3, 13, count)]
+
+
+def _bpe_merges(path, words) -> int:
+    """A merges table of letter chains: each word's letters merged left to
+    right (the last one with ``</w>``), ranked by chain length, so that the
+    greedy merge of one word meets other words' chains on its way."""
+    from tpualign_torch.tokenizer.bpe import bytes_to_unicode
+
+    enc = bytes_to_unicode()
+    merges = set()
+    for w in words:
+        b = "".join(enc[x] for x in w.encode())
+        for i in range(2, len(b) + 1):
+            merges.add((i, b[:i - 1], b[i - 1] + ("</w>" if i == len(b) else "")))
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("#version: letter chains\n")
+        f.writelines(f"{left} {right}\n" for _, left, right in sorted(merges))
+    return len(merges)
+
+
+def _tokenizer_speed(merges, texts, rounds=2) -> dict:
+    """Seconds per 1k texts of a fresh tokenizer (empty caches) with the
+    native merge core and without it, best of ``rounds`` rounds in turns
+    (native first, then Python first); the ids must be identical."""
+    from tpualign_torch.tokenizer.bpe import ClipTokenizer
+
+    best, ids = {}, {}
+    for r in range(rounds):
+        for path in (("native", "python") if r % 2 == 0 else ("python", "native")):
+            tok = ClipTokenizer(bpe_path=merges)
+            check(tok._bpe_core is not None, "the native BPE core did not load")
+            if path == "python":
+                tok._bpe_core = None
+            t0 = time.perf_counter()
+            ids[path] = tok(texts)
+            secs = time.perf_counter() - t0
+            best[path] = min(best.get(path, secs), secs)
+    check(np.array_equal(ids["native"], ids["python"]), "native and Python BPE ids differ")
+    return {"texts": len(texts), "native_s_per_1k": best["native"] / len(texts) * 1e3,
+            "python_s_per_1k": best["python"] / len(texts) * 1e3,
+            "speedup": best["python"] / best["native"]}
+
+
+def _native_speedups(seed, work, chunk_texts, terms) -> dict:
+    """The native library on the card's host: the tokenizer with and
+    without its BPE merge core (the slice's texts, then texts of words no
+    cache has seen), the lexical counts native and in Python over the
+    store's chunks and vocabulary."""
+    import os
+
+    import tpualign_torch.weaksup.lexical as lexical
+    from tpualign_torch.native import bindings
+
+    check(bindings.native_available(), "the native library did not build or load")
+    rng = np.random.default_rng(seed + 10)
+    merges = os.path.join(work, "letter_chains.merges.txt")
+    slice_texts = _chunk_texts(np.random.default_rng(seed), 8192)
+    slice_words = sorted({w for t in slice_texts for w in t.lower().split()})
+    out = {"merges": _bpe_merges(merges, _words(rng, HNSW_BPE_WORDS) + slice_words)}
+    cold = [" ".join(_words(rng, 8)) for _ in range(HNSW_COLD_TEXTS)]
+    out["tokenizer_slice_texts"] = _tokenizer_speed(merges, slice_texts)
+    out["tokenizer_cold_words"] = _tokenizer_speed(merges, cold)
+
+    t0 = time.perf_counter()
+    native = lexical.lexical_match_counts(chunk_texts, terms)
+    native_s = time.perf_counter() - t0
+    real = lexical.lexical_counts
+    lexical.lexical_counts = lambda texts, terms: None  # the Python loop
+    try:
+        t0 = time.perf_counter()
+        python = lexical.lexical_match_counts(chunk_texts, terms)
+        python_s = time.perf_counter() - t0
+    finally:
+        lexical.lexical_counts = real
+    differ = np.flatnonzero(native != python)
+    out["lexical"] = {"chunks": len(chunk_texts), "terms": len(terms), "native_s": native_s,
+                      "python_s": python_s, "speedup": python_s / native_s,
+                      "native_sum": int(native.sum()), "python_sum": int(python.sum()),
+                      "texts_that_differ": len(differ),
+                      "first_differences": [{"text": chunk_texts[i], "native": int(native[i]),
+                                             "python": int(python[i])} for i in differ[:3]]}
+    return out
+
+
+_TIMED_INDEX = """
+import atexit, json, runpy, sys, time
+from tpualign_torch.parallel import hnsw
+spans = {"build_s": 0.0, "calibrate_s": 0.0}
+def timed(fn, key):
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spans[key] += time.perf_counter() - t0
+    return wrapper
+hnsw.HNSWIndex.__init__ = timed(hnsw.HNSWIndex.__init__, "build_s")
+hnsw.HNSWIndex.calibrate = timed(hnsw.HNSWIndex.calibrate, "calibrate_s")
+path = sys.argv[1]
+def _dump():
+    with open(path, "w") as f:
+        json.dump(spans, f)
+atexit.register(_dump)
+sys.argv = ["tpualign_torch"] + sys.argv[2:]
+runpy.run_module("tpualign_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _hnsw_index_cli(dev, env, work) -> dict:
+    """``python -m tpualign_torch index`` under RETRIEVAL_INDEX=hnsw as a
+    subprocess, the graph's build and its calibration timed inside it.
+    Returns its JSON line with the times and the recall the calibration
+    logged."""
+    import os
+    import re
+
+    spans = os.path.join(work, "hnsw_index_spans.json")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _TIMED_INDEX, spans, "index", "--schema",
+                          "vanilla_clip", "--device", dev.type], capture_output=True, text=True,
+                         timeout=900, cwd=work, env=dict(os.environ, PYTHONPATH=path, **env))
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"index exited {out.returncode}: {out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    with open(spans) as f:
+        line.update(json.load(f))
+    got = re.search(r"HNSW calibration: (?:ef_search=\d+ reaches recall@\d+ ([0-9.]+)"
+                    r"|recall@\d+ ([0-9.]+) at the ef cap)", out.stderr)
+    check(got is not None, f"index logged no calibration: {out.stderr[-2000:]}")
+    line.update(achieved_recall=float(got.group(1) or got.group(2)),
+                target_reached=got.group(1) is not None, wall_s=wall)
+    return line
+
+
+def _unit64(x):
+    x = np.asarray(x, np.float64)
+    return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
+
+
+def _score_error(index, queries, vals, idx) -> float:
+    """Largest gap between a returned score and the float64 dot of the unit
+    query and the unit stored row."""
+    err = 0.0
+    for q, v, i in zip(_unit64(queries), vals, idx):
+        keep = i >= 0
+        if keep.any():
+            want = _unit64(index._corpus[i[keep]].astype(np.float32)) @ q
+            err = max(err, float(np.abs(want - v[keep]).max()))
+    return err
+
+
+def _against_exact(dev, got, queries, qk, rows, manuals, pages, what) -> float:
+    """Keyed results ``got`` (values, row indices into ``rows``) against a
+    fresh exact fp32 ``RetrievalIndex`` over ``rows`` (K2 on the card):
+    indices identical outside value ties, values within K2_TOL_VALUES.
+    Returns the largest value gap."""
+    from tpualign_torch.parallel import RetrievalIndex
+
+    vals, idx = got
+    exact = RetrievalIndex(rows, manuals, pages, device=dev)
+    rvals, ridx = exact.search_encoded(np.asarray(queries, np.float32),
+                                       np.asarray(qk, np.int32), idx.shape[1])
+    return compare_topk(*(torch.from_numpy(np.ascontiguousarray(a))
+                          for a in (vals, idx, rvals, ridx)), what)
+
+
+def _hnsw_live(dev, service, images, img_emb, rows, manuals, pages, seed) -> list:
+    """/add by embeddings and by text, /remove of a quarter of the rows and
+    /compact on the HNSW service behind HTTP; after each step the served
+    keyed answers equal the index's own, and an exact index's over the
+    live rows."""
+    import urllib.request
+
+    from tpualign_torch.parallel.retrieval import encode_keys
+    from tpualign_torch.serving.server import _ServiceBox, serve_schemas
+
+    rng = np.random.default_rng(seed + 20)
+    live = _LiveRows(rows, service.chunk_ids, manuals, pages)
+    sel = rng.choice(len(images), HNSW_ADD_ROWS)
+    noise = rng.normal(size=(HNSW_ADD_ROWS, img_emb.shape[1])) / np.sqrt(img_emb.shape[1])
+    add_emb = _unit64(img_emb[sel] + 0.3 * noise).astype(np.float32)
+    text_sel = rng.choice(len(images), HNSW_ADD_TEXTS)
+    texts = [f"vervang onderdeel {i} van de pomp" for i in range(HNSW_ADD_TEXTS)]
+    probe = np.concatenate([rng.choice(len(images), HNSW_CHECK_QUERIES - 64, replace=False),
+                            sel[:32], text_sel[:32]])
+    probe_ids = [images[i]["image_id"] for i in probe]
+    httpd = serve_schemas({"vanilla_clip": _ServiceBox(service)}, "vanilla_clip",
+                          "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    steps = []
+
+    def step(name, path, payload, apply):
+        got, secs = _timed_post(base, path, payload)
+        apply()
+        index = service.index
+        q = img_emb[probe]
+        qk = encode_keys([images[i]["manual_id"] for i in probe],
+                         [images[i]["page"] for i in probe], dict(index.vocab))[0]
+        vals, idx = index.search_encoded(q, np.asarray(qk, np.int64), 10)
+        served = _post(base, "/search_image", {"image_ids": probe_ids, "k": 10})["results"]
+        check(_as_pairs(served) == _pairs(vals, idx, service.chunk_ids),
+              f"hnsw {name}: /search_image differs from the index's search")
+        # the index's rows (tombstones included until /compact) mapped to
+        # positions among the live rows, by chunk id
+        at = {live.ids[r]: j for j, r in enumerate(live.order)}
+        live_idx = np.asarray([[at[service.chunk_ids[i]] if i >= 0 else -1 for i in row]
+                               for row in idx], np.int64)
+        err = _against_exact(dev, (vals, live_idx), q, qk, live.rows()[live.order],
+                             [live.manuals[r] for r in live.order],
+                             [live.pages[r] for r in live.order], f"hnsw {name}")
+        steps.append({"step": name, "s": secs, "answer": got, "n": index.n,
+                      "dead": index.dead, "max_abs_err_vs_exact": err})
+
+    try:
+        step("add_embeddings", "/add",
+             {"chunk_ids": [f"hnsw-add-{i}" for i in range(HNSW_ADD_ROWS)],
+              "manuals": [images[i]["manual_id"] for i in sel],
+              "pages": [images[i]["page"] for i in sel], "embeddings": add_emb.tolist()},
+             lambda: live.add(add_emb, [f"hnsw-add-{i}" for i in range(HNSW_ADD_ROWS)],
+                              [images[i]["manual_id"] for i in sel],
+                              [images[i]["page"] for i in sel]))
+        step("add_texts", "/add",
+             {"chunk_ids": [f"hnsw-text-{i}" for i in range(HNSW_ADD_TEXTS)],
+              "manuals": [images[i]["manual_id"] for i in text_sel],
+              "pages": [images[i]["page"] for i in text_sel], "texts": texts},
+             lambda: live.add(np.stack([service.text_encoder.seen[t][-1] for t in texts]),
+                              [f"hnsw-text-{i}" for i in range(HNSW_ADD_TEXTS)],
+                              [images[i]["manual_id"] for i in text_sel],
+                              [images[i]["page"] for i in text_sel]))
+        ids_now = [live.ids[r] for r in live.order]
+        gone = [ids_now[i] for i in rng.choice(len(ids_now), int(HNSW_REMOVE_SHARE
+                                                                 * len(ids_now)), replace=False)]
+        step("remove", "/remove", {"chunk_ids": gone}, lambda: live.remove(gone))
+        step("compact", "/compact", {}, lambda: None)
+        stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=60).read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join()
+    check(steps[-1]["dead"] == 0 and stats["hnsw"]["live"] == stats["corpus_size"]
+          == len(live.order), f"after /compact: {stats['hnsw']}")
+    return steps
+
+
+def _hnsw_fp16(dev, rows, manuals, pages, images, img_emb) -> dict:
+    """The fp16 rung (pgvector's halfvec) against fp32 over the first
+    HNSW_FP16_ROWS rows: memory, wildcard recall@10 of both against the
+    exact top-10, and keyed answers against an exact index over the
+    fp16-rounded rows."""
+    from tpualign_torch.parallel.hnsw import HNSWIndex, _normalize
+    from tpualign_torch.parallel.retrieval import WILDCARD_KEY, encode_keys
+
+    n = HNSW_FP16_ROWS
+    rows, manuals, pages = rows[:n], manuals[:n], pages[:n]
+    out = {"rows": n}
+    built = {}
+    for precision in ("fp32", "fp16"):
+        t0 = time.perf_counter()
+        built[precision] = HNSWIndex(rows, manuals, pages, precision=precision)
+        out[f"{precision}_build_s"] = time.perf_counter() - t0
+        out[f"{precision}_memory_bytes"] = built[precision].memory_bytes()
+    kept = set(manuals)
+    mine = [i for i, im in enumerate(images) if im["manual_id"] in kept][:HNSW_CHECK_QUERIES]
+    q = _normalize(img_emb[mine])
+    exact = np.argsort(-(q @ _normalize(rows).T), axis=1, kind="stable")[:, :10]
+    wild = np.full(len(q), WILDCARD_KEY, np.int64)
+    for precision, index in built.items():
+        _, idx = index.search_encoded(q, wild, 10)
+        out[f"{precision}_recall_at_10"] = float(np.mean(
+            [len(set(a) & set(b)) / 10 for a, b in zip(idx, exact)]))
+    qk = encode_keys([images[i]["manual_id"] for i in mine], [images[i]["page"] for i in mine],
+                     dict(built["fp16"].vocab))[0]
+    rounded = _normalize(rows).astype(np.float16).astype(np.float32)
+    out["keyed_max_abs_err_vs_rounded_exact"] = _against_exact(
+        dev, built["fp16"].search_encoded(q, np.asarray(qk, np.int64), 10), q, qk, rounded,
+        manuals, pages, "hnsw fp16 keyed")
+    return out
+
+
+def _calibrate_cli(dev, env, store_dir) -> dict:
+    """``calibrate --schema clip_combined``: a dry run through the CLI's
+    ``main`` in this process, then ``python -m tpualign_torch calibrate
+    --write`` as a subprocess; the pairs each counts, the written scores
+    against an in-process float64 fit of the same pairs (bit-equal after
+    the float32 cast; monotone in the raw scores; the fit keeps the sum of
+    the pair cosines)."""
+    import contextlib
+    import io
+    import os
+
+    from tpualign_torch.cli import main as cli_main
+
+    from tpualign_torch.store import EmbeddingStore
+    from tpualign_torch.weaksup.calibration import apply_calibration, fit_isotonic
+
+    schema = "clip_combined"
+    store = EmbeddingStore(store_dir, embed_dim=512)
+    raw_rows = store.alignments(schema)
+    img_ids, img = store.embedding_matrix(schema, "images")
+    chunk_ids, chunk = store.embedding_matrix(schema, "text_chunks")
+    ipos = {k: i for i, k in enumerate(img_ids)}
+    cpos = {k: i for i, k in enumerate(chunk_ids)}
+    pairs = [(a, b, s) for a, b, s, _ in raw_rows if a in ipos and b in cpos]
+    raw = np.asarray([s for _, _, s in pairs])
+    cos = np.einsum("nd,nd->n", img[[ipos[a] for a, _, _ in pairs]],
+                    chunk[[cpos[b] for _, b, _ in pairs]]).astype(np.float64)
+    knots = fit_isotonic(raw, cos)
+    fit64 = np.interp(raw, *knots)
+    out = {"pairs": len(pairs)}
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        code = cli_main(["calibrate", "--schema", schema, "--store-dir", store_dir,
+                         "--env-file", ""])
+    out["dry_run_in_process_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "calibrate", "--schema",
+                          schema, "--write"], capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, **env))
+    out["write_process_s"] = time.perf_counter() - t0
+    check(code == 0 and cli.returncode == 0,
+          f"calibrate exited {code}, with --write {cli.returncode}: {cli.stderr[-2000:]}")
+    for tag, line in (("dry_run", printed.getvalue()), ("write", cli.stdout)):
+        check(line.startswith(f"calibrated {len(pairs)} pairs: "),
+              f"calibrate printed {line!r}, the store holds {len(pairs)} pairs")
+        out[f"{tag}_line"] = line.strip()
+    written = {(a, b): s for a, b, s, _ in EmbeddingStore(store_dir, embed_dim=512)
+               .alignments(schema)}
+    new = np.asarray([written[(a, b)] for a, b, _ in pairs])
+    check(np.array_equal(new.astype(np.float32), apply_calibration(raw, knots)),
+          "the written scores differ from the float64 fit cast to float32")
+    order = np.argsort(raw, kind="stable")
+    check(bool(np.all(np.diff(new[order]) >= 0)), "written scores are not monotone in raw")
+    rel = abs(fit64.sum() - cos.sum()) / abs(cos.sum())
+    check(rel <= 1e-9, f"the fit's sum is {rel:.3g} off the pair cosines' (relative)")
+    out.update(knots=len(knots[0]), fit_sum_rel_err=rel,
+               written_sum_rel_err=abs(new.sum() - cos.sum()) / abs(cos.sum()),
+               raw_levels=len(np.unique(raw)), fitted_levels=len(np.unique(fit64)))
+    return out
+
+
+def phase_hnsw(dev, seed, root, checkpoint, card) -> dict:
+    """RETRIEVAL_INDEX=hnsw over the pipeline phase's store (after
+    ``train``, which reads the weak scores ``calibrate --write`` rewrites):
+    the native library (tokenizer and lexical counts, native against
+    Python), ``index`` as a subprocess (build, calibration to
+    HNSW_TARGET, artifact), the service loading it with the towers from
+    the checkpoint and every served answer against a direct search, the
+    exact index and the unit rows' dots, the mutations, the fp16 rung, and
+    ``calibrate``. Returns K1's launches around the clients' run."""
+    import os
+
+    import tpualign_torch.parallel.hnsw as hnsw_mod
+    from tpualign_torch.config import load_config
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.parallel.retrieval import WILDCARD_KEY, encode_keys
+    from tpualign_torch.serving.server import build_service, make_engine, make_image_bytes_encoder
+    from tpualign_torch.store import EmbeddingStore
+
+    work = os.path.join(root, "pipeline")
+    store_dir = os.path.join(work, "store")
+    out = {"phase": "hnsw", "card": card, "host_cpu": _host_cpu(), "model": "ViT-B-32"}
+    store = EmbeddingStore(store_dir, embed_dim=512)
+    chunks = store.chunks("vanilla_clip")
+    with open(os.path.join(work, "processed", "filtered_lexical_components.json")) as f:
+        terms = [c["term"] for c in json.load(f)["components"]]
+    out["native"] = _native_speedups(seed, work, [c["text"] for c in chunks], terms)
+
+    cache = os.path.join(work, "vanilla_clip.hnsw.npz")
+    env = {"STORE_DIR": store_dir, "RETRIEVAL_INDEX": "hnsw", "HNSW_CACHE": cache,
+           "RETRIEVAL_RECALL_TARGET": str(HNSW_TARGET), "CLIP_MODEL": "ViT-B-32",
+           "SEED": str(seed), "CLIP_CHECKPOINT": checkpoint}
+    line = _hnsw_index_cli(dev, env, work)
+    check(line["index"] == "hnsw" and line["n"] == len(chunks) and line["precision"] == "fp32",
+          f"index printed {line}")
+    line["build_s_per_1k_rows"] = line["build_s"] / line["n"] * 1e3
+    line["calibrate_s_per_1k_rows"] = line["calibrate_s"] / line["n"] * 1e3
+    out["index"] = line
+
+    builds = []
+    make_core = hnsw_mod.make_hnsw_core
+    hnsw_mod.make_hnsw_core = lambda *a, **k: builds.append(1) or make_core(*a, **k)
+    try:
+        config = load_config(env)
+        engine = make_engine(config, dev)
+        text_enc = _Recorder(engine.encode_text_batch)
+        image_enc = _Recorder(make_image_bytes_encoder(engine))
+        t0 = time.perf_counter()
+        service = build_service(config, "vanilla_clip", encoder=text_enc,
+                                image_encoder=image_enc, device=dev)
+        out["service_load_s"] = time.perf_counter() - t0
+    finally:
+        hnsw_mod.make_hnsw_core = make_core
+    index = service.index
+    check(not builds and type(index).__name__ == "HNSWIndex"
+          and index.ef_search == line["ef_search"] and index.calibrated_target == HNSW_TARGET,
+          f"the service did not load the artifact ({len(builds)} graph builds)")
+    images = store.images("vanilla_clip")
+    img_emb = service._image_embs
+    rng = np.random.default_rng(seed)
+    pngs = [_png(rng) for _ in range(4)]
+    run = _drive(service, images, pngs, (fused_mha,))
+    check(run["stats"].get("hnsw", {}).get("ef_search") == index.ef_search,
+          f"/stats has no hnsw block: {sorted(run['stats'])}")
+    check(run["launches"]["fused_mha"] > 0, "K1 was not launched while serving hnsw")
+
+    def direct(ix, emb, keys):
+        return ix.search_encoded(np.asarray(emb, np.float32), np.asarray(keys, np.int64), 10)
+
+    out["answers_checked"] = _check_answers(run, service, images, pngs, text_enc, image_enc,
+                                            direct)
+    _, rows = store.embedding_matrix("vanilla_clip", "text_chunks")
+    manuals = store.column("vanilla_clip", "text_chunks", "manual_id")
+    pages = store.column("vanilla_clip", "text_chunks", "page")
+    qk = np.asarray(encode_keys([im["manual_id"] for im in images],
+                                [im["page"] for im in images], dict(index.vocab))[0], np.int64)
+    keyed = index.search_encoded(img_emb, qk, 10)
+    out["keyed_max_abs_err_vs_exact"] = _against_exact(dev, keyed, img_emb, qk, rows, manuals,
+                                                       pages, "hnsw keyed image queries")
+    text_q = np.stack([e for embs in text_enc.seen.values() for e in embs])
+    few = img_emb[:HNSW_CHECK_QUERIES]
+    errs = [_score_error(index, img_emb, *keyed)] + [
+        _score_error(index, q, *index.search_encoded(q, np.full(len(q), WILDCARD_KEY), 10))
+        for q in (few, text_q)]
+    check(max(errs) <= 1e-5, f"returned scores off the unit rows' dots by {max(errs):.3g}")
+    out["score_max_abs_err"] = max(errs)
+    serial = {kind: [r["s"] for r in run["serial"] if r["kind"] == kind]
+              for kind in SERVE_KINDS}
+    out.update(clients=SERVE_CLIENTS, requests=len(run["results"]), wall_s=run["wall"],
+               qps=len(run["results"]) / run["wall"], endpoints=run["endpoints"],
+               alone={kind: {"p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99)}
+                      for kind, lat in serial.items() if lat},
+               stats_hnsw=run["stats"]["hnsw"], launches=run["launches"])
+
+    out["live"] = _hnsw_live(dev, service, images, img_emb, rows, manuals, pages, seed)
+    del service
+    out["fp16"] = _hnsw_fp16(dev, rows, manuals, pages, images, img_emb)
+    out["calibrate"] = _calibrate_cli(dev, {"STORE_DIR": store_dir, "CLIP_MODEL": "ViT-B-32"},
+                                      store_dir)
+    emit(out)
+    return run["launches"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3072,6 +3588,8 @@ def main() -> int:
             lap("pipeline")
             train = phase_train(dev, args.seed, root, checkpoint, card)
             lap("train")
+            hnsw_launches = phase_hnsw(dev, args.seed, root, checkpoint, card)
+            lap("hnsw")
         with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
             serve_launches, k3_serve, shared = phase_serve(dev, args.seed, root, checkpoint)
             lap("serve")
@@ -3099,7 +3617,8 @@ def main() -> int:
                                "pipeline": pipe_launches["fused_mha"],
                                "ingest": ingest_launches["fused_mha"],
                                "live": live_launches["fused_mha"],
-                               "train": train_launches["fused_mha"]},
+                               "train": train_launches["fused_mha"],
+                               "hnsw": hnsw_launches["fused_mha"]},
          "train_backward_recomputes": train_launches["fused_mha_backward"],
          "training": {"backward": "recomputes the plain attention (as tpualign's custom_vjp)",
                       "rows": train["k1_backward"],

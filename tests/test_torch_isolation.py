@@ -44,7 +44,8 @@ def test_imports_nothing_of_jax_or_tpualign():
                  "data.lexical", "data.ocr", "data.processor", "data.word", "models.loader",
                  "utils.checks", "pipeline", "cli", "ops.quant", "train.loss", "train.optim",
                  "train.step", "train.lora", "train.checkpoint", "train.trainer",
-                 "utils.profiling", "utils.flops"):
+                 "utils.profiling", "utils.flops", "native.build", "native.bindings",
+                 "parallel.hnsw", "weaksup.calibration"):
         assert f"tpualign_torch.{name}" in imported, name
 
 
@@ -127,3 +128,32 @@ def test_int8_dot_on_cpu_tensors_takes_the_plain_product():
     out = int8_dot(torch.ones(2, 8), torch.ones(8, 8))
     assert int8_dot.int_mm_calls == before
     assert torch.equal(out, torch.full((2, 8), 8.0))
+
+
+def test_native_modules_load_nothing_of_jax_or_tpualign():
+    """Building and loading the native library, and an HNSW graph over it,
+    load no JAX or tpualign module; the graph is host work, so it needs no
+    CUDA card and ``device`` is accepted and unused."""
+    code = textwrap.dedent("""
+        import shutil, sys
+        import numpy as np
+        import torch
+        torch.cuda.is_available = lambda: False
+        import tpualign_torch.native.bindings as bindings
+        import tpualign_torch.native.build as build
+        from tpualign_torch.parallel import build_index
+        ok = bindings.native_available()
+        assert ok == (shutil.which("g++") is not None), ok
+        if ok:
+            assert bindings.lexical_counts(["oil filter"], ["filter", ""]).tolist() == [1]
+            emb = np.eye(8, dtype=np.float32)
+            index = build_index(emb, ["m"] * 8, [1] * 8, index_type="hnsw")
+            assert index.search(emb[:1], ["m"], [1], k=2)[1].tolist() == [[0, 1]]
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpualign"))
+        print(bad)
+        sys.exit(1 if bad else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

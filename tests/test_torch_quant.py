@@ -284,10 +284,18 @@ def _same_fp32(got, want):
 
 
 def test_later_slices_raise(corpus):
-    """HNSW and meshes are later slices; IVF is ported (tests/test_torch_ivf.py)."""
+    """Meshes are a later slice; IVF (tests/test_torch_ivf.py) and HNSW
+    (tests/test_torch_hnsw.py) are ported: HNSW builds its host graph, or
+    says that it needs the native library."""
+    from tpualign_torch.native import native_available
+
     emb, manuals, pages = corpus
-    with pytest.raises(NotImplementedError, match="HNSW"):
-        port_retrieval.build_index(emb, manuals, pages, index_type="hnsw", device="cpu")
+    if native_available():
+        index = port_retrieval.build_index(emb, manuals, pages, index_type="hnsw", device="cpu")
+        assert type(index).__name__ == "HNSWIndex" and index.n == len(emb)
+    else:
+        with pytest.raises(RuntimeError, match="native library"):
+            port_retrieval.build_index(emb, manuals, pages, index_type="hnsw", device="cpu")
     for index_type in ("exact", "ivf"):
         with pytest.raises(NotImplementedError, match="mesh"):
             port_retrieval.build_index(emb, manuals, pages, mesh=object(), device="cpu",

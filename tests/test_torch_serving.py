@@ -31,6 +31,7 @@ from tpualign.weaksup.rerank import rerank_with_weak_scores as jax_rerank
 from tpualign_torch.serving import RetrievalService, serve
 from tpualign_torch.serving.server import index_kwargs, make_image_bytes_encoder
 from tpualign_torch.weaksup.rerank import build_weak_lookup, rerank_with_weak_scores
+from tests.test_torch_native import jax_native  # noqa: F401  (fixture of the HNSW cases)
 
 pytestmark = pytest.mark.fast
 
@@ -41,7 +42,7 @@ SERVE_FIELDS = ("retrieval_recall_target", "retrieval_index", "retrieval_precisi
                 "serve_coalesce_ms", "serve_query_cache", "serve_token", "serve_idle_timeout",
                 "serve_max_body_bytes", "serve_max_connections", "serve_request_deadline",
                 "serve_auto_compact", "batch_size", "seed", "ivf_lists", "ivf_probes",
-                "ivf_cache")
+                "ivf_cache", "hnsw_m", "hnsw_ef_construction", "hnsw_ef_search", "hnsw_cache")
 
 
 @pytest.mark.parametrize("overrides", [
@@ -52,7 +53,8 @@ SERVE_FIELDS = ("retrieval_recall_target", "retrieval_index", "retrieval_precisi
      "SERVE_MAX_BODY_BYTES": "1000", "SERVE_MAX_CONNECTIONS": "3",
      "SERVE_REQUEST_DEADLINE": "2.5", "SERVE_AUTO_COMPACT": "0.2", "TEXT_BUCKETS": "off",
      "SEED": "7", "RETRIEVAL_INDEX": "ivf", "IVF_LISTS": "64", "IVF_PROBES": "9",
-     "IVF_CACHE": "/data/g.ivf.npz"},
+     "IVF_CACHE": "/data/g.ivf.npz", "HNSW_M": "24", "HNSW_EF_CONSTRUCTION": "100",
+     "HNSW_EF_SEARCH": "64", "HNSW_CACHE": "/data/g.hnsw.npz"},
 ])
 def test_serve_config_matches_jax(overrides, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -466,10 +468,16 @@ def test_cli_needs_cuda_unless_cpu_is_asked(jax_store, tmp_path):
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
         env=dict(os.environ, STORE_DIR=str(jax_store), PYTHONPATH=REPO))
     assert out.returncode != 0 and "CUDA is not available" in out.stderr
-    out = subprocess.run([sys.executable, "-m", "tpualign_torch", "calibrate"],
-                         capture_output=True, text=True, timeout=300, cwd=tmp_path,
-                         env=dict(os.environ, PYTHONPATH=REPO))
-    assert out.returncode == 2 and "not yet ported" in out.stdout
+    # calibrate is host work: it runs without a card (the store has no
+    # clip_combined alignments, so it exits 1 as tpualign's does)
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; torch.cuda.is_available = lambda: False\n"
+         "import sys; from tpualign_torch.cli import main\n"
+         "sys.exit(main(['calibrate', '--schema', 'vanilla_clip', '--env-file', '']))"],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+        env=dict(os.environ, STORE_DIR=str(jax_store), PYTHONPATH=REPO))
+    assert out.returncode == 0 and out.stdout.startswith("calibrated 60 pairs"), out.stderr
 
 
 def test_index_cli_then_query_matches_jax(jax_store, tmp_path, monkeypatch, capsys):
@@ -534,3 +542,119 @@ def test_stats_model_block_matches_jax(jax_store, overrides):
         httpd.server_close()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+# -- RETRIEVAL_INDEX=hnsw: the host graph behind the service -----------------------------
+
+
+@pytest.fixture
+def hnsw_native(request):
+    """Both packages' native libraries over the port's build (see
+    ``tests/test_torch_native.py``); skips only without g++."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++")
+    return request.getfixturevalue("jax_native")
+
+
+@pytest.mark.parametrize("precision,coalesce", [("fp32", None), ("fp32", 2.0), ("fp16", 2.0)])
+def test_hnsw_service_matches_jax(hnsw_native, precision, coalesce):
+    """The same answers on every query route, and the same ``/stats``
+    ``hnsw`` block (no refine corpus), as tpualign's service over the same
+    rows and graph."""
+    port, ref, emb, manuals, pages = _services(precision, 0, coalesce=coalesce,
+                                               index_type="hnsw", hnsw_m=12,
+                                               hnsw_ef_search=55)
+    assert port.index._core.serialize() == ref.index._core.serialize()
+    q = emb[10:14] + 0.05
+    for k in (3, 10):
+        _same_rows(port.search_embeddings(q, manuals[10:14], pages[10:14], k=k),
+                   ref.search_embeddings(q, manuals[10:14], pages[10:14], k=k), True)
+        _same_rows(port.search_embeddings(q, None, None, k=k, global_search=True),
+                   ref.search_embeddings(q, None, None, k=k, global_search=True), True)
+    _same_rows(port.search_images(["img1", "img7"], k=6, rerank_alpha=0.3),
+               ref.search_images(["img1", "img7"], k=6, rerank_alpha=0.3), True)
+    _same_rows(port.search_text(["de pomp", "replace the filter"], k=4),
+               ref.search_text(["de pomp", "replace the filter"], k=4), True)
+    blobs = [_png(1), _png(2)]
+    _same_rows(port.search_image_bytes(blobs, k=5), ref.search_image_bytes(blobs, k=5), True)
+    st, jst = port.stats(), ref.stats()
+    assert st["index"] == jst["index"] == "HNSWIndex"
+    assert st["hnsw"] == jst["hnsw"] and st["refine_store"] is None
+    assert st["hnsw"]["m"] == 12 and st["hnsw"]["ef_search"] == 55
+    assert st["hnsw"]["live"] == len(emb) and st["hnsw"]["memory_bytes"] > 0
+    httpd = serve(port, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{httpd.server_address[1]}/stats",
+                                    timeout=30) as r:
+            assert json.loads(r.read())["hnsw"] == st["hnsw"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+
+
+def test_hnsw_service_mutations_match_jax(hnsw_native):
+    """``/add`` by embeddings and by text, ``/remove`` with auto-compaction
+    and ``/compact`` on an HNSW service, step by step against tpualign's;
+    a compaction swaps in a compacted copy while the old snapshot serves."""
+    port, ref, emb, manuals, pages = _services("fp32", 0, coalesce=None, index_type="hnsw",
+                                               auto_compact=0.3)
+    new = np.roll(emb[:4], 1, axis=1)
+    probe = np.concatenate([emb[:4], new])
+    steps = [("add_chunks", (["n0", "n1", "n2", "n3"], ["m9"] * 4, [2] * 4, new)),
+             ("add_chunks_text", (["t0", "t1"], ["m9", "m1"], [2, 1], ["de pomp", "olie"])),
+             ("remove_chunks", ([f"c{i}" for i in range(0, 60, 3)] + ["n0", "nope"],)),
+             ("compact", ()),
+             ("remove_chunks", ([f"c{i}" for i in range(1, 240, 2)],))]  # crosses 0.3
+    for name, args in steps:
+        old = port._snap
+        got, want = getattr(port, name)(*args), getattr(ref, name)(*args)
+        assert got == want, name
+        if name == "compact" or "auto_compacted" in got:
+            assert port._snap is not old and port.index is not old.index
+            assert old.index.dead > 0  # the old snapshot kept its tombstones
+        for kw in (dict(manuals=["m9"] * 8, pages=[2] * 8), dict(manuals=manuals[:8],
+                                                                  pages=pages[:8]),
+                   dict(manuals=None, pages=None, global_search=True)):
+            _same_rows(port.search_embeddings(probe, k=5, **kw),
+                       ref.search_embeddings(probe, k=5, **kw), True)
+        assert port.stats()["hnsw"] == ref.stats()["hnsw"]
+    assert "auto_compacted" in got and port.index.dead == 0
+
+
+def test_index_cli_hnsw_then_query_matches_jax(hnsw_native, jax_store, tmp_path, monkeypatch,
+                                               capsys):
+    """``index`` under RETRIEVAL_INDEX=hnsw prints tpualign's HNSW line (m,
+    ef_construction, ef_search, memory_bytes; no IVF fields) and writes
+    an artifact that ``query --image-id`` in both CLIs searches through."""
+    import tpualign.cli as jax_cli
+    import tpualign_torch.cli as torch_cli
+
+    monkeypatch.setenv("STORE_DIR", str(jax_store))
+    monkeypatch.setenv("RETRIEVAL_INDEX", "hnsw")
+    monkeypatch.setenv("RETRIEVAL_PRECISION", "fp16")
+    monkeypatch.setenv("RETRIEVAL_REFINE", "0")
+    monkeypatch.setenv("RETRIEVAL_RECALL_TARGET", "0.95")
+    lines = []
+    for main, name, extra in ((torch_cli.main, "port", ["--device", "cpu"]),
+                              (jax_cli.main, "jax", [])):
+        path = str(tmp_path / f"{name}.vanilla_clip.hnsw.npz")
+        assert main(["index", "--env-file", "", "--cache", path, *extra]) == 0
+        lines.append(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+    assert {**lines[0], "cache": None} == {**lines[1], "cache": None}
+    assert set(lines[0]) == {"schema", "index", "cache", "n", "precision", "m",
+                             "ef_construction", "ef_search", "memory_bytes"}
+    assert lines[0]["index"] == "hnsw" and lines[0]["precision"] == "fp16"
+    with np.load(lines[0]["cache"]) as a, np.load(lines[1]["cache"]) as b:
+        assert bytes(a["blob"]) == bytes(b["blob"])
+    monkeypatch.setenv("HNSW_CACHE", lines[1]["cache"])  # tpualign's artifact, both CLIs
+    outs = []
+    for main, extra in ((torch_cli.main, ["--device", "cpu"]), (jax_cli.main, [])):
+        assert main(["query", "--image-id", "img4", "-k", "6", "--env-file", "", *extra]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "no prebuilt" not in outs[0]
+    assert len(outs[0].splitlines()) == 7

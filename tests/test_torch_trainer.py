@@ -424,8 +424,8 @@ def test_train_config_errors_match_jax(env, monkeypatch):
 def test_train_cli_matches_jax(small_store, tiny, jax_pair, tmp_path, monkeypatch, capsys):  # noqa: F811
     """``python -m tpualign_torch train`` and ``tpualign train`` over the
     same store from the same checkpoint file: the same printed keys and
-    losses, a checkpoint directory and a metrics file; ``calibrate`` still
-    exits 2."""
+    losses, a checkpoint directory and a metrics file; then ``calibrate``
+    prints what tpualign's prints over that store."""
     import tpualign.cli as jax_cli
     import tpualign_torch.cli as torch_cli
     from tests.test_torch_loader import to_openclip
@@ -459,4 +459,8 @@ def test_train_cli_matches_jax(small_store, tiny, jax_pair, tmp_path, monkeypatc
         assert printed["torch"][k] == pytest.approx(printed["jax"][k], rel=5e-5, abs=1.1e-4), k
     assert ckpt.latest_step(tmp_path / "ck_torch") == 3
     assert len((tmp_path / "torch.jsonl").read_text().splitlines()) == 4
-    assert torch_cli.main(["calibrate"]) == 2
+    outs = []
+    for main in (jax_cli.main, torch_cli.main):
+        assert main(["calibrate", "--env-file", str(tmp_path / "none.env")]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[0].startswith("calibrated "), outs

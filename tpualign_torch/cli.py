@@ -6,11 +6,12 @@
 ``check``, ``serve``, ``query``, ``index``, ``ingest`` (incremental, with
 ``--evaluate`` and ``--notify``) and ``watch`` (``--interval``,
 ``--max-cycles``) and ``train`` (fine-tuning on a schema's pairs, with
-``--ckpt-dir``, LoRA, distillation and held-out evaluation) are
-tpualign's, with the same flags, environment keys and output. The commands
-that compute run on the GPU unless ``--device cpu`` is given; ``process``
-and ``filter`` are host work and take no device. ``calibrate`` is a later
-slice of the port: it prints so and exits with 2.
+``--ckpt-dir``, LoRA, distillation and held-out evaluation) and
+``calibrate`` (the weak scores mapped onto the towers' cosine scale,
+``--write`` to store them) are tpualign's, with the same flags, environment
+keys and output. The commands that compute run on the GPU unless ``--device
+cpu`` is given; ``process``, ``filter`` and ``calibrate`` are host work and
+take no device.
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ from typing import Optional, Sequence
 
 from tpualign_torch.config import load_config
 from tpualign_torch.store import SCHEMAS
-
-_NOT_PORTED = ("calibrate",)
 
 
 def _add_common(p: argparse.ArgumentParser, device: bool = True) -> None:
@@ -172,6 +171,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          help="blend weak-supervision scores into the ranking: "
                               "(1-ALPHA)*cosine + ALPHA*weak_score")
 
+    p_cal = sub.add_parser("calibrate",
+                           help="calibrate weak-supervision scores onto the tower cosine scale")
+    _add_common(p_cal, device=False)
+    p_cal.add_argument("--schema", default="clip_combined", choices=list(SCHEMAS))
+    p_cal.add_argument("--write", action="store_true",
+                       help="upsert calibrated scores back into the store")
+
     p_index = sub.add_parser(
         "index", help="build + persist the IVF retrieval index offline (the reference built "
                       "its ANN index at setup time)")
@@ -181,14 +187,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          help="artifact path (default: IVF_CACHE from the config, else "
                               "<store>/<schema>.ivf.npz)")
 
-    for name in _NOT_PORTED:
-        sub.add_parser(name, help="not yet ported (python -m tpualign has it)")
-
     args = parser.parse_args(argv)
-    if args.command in _NOT_PORTED:
-        print(f"tpualign_torch {args.command}: not yet ported to the GPU package; "
-              f"run `python -m tpualign {args.command}`")
-        return 2
     if args.command in ("run", "process", "filter", "setup-db", "embed", "evaluate"):
         return _run_stage(args)
     if args.command in ("ingest", "watch"):
@@ -203,6 +202,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return _run_serve(args)
     if args.command == "index":
         return _run_index(args)
+    if args.command == "calibrate":
+        return _run_calibrate(args)
     return _run_query(args)
 
 
@@ -282,8 +283,8 @@ def _run_ingest(args) -> int:
 
 
 def _run_index(args) -> int:
-    """Build (or load) the schema's IVF artifact and print one JSON line
-    with its geometry, as ``tpualign index`` does."""
+    """Build (or load) the schema's IVF or HNSW artifact and print one
+    JSON line with its geometry, as ``tpualign index`` does."""
     from tpualign_torch.serving.server import build_index_artifact, schema_cache_path
 
     config = _config_from(args)
@@ -295,11 +296,36 @@ def _run_index(args) -> int:
                        else getattr(config, "ivf_cache", None))
         or os.path.join(config.store.root, f"{args.schema}.{kind}.npz"), args.schema)
     index = build_index_artifact(config, args.schema, cache, device=args.device)
-    print(json.dumps({"schema": args.schema, "index": kind, "cache": cache, "n": index.n,
-                      "precision": index.precision, "n_lists": index.n_lists,
-                      "n_probes": index.n_probes, "capacity": index.capacity,
-                      "spill": index.spill,
-                      "calibrated_target": getattr(index, "calibrated_target", None)}))
+    info = {"schema": args.schema, "index": kind, "cache": cache, "n": index.n,
+            "precision": index.precision}
+    if kind == "hnsw":
+        info.update({"m": index.m, "ef_construction": index.ef_construction,
+                     "ef_search": index.ef_search, "memory_bytes": index.memory_bytes()})
+    else:
+        info.update({"n_lists": index.n_lists, "n_probes": index.n_probes,
+                     "capacity": index.capacity, "spill": index.spill,
+                     "calibrated_target": getattr(index, "calibrated_target", None)})
+    print(json.dumps(info))
+    return 0
+
+
+def _run_calibrate(args) -> int:
+    """Fit the schema's weak scores onto the stored pairs' cosine
+    (isotonic) and print the ranges; ``--write`` stores the calibrated
+    scores. Exit 1 on a schema without alignments, as tpualign's."""
+    from tpualign_torch.store import EmbeddingStore
+    from tpualign_torch.weaksup.calibration import calibrate_schema
+
+    config = _config_from(args)
+    store = EmbeddingStore(config.store.root, embed_dim=config.model.variant.embed_dim)
+    out = calibrate_schema(store, args.schema, write=args.write)
+    if out["n_pairs"] == 0:
+        print(f"no alignments in schema {args.schema}")
+        return 1
+    print(f"calibrated {out['n_pairs']} pairs: "
+          f"raw {out['raw_range'][0]:.3f}..{out['raw_range'][1]:.3f} -> "
+          f"cosine {out['calibrated_range'][0]:.3f}..{out['calibrated_range'][1]:.3f}"
+          + (" (written)" if args.write else " (dry run; --write to persist)"))
     return 0
 
 

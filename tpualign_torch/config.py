@@ -243,6 +243,8 @@ class PipelineConfig:
     seed: int = 0
     retrieval_recall_target: Optional[float] = None
     retrieval_index: str = "exact"
+    # fp32, int8, int4 or int2; RETRIEVAL_INDEX=hnsw takes fp32 or fp16
+    # (pgvector's vector and halfvec) and warns on the int rungs
     retrieval_precision: str = "fp32"
     retrieval_refine: int = 0
     retrieval_refine_store: str = "auto"
@@ -251,6 +253,12 @@ class PipelineConfig:
     ivf_lists: Optional[int] = None
     ivf_probes: Optional[int] = None
     ivf_cache: Optional[str] = None
+    # HNSW geometry, pgvector's defaults; ef_search None = auto (40, or
+    # calibrated to RETRIEVAL_RECALL_TARGET); the graph's artifact path
+    hnsw_m: int = 16
+    hnsw_ef_construction: int = 64
+    hnsw_ef_search: Optional[int] = None
+    hnsw_cache: Optional[str] = None
     text_buckets: Optional[tuple] = (16, 32, 77)
     serve_coalesce_ms: Optional[float] = 2.0
     serve_query_cache: int = 1024
@@ -415,6 +423,10 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
         ivf_lists=_optional(env, "IVF_LISTS", int),
         ivf_probes=_optional(env, "IVF_PROBES", int),
         ivf_cache=_env(env, "IVF_CACHE", "") or None,
+        hnsw_m=int(_env(env, "HNSW_M", "16")),
+        hnsw_ef_construction=int(_env(env, "HNSW_EF_CONSTRUCTION", "64")),
+        hnsw_ef_search=_optional(env, "HNSW_EF_SEARCH", int),
+        hnsw_cache=_env(env, "HNSW_CACHE", "") or None,
         text_buckets=_parse_buckets(_env(env, "TEXT_BUCKETS", "16,32,77")),
         serve_coalesce_ms=(
             float(_env(env, "SERVE_COALESCE_MS", "2.0"))

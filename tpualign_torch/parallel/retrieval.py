@@ -16,7 +16,8 @@ rescores them exactly, in float64 on the host, from a :class:`_RefineCorpus`
 ``recall_target`` keeps tpualign's meaning off the TPU: there
 ``jax.lax.approx_max_k`` lowers to an exact top-k, and so the port's top-k
 is exact too. ``build_index`` also builds the IVF index
-(``tpualign_torch.parallel.ivf``). Meshes and HNSW are later slices.
+(``tpualign_torch.parallel.ivf``) and the host HNSW graph
+(``tpualign_torch.parallel.hnsw``). Meshes are a later slice.
 
 ``add``, ``remove`` and ``compact`` change the corpus in place of a
 rebuild, as pgvector's INSERT, DELETE and VACUUM do: appended rows take the
@@ -498,7 +499,9 @@ class RetrievalIndex:
                 "RetrievalIndex(mesh=...) is the multi-GPU slice of tpualign_torch, "
                 "not yet ported; build the index on one device")
         if precision not in ("fp32",) + _QUANTIZED:
-            raise ValueError(f"precision must be fp32, int8, int4 or int2, got {precision!r}")
+            raise ValueError(f"precision must be fp32, int8, int4 or int2, got {precision!r}"
+                             + (" (fp16/halfvec is the RETRIEVAL_INDEX=hnsw rung)"
+                                if precision == "fp16" else ""))
         if recall_target is not None and not 0.0 < recall_target <= 1.0:
             raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
         self.device = resolve_device(device)
@@ -764,8 +767,11 @@ def build_index(
     when it matches the corpus and precision (and recalibrated and saved
     again when ``recall_target`` changed), else built, calibrated to
     ``recall_target`` unless ``ivf_probes`` is set, and saved. An empty
-    corpus serves the exact index. ``"hnsw"`` is a later slice of the port
-    and raises ``NotImplementedError``; its arguments are accepted."""
+    corpus serves the exact index. ``"hnsw"`` builds a host-side
+    :class:`~tpualign_torch.parallel.hnsw.HNSWIndex` (``device`` is not
+    used) with ``hnsw_m``, ``hnsw_ef_construction`` and ``hnsw_ef_search``
+    (``None``: 40, or calibrated to ``recall_target``); ``hnsw_cache``
+    (``HNSW_CACHE``) is its artifact, handled as IVF's."""
     if index_type == "ivf" and len(corpus_embeddings) == 0:
         # an empty schema serves the exact index, as tpualign does
         index_type = "exact"
@@ -774,9 +780,9 @@ def build_index(
                           recall_target, ivf_lists, ivf_probes, ivf_cache, refine,
                           refine_store, device)
     if index_type == "hnsw":
-        raise NotImplementedError(
-            "RETRIEVAL_INDEX=hnsw is not yet ported to tpualign_torch (the HNSW slice); "
-            "use RETRIEVAL_INDEX=exact or ivf")
+        return _build_hnsw(corpus_embeddings, corpus_manuals, corpus_pages, mesh, precision,
+                           recall_target, refine, hnsw_m, hnsw_ef_construction, hnsw_ef_search,
+                           hnsw_cache)
     if index_type != "exact":
         raise ValueError(f"retrieval_index must be 'exact', 'ivf' or 'hnsw', got {index_type!r}")
     return RetrievalIndex(
@@ -816,4 +822,61 @@ def _build_ivf(corpus_embeddings, corpus_manuals, corpus_pages, mesh, precision,
     if ivf_cache:
         index.save(ivf_cache)
         log.info("IVF index structure cached to %s", ivf_cache)
+    return index
+
+
+def _build_hnsw(corpus_embeddings, corpus_manuals, corpus_pages, mesh, precision, recall_target,
+                refine, hnsw_m, hnsw_ef_construction, hnsw_ef_search, hnsw_cache):
+    """``build_index``'s HNSW branch, tpualign's: a host graph, single
+    process; a mesh or an int precision is warned about and ignored."""
+    from tpualign_torch.parallel.hnsw import HNSWIndex
+
+    if mesh is not None:
+        log.warning("RETRIEVAL_INDEX=hnsw is a host-native single-process index; the mesh is "
+                    "ignored (use 'exact' or 'ivf' to shard the corpus across devices)")
+    hnsw_precision = precision
+    if precision not in ("fp32", "fp16"):
+        log.warning("RETRIEVAL_INDEX=hnsw stores fp32 ('vector') or fp16 ('halfvec') graph "
+                    "entries, as pgvector does; RETRIEVAL_PRECISION=%s is ignored (the int "
+                    "rungs live on the exact/IVF device paths)", precision)
+        hnsw_precision = "fp32"
+    # HNSW_EF_SEARCH=None means auto: pgvector's 40, or calibrated to
+    # RETRIEVAL_RECALL_TARGET when it is set; an explicit ef wins, loudly
+    auto_ef = hnsw_ef_search is None
+    eff_ef = 40 if auto_ef else int(hnsw_ef_search)
+    calibrate = recall_target is not None and auto_ef
+    if recall_target is not None and not auto_ef:
+        log.warning("HNSW_EF_SEARCH=%d overrides RETRIEVAL_RECALL_TARGET calibration; unset "
+                    "it to auto-pick ef for the target", eff_ef)
+    if hnsw_cache and os.path.exists(hnsw_cache):
+        try:
+            loaded = HNSWIndex.load(hnsw_cache, corpus_embeddings, ef_search=hnsw_ef_search,
+                                    refine=refine)
+            if loaded.precision != hnsw_precision:
+                raise ValueError(f"cache precision {loaded.precision} != requested "
+                                 f"{hnsw_precision}")
+            if calibrate and getattr(loaded, "calibrated_target", None) != recall_target:
+                # the target changed since the artifact was written
+                loaded.calibrate(recall_target)
+                loaded.save(hnsw_cache)
+            elif (recall_target is None and auto_ef
+                  and getattr(loaded, "calibrated_target", None) is not None):
+                # auto without a target means pgvector's default, not a
+                # calibration nobody asked for
+                log.info("HNSW cache held ef=%d calibrated for target %.3f, but "
+                         "RETRIEVAL_RECALL_TARGET is unset; serving the default ef=40",
+                         loaded.ef_search, loaded.calibrated_target)
+                loaded.ef_search = 40
+                loaded.calibrated_target = None
+            return loaded
+        except Exception as e:  # a stale or mismatched artifact: rebuild
+            log.warning("HNSW cache %s unusable (%s); rebuilding", hnsw_cache, e)
+    index = HNSWIndex(corpus_embeddings, corpus_manuals, corpus_pages, m=hnsw_m,
+                      ef_construction=hnsw_ef_construction, ef_search=eff_ef, refine=refine,
+                      precision=hnsw_precision)
+    if calibrate:
+        index.calibrate(recall_target)
+    if hnsw_cache:
+        index.save(hnsw_cache)
+        log.info("HNSW graph cached to %s", hnsw_cache)
     return index

@@ -4,7 +4,9 @@
 The corpus stays resident on the GPU inside a long-lived process
 (:class:`~tpualign_torch.parallel.retrieval.RetrievalIndex`, or
 :class:`~tpualign_torch.parallel.ivf.IVFIndex` under
-``RETRIEVAL_INDEX=ivf``) behind a
+``RETRIEVAL_INDEX=ivf``; under ``RETRIEVAL_INDEX=hnsw`` the graph of
+:class:`~tpualign_torch.parallel.hnsw.HNSWIndex` stays in host memory and
+only the towers use the card) behind a
 dependency-free JSON/HTTP front (stdlib ``http.server``), with tpualign's
 endpoints and transport limits:
 
@@ -612,7 +614,8 @@ class RetrievalService:
         return results  # type: ignore[return-value]
 
     def stats(self) -> dict:
-        rc = self.index._refine_corpus
+        # an HNSW index has no refine corpus (its scores are exact fp32)
+        rc = getattr(self.index, "_refine_corpus", None)
         out = {
             "status": "ok",
             "schema": self.schema,
@@ -639,6 +642,15 @@ class RetrievalService:
                 "capacity": self.index.capacity,
                 "spill": self.index.spill,
                 "precision": self.index.precision,
+                "calibrated_target": getattr(self.index, "calibrated_target", None),
+            }
+        if hasattr(self.index, "ef_search"):  # HNSW geometry
+            out["hnsw"] = {
+                "m": self.index.m,
+                "ef_construction": self.index.ef_construction,
+                "ef_search": self.index.ef_search,
+                "live": self.index.live,
+                "memory_bytes": self.index.memory_bytes(),
                 "calibrated_target": getattr(self.index, "calibrated_target", None),
             }
         if self.coalescer is not None:
@@ -692,11 +704,12 @@ def index_kwargs(config, schema: str) -> dict:
 def build_index_artifact(config, schema: str, cache_path: str,
                          index_type: Optional[str] = None, device="cuda"):
     """The offline index build of ``tpualign_torch index``: the configured
-    ``RETRIEVAL_INDEX`` over the schema's chunk corpus, built (k-means, and
-    probe calibration when ``RETRIEVAL_RECALL_TARGET`` is set) or loaded
-    when a matching artifact exists, and saved to ``cache_path``, where
-    ``serve`` and ``query`` find it through ``IVF_CACHE``. ``exact`` has no
-    artifact and builds the IVF one, as tpualign does."""
+    ``RETRIEVAL_INDEX`` over the schema's chunk corpus, built (k-means or
+    the HNSW graph, and calibration when ``RETRIEVAL_RECALL_TARGET`` is
+    set) or loaded when a matching artifact exists, and saved to
+    ``cache_path``, where ``serve`` and ``query`` find it through
+    ``IVF_CACHE`` or ``HNSW_CACHE``. ``exact`` has no artifact and builds
+    the IVF one, as tpualign does."""
     if index_type is None:
         index_type = getattr(config, "retrieval_index", "exact")
     if index_type == "exact":

@@ -17,7 +17,11 @@ unassigned there but a letter in a newer table is split as punctuation.
 
 The merges table is read from ``CLIP_BPE_PATH`` or a
 ``bpe_simple_vocab_16e6.txt(.gz)`` beside this file; without one the
-vocabulary is the deterministic byte-level fallback (ids < 49408).
+vocabulary is the deterministic byte-level fallback (ids < 49408). With a
+merges table the greedy merge loop runs in the native library over symbol
+ids (``tpualign_torch.native.bindings.BpeCore``), as tpualign's does;
+without the library, the pure-Python ``bpe()`` gives the same ids. Either
+way ``encode`` caches each word's ids.
 """
 
 from __future__ import annotations
@@ -218,6 +222,23 @@ class ClipTokenizer:
         self.sot_id = self.encoder[SOT_TOKEN]
         self.eot_id = self.encoder[EOT_TOKEN]
 
+        # the native merge core over symbol ids (None: the Python bpe())
+        self._bpe_core = None
+        if merges:
+            from tpualign_torch.native import make_bpe_core
+
+            self._bpe_core = make_bpe_core([self.encoder[l] for l, _ in merges],
+                                           [self.encoder[r] for _, r in merges],
+                                           [self.encoder[l + r] for l, r in merges])
+
+    def _encode_token_ids(self, btoken: str) -> List[int]:
+        """Byte-encoded token -> BPE ids (the native core when loaded)."""
+        if self._bpe_core is None:
+            return [self.encoder[t] for t in self.bpe(btoken).split(" ")]
+        syms = [self.encoder[c] for c in btoken[:-1]]
+        syms.append(self.encoder[btoken[-1] + "</w>"])
+        return self._bpe_core.word(syms) if len(syms) > 1 else syms
+
     @property
     def vocab_size(self) -> int:
         return len(self.encoder)
@@ -270,7 +291,7 @@ class ClipTokenizer:
             got = raw_cache.get(token)
             if got is None:
                 btoken = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
-                got = [self.encoder[t] for t in self.bpe(btoken).split(" ")]
+                got = self._encode_token_ids(btoken)
                 raw_cache[token] = got
             ids.extend(got)
         return ids

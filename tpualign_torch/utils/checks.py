@@ -1,7 +1,8 @@
 """Installation and store diagnostics, ``python -m tpualign_torch check``
 (the port's copy of ``tpualign.utils.checks``): the imports the port
-needs, the CUDA cards, the configured directories, the store's schemas
-and the share of images with a bounding box. Exit code 0 = healthy.
+needs, the CUDA cards, the configured directories, the native library,
+the store's schemas and the share of images with a bounding box. Exit
+code 0 = healthy.
 """
 
 from __future__ import annotations
@@ -97,11 +98,17 @@ def check_bbox_quality(config: PipelineConfig) -> None:
 
 
 def check_native() -> bool:
-    """tpualign's native C++ library is not part of the port yet; the
-    plain-Python paths run. Non-fatal, as in tpualign."""
-    print("  -- native C++ library not ported yet (it comes with HNSW, ROADMAP queue 1, "
-          "item 7); pure-Python fallbacks active")
-    return True
+    """Native C++ library builds (or rebuilds) and passes its self-test."""
+    try:
+        from tpualign_torch.native import native_available
+
+        ok = native_available()
+        print(f"  {'OK' if ok else '--'} native C++ library "
+              f"{'available (self-tested)' if ok else 'unavailable; pure-Python fallbacks active'}")
+        return True  # fallbacks make this non-fatal
+    except Exception as e:
+        print(f"  -- native check failed: {e}")
+        return True
 
 
 def run_checks(config: PipelineConfig) -> int:
