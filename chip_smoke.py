@@ -14,7 +14,8 @@ for the numbers in PERF.md). Phases, one JSON line each:
    (the CUDA-core kernel) and bf16 (the tensor-core kernel): eight rows,
    with times for the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
-   calls it);
+   calls it), the kernel's and the yardstick's over a CUDA graph of 64
+   launches and with events around 20 launches (both printed);
 3. K2 ``masked_sim_topk`` against its plain version at Q=1,024, N=100,000,
    D=512 (1,000 page keys, 1/8 wildcard queries, queries without
    candidates, 16 duplicated corpus rows), k=10 and k=100, with times for
@@ -24,6 +25,10 @@ for the numbers in PERF.md). Phases, one JSON line each:
    images and 8,192 chunk records, ``RetrievalIndex`` runs the Evaluator's
    keyed k=100 search and the ``query --text`` global k=10 search; the
    kernels' launch counters are read around this phase alone;
+   fp32_towers: the same towers at COMPUTE_DTYPE=float32 (K1's fp32
+   kernel in every attention) over 1,024 images and 4,096 texts, images/s,
+   chunks/s and K1's launches, the embeddings against the plain attention
+   within 1e-4;
    int8_towers: the same towers at ``CLIP_QUANT=int8`` (every projection
    through ``torch._int_mm``, every attention through K1) against the bf16
    towers over 1,024 images and 4,096 chunks (images/s, chunks/s, largest
@@ -74,9 +79,9 @@ for the numbers in PERF.md). Phases, one JSON line each:
     (``torch.where(key_mask, q @ c.T, NEG_INF)`` + ``torch.topk``) with its
     bound and the corpus tiles it reads, and the weak-supervision schemas'
     ``gt="alignments"`` ranks, top-k and MRR, which move with the ranking,
-    against a float64 recount over the stored alignments. Then ``python -m
-    tpualign_torch run --non-interactive`` over 32 of the manuals into
-    fresh directories, its metrics against its own recount, and the same
+    against a float64 recount over the stored alignments. Beside those five
+    stages and checks: ``python -m tpualign_torch run --non-interactive``
+    over 32 of the manuals into fresh directories, its metrics against its own recount, and the same
     command again, which must skip stages 1-4 and write the same metrics;
     then, over that run's store: ``ingest`` once, ``serve`` as a
     subprocess, 16 new manuals and ``ingest --notify <daemon>``; the
@@ -90,7 +95,8 @@ for the numbers in PERF.md). Phases, one JSON line each:
     (with and without rerank), /search_image_bytes, /stats and /healthz,
     and every answer is held against the plain path; then int4 and int2
     rebuilds, recall@10 of each rung against exact fp32, and ``python -m
-    tpualign_torch query --image-id`` against the service; K3 at the shapes serving gives it
+    tpualign_torch query --image-id`` against the service (its process runs beside the
+    rung builds, here and in 12.); K3 at the shapes serving gives it
     (the ``/search_image`` profile's two keyed image queries, and one
     wildcard text query, k=40) against its plain version and the library
     yardstick; the launch counters are read around the clients' run alone;
@@ -118,15 +124,18 @@ for the numbers in PERF.md). Phases, one JSON line each:
     identical) and the recompute's time; ``matmul_f32acc``'s bf16 gradients
     against the widened fp32 product; one train step with K1 against the
     plain attention, and GRAD_ACCUM_STEPS=4 against the full batch (loss,
-    grad_norm, every gradient leaf); timed steps in this process with the
+    grad_norm, every gradient leaf); one step with CLIP_REMAT (every block
+    under torch.utils.checkpoint) against one without: both peaks, K1's
+    launches (48 a step with the recompute, 24 without), loss and
+    gradients within K1's step bounds; timed steps in this process with the
     device feed, then the host feed (step ms, the feed's wait, pairs/s,
     peak memory, the model-FLOP share); then ``python -m tpualign_torch
     train`` as processes: 40 steps (device feed, held-out evaluation every
-    20), 5 with LORA_RANK=8, 5 at CLIP_QUANT=int8_qat, their K1, K1
-    backward and K5 counts; each checkpoint directory as CLIP_CHECKPOINT
-    of ``embed`` (the int8_qat one at CLIP_QUANT=int8) over the run
-    subset, the stored embeddings against the trainer's export params bit
-    for bit;
+    20), then 5 with LORA_RANK=8 and 5 at CLIP_QUANT=int8_qat side by
+    side, their K1, K1 backward and K5 counts; each checkpoint directory
+    as CLIP_CHECKPOINT of ``embed`` (the int8_qat one at CLIP_QUANT=int8;
+    the three processes side by side) over the run subset, the stored
+    embeddings against the trainer's export params bit for bit;
 14. hnsw, over the pipeline phase's store after ``train`` (which reads the
     weak scores ``calibrate --write`` rewrites): the native library
     (built by g++ in 1.) times the tokenizer with and without its BPE
@@ -159,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import multiprocessing
 import subprocess
@@ -204,6 +214,37 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int = 64, replays: int = 10) -> float:
+    """Mean device time of one ``fn`` call captured ``launches`` times in a
+    CUDA graph, over ``replays`` replays (CUDA events around the replays).
+    Unlike events around a loop of launches it does not count the host's
+    gaps between sub-0.1 ms kernels."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # a warm-up on a side stream, as torch.cuda.graphs asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the kernels' C entry points call cudaSetDevice while captured
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    return ms
 
 
 def bound_ms(nbytes: float, flops: float, peak: float):
@@ -265,9 +306,13 @@ def phase_k1(dev, gen):
             hd = d // heads
             q, k, v = (x.reshape(B, t, heads, hd).transpose(1, 2).contiguous()
                        for x in qkv.split(d, dim=-1))
-            ms = time_ms(lambda: fused_mha(qkv, heads, mask), 20)
+            kernel = functools.partial(fused_mha, qkv, heads, mask)
+            library = functools.partial(F.scaled_dot_product_attention, q, k, v, is_causal=causal)
+            ms_events = time_ms(kernel, 20)
+            lib_events = time_ms(library, 20)
+            ms = graph_ms(kernel)
+            lib_ms = graph_ms(library)
             plain_ms = time_ms(lambda: fused_mha_reference(qkv, heads, mask), 10)
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 20)
             item = qkv.element_size()
             nbytes = qkv.numel() * item + B * t * d * item + (t * t * 4 if causal else 0)
             flops = 4.0 * B * heads * t * t * hd  # Q.K^T and P.V
@@ -276,8 +321,11 @@ def phase_k1(dev, gen):
                          "D": d, "heads": heads, "causal": causal,
                          "max_abs_err": err.max().item(), "atol": atol, "rtol": rtol,
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": bms, "bound_by": by})
-    emit({"phase": "k1_fused_mha", "results": rows})
+                         "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
+                         "ms_events": ms_events, "library_ms_events": lib_events})
+    emit({"phase": "k1_fused_mha", "timing": "ms and library_ms: a CUDA graph of 64 launches, "
+                                             "10 replays; *_events: events around 20 launches",
+          "results": rows})
     return rows
 
 
@@ -772,6 +820,63 @@ def phase_slice(dev, seed):
     return launches
 
 
+FP32_IMAGES, FP32_TEXTS = 1024, 4096
+FP32_TOWER_TOL = 1e-4  # K1 fp32 (2e-5 a launch) through 12 blocks, unit embeddings
+
+
+def phase_fp32_towers(dev, seed) -> int:
+    """The slice's towers at COMPUTE_DTYPE=float32 (ViT-B-32, seeded
+    weights, fp32 projections without TF32), every attention through K1's
+    fp32 kernel: 1,024 images and 4,096 texts, images/s and chunks/s, K1's
+    launches (counted around this pass alone), and the embeddings against
+    the same towers with the plain attention (``fused_attention=False``)."""
+    from tpualign_torch.config import ModelConfig
+    from tpualign_torch.models.layers import MultiHeadAttention
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.parallel import EmbedEngine
+
+    rng = np.random.default_rng(seed + 11)
+    images = rng.normal(size=(FP32_IMAGES, 224, 224, 3)).astype(np.float32)
+    texts = _chunk_texts(rng, FP32_TEXTS, empty_every=0)
+    engine = EmbedEngine(ModelConfig("ViT-B-32", compute_dtype="float32"), device=dev, seed=seed)
+    attn = [m for m in engine.model.modules() if isinstance(m, MultiHeadAttention)]
+    check(all(m.use_fused_attention for m in attn) and engine.model.visual.compute_dtype
+          == torch.float32, "the fp32 towers do not take K1")
+    engine.encode_image_batch(images[:B])  # warm-up, untimed
+    engine.encode_text_batch(texts[:B])
+    fused_mha.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = engine.encode_image_batch(images)
+    t_img = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    txt = engine.encode_text_batch(texts)
+    t_txt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = fused_mha.launches
+    vision_launches = 12 * (FP32_IMAGES // B)
+    check(launches > vision_launches, f"K1 fp32 launched {launches} times in the fp32 towers")
+    for m in attn:
+        m.use_fused_attention = False
+    plain_img = engine.encode_image_batch(images)
+    plain_txt = engine.encode_text_batch(texts)
+    for m in attn:
+        m.use_fused_attention = True
+    gap = {"images": float(np.abs(img - plain_img).max()),
+           "texts": float(np.abs(txt - plain_txt).max())}
+    for name, e in gap.items():
+        check(e <= FP32_TOWER_TOL, f"fp32 {name} tower, K1 against the plain attention: max abs "
+                                   f"{e:.3g} > {FP32_TOWER_TOL}")
+    emit({"phase": "fp32_towers", "model": "ViT-B-32", "dtype": "float32", "batch_size": B,
+          "images": FP32_IMAGES, "texts": FP32_TEXTS, "image_s": t_img, "chunk_s": t_txt,
+          "images_per_s": FP32_IMAGES / t_img, "chunks_per_s": FP32_TEXTS / t_txt,
+          "k1_fp32_launches": launches, "k1_fp32_launches_vision": vision_launches,
+          "max_abs_gap_to_plain_attention": gap, "tolerance": FP32_TOWER_TOL})
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 INT8_IMAGES, INT8_CHUNKS = 1024, 4096
 
 
@@ -1217,6 +1322,19 @@ def _check_answers(run, service, images, pngs, text_enc, image_enc, plain_refine
     return checked
 
 
+def _beside(fn, *args):
+    """``fn(*args)`` on a thread of its own; ``.result()`` of the returned
+    future joins it. For calls that wait on a child process: on a host slow
+    to start one (a 5-step ``train`` process took 42-45 s), their starts
+    overlap the caller's work or each other."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(fn, *args)
+    pool.shutdown(wait=False)
+    return future
+
+
 def _query_cli(env, image_id, service, dev):
     """``python -m tpualign_torch query --image-id`` as a subprocess; its ids
     must be the service's. Returns its wall seconds."""
@@ -1328,6 +1446,8 @@ def phase_serve(dev, seed, root, checkpoint):
     _, exact = exact_index.search(q_rec, k=10, global_search=True)
     del exact_index
     rungs = {}
+    cli = _beside(_query_cli, {"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8",
+                               "RETRIEVAL_REFINE": "4"}, images[7]["image_id"], service, dev)
     for precision in ("int8", "int4", "int2"):
         kw = dict(index_kwargs(config, "vanilla_clip"), precision=precision)
         t0 = time.perf_counter()
@@ -1344,8 +1464,7 @@ def phase_serve(dev, seed, root, checkpoint):
                             "corpus_bytes": int(rung._corpus.numel())}
         del rung
 
-    cli_s = _query_cli({"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8",
-                        "RETRIEVAL_REFINE": "4"}, images[7]["image_id"], service, dev)
+    cli_s = cli.result()
 
     emit({"phase": "serve", "model": "ViT-B-32", "stats_model": run["stats"]["model"],
           "precision": "int8", "refine": 4,
@@ -1481,6 +1600,7 @@ def phase_serve_ivf(dev, seed, root, shared):
     # default probe counts, unrefined and refined
     q_rec = service._image_embs[:SERVE_RECALL_QUERIES]
     rungs = {}
+    cli = _beside(_query_cli, env, images[7]["image_id"], service, dev)
     for precision in ("int8", "int4", "int2"):
         t0 = time.perf_counter()
         rung = index if precision == "int8" else IVFIndex(
@@ -1495,7 +1615,7 @@ def phase_serve_ivf(dev, seed, root, shared):
                              for p in sorted({calibrated, default_probes})},
             "memory_bytes": rung.memory_bytes}
         del rung
-    cli_s = _query_cli(env, images[7]["image_id"], service, dev)
+    cli_s = cli.result()
     stats = run["stats"]
     emit({"phase": "serve_ivf", "model": "ViT-B-32", "precision": "int8", "refine": 4,
           "ivf": stats.get("ivf"), "index_cli_s": index_cli_s, "build_s": build_s,
@@ -2501,8 +2621,9 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
     the OpenCLIP checkpoint; stage 1's records against what the writer
     placed, the stored embeddings against the seeded engine bit for bit,
     metrics.json against a float64 recount, the alignment records against
-    the CPU ``compute_alignments``; then ``run`` in one command over 32 of
-    the manuals, twice. Returns the launches of the five stages."""
+    the CPU ``compute_alignments``; beside them, ``run`` in one command
+    over 32 of the manuals, twice, then ``ingest`` over that store
+    (``_ingest_notify``). Returns the launches of the five stages."""
     import json
     import os
 
@@ -2525,6 +2646,21 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
            "EVAL_OUTPUT_DIR": os.path.join(work, "eval"), "IMAGE_PREPROCESS": "device",
            "IMAGE_PREPROCESS_BUCKET": str(FEED_BUCKET), "SEED": str(seed),
            "CLIP_MODEL": "ViT-B-32", "CLIP_CHECKPOINT": checkpoint}
+    # run in one command over a subset of the manuals, into fresh
+    # directories, then ingest over its store: beside the five stages
+    sub = os.path.join(work, "run")
+    os.makedirs(os.path.join(sub, "raw"))
+    for name in sorted(os.listdir(raw))[:PIPE_RUN_MANUALS]:
+        os.link(os.path.join(raw, name), os.path.join(sub, "raw", name))
+    sub_env = {**env, "INPUT_DIR": os.path.join(sub, "raw"),
+               "OUTPUT_DIR": os.path.join(sub, "processed"),
+               "STORE_DIR": os.path.join(sub, "store"), "EVAL_OUTPUT_DIR": os.path.join(sub, "eval")}
+
+    def run_then_ingest():
+        return (_run_twice(dev, sub_env, sub),
+                _ingest_notify(dev, sub_env, sub, feed_dir, feed_names, seed))
+
+    chain = _beside(run_then_ingest)
     secs, launches, logs = {}, {}, {}
     for argv in (["process"], ["filter"], ["setup-db"], ["embed"], ["evaluate"]):
         device = [] if argv[0] in ("process", "filter") else ["--device", dev.type]
@@ -2570,16 +2706,7 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
     check(n_records["clip_combined"] > 0 and n_records["clip_positional"] > 0
           and n_records["clip_lexical"] > 0, f"weak supervision produced {n_records}")
 
-    # run in one command over a subset of the manuals, into fresh directories
-    sub = os.path.join(work, "run")
-    os.makedirs(os.path.join(sub, "raw"))
-    for name in sorted(os.listdir(raw))[:PIPE_RUN_MANUALS]:
-        os.link(os.path.join(raw, name), os.path.join(sub, "raw", name))
-    sub_env = {**env, "INPUT_DIR": os.path.join(sub, "raw"),
-               "OUTPUT_DIR": os.path.join(sub, "processed"),
-               "STORE_DIR": os.path.join(sub, "store"), "EVAL_OUTPUT_DIR": os.path.join(sub, "eval")}
-    one = _run_twice(dev, sub_env, sub)
-    ingest = _ingest_notify(dev, sub_env, sub, feed_dir, feed_names, seed)
+    one, ingest = chain.result()
     emit({"phase": "pipeline", "model": "ViT-B-32", "manuals": PIPE_MANUALS,
           "pages": PIPE_MANUALS * PIPE_PAGES, "raw_corpus_bytes": raw_bytes,
           "corpus_write_s": write_s, "checkpoint": os.path.basename(checkpoint),
@@ -2814,12 +2941,15 @@ def _matmul_grads(dev, gen) -> dict:
     return out
 
 
-def _step_grads(trainer, cfg, batch, fused: bool):
+def _step_grads(trainer, cfg, batch, fused: bool, remat: bool = False):
     """One train step from the trainer's starting params with K1 or the
-    plain attention: (loss, grad_norm, {name: fp32 gradient})."""
+    plain attention, every block checkpointed when ``remat``
+    (``CLIP_REMAT``): (loss, grad_norm, {name: fp32 gradient})."""
     from tpualign_torch.train import step as S
 
     model = trainer.model
+    for tower in (model.visual, model.text):
+        tower.transformer.remat = remat
     for blk in list(model.visual.transformer.resblocks) + list(model.text.transformer.resblocks):
         blk.attn.use_fused_attention = fused
     state = S.create_train_state(model, S.model_params(model), cfg)
@@ -2835,7 +2965,46 @@ def _step_grads(trainer, cfg, batch, fused: bool):
     out = (float(m["loss"]), float(m["grad_norm"]), grads)
     for blk in list(model.visual.transformer.resblocks) + list(model.text.transformer.resblocks):
         blk.attn.use_fused_attention = True
+    for tower in (model.visual, model.text):
+        tower.transformer.remat = trainer.config.model.remat
     del state
+    return out
+
+
+def _remat_step(trainer, cfg, batch) -> dict:
+    """CLIP_REMAT: one step with every block under ``torch.utils.checkpoint``
+    against one without, from the same params and batch: peak memory
+    (``max_memory_allocated`` from a reset before each), K1's launches
+    (forward 24 a step, and 24 more in the remat recompute; 24 backward
+    recomputes either way), and loss, grad_norm and every gradient leaf
+    within K1's step bounds. (``tests/test_torch_remat.py`` holds that
+    CLIP_REMAT reaches both towers.)"""
+    from tpualign_torch.ops.attention import fused_mha
+
+    blocks = len(trainer.model.visual.transformer.resblocks) + len(
+        trainer.model.text.transformer.resblocks)
+    runs, out = {}, {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fused_mha.launches = fused_mha.backward_recomputes = 0
+        runs[remat] = _step_grads(trainer, cfg, batch, fused=True, remat=remat)
+        torch.cuda.synchronize()
+        tag = "remat" if remat else "plain"
+        out[f"{tag}_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        out[f"{tag}_launches"] = {"fused_mha": fused_mha.launches,
+                                  "fused_mha_backward": fused_mha.backward_recomputes}
+        want = (2 if remat else 1) * blocks
+        check(fused_mha.launches == want and fused_mha.backward_recomputes == blocks,
+              f"{tag} step: K1 launched {fused_mha.launches} times (want {want}: forward"
+              f"{' and the remat recompute' if remat else ''}), {fused_mha.backward_recomputes} "
+              f"backward recomputes (want {blocks})")
+    check(out["remat_peak_memory_gb"] < out["plain_peak_memory_gb"],
+          f"CLIP_REMAT=1 peak {out['remat_peak_memory_gb']:.2f} GB is not below "
+          f"{out['plain_peak_memory_gb']:.2f} GB")
+    out["remat_vs_plain"] = _compare_steps("CLIP_REMAT=1 against the plain step", runs[True],
+                                           runs[False])
     return out
 
 
@@ -2904,21 +3073,13 @@ def _timed_steps(trainer, triples, seed) -> dict:
                          "normalize_u8": normalize_u8.launches}}
 
 
-def _embeds_like_export(dev, env, train_env, ckpt_dir, quant, records, images_dir, work,
-                        tag) -> dict:
+def _embed_process(dev, env, ckpt_dir, quant, work, tag) -> tuple:
     """``embed vanilla_clip`` as a process with ``CLIP_CHECKPOINT=<ckpt_dir>``
-    (and ``CLIP_QUANT=quant``) into a fresh store; the stored embeddings
-    against the stage's own engine carrying the export params of a trainer
-    (configured by ``train_env``) restored from that directory, bit for
-    bit."""
+    (and ``CLIP_QUANT=quant``) into a fresh store: (its env, wall s,
+    launches)."""
     import os
 
-    from tpualign_torch.config import load_config
-    from tpualign_torch.models.convert import from_jax_params, to_jax_layout
-    from tpualign_torch.pipeline import Pipeline
     from tpualign_torch.store import SCHEMAS, EmbeddingStore
-    from tpualign_torch.train.checkpoint import restore_checkpoint
-    from tpualign_torch.train.trainer import Trainer
 
     store_dir = os.path.join(work, f"store-{tag}")
     EmbeddingStore(store_dir, embed_dim=512).setup(SCHEMAS)
@@ -2928,6 +3089,23 @@ def _embeds_like_export(dev, env, train_env, ckpt_dir, quant, records, images_di
                                       embed_env, work, tag=f"-{tag}")
     check("Loading trained params from checkpoint directory" in done.stderr,
           f"embed ({tag}) did not load the checkpoint directory")
+    return embed_env, secs, launches
+
+
+def _embeds_like_export(dev, embedded, train_env, ckpt_dir, quant, records, images_dir,
+                        tag) -> dict:
+    """The store an ``_embed_process`` wrote against the stage's own engine
+    carrying the export params of a trainer (configured by ``train_env``)
+    restored from ``ckpt_dir``, bit for bit."""
+    from tpualign_torch.config import load_config
+    from tpualign_torch.models.convert import from_jax_params, to_jax_layout
+    from tpualign_torch.pipeline import Pipeline
+    from tpualign_torch.store import EmbeddingStore
+    from tpualign_torch.train.checkpoint import restore_checkpoint
+    from tpualign_torch.train.trainer import Trainer
+
+    embed_env, secs, launches = embedded
+    store_dir = embed_env["STORE_DIR"]
     trainer = Trainer(load_config(train_env), device=dev)
     check(restore_checkpoint(ckpt_dir, trainer.state) is not None, f"{tag}: nothing to restore")
     export = to_jax_layout(trainer.export_params)
@@ -2968,7 +3146,7 @@ def _train_process(dev, env, work, tag, steps, extra_args=()) -> tuple:
     check(final["kind"] == "final" and final["step"] == steps, f"train ({tag}): {final}")
     check(launches["fused_mha_backward"] == 24 * steps,
           f"train ({tag}): {launches['fused_mha_backward']} K1 backward recomputes in {steps} "
-          "steps of 24 blocks")
+          "steps of 24 blocks (CLIP_REMAT off: one forward launch a block and step)")
     check(launches["normalize_u8"] == steps, f"train ({tag}): K5 launched "
           f"{launches['normalize_u8']} times in {steps} device-feed steps")
     return ckpt_dir, {"s": secs, "steps": steps, "losses": losses, "launches": launches,
@@ -2983,9 +3161,9 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
     against the plain attention, GRAD_ACCUM_STEPS=4 against the full
     batch), timed in-process steps with the host and the device feed, then
     ``python -m tpualign_torch train`` as processes (40 steps with held-out
-    evaluation; 5 with LORA_RANK=8; 5 at CLIP_QUANT=int8_qat), each
-    checkpoint directory as ``CLIP_CHECKPOINT`` for ``embed`` against the
-    trainer's export params, bit for bit."""
+    evaluation; then side by side 5 with LORA_RANK=8 and 5 at
+    CLIP_QUANT=int8_qat), each checkpoint directory as ``CLIP_CHECKPOINT``
+    for ``embed`` against the trainer's export params, bit for bit."""
     import dataclasses as dc
     import os
 
@@ -3016,6 +3194,7 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
     out["accum4_vs_full_batch"] = _compare_steps("GRAD_ACCUM_STEPS=4 against the full batch",
                                                  accum, k1_step)
     del k1_step, accum
+    out["remat"] = _remat_step(trainer, cfg, batch)
 
     timed = {"device": _timed_steps(trainer, triples, seed)}
     del trainer
@@ -3038,19 +3217,29 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
                                          str(TRAIN_STEPS // 2)), "none"),
              ("lora", {**env, "LORA_RANK": "8"}, TRAIN_SIDE_STEPS, (), "none"),
              ("int8_qat", {**env, "CLIP_QUANT": "int8_qat"}, TRAIN_SIDE_STEPS, (), "int8"))
+    # the full run alone, then the two short runs side by side (their
+    # seconds overlap: a 5-step run is mostly its process's start)
+    # the full run alone, then the two short runs side by side (their
+    # seconds overlap: a 5-step run is mostly its process's start)
     runs, ckpts = {}, {}
-    for tag, case_env, steps, flags, _ in cases:
-        ckpts[tag], runs[tag] = _train_process(dev, case_env, work, tag, steps, flags)
+    tag, case_env, steps, flags, _ = cases[0]
+    ckpts[tag], runs[tag] = _train_process(dev, case_env, work, tag, steps, flags)
+    side = [(tag, _beside(_train_process, dev, case_env, work, tag, steps, flags))
+            for tag, case_env, steps, flags, _ in cases[1:]]
+    for tag, run in side:
+        ckpts[tag], runs[tag] = run.result()
     check(len(runs["full"]["heldout"]) == 3, f"held-out evaluations {runs['full']['heldout']}")
     out["processes"] = runs
 
     sub = {"OUTPUT_DIR": os.path.join(work, "run", "processed")}
     images, chunks, _ = Pipeline(load_config({**env, **sub}), device=dev)._load_processed()
     images_dir = os.path.join(sub["OUTPUT_DIR"], "images")
+    embedded = [_beside(_embed_process, dev, {**env, **sub}, ckpts[tag], quant, work, tag)
+                for tag, _, _, _, quant in cases]
     out["embed_from_checkpoint_dir"] = {
-        tag: _embeds_like_export(dev, {**env, **sub}, case_env, ckpts[tag], quant,
-                                 (images, chunks), images_dir, work, tag)
-        for tag, case_env, _, _, quant in cases}
+        tag: _embeds_like_export(dev, e.result(), case_env, ckpts[tag], quant,
+                                 (images, chunks), images_dir, tag)
+        for (tag, case_env, _, _, quant), e in zip(cases, embedded)}
     emit(out)
     return out
 
@@ -3568,6 +3757,7 @@ def main() -> int:
     k2 = phase_k2(dev, gen)
     lap("k2")
     launches = phase_slice(dev, args.seed)
+    fp32_launches = phase_fp32_towers(dev, args.seed)
     lap("slice")
     int8_launches = phase_int8_towers(dev, args.seed)
     lap("int8_towers")
@@ -3601,6 +3791,7 @@ def main() -> int:
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t_start})
 
     k1_head = next(r for r in k1 if r["shape"] == "vision" and r["dtype"] == "bfloat16")
+    k1_fp32 = next(r for r in k1 if r["shape"] == "vision" and r["dtype"] == "float32")
     train_launches = train["processes"]["full"]["launches"]
     k2_head = next(r for r in k2 if r["k"] == 100)
     k3_head = next(r for r in k3 if r["variant"] == "int8" and r["k"] == 40)
@@ -3611,6 +3802,7 @@ def main() -> int:
          "replaces": "tpualign/ops/pallas_attention.py:162",
          "launches": launches["fused_mha"], **{k: k1_head[k] for k in keys},
          "launches_by_phase": {"slice": launches["fused_mha"],
+                               "slice_fp32_towers": fp32_launches,
                                "int8_towers": int8_launches["fused_mha"],
                                "serve": serve_launches["fused_mha"],
                                "serve_ivf": ivf_launches["fused_mha"],
@@ -3624,7 +3816,13 @@ def main() -> int:
                       "rows": train["k1_backward"],
                       "launches_in_process_steps": train["timed"]["device"]["launches"]},
          "tolerance": {"atol": k1_head["atol"], "rtol": k1_head["rtol"]},
-         "at": "ViT-B-32 vision, B=256 T=50 D=768 H=12, bf16"},
+         "at": "ViT-B-32 vision, B=256 T=50 D=768 H=12, bf16; ms and library_ms over a CUDA "
+               "graph of 64 launches",
+         "fp32_vision": {**{k: k1_fp32[k] for k in keys}, "launches": fp32_launches,
+                         "ms_events": k1_fp32["ms_events"],
+                         "tolerance": {"atol": k1_fp32["atol"], "rtol": k1_fp32["rtol"]},
+                         "at": "ViT-B-32 vision, B=256 T=50 D=768 H=12, fp32 (CUDA cores); "
+                               "launches from the slice's fp32 towers"}},
         {"name": "masked_sim_topk", "route": "cuda",
          "source": "tpualign_torch/csrc/masked_sim_topk.cu",
          "replaces": "tpualign/ops/pallas_kernels.py:329",

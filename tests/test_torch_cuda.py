@@ -88,9 +88,62 @@ def test_fused_mha_bf16_tensor_cores_match_plain(dev, t, hd):
 
 
 @pytest.mark.parametrize("hd", [64, 80, 88, 104])
-def test_fused_mha_fp32_dispatch_matches_plain(dev, hd):
-    """fp32 keeps the CUDA-core kernel: one case per head dim."""
-    _mha_case(dev, 3, 50, 2, hd, torch.float32, hd == 88)
+@pytest.mark.parametrize("t", [1, 16, 50, 63, 64, 65, 77, 128, 129, 257])
+def test_fused_mha_fp32_dispatch_matches_plain(dev, t, hd):
+    """The fp32 kernel (CUDA cores, register tiles) at the bf16 test's grid:
+    Q, K and V resident up to T=128 (64, 128 or 256 threads), 64-row query
+    blocks with K and V streamed past it and where the resident layout would
+    pass 227 KB (hd=104 at T=128); causal and unmasked, B=1 and an odd B."""
+    for b in (1, 3):
+        for causal in (False, True):
+            _mha_case(dev, b, t, 2, hd, torch.float32, causal)
+
+
+@pytest.mark.parametrize("t", [16, 77, 257])
+def test_fused_mha_fp32_unaligned_base(dev, t):
+    """An fp32 ``qkv`` view 4 bytes past a 16-byte boundary takes the
+    kernel's 4-byte copies, with the same result as an aligned copy."""
+    heads, hd = 2, 64
+    rng = np.random.default_rng(t)
+    n = 3 * t * 3 * heads * hd
+    flat = torch.from_numpy(rng.normal(size=n + 1).astype(np.float32)).to(dev)
+    qkv = flat[1:].view(3, t, 3 * heads * hd)
+    assert qkv.data_ptr() % 16 == 4
+    mask = causal_mask(t, dev)
+    got = fused_mha(qkv, heads, mask)
+    torch.cuda.synchronize()
+    want = fused_mha_reference(qkv, heads, mask)
+    err = (got - want).abs().max().item()
+    assert err <= 2e-5, f"T={t}: max abs error {err:.3g}"
+    assert torch.equal(got, fused_mha(qkv.clone(), heads, mask))
+
+
+@pytest.mark.parametrize("t", [50, 77, 200])
+def test_fused_mha_fp32_random_additive_mask(dev, t):
+    """An arbitrary finite additive (T, T) mask with -1e9 entries (no row
+    fully masked), read once per score."""
+    heads, hd = 4, 64
+    rng = np.random.default_rng(7 * t)
+    qkv = torch.from_numpy(rng.normal(size=(2, t, 3 * heads * hd)).astype(np.float32)).to(dev)
+    m = rng.normal(scale=3.0, size=(t, t)).astype(np.float32)
+    m[rng.random((t, t)) < 0.3] = -1e9
+    m[np.arange(t), rng.integers(0, t, t)] = 0.5  # one key left open in every row
+    mask = torch.from_numpy(m).to(dev)
+    got = fused_mha(qkv, heads, mask)
+    torch.cuda.synchronize()
+    want = fused_mha_reference(qkv, heads, mask)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err <= 2e-5, f"T={t}: max abs error {err:.3g}"
+
+
+def test_fused_mha_fp32_empty_batch(dev):
+    """B=0 launches nothing and returns the empty context."""
+    qkv = torch.zeros(0, 77, 3 * 512, device=dev)
+    before = fused_mha.launches
+    out = fused_mha(qkv, 8, causal_mask(77, dev))
+    assert out.shape == (0, 77, 512) and out.dtype == torch.float32
+    assert fused_mha.launches == before
 
 
 def test_fused_mha_bf16_rejects_unaligned(dev):

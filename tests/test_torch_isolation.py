@@ -157,3 +157,42 @@ def test_native_modules_load_nothing_of_jax_or_tpualign():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# mesh names, exempt until the multi-GPU slice (ROADMAP queue 1, item 2) lands
+MESH_EXEMPT = {"create_mesh", "default_mesh", "clip_param_specs", "shard_params"}
+
+
+def _exports(mod) -> set:
+    import types
+
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    return {n for n, v in vars(mod).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+
+
+def test_package_exports_match_tpualign():
+    """Every package ``__init__`` of tpualign has a twin in the port that
+    exports each of its names (in ``__all__`` where the port's declares
+    one), the mesh names apart."""
+    import importlib
+    import pkgutil
+
+    import tpualign
+
+    pairs = [(tpualign, importlib.import_module("tpualign_torch"))]
+    for info in pkgutil.walk_packages(tpualign.__path__, "tpualign."):
+        if info.ispkg:
+            pairs.append((importlib.import_module(info.name), importlib.import_module(
+                "tpualign_torch" + info.name[len("tpualign"):])))
+    assert len(pairs) >= 13
+    missing = {}
+    for jax_pkg, port_pkg in pairs:
+        port_names = _exports(port_pkg)
+        lacking = sorted(n for n in _exports(jax_pkg) - MESH_EXEMPT
+                         if not hasattr(port_pkg, n) or n not in port_names)
+        if lacking:
+            missing[port_pkg.__name__] = lacking
+    assert not missing, missing
+    assert all(not hasattr(p, n) for _, p in pairs for n in MESH_EXEMPT)

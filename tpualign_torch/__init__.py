@@ -31,6 +31,10 @@ of the device image feed. The package imports neither JAX nor
 where every kernel's plain PyTorch version runs instead.
 """
 
-from tpualign_torch.config import CLIP_VARIANTS, ClipVariant, ModelConfig, load_config
+from tpualign_torch.config import (
+    CLIP_VARIANTS, ClipVariant, DataConfig, MeshConfig, ModelConfig, PipelineConfig, StoreConfig,
+    load_config)
+from tpualign_torch.store.embedding_store import SCHEMAS
 
-__all__ = ["CLIP_VARIANTS", "ClipVariant", "ModelConfig", "load_config"]
+__all__ = ["CLIP_VARIANTS", "SCHEMAS", "ClipVariant", "DataConfig", "MeshConfig", "ModelConfig",
+           "PipelineConfig", "StoreConfig", "load_config"]

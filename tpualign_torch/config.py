@@ -27,6 +27,7 @@ __all__ = [
     "ClipVariant",
     "CLIP_VARIANTS",
     "ModelConfig",
+    "MeshConfig",
     "DataConfig",
     "StoreConfig",
     "TrainConfig",
@@ -132,9 +133,12 @@ class ModelConfig:
     # CLIP_CHECKPOINT_ALLOW_PICKLE: unpickle a .pt/.bin file that
     # torch.load(weights_only=True) refuses (runs code from the file)
     checkpoint_allow_pickle: bool = False
-    # CLIP_QUANT: "none", or "int8"/"int8_qat" (quantized GEMMs), which
-    # build_clip refuses until the int8 towers are ported
+    # CLIP_QUANT: "none", or "int8"/"int8_qat": every projection of both
+    # towers' blocks through ops/quant.py ("int8" serves, "int8_qat" trains)
     quant: str = "none"
+    # CLIP_REMAT: under autograd each residual block runs under
+    # torch.utils.checkpoint (activations recomputed in the backward)
+    remat: bool = False
 
     @property
     def variant(self) -> ClipVariant:
@@ -151,6 +155,21 @@ class ModelConfig:
         if self.quick_gelu is not None:
             return self.quick_gelu
         return self.pretrained == "openai"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The ``MESH_DATA`` x ``MESH_MODEL`` device mesh, tpualign's fields.
+    The port runs on one device: ``load_config`` refuses a product above 1
+    until the multi-GPU slice is ported (ROADMAP queue 1, item 2)."""
+
+    data: int = 1
+    model: int = 1
+    axis_names: Sequence[str] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model
 
 
 @dataclass(frozen=True)
@@ -231,6 +250,7 @@ class PipelineConfig:
     (see ``tpualign.config.PipelineConfig`` for what each knob does)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     data: DataConfig = field(default_factory=DataConfig)
     store: StoreConfig = field(default_factory=StoreConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
@@ -386,7 +406,14 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
         compute_dtype=_env(env, "COMPUTE_DTYPE", "bfloat16"),
         parity_mode=_env_bool(env, "PARITY_MODE", False),
         quant=_env(env, "CLIP_QUANT", "none"),
+        remat=_env_bool(env, "CLIP_REMAT", False),
     )
+    mesh = MeshConfig(data=int(_env(env, "MESH_DATA", "1")),
+                      model=int(_env(env, "MESH_MODEL", "1")))
+    if mesh.num_devices > 1:
+        raise NotImplementedError(
+            f"MESH_DATA={mesh.data} MESH_MODEL={mesh.model}: a device mesh is not "
+            "ported yet (ROADMAP queue 1, item 2: multi-GPU); the port runs on one device")
     train = _train_config(env)
     serve_auto_compact = _optional(env, "SERVE_AUTO_COMPACT", float, ("", "off", "none"))
     if serve_auto_compact is not None and not 0.0 < serve_auto_compact <= 1.0:
@@ -395,6 +422,7 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
             f"autovacuum scale factor analogue), got {serve_auto_compact}")
     return PipelineConfig(
         model=model,
+        mesh=mesh,
         data=DataConfig(
             input_dir=_env(env, "INPUT_DIR", "data/raw/manuals"),
             output_dir=_env(env, "OUTPUT_DIR", "data/processed"),

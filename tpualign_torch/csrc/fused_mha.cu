@@ -45,11 +45,54 @@
 //   take about 2 us even at mma.sync's rate; a 64-row warpgroup tile would
 //   also waste most of its rows at T=16/50/77.
 //
-// fp32 (the parity mode): mha_kernel, on the CUDA cores, so that no TF32
-// rounding enters. One block per (batch row, head, tile of 32 query rows)
-// holds its query tile, one 32-row chunk of K or V at a time, and the
-// tile's fp32 scores (32 x T) in shared memory; products are scalar fmaf
-// chains.
+// fp32 (COMPUTE_DTYPE=float32 without PARITY_MODE, which takes the plain
+// path): mha_f32_kernel, on the CUDA cores, so that no TF32 rounding enters
+// (the bound against fused_mha_reference is 2e-5).
+// - Bound on the H100 at ViT-B-32, B=256: bytes, 0.047 ms for vision (118
+//   MB of QKV read, 39 MB written) and 0.048 ms for text T=77; the FMAs of
+//   all T^2 scores and of P.V take 0.029 and 0.046 ms at 67 TFLOP/s. The
+//   first kernel (one block per 32 query rows) fed every fmaf from two
+//   shared loads, so it ran at the shared-memory rate (0.395 / 0.603 ms),
+//   and each query tile read K and V again.
+// - One block per (batch row, head) for T <= 128: cp.async copies the
+//   head's Q, K and V rows once into shared memory, 16 bytes at a time
+//   (4 when the packed base is not 16-byte aligned; row strides and head
+//   offsets are multiples of 16 bytes, so the base decides), Q and K in one
+//   group, V in a second that lands while the scores are taken. Rows are
+//   padded to a multiple of 8 with zeros; the row pitch HD + 4 floats is an
+//   odd number of 16-byte units, so float4 reads of 8 consecutive rows hit
+//   8 distinct bank groups. The loads hide behind the other blocks' work: a
+//   build without the arithmetic ran at 87 % of the byte bound.
+// - Q K^T from register tiles of 4 query rows (tr + i ceil(T/4), strided
+//   so that a warp reads consecutive rows) by 8 or up to 8 keys, the depth
+//   4 at a time in the order of a plain fmaf chain: float4 shared loads,
+//   each feeding 16 FMAs. A warp-wide 16-byte load delivers 512 bytes at
+//   128 bytes a clock, so larger tiles trade fewer loads for fewer threads:
+//   8 x 8 tiles gained 12 % at vision and lost at T=16 and 32 on the H100.
+// - Softmax, exact over the whole row as fused_mha_reference takes it (the
+//   max over all T keys, the sum of exp(s - max), then e * (1 / sum); no
+//   online rescaling), s = (q . k) * scale + mask rounded as two steps. A
+//   warp a row in series cost more than Q K^T itself (0.065 of 0.168 ms at
+//   vision), so:
+//   - T <= 64 (kRegisters): each thread holds 4 rows x (T / 8) keys
+//     tc + 8 u, the 8 threads of a row are one aligned lane group, and the
+//     max and the sum take 3 shuffles each; P, normalised, goes over Q and
+//     K in shared memory;
+//   - T <= 128 (kPass): 4 x 8 tiles of q . k go to a (T x T) array P
+//     (pitch T + 4), and a pass over P takes 8 lanes a row, 4 rows a warp
+//     at once, reading the mask coalesced. At T=77 it beat the register
+//     softmax (0.195 against 0.214 ms): 4 x 10 tiles leave 160 threads to
+//     do the products.
+// - P.V: each thread owns an 8 x 4 register tile of the context (rows
+//   tr + i T/8, four adjacent columns): 12 float4 shared loads feed 128
+//   FMAs, in key order; the output is stored 16 bytes at a time.
+// - Shared memory and blocks per SM (228 KB an SM): T=16 13,056 bytes (16
+//   blocks of 32 threads), T=32 26,112 (8 of 64), T=50 45,696 (4 of 128),
+//   T=77 92,160 with P apart (2 of 256).
+// - T from 129 to 257 (ViT-L/H-14, off the main path), and T <= 128 where
+//   the resident layout would pass 227 KB (hd=104 at T=128; kChunked):
+//   blocks of 64 query rows, K and then V streamed through one 64-row
+//   buffer, the scores of the whole row kept in P; right, not tuned.
 //
 // Layout: qkv (B, T, 3*D) row-major, D = heads * HD; mask (T, T) fp32 or
 // null; out (B, T, D). T <= 257, HD in {64, 80, 88, 104}.
@@ -64,164 +107,7 @@
 
 namespace {
 
-constexpr int kQT = 32;    // query rows per block
-constexpr int kKT = 32;    // K/V rows per shared-memory chunk
-constexpr int kNT = 128;   // threads per block
 constexpr int kMaxT = 257;
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Copies rows [r0, r0 + rows) of one head's Q, K or V slice (column offset
-// `col`) into a (kKT or kQT) x (HD+1) fp32 tile, zero past the last row.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ base,
-                                          int r0, int rows, int tile_rows, int ld3,
-                                          int col) {
-  constexpr int LD = HD + 1;
-  for (int e = threadIdx.x; e < tile_rows * HD; e += kNT) {
-    const int r = e / HD, c = e % HD;
-    dst[r * LD + c] = r < rows ? to_f(base[(size_t)(r0 + r) * ld3 + col + c]) : 0.f;
-  }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kNT)
-mha_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-           T* __restrict__ out, int t_len, int heads, float scale) {
-  constexpr int LD = HD + 1;           // odd stride: conflict-free row reads
-  constexpr int kAcc = kQT * HD / kNT; // context outputs per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                // [kQT][LD]
-  float* kv = qs + kQT * LD;       // [kKT][LD], K chunks then V chunks
-  float* s = kv + kKT * LD;        // [kQT][t_len] scores, then probabilities
-
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
-  const int q0 = blockIdx.y * kQT;
-  const int d = heads * HD;
-  const int ld3 = 3 * d;
-  const T* base = qkv + (size_t)b * t_len * ld3;
-  const int tid = threadIdx.x;
-  const int nq = min(kQT, t_len - q0);
-
-  load_tile<T, HD>(qs, base, q0, nq, kQT, ld3, h * HD);
-
-  // scores = Q K^T * scale (+ mask), fp32
-  for (int k0 = 0; k0 < t_len; k0 += kKT) {
-    const int nk = min(kKT, t_len - k0);
-    __syncthreads();
-    load_tile<T, HD>(kv, base, k0, nk, kKT, ld3, d + h * HD);
-    __syncthreads();
-    for (int p = tid; p < kQT * kKT; p += kNT) {
-      const int r = p / kKT, j = p % kKT;
-      if (r < nq && j < nk) {
-        float acc = 0.f;
-#pragma unroll 8
-        for (int c = 0; c < HD; ++c) acc = fmaf(qs[r * LD + c], kv[j * LD + c], acc);
-        float v = acc * scale;
-        if (mask != nullptr) v += mask[(size_t)(q0 + r) * t_len + k0 + j];
-        s[r * t_len + k0 + j] = v;
-      }
-    }
-  }
-  __syncthreads();
-
-  // row softmax in fp32, probabilities rounded to the input type
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < nq; r += kNT / 32) {
-    float* row = s + r * t_len;
-    float m = -INFINITY;
-    for (int j = lane; j < t_len; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < t_len; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < t_len; j += 32) row[j] = to_f(from_f<T>(row[j] / sum));
-  }
-
-  // context = P V, fp32 accumulation
-  float acc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < t_len; k0 += kKT) {
-    const int nk = min(kKT, t_len - k0);
-    __syncthreads();
-    load_tile<T, HD>(kv, base, k0, nk, kKT, ld3, 2 * d + h * HD);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int e = tid + i * kNT;
-      const int r = e / HD, c = e % HD;
-      const float* prow = s + r * t_len + k0;
-      float a = acc[i];
-      if (r < nq) {
-        for (int j = 0; j < nk; ++j) a = fmaf(prow[j], kv[j * LD + c], a);
-      }
-      acc[i] = a;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int e = tid + i * kNT;
-    const int r = e / HD, c = e % HD;
-    if (r < nq) out[((size_t)b * t_len + q0 + r) * d + h * HD + c] = from_f<T>(acc[i]);
-  }
-}
-
-template <typename T, int HD>
-cudaError_t launch(const void* qkv, const void* mask, void* out, int batch,
-                   int t_len, int heads, float scale, cudaStream_t stream) {
-  constexpr int LD = HD + 1;
-  const size_t smem = sizeof(float) * ((size_t)(kQT + kKT) * LD + (size_t)kQT * t_len);
-  static bool attr_set = false;
-  if (!attr_set) {
-    const size_t most = sizeof(float) * ((size_t)(kQT + kKT) * LD + (size_t)kQT * kMaxT);
-    cudaError_t err = cudaFuncSetAttribute(
-        mha_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
-  dim3 grid(batch * heads, (t_len + kQT - 1) / kQT);
-  mha_kernel<T, HD><<<grid, kNT, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(mask),
-      static_cast<T*>(out), t_len, heads, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_hd(const void* qkv, const void* mask, void* out, int batch,
-                        int t_len, int heads, int head_dim, float scale,
-                        cudaStream_t stream) {
-  switch (head_dim) {
-    case 64: return launch<T, 64>(qkv, mask, out, batch, t_len, heads, scale, stream);
-    case 80: return launch<T, 80>(qkv, mask, out, batch, t_len, heads, scale, stream);
-    case 88: return launch<T, 88>(qkv, mask, out, batch, t_len, heads, scale, stream);
-    case 104: return launch<T, 104>(qkv, mask, out, batch, t_len, heads, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // -- bf16 on the tensor cores -------------------------------------------------
 
@@ -532,6 +418,422 @@ cudaError_t dispatch_bf16(const void* qkv, const void* mask, void* out, int batc
 }
 
 
+// -- fp32 on the CUDA cores ---------------------------------------------------
+
+constexpr int kF32Chunk = 64;         // query rows per block and keys per chunk, T > 128
+constexpr int kSmemMax = 232448;      // shared memory a block may use on sm_90
+constexpr int kLanes = 8;             // lanes that share a row of the softmax pass
+
+template <int HD>
+struct F32Geometry {
+  static constexpr int kPitch = HD + 4;  // floats; kPitch / 4 is odd for every HD
+  static constexpr int kSegs = HD / 4;   // 16-byte pieces of a head's row
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+// Rows [r0, r0 + n) of one head's Q, K or V (`base` points at the head's
+// columns of the batch row's first packed row) into an [n][kPitch] tile,
+// zero past t_len: 16-byte copies when every row is 16-byte aligned, else
+// 4-byte copies.
+template <int HD, int NT>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ base, int r0,
+                                              int n, int t_len, int ld3, bool vec) {
+  using G = F32Geometry<HD>;
+  if (vec) {
+    for (int e = threadIdx.x; e < n * G::kSegs; e += NT) {
+      const int r = e / G::kSegs, s = e % G::kSegs;
+      const bool ok = r0 + r < t_len;
+      cp_async16(dst + r * G::kPitch + 4 * s,
+                 base + (ok ? (size_t)(r0 + r) * ld3 + 4 * s : 0), ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * HD; e += NT) {
+      const int r = e / HD, c = e % HD;
+      const bool ok = r0 + r < t_len;
+      cp_async4(dst + r * G::kPitch + c, base + (ok ? (size_t)(r0 + r) * ld3 + c : 0), ok);
+    }
+  }
+}
+
+// Products of the resident query rows [0, 4 rs) with the resident keys
+// [0, 8 ks) (sequence keys k0 + those): thread (tr, tc) owns rows tr + i rs
+// and keys tc + u ks, and writes q . k to ps[row][k0 + key]; the scale and
+// the mask are applied by softmax_rows_f32.
+template <int HD, int NT>
+__device__ __forceinline__ void qk_f32(const float* qs, const float* ks, float* ps, int pp, int rs,
+                                       int kstride, int k0) {
+  constexpr int P = F32Geometry<HD>::kPitch;
+  for (int idx = threadIdx.x; idx < rs * kstride; idx += NT) {
+    const int tr = idx / kstride, tc = idx % kstride;
+    const float* qrow = qs + tr * P;
+    const float* krow = ks + tc * P;
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc[i][u] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < HD; c += 4) {
+      float4 q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = *reinterpret_cast<const float4*>(qrow + i * rs * P + c);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float4 k = *reinterpret_cast<const float4*>(krow + u * kstride * P + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][u] = fmaf(q[i].x, k.x, acc[i][u]);
+          acc[i][u] = fmaf(q[i].y, k.y, acc[i][u]);
+          acc[i][u] = fmaf(q[i].z, k.z, acc[i][u]);
+          acc[i][u] = fmaf(q[i].w, k.w, acc[i][u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) ps[(tr + i * rs) * pp + k0 + tc + u * kstride] = acc[i][u];
+  }
+}
+
+// Rows [0, n) of ps (query rows q0 + r) hold q . k; they become the
+// softmax of s = (q . k) * scale + mask over keys [0, t_len), exact over
+// the whole row (the max, then the sum of exp(s - max), then e * (1 / sum),
+// as torch.softmax takes it on the CPU), and 0 over [t_len, kp). kLanes
+// lanes a row, 32 / kLanes rows a warp at once.
+template <int NT>
+__device__ __forceinline__ void softmax_rows_f32(float* ps, int pp, int n, int q0, int t_len,
+                                                 int kp, const float* __restrict__ mask,
+                                                 float scale) {
+  const int lane = threadIdx.x & 31, s = lane % kLanes;
+  // a warp's rows r - lane / kLanes + [0, 32 / kLanes) stay together for the shuffles
+  for (int r = threadIdx.x / kLanes; r - lane / kLanes < n; r += NT / kLanes) {
+    const bool live = r < n;
+    float* row = ps + (live ? r : 0) * pp;
+    const float* mrow = mask == nullptr ? nullptr : mask + (size_t)(q0 + r) * t_len;
+    float m = -INFINITY;
+    if (live) {
+      for (int j = s; j < t_len; j += kLanes) {
+        float v = __fmul_rn(row[j], scale);
+        if (mrow != nullptr) v = __fadd_rn(v, __ldg(mrow + j));
+        row[j] = v;
+        m = fmaxf(m, v);
+      }
+    }
+#pragma unroll
+    for (int o = kLanes / 2; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.f;
+    if (live) {
+      for (int j = s; j < t_len; j += kLanes) {
+        const float e = expf(row[j] - m);
+        row[j] = e;
+        sum += e;
+      }
+    }
+#pragma unroll
+    for (int o = kLanes / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float inv = 1.f / sum;
+    if (live)
+      for (int j = s; j < kp; j += kLanes) row[j] = j < t_len ? row[j] * inv : 0.f;
+  }
+}
+
+// One score tile in registers for the resident path: query rows tr + i rs
+// (i < 4) against keys tc + 8 u (u < kpt <= KMAX); the 8 threads of a row
+// group are lanes 8 tr' .. 8 tr' + 7 of one warp. On return acc holds the
+// probabilities: s = (q . k) * scale + mask, the row's max and sum of
+// exp(s - max) over all t_len keys by shuffles within the lane group, then
+// e * (1 / sum); 0 for keys past t_len.
+template <int HD, int KMAX>
+__device__ __forceinline__ void qk_softmax_regs_f32(float (&acc)[4][KMAX], const float* qs,
+                                                    const float* ks, int tr, int tc, int rs,
+                                                    int kpt, bool mine, int t_len,
+                                                    const float* __restrict__ mask, float scale) {
+  constexpr int P = F32Geometry<HD>::kPitch;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < KMAX; ++u) acc[i][u] = 0.f;
+  if (mine) {
+    const float* qrow = qs + tr * P;
+    const float* krow = ks + tc * P;
+#pragma unroll 2
+    for (int c = 0; c < HD; c += 4) {
+      float4 q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = *reinterpret_cast<const float4*>(qrow + i * rs * P + c);
+#pragma unroll
+      for (int u = 0; u < KMAX; ++u) {
+        if (u < kpt) {
+          const float4 k = *reinterpret_cast<const float4*>(krow + 8 * u * P + c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][u] = fmaf(q[i].x, k.x, acc[i][u]);
+            acc[i][u] = fmaf(q[i].y, k.y, acc[i][u]);
+            acc[i][u] = fmaf(q[i].z, k.z, acc[i][u]);
+            acc[i][u] = fmaf(q[i].w, k.w, acc[i][u]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = tr + i * rs;
+    const float* mrow = (mask != nullptr && mine && row < t_len) ? mask + (size_t)row * t_len
+                                                                 : nullptr;
+    float m = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < KMAX; ++u) {
+      const int key = tc + 8 * u;
+      float v = -INFINITY;
+      if (u < kpt && key < t_len) {
+        v = __fmul_rn(acc[i][u], scale);
+        if (mrow != nullptr) v = __fadd_rn(v, __ldg(mrow + key));
+      }
+      acc[i][u] = v;
+      m = fmaxf(m, v);
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < KMAX; ++u) {
+      const float e = (u < kpt && tc + 8 * u < t_len) ? expf(acc[i][u] - m) : 0.f;
+      acc[i][u] = e;
+      sum += e;
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float inv = 1.f / sum;
+#pragma unroll
+    for (int u = 0; u < KMAX; ++u) acc[i][u] *= inv;
+  }
+}
+
+__device__ __forceinline__ void fma4(float (&a)[4], float p, const float4& v) {
+  a[0] = fmaf(p, v.x, a[0]);
+  a[1] = fmaf(p, v.y, a[1]);
+  a[2] = fmaf(p, v.z, a[2]);
+  a[3] = fmaf(p, v.w, a[3]);
+}
+
+// acc[i] += P[tr + i rs8][j] * V[j][4 cg : 4 cg + 4) over keys j in [j0, j1)
+// (multiples of 4); the resident V tile starts at key vbase.
+template <int HD>
+__device__ __forceinline__ void pv_f32(float (&acc)[8][4], const float* ps, int pp,
+                                       const float* vs, int tr, int cg, int rs8, int j0, int j1,
+                                       int vbase) {
+  constexpr int P = F32Geometry<HD>::kPitch;
+  const float* prow = ps + tr * pp;
+  const float* vcol = vs + 4 * cg;
+#pragma unroll 2
+  for (int j = j0; j < j1; j += 4) {
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u] = *reinterpret_cast<const float4*>(vcol + (j - vbase + u) * P);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 p = *reinterpret_cast<const float4*>(prow + i * rs8 * pp + j);
+      fma4(acc[i], p.x, v[0]);
+      fma4(acc[i], p.y, v[1]);
+      fma4(acc[i], p.z, v[2]);
+      fma4(acc[i], p.w, v[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_f32(float* __restrict__ out, const float (&acc)[8][4],
+                                          size_t row0, int q0, int t_len, int d, int col,
+                                          int tr, int rs8) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = q0 + tr + i * rs8;
+    if (row < t_len)
+      *reinterpret_cast<float4*>(out + (row0 + row) * d + col) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// The three layouts of mha_f32_kernel.
+enum class F32Path {
+  kRegisters,  // T <= 64: Q, K, V resident; the scores and softmax in registers
+  kPass,       // T <= 128: Q, K, V and P resident; the softmax a pass over P
+  kChunked,    // T <= 257: 64 query rows a block, K and V streamed, P resident
+};
+
+// One block per (batch row, head), or per (batch row, head, 64 query rows)
+// on the chunked path. kRegisters: 8 (T + 3) / 4 <= NT threads hold 4 x
+// (KMAX >= T / 8) score tiles and the row softmax in registers, and P goes
+// over Q and K. kPass and kChunked: 4 x 8 score tiles into P, then
+// softmax_rows_f32.
+template <int HD, int NT, int KMAX, F32Path PATH>
+__global__ void __launch_bounds__(NT)
+mha_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+               float* __restrict__ out, int t_len, int heads, float scale) {
+  using G = F32Geometry<HD>;
+  constexpr int P = G::kPitch;
+  extern __shared__ __align__(16) float smem_f32[];
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int d = heads * HD;
+  const int ld3 = 3 * d;
+  const float* base = qkv + (size_t)b * t_len * ld3 + h * HD;
+  const bool vec = (reinterpret_cast<uintptr_t>(qkv) & 15) == 0;
+  const int kn = (t_len + 3) & ~3;  // keys P.V runs over: P and V are 0 past t_len
+  float acc[8][4];
+
+  if constexpr (PATH != F32Path::kChunked) {
+    const int tp = (t_len + 7) & ~7;
+    const int pp = tp + 4;
+    float* qs = smem_f32;  // [tp][P]
+    float* ks = qs + tp * P;
+    float* vs = ks + tp * P;
+    // [tp][pp]: over Q and K once the scores are in registers, else apart
+    float* ps = PATH == F32Path::kRegisters ? qs : vs + tp * P;
+    load_rows_f32<HD, NT>(qs, base, 0, tp, t_len, ld3, vec);
+    load_rows_f32<HD, NT>(ks, base + d, 0, tp, t_len, ld3, vec);
+    asm volatile("cp.async.commit_group;\n" ::);
+    load_rows_f32<HD, NT>(vs, base + 2 * d, 0, tp, t_len, ld3, vec);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    if constexpr (PATH == F32Path::kRegisters) {
+      const int rs = (t_len + 3) / 4;  // rows tr + i rs, keys tc + 8 u
+      const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+      const bool mine = tr < rs;
+      float pr[4][KMAX];
+      qk_softmax_regs_f32<HD, KMAX>(pr, qs, ks, tr, tc, rs, tp / 8, mine, t_len, mask, scale);
+      __syncthreads();  // Q and K read: P goes over them
+      if (mine) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int u = 0; u < KMAX; ++u)
+            if (u < tp / 8) ps[(tr + i * rs) * pp + tc + 8 * u] = pr[i][u];
+      }
+    } else {
+      qk_f32<HD, NT>(qs, ks, ps, pp, tp / 4, tp / 8, 0);
+      __syncthreads();
+      softmax_rows_f32<NT>(ps, pp, t_len, 0, t_len, tp, mask, scale);
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // P normalised, V landed
+    const int rs8 = tp / 8;
+    for (int idx = threadIdx.x; idx < rs8 * G::kSegs; idx += NT) {
+      const int tr = idx / G::kSegs, cg = idx % G::kSegs;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+      pv_f32<HD>(acc, ps, pp, vs, tr, cg, rs8, 0, kn, 0);
+      store_f32(out, acc, (size_t)b * t_len, 0, t_len, d, h * HD + 4 * cg, tr, rs8);
+    }
+  } else {
+    constexpr int C = kF32Chunk;
+    const int q0 = blockIdx.y * C;
+    const int tk = (t_len + C - 1) / C * C;
+    const int pp = tk + 4;
+    float* qs = smem_f32;    // [C][P]
+    float* kv = qs + C * P;  // [C][P]: a chunk of K, later of V
+    float* ps = kv + C * P;  // [C][pp]
+    load_rows_f32<HD, NT>(qs, base, q0, C, t_len, ld3, vec);
+    for (int k0 = 0; k0 < tk; k0 += C) {
+      __syncthreads();  // the last chunk's readers are done
+      load_rows_f32<HD, NT>(kv, base + d, k0, C, t_len, ld3, vec);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      qk_f32<HD, NT>(qs, kv, ps, pp, C / 4, C / 8, k0);
+    }
+    __syncthreads();
+    softmax_rows_f32<NT>(ps, pp, min(C, t_len - q0), q0, t_len, tk, mask, scale);
+    // one context tile a thread: 8 x (HD / 4) <= NT
+    const int tr = threadIdx.x / G::kSegs, cg = threadIdx.x % G::kSegs;
+    const bool mine = threadIdx.x < (C / 8) * G::kSegs;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int k0 = 0; k0 < tk; k0 += C) {
+      __syncthreads();
+      load_rows_f32<HD, NT>(kv, base + 2 * d, k0, C, t_len, ld3, vec);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      if (mine && k0 < kn) pv_f32<HD>(acc, ps, pp, kv, tr, cg, C / 8, k0, min(k0 + C, kn), k0);
+    }
+    if (mine)
+      store_f32(out, acc, (size_t)b * t_len, q0, t_len, d, h * HD + 4 * cg, tr, C / 8);
+  }
+}
+
+// shared memory of one block, in floats
+template <int HD>
+size_t f32_smem_floats(F32Path path, int t_len) {
+  constexpr int P = F32Geometry<HD>::kPitch;
+  const size_t tp = (t_len + 7) & ~7;
+  if (path == F32Path::kRegisters) return 3 * tp * P;
+  if (path == F32Path::kPass) return 3 * tp * P + tp * (tp + 4);
+  const size_t tk = (t_len + kF32Chunk - 1) / kF32Chunk * kF32Chunk;
+  return 2 * (size_t)kF32Chunk * P + (size_t)kF32Chunk * (tk + 4);
+}
+
+template <int HD, int NT, int KMAX, F32Path PATH>
+cudaError_t launch_f32(const void* qkv, const void* mask, void* out, int batch, int t_len,
+                       int heads, float scale, cudaStream_t stream) {
+  static_assert(PATH != F32Path::kChunked || (kF32Chunk / 8) * F32Geometry<HD>::kSegs <= NT,
+                "one context tile a thread when K and V are streamed");
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(mha_f32_kernel<HD, NT, KMAX, PATH>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int tiles = PATH == F32Path::kChunked ? (t_len + kF32Chunk - 1) / kF32Chunk : 1;
+  mha_f32_kernel<HD, NT, KMAX, PATH><<<dim3(batch * heads, tiles), NT,
+                                       sizeof(float) * f32_smem_floats<HD>(PATH, t_len),
+                                       stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(mask), static_cast<float*>(out),
+      t_len, heads, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_f32_t(const void* qkv, const void* mask, void* out, int batch, int t_len,
+                         int heads, float scale, cudaStream_t stream) {
+  constexpr F32Path kRegs = F32Path::kRegisters;
+  if (t_len <= 16)
+    return launch_f32<HD, 32, 2, kRegs>(qkv, mask, out, batch, t_len, heads, scale, stream);
+  if (t_len <= 32)
+    return launch_f32<HD, 64, 4, kRegs>(qkv, mask, out, batch, t_len, heads, scale, stream);
+  if (t_len <= 64)
+    return launch_f32<HD, 128, 8, kRegs>(qkv, mask, out, batch, t_len, heads, scale, stream);
+  if (t_len <= 128 && sizeof(float) * f32_smem_floats<HD>(F32Path::kPass, t_len) <= kSmemMax)
+    return launch_f32<HD, 256, 1, F32Path::kPass>(qkv, mask, out, batch, t_len, heads, scale,
+                                                  stream);
+  return launch_f32<HD, 256, 1, F32Path::kChunked>(qkv, mask, out, batch, t_len, heads, scale,
+                                                   stream);
+}
+
+cudaError_t dispatch_f32(const void* qkv, const void* mask, void* out, int batch, int t_len,
+                         int heads, int head_dim, float scale, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64: return launch_f32_t<64>(qkv, mask, out, batch, t_len, heads, scale, stream);
+    case 80: return launch_f32_t<80>(qkv, mask, out, batch, t_len, heads, scale, stream);
+    case 88: return launch_f32_t<88>(qkv, mask, out, batch, t_len, heads, scale, stream);
+    case 104: return launch_f32_t<104>(qkv, mask, out, batch, t_len, heads, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
@@ -544,7 +846,7 @@ extern "C" int tpualign_fused_mha(const void* qkv, const void* mask, void* out,
   if (batch <= 0 || t_len <= 0 || t_len > kMaxT || heads <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    err = dispatch_hd<float>(qkv, mask, out, batch, t_len, heads, head_dim, scale, s);
+    err = dispatch_f32(qkv, mask, out, batch, t_len, heads, head_dim, scale, s);
   else if (dtype == 1)
     err = dispatch_bf16(qkv, mask, out, batch, t_len, heads, head_dim, scale, s);
   else

@@ -24,7 +24,8 @@ class CLIP(nn.Module):
 
     def __init__(self, variant: ClipVariant, use_quick_gelu: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 use_fused_attention: bool = False, quant: str = "none"):
+                 use_fused_attention: bool = False, quant: str = "none",
+                 remat: bool = False):
         super().__init__()
         v = variant
         self.variant = v
@@ -32,11 +33,11 @@ class CLIP(nn.Module):
         self.visual = VisionTransformer(
             v.image_size, v.patch_size, v.vision_width, v.vision_layers,
             v.vision_heads, v.embed_dim, use_quick_gelu, compute_dtype,
-            use_fused_attention, v.vision_mlp_dim, quant)
+            use_fused_attention, v.vision_mlp_dim, quant, remat)
         self.text = TextTransformer(
             v.context_length, v.vocab_size, v.text_width, v.text_layers,
             v.text_heads, v.embed_dim, use_quick_gelu, compute_dtype,
-            use_fused_attention, v.text_mlp_dim, quant)
+            use_fused_attention, v.text_mlp_dim, quant, remat)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1.0 / 0.07)))
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
@@ -68,7 +69,8 @@ def build_clip(config: ModelConfig, device: str | torch.device = "cuda") -> CLIP
     fp32 and turns TF32 off for CUDA matmuls. ``quant`` is read as the JAX
     package reads it (``parity_mode`` forces ``"none"``): ``"int8"`` and
     ``"int8_qat"`` route every projection of both towers' blocks through
-    ``tpualign_torch.ops.quant``.
+    ``tpualign_torch.ops.quant``. ``remat`` (``CLIP_REMAT``) checkpoints
+    every residual block of both towers while autograd records.
     """
     quant = "none" if config.parity_mode else config.quant
     if quant not in ("none", "int8", "int8_qat"):
@@ -87,7 +89,8 @@ def build_clip(config: ModelConfig, device: str | torch.device = "cuda") -> CLIP
     fused = config.fused_attention
     if fused is None:
         fused = (not config.parity_mode) and dev.type == "cuda"
-    model = CLIP(config.variant, config.use_quick_gelu, compute_dtype, fused, quant)
+    model = CLIP(config.variant, config.use_quick_gelu, compute_dtype, fused, quant,
+                 config.remat)
     return model.to(dev)
 
 

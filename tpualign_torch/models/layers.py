@@ -20,6 +20,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from tpualign_torch.ops.attention import fused_mha, fused_mha_reference
 from tpualign_torch.ops.dense import matmul_f32acc
@@ -137,16 +139,31 @@ class ResidualBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
+def _run_block(block: ResidualBlock, names, x: torch.Tensor, mask: Optional[torch.Tensor],
+               *tensors: torch.Tensor) -> torch.Tensor:
+    return functional_call(block, dict(zip(names, tensors)), (x, mask))
+
+
 class Transformer(nn.Module):
     """Stack of residual blocks (``resblocks.<i>`` here, ``resblock_<i>``
-    in the JAX tree)."""
+    in the JAX tree).
+
+    ``remat`` (``CLIP_REMAT``, tpualign's ``nn.remat`` of each block): while
+    autograd records, each block runs under ``torch.utils.checkpoint``, so
+    its activations are recomputed in the backward instead of kept; the
+    recompute runs the block's forward again (K1 launches twice a block).
+    The block's parameter tensors are inputs of the checkpointed call, so
+    the recompute uses the tensors of the forward even when the step
+    supplied them through ``functional_call``, whose swap has ended by the
+    backward. Without autograd nothing changes."""
 
     def __init__(self, width: int, num_layers: int, num_heads: int,
                  mlp_hidden: Optional[int], use_quick_gelu: bool,
                  compute_dtype: torch.dtype, use_fused_attention: bool,
-                 quant: str = "none"):
+                 quant: str = "none", remat: bool = False):
         super().__init__()
         hidden = mlp_hidden or 4 * width
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualBlock(width, num_heads, hidden, use_quick_gelu,
                           compute_dtype, use_fused_attention, quant)
@@ -154,6 +171,12 @@ class Transformer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.resblocks:
-            x = block(x, mask)
+            if remat:
+                names, tensors = zip(*block.named_parameters())
+                x = checkpoint(_run_block, block, names, x, mask, *tensors,
+                               use_reentrant=False)
+            else:
+                x = block(x, mask)
         return x

@@ -33,7 +33,8 @@ class TextTransformer(nn.Module):
                  use_quick_gelu: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  use_fused_attention: bool = False,
-                 mlp_hidden: Optional[int] = None, quant: str = "none"):
+                 mlp_hidden: Optional[int] = None, quant: str = "none",
+                 remat: bool = False):
         super().__init__()
         self.context_length = context_length
         self.compute_dtype = compute_dtype
@@ -41,7 +42,7 @@ class TextTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
         self.transformer = Transformer(width, num_layers, num_heads, mlp_hidden,
                                        use_quick_gelu, compute_dtype, use_fused_attention,
-                                       quant)
+                                       quant, remat)
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 

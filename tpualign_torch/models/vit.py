@@ -29,7 +29,8 @@ class VisionTransformer(nn.Module):
                  use_quick_gelu: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  use_fused_attention: bool = False,
-                 mlp_hidden: Optional[int] = None, quant: str = "none"):
+                 mlp_hidden: Optional[int] = None, quant: str = "none",
+                 remat: bool = False):
         super().__init__()
         self.image_size = image_size
         self.patch_size = patch_size
@@ -42,7 +43,7 @@ class VisionTransformer(nn.Module):
         self.ln_pre = LayerNorm(width)
         self.transformer = Transformer(width, num_layers, num_heads, mlp_hidden,
                                        use_quick_gelu, compute_dtype, use_fused_attention,
-                                       quant)
+                                       quant, remat)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 

@@ -50,8 +50,8 @@ from tpualign_torch.utils.logging import get_logger
 
 log = get_logger("parallel.retrieval")
 
-__all__ = ["RetrievalIndex", "build_index", "encode_keys", "PAGE_MOD", "NONE_PAGE",
-           "WILDCARD_KEY"]
+__all__ = ["RetrievalIndex", "build_index", "encode_keys", "sharded_topk_search", "PAGE_MOD",
+           "NONE_PAGE", "WILDCARD_KEY"]
 
 # (manual, page) packing: key = manual_code * PAGE_MOD + page_code. Real
 # pages sit in [0, NONE_PAGE); page None encodes as NONE_PAGE, so None
@@ -737,6 +737,25 @@ class RetrievalIndex:
             vals = vals.cpu().numpy()
         vals, idx = _pad_results(vals, idx, k)
         return _sentinel(vals, idx)
+
+
+def sharded_topk_search(queries: np.ndarray, query_keys: np.ndarray, corpus: np.ndarray,
+                        corpus_keys: np.ndarray, k: int, mesh=None,
+                        device: str | torch.device = "cuda") -> Tuple[np.ndarray, np.ndarray]:
+    """One-shot top-k search over pre-encoded int32 keys (tpualign's
+    function of the same name): a transient fp32 :class:`RetrievalIndex` on
+    ``device``. Returns ``(values, indices)``, both ``(Q, k)``; slots
+    without a candidate hold ``(NEG_INF, -1)``. A ``mesh`` raises until the
+    multi-GPU slice is ported (ROADMAP queue 1, item 2)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded_topk_search(mesh=...) is the multi-GPU slice of tpualign_torch, "
+            "not yet ported; search on one device")
+    corpus = np.asarray(corpus, np.float32)
+    index = RetrievalIndex(np.zeros((0, corpus.shape[1]), np.float32), [], [], device=device)
+    index.__dict__.update(index._fields(corpus, np.asarray(corpus_keys, np.int32), 0))
+    return index._search_encoded(np.asarray(queries, np.float32),
+                                 np.asarray(query_keys, np.int32), k)
 
 
 def build_index(

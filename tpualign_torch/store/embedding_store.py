@@ -65,7 +65,8 @@ pages, ref:src/insert_clip_embeddings.py:313-323, and so do we):
 Load-time cross-checks treat the metadata Parquet as the commit record:
 ``base_rows + delta_rows == matrix_rows`` is the consistent state;
 matrix rows beyond it are uncommitted appends (ignored with a warning);
-a folded base whose delta sidecar still exists drops the stale sidecar;
+a folded base whose delta sidecar still exists drops the stale sidecars
+(the delta and the overlay);
 anything else is a torn save and fails loudly.
 
 The v1 format (embeddings as Parquet list columns) and plain v2 (no
@@ -279,13 +280,16 @@ class _Table:
             # the Parquet metadata is the commit record; classify the
             # (base, delta, matrix) row counts (module docstring):
             if base_rows == mat_rows and delta_rows:
-                # fold completed but the sidecar unlink didn't: the
-                # delta rows are already IN the base — drop the sidecar
+                # fold completed but the sidecar unlinks didn't: the
+                # delta rows are already IN the base and the overlay rows
+                # in the matrix — drop both sidecars (an overlay left
+                # from before the fold would serve stale rows)
                 log.warning(
                     "%s: delta sidecar already folded into the base "
                     "(%d rows) — removing it", delta_path, delta_rows,
                 )
                 _unlink_quiet(delta_path)
+                _unlink_quiet(meta_path.with_suffix(".emb.overlay.npz"))
                 delta_rows = 0
             elif base_rows + delta_rows < mat_rows:
                 # appended matrix rows whose metadata never committed
@@ -620,11 +624,7 @@ class _Table:
         emb = (self.emb[: self.n] if self.emb is not None
                else np.zeros((0, 0), np.float32))
         _atomic_npy_save(emb_path, np.ascontiguousarray(emb))
-        mask_path = meta_path.with_suffix(".hasemb.npy")
-        if self.has_emb is not None and not bool(self.has_emb[: self.n].all()):
-            _atomic_npy_save(mask_path, self.has_emb[: self.n])
-        elif mask_path.exists():
-            mask_path.unlink()
+        self._save_mask(meta_path)
         # a full write supersedes any sidecars from an earlier life
         _unlink_quiet(meta_path.with_suffix(".delta.parquet"))
         _unlink_quiet(meta_path.with_suffix(".emb.overlay.npz"))
@@ -648,27 +648,26 @@ class _Table:
             self._disk_n = self._disk_n + self._pend_n
             self._pend_emb = None
             self._pend_n = 0
-        # 2. mask (atomic; may briefly exceed the committed row count —
-        #    from_dir slices)
-        mask_path = meta_path.with_suffix(".hasemb.npy")
-        if self.has_emb is not None and not bool(self.has_emb[: self.n].all()):
-            _atomic_npy_save(mask_path, self.has_emb[: self.n])
-        elif mask_path.exists():
-            mask_path.unlink()
+        # 2. the mask goes after the rows it claims and before the commit
+        #    record (_save_mask, inside step 3)
         delta_n = self._disk_n - self._base_n
         delta_path = meta_path.with_suffix(".delta.parquet")
         ov_path = meta_path.with_suffix(".emb.overlay.npz")
         if (delta_n + len(self._overlay)
                 > _COMPACT_FRACTION * self._base_n):
             # 3a. fold: overlay rows into the matrix in place
-            #     (idempotent), then ONE vectorized Arrow concat for the
-            #     metadata, then drop the sidecars
+            #     (idempotent) and the overlay sidecar dropped (its rows,
+            #     or newer ones, are in the matrix: left behind it would
+            #     serve stale rows), the mask, then ONE vectorized Arrow
+            #     concat for the metadata, then drop the delta sidecar
             if self._overlay:
                 pos = np.fromiter(self._overlay, np.int64,
                                   len(self._overlay))
                 pos.sort()
                 rows = np.stack([self._overlay[int(p)] for p in pos])
                 _write_npy_rows(emb_path, pos, rows)
+            _unlink_quiet(ov_path)
+            self._save_mask(meta_path)
             import pyarrow.parquet as pq
 
             base_tbl = pq.read_table(meta_path)
@@ -681,7 +680,6 @@ class _Table:
                 base_tbl = pa.concat_tables([base_tbl, delta_tbl])
             _atomic_parquet_save(meta_path, base_tbl)  # commit the fold
             _unlink_quiet(delta_path)
-            _unlink_quiet(ov_path)
             self._base_n = self._disk_n
             self._delta_cols = {c: [] for c in self.col_names}
             self._delta_keys = {}
@@ -692,8 +690,8 @@ class _Table:
             self._col_cache.clear()
             self.index = None
         else:
-            # 3b. sidecars: overlay npz, then the delta Parquet as the
-            #     commit record for the appended rows
+            # 3b. sidecars: overlay npz, the mask, then the delta Parquet
+            #     as the commit record for the appended rows
             if self._overlay:
                 pos = np.fromiter(self._overlay, np.int64,
                                   len(self._overlay))
@@ -701,6 +699,7 @@ class _Table:
                 rows = np.stack([self._overlay[int(p)] for p in pos])
                 _atomic_npz_save(ov_path, pos=pos,
                                  emb=rows.astype(np.float32))
+            self._save_mask(meta_path)
             if delta_n:
                 import pyarrow.parquet as pq
 
@@ -713,6 +712,18 @@ class _Table:
                 _atomic_parquet_save(delta_path, delta_tbl)
         # 4. refresh the memmap over the grown/patched matrix
         self._reopen_emb()
+
+    def _save_mask(self, meta_path: Path) -> None:
+        """The has-embedding mask (atomic), written once the rows it
+        claims are durable (appended matrix rows, overlay sidecar or rows
+        folded into the matrix) and before the commit record: it never
+        claims a row whose bytes are missing, and it is never shorter than
+        the committed row count (it may exceed it: from_dir slices)."""
+        mask_path = meta_path.with_suffix(".hasemb.npy")
+        if self.has_emb is not None and not bool(self.has_emb[: self.n].all()):
+            _atomic_npy_save(mask_path, self.has_emb[: self.n])
+        elif mask_path.exists():
+            mask_path.unlink()
 
 
 class _AlignmentTable:

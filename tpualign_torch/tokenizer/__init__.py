@@ -1,3 +1,3 @@
-from tpualign_torch.tokenizer.bpe import ClipTokenizer, bytes_to_unicode, split_words
+from tpualign_torch.tokenizer.bpe import ClipTokenizer, bytes_to_unicode, split_words, tokenize
 
-__all__ = ["ClipTokenizer", "bytes_to_unicode", "split_words"]
+__all__ = ["ClipTokenizer", "bytes_to_unicode", "split_words", "tokenize"]

@@ -36,7 +36,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["ClipTokenizer", "bytes_to_unicode", "split_words"]
+__all__ = ["ClipTokenizer", "bytes_to_unicode", "split_words", "tokenize"]
 
 SOT_TOKEN = "<|startoftext|>"
 EOT_TOKEN = "<|endoftext|>"
@@ -315,3 +315,16 @@ class ClipTokenizer:
                 ids[-1] = self.eot_id
             result[i, : len(ids)] = ids
         return result
+
+
+_DEFAULT: Optional[ClipTokenizer] = None
+
+
+def tokenize(texts: Sequence[str] | str,
+             context_length: int = DEFAULT_CONTEXT_LENGTH) -> np.ndarray:
+    """Module-level wrapper over a shared default tokenizer (tpualign's
+    ``tokenize``): ``(N, context_length)`` int32 ids."""
+    global _DEFAULT
+    if _DEFAULT is None or _DEFAULT.context_length != context_length:
+        _DEFAULT = ClipTokenizer(context_length=context_length)
+    return _DEFAULT(texts)
