@@ -1,9 +1,12 @@
-"""Drives tpualign_torch's embed-and-search, pipeline, training, serving and HNSW paths on one NVIDIA GPU.
+"""Drives tpualign_torch's embed-and-search, pipeline, training, serving, HNSW and mesh paths.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--mesh-only]
 
-Run from the root of a checkout, on a machine with one CUDA card (an H100
-for the numbers in PERF.md). Phases, one JSON line each:
+Run from the root of a checkout, on a machine with one CUDA card or more
+(an H100 for the numbers in PERF.md; the mesh phase takes four distinct
+cards where the host has four). ``--mesh-only`` runs 1., 8.-10., 11. and
+15. alone, with no kernels line: the four-card run. Phases, one JSON line
+each:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 1. build: the five kernels compiled from ``tpualign_torch/csrc/``, in
@@ -156,7 +159,29 @@ for the numbers in PERF.md). Phases, one JSON line each:
     ``main`` in this process, then ``--write`` as a subprocess (the pairs,
     the written scores against a float64 fit: equal after the float32
     cast, monotone, the fit's sum that of the pair cosines);
-15. the seconds of each phase, the kernels line, the card line, and
+15. mesh, a 4-way data mesh of ``tpualign_torch.parallel.create_mesh``
+    (four distinct cards where the host has them, else card 0 four times;
+    it prints which): after hnsw, ``Evaluator(mesh=)`` on the pipeline
+    store, its metrics.json against the one-device Evaluator's; after live,
+    over the serve phase's store, the sharded exact index against the
+    one-device index (int8 and int4 over 1,000,000 rows with gather and
+    streaming, fp32 over 100,000 with gather, streaming and ring; 1,024
+    keyed and 1,024 wildcard queries at k=10 and k=100: indices identical,
+    values within 1e-6) and the search ms of each, /add of 4,096 rows, a
+    remove of 25 % and compact against fresh indexes, ``EmbedEngine(mesh=)``
+    over the slice's images and chunks and one device-feed batch (images/s,
+    chunks/s) within 1e-5 of the one-device engine, and
+    ``build_service(mesh=)`` behind HTTP, its /search_image and
+    /search_text answers against the one-device service's; the kernels'
+    counts around the mesh runs alone. With four cards or more also: each
+    card's idle share while the replicated and the one-device engines
+    embed the slice's images (``torch.profiler``), ``python -m
+    tpualign_torch serve`` as a process on card 0 and with ``--mesh-data
+    4`` (start, p50 of each route alone, requests/s under the clients of
+    11., every serial answer equal), and, in the pipeline phase, ``embed
+    --mesh-data 4`` over stage 1's records into a fresh store (seconds,
+    images/s, every stored embedding within 1e-5 of the one-card store's);
+16. the seconds of each phase, the kernels line, the card line, and
     ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -706,30 +731,44 @@ def _chunk_texts(rng, count, empty_every=97):
     return texts
 
 
-def phase_slice(dev, seed):
-    from tpualign_torch.config import ModelConfig
-    from tpualign_torch.models.layers import MultiHeadAttention
-    from tpualign_torch.ops.attention import fused_mha
+SLICE_PAGES, SLICE_TEXT_QUERIES = 1024, 256
+
+
+def _slice_inputs(seed):
+    """The slice's 2,048 normalised images (fp32 NHWC), 8,192 chunk records
+    and 256 text queries, from ``seed``; returns (images, chunks, queries,
+    the images' manuals, their pages)."""
     from tpualign_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
-    from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_reference
-    from tpualign_torch.parallel import EmbedEngine, RetrievalIndex
-    from tpualign_torch.parallel.retrieval import encode_keys
 
     rng = np.random.default_rng(seed)
-    n_img, n_chunk, n_pages, n_text_q = 2048, 8192, 1024, 256
+    n_img, n_chunk = 2048, 8192
     u8 = rng.integers(0, 256, (n_img, 224, 224, 3), dtype=np.uint8)
     images = ((u8 / np.float32(255.0) - np.asarray(CLIP_MEAN, np.float32))
               / np.asarray(CLIP_STD, np.float32)).astype(np.float32)
     del u8
-    page_of_img = rng.integers(0, n_pages, n_img)
+    page_of_img = rng.integers(0, SLICE_PAGES, n_img)
     img_man = [f"manual-{p // 8}" for p in page_of_img]
     img_pg = [int(p % 8) for p in page_of_img]
-    page_of_chunk = rng.integers(0, n_pages, n_chunk)
+    page_of_chunk = rng.integers(0, SLICE_PAGES, n_chunk)
     texts = _chunk_texts(rng, n_chunk)
     chunks = [{"chunk_id": f"c{i}", "text": texts[i], "manual_id": f"manual-{p // 8}",
                "page": int(p % 8)} for i, p in enumerate(page_of_chunk)]
     queries = [" ".join(rng.choice(["replace", "the", "oil", "filter", "bolt", "pump"], 4))
-               for _ in range(n_text_q)]
+               for _ in range(SLICE_TEXT_QUERIES)]
+    return images, chunks, queries, img_man, img_pg
+
+
+def phase_slice(dev, seed):
+    from tpualign_torch.config import ModelConfig
+    from tpualign_torch.models.layers import MultiHeadAttention
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_reference
+    from tpualign_torch.parallel import EmbedEngine, RetrievalIndex
+    from tpualign_torch.parallel.retrieval import encode_keys
+
+    images, chunks, queries, img_man, img_pg = _slice_inputs(seed)
+    texts = [c["text"] for c in chunks]
+    n_img, n_chunk, n_text_q = len(images), len(chunks), len(queries)
 
     engine = EmbedEngine(ModelConfig("ViT-B-32"), device=dev, seed=seed)
     bucket_of = np.searchsorted(engine.text_buckets,
@@ -784,7 +823,7 @@ def phase_slice(dev, seed):
             ("global_k10", img_index, q_emb, np.full(n_text_q, -3, np.int32), 10, (qvals, qidx))):
         qt = torch.from_numpy(q).to(dev)
         kt = torch.from_numpy(keys).to(dev)
-        rv, ri = masked_sim_topk_reference(qt, kt, ix._corpus, ix._keys, k)
+        rv, ri = masked_sim_topk_reference(qt, kt, *_rows(ix)[:2], k)
         ri = torch.where(rv <= -1e30 / 2, torch.full_like(ri, -1), ri)
         errs[what] = compare_topk(torch.from_numpy(v), torch.from_numpy(i), rv, ri.long(), what)
 
@@ -1086,6 +1125,14 @@ class _Recorder:
         return out
 
 
+def _rows(index):
+    """A one-device exact index's corpus, keys and scales (None at fp32):
+    its one shard."""
+    scales = index._corpus_scales
+    return (index._corpus.parts[0], index._keys.parts[0],
+            None if scales is None else scales.parts[0])
+
+
 def _plain_refined(index, emb, keys, k=10):
     """The plain path of a refined quantized search: the plain K3 version
     over the index's codes for k*refine candidates, then the exact host
@@ -1096,9 +1143,9 @@ def _plain_refined(index, emb, keys, k=10):
     kf = min(k * index.refine, index.n)
     q = torch.from_numpy(np.ascontiguousarray(emb, np.float32)).to(index.device)
     qk = torch.from_numpy(np.asarray(keys, np.int32)).to(index.device)
+    corpus, ck, scales = _rows(index)
     _, idx = _in_slabs(lambda a, b: masked_sim_topk_reference(
-        a, b, index._corpus, index._keys, kf, corpus_scales=index._corpus_scales,
-        int8_mxu=True), q, qk)
+        a, b, corpus, ck, kf, corpus_scales=scales, int8_mxu=True), q, qk)
     idx = idx.cpu().numpy().astype(np.int64)
     idx = np.where(idx >= index.n, -1, idx)
     vals = np.where(idx >= 0, 0.0, NEG_INF).astype(np.float32)
@@ -1427,8 +1474,8 @@ def phase_serve(dev, seed, root, checkpoint):
     kf = 10 * index.refine
     k3_serving = [{"query": what, "variant": "int8", "Q": len(qs), "k": kf, "N": index.n,
                    "D": index.dim,
-                   **_k3_measure(f"K3 at the serving shape ({what})", qs, keys, index._corpus,
-                                 index._keys, index._corpus_scales, True, kf)}
+                   **_k3_measure(f"K3 at the serving shape ({what})", qs, keys,
+                                 *_rows(index), True, kf)}
                   for what, qs, keys in (("search_image", qv, qk), ("search_text", text_q, wild))]
 
     # the int8 index again, standalone (its build time), and the int4/int2
@@ -1461,7 +1508,7 @@ def phase_serve(dev, seed, root, checkpoint):
                   f"{precision} {what}: differs from the plain path")
         recall = _recall(rung, q_rec, exact)
         rungs[precision] = {"index_build_s": rung_s, "recall_at_10": recall,
-                            "corpus_bytes": int(rung._corpus.numel())}
+                            "corpus_bytes": int(_rows(rung)[0].numel())}
         del rung
 
     cli_s = cli.result()
@@ -1712,7 +1759,8 @@ def _live_check(dev, live, services, images, img_emb, step, counters) -> dict:
                                     [images[i]["page"] for i in sel], k=10), ids)
     want_glob = _pairs(*fresh.search(q_glob, k=10, global_search=True), ids)
     # the live rows' int8 dequantization: the fresh index's per-row codes
-    deq = fresh._corpus.float() * fresh._corpus_scales[:, None]
+    codes, _, scales = _rows(fresh)
+    deq = codes.float() * scales[:, None]
     del fresh
     check(served["exact"] == (want_img, want_glob),
           f"{step}: the exact service differs from a fresh index over the live rows")
@@ -1789,8 +1837,7 @@ def _live_kernels(dev, services, images):
             np.int32)).to(dev)
         kf = 10 * index.refine
         if name == "exact":
-            r = _k3_measure("K3 over the live corpus", qv, qk, index._corpus, index._keys,
-                            index._corpus_scales, True, kf)
+            r = _k3_measure("K3 over the live corpus", qv, qk, *_rows(index), True, kf)
         else:
             probe = _probe(qv, qk, index.centroids, index.n_probes, index.n_lists)
             r = _k4_measure("K4 over the live layout", qv, qk, probe,
@@ -2385,11 +2432,12 @@ _STAGE = """
 import atexit, json, runpy, sys
 from tpualign_torch.ops.attention import fused_mha
 from tpualign_torch.ops.normalize import normalize_u8
-from tpualign_torch.ops.sim_topk import masked_sim_topk
+from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
 path = sys.argv[1]
 def _dump():
     with open(path, "w") as f:
         json.dump({"fused_mha": fused_mha.launches, "masked_sim_topk": masked_sim_topk.launches,
+                   "masked_sim_topk_quant": masked_sim_topk_quant.launches,
                    "normalize_u8": normalize_u8.launches,
                    "fused_mha_backward": fused_mha.backward_recomputes}, f)
 atexit.register(_dump)
@@ -2511,7 +2559,7 @@ def _check_evaluator_ranking(dev, store, eval_dir) -> dict:
           "the Evaluator's top-100 table differs from RetrievalIndex.search's")
     qk = torch.from_numpy(retrieval.encode_keys(manuals, pages, dict(index.vocab))[0]).to(dev)
     q = torch.from_numpy(img_emb).to(dev)
-    corpus, ck = index._corpus, index._keys
+    corpus, ck, _ = _rows(index)
     mask = key_mask(qk, ck)
     pairs = int(mask.sum().item())
     rows_read = int(mask.any(dim=0).sum().item())
@@ -2623,7 +2671,10 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
     metrics.json against a float64 recount, the alignment records against
     the CPU ``compute_alignments``; beside them, ``run`` in one command
     over 32 of the manuals, twice, then ``ingest`` over that store
-    (``_ingest_notify``). Returns the launches of the five stages."""
+    (``_ingest_notify``); with MESH_SHARDS cards or more, ``embed
+    --mesh-data`` (_mesh_embed_cli). Returns the launches of the five
+    stages, K2 at the Evaluator's search, ingest's launches and the mesh
+    embed's record (None on fewer cards)."""
     import json
     import os
 
@@ -2683,6 +2734,9 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
     bitwise = _check_embeddings_bitwise(dev, env, store, images, chunks,
                                         os.path.join(out, "images"))
     bitwise["s"] = time.perf_counter() - t0
+    # on a host of MESH_SHARDS cards or more: the same stage on the mesh
+    mesh_embed = (_mesh_embed_cli(env, work, store, secs["embed"], len(images))
+                  if torch.cuda.device_count() >= MESH_SHARDS else None)
     want = _recount(store, "vanilla_clip")
     got = metrics["vanilla_clip"]
     check(got["num_pairs"] == want["num_pairs"] == len(images) * PIPE_CHUNKS_PER_PAGE,
@@ -2717,7 +2771,7 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
           "metrics": metrics, "recount": want, **ranking, "run": one, "ingest": ingest,
           "evaluate_warnings": [line for line in logs["evaluate"].stderr.splitlines()
                                 if "WARNING" in line][:3]})
-    return total, ranking["k2_at_evaluator_search"], ingest["launches"]["ingest"]
+    return total, ranking["k2_at_evaluator_search"], ingest["launches"]["ingest"], mesh_embed
 
 
 INGEST_MANUALS = 16  # manuals added to the run subset for ingest --notify
@@ -2728,7 +2782,7 @@ class _Daemon:
     the stage wrapper (its kernel counters are written when SIGINT ends
     it); ``url`` once it prints its address."""
 
-    def __init__(self, env, cwd, name, device):
+    def __init__(self, env, cwd, name, device, args=()):
         import os
         import queue
         import re
@@ -2740,7 +2794,7 @@ class _Daemon:
         t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-c", _STAGE, self.counters, "serve", "--device", device,
-             "--port", "0"], stdout=subprocess.PIPE, stderr=self.log, text=True, cwd=cwd,
+             "--port", "0", *args], stdout=subprocess.PIPE, stderr=self.log, text=True, cwd=cwd,
             env=dict(os.environ, PYTHONPATH=path, **env))
         lines = queue.Queue()
         threading.Thread(target=lambda: [lines.put(x) for x in self.proc.stdout],
@@ -3724,14 +3778,483 @@ def phase_hnsw(dev, seed, root, checkpoint, card) -> dict:
     return run["launches"]
 
 
+# the mesh phase: a 4-way data mesh (four distinct cards where the host has
+# them, else the first card four times) over the serve phase's store
+MESH_SHARDS = 4
+MESH_QUERIES = 1024       # keyed image queries, and as many wildcard ones
+MESH_FP32_ROWS = 100_000  # the fp32 index: the first rows of the store
+MESH_ADD = 4096
+MESH_REMOVE_SHARE = 0.25
+MESH_REQUESTS = 16        # serial /search_image and /search_text requests a service
+MESH_PROBE_REQUESTS = 32  # serial requests a route, each serve daemon (four cards)
+# replicas run the same kernels on the same weights: their embeddings read
+# 0 (images) and 1.5e-8 (chunks) from one device's on one card and on four
+MESH_REPLICA_ATOL = 1e-5
+
+
+def _mesh(dev):
+    """The mesh phase's mesh and what it stands on."""
+    from tpualign_torch.parallel import create_mesh
+
+    if torch.cuda.device_count() >= MESH_SHARDS:
+        return create_mesh(MESH_SHARDS), f"{MESH_SHARDS} distinct cards"
+    return (create_mesh(MESH_SHARDS, devices=[dev] * MESH_SHARDS),
+            f"card 0 repeated {MESH_SHARDS} times (one card visible)")
+
+
+def _counters():
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.ivf_topk import ivf_probe_topk
+    from tpualign_torch.ops.normalize import normalize_u8
+    from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
+
+    return (fused_mha, masked_sim_topk, masked_sim_topk_quant, ivf_probe_topk, normalize_u8)
+
+
+def _on_mesh(tally, fn, *args, **kw):
+    """``fn`` on the mesh path, the kernels' counts set to 0 just before and
+    read just after into ``tally``; returns fn's result and its seconds
+    (host clock, ended by a synchronize of every card)."""
+    torch.cuda.synchronize()
+    for f in _counters():
+        f.launches = 0
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    s = time.perf_counter() - t0
+    for f in _counters():
+        tally[f.__name__] = tally.get(f.__name__, 0) + f.launches
+    return out, s
+
+
+def _same_search(got, want, what) -> float:
+    """Indices identical, values within 1e-6 (equal expected); returns the
+    largest value gap."""
+    (v, i), (wv, wi) = got, want
+    check(np.array_equal(i, wi), f"{what}: indices differ from the one-device index "
+                                 f"({int((i != wi).sum())} slots)")
+    has = wi >= 0
+    gap = float(np.abs(v[has] - wv[has]).max()) if has.any() else 0.0
+    check(gap <= 1e-6, f"{what}: values differ by {gap:.3g}")
+    return gap
+
+
+def phase_mesh_evaluator(dev, store_dir, work, schemas, mesh, tally) -> dict:
+    """Evaluator(mesh=) over ``schemas`` of the store in ``store_dir`` (the
+    pipeline phase's: 4 schemas, 4,096 images, 32,768 chunks): its
+    metrics.json (written under ``work``) against the one-device
+    Evaluator's, equal."""
+    import contextlib
+    import io
+    import os
+
+    from tpualign_torch.evaluation import Evaluator
+    from tpualign_torch.store import EmbeddingStore
+
+    store = EmbeddingStore(store_dir, embed_dim=512)
+    metrics, seconds = {}, {}
+    for name, kw in (("one_device", dict(device=dev)), ("mesh", dict(mesh=mesh))):
+        out = os.path.join(work, f"eval-{name}")
+
+        def report():
+            with contextlib.redirect_stdout(io.StringIO()):
+                Evaluator(store, output_dir=out, **kw).print_metrics_report(list(schemas))
+
+        if name == "mesh":
+            seconds[name] = _on_mesh(tally, report)[1]
+        else:
+            t0 = time.perf_counter()
+            report()
+            seconds[name] = time.perf_counter() - t0
+        with open(os.path.join(out, "metrics.json")) as f:
+            metrics[name] = json.load(f)
+    check(metrics["mesh"] == metrics["one_device"],
+          "Evaluator(mesh=)'s metrics.json differs from the one-device Evaluator's")
+    check(set(metrics["mesh"]) == set(schemas), f"metrics for {sorted(metrics['mesh'])}")
+    return {"schemas": len(metrics["mesh"]), "metrics_equal": True, "seconds": seconds}
+
+
+def _mesh_indexes(dev, mesh, tally, shared, queries) -> dict:
+    """The sharded index against the one-device index over the 1M-chunk
+    store: int8 and int4 (gather, streaming) over every row, fp32 (gather,
+    streaming, ring) over the first MESH_FP32_ROWS; keyed and wildcard
+    queries at k=10 and k=100; the search ms of each strategy. Returns
+    those rows and the sharded int8 index (the mutations' start)."""
+    from tpualign_torch.parallel.retrieval import RetrievalIndex
+
+    chunk_emb, manuals, pages = shared["chunk_emb"], shared["manuals"], shared["pages"]
+    (q_img, qman, qpg), q_wild = queries
+    out, gap = {}, 0.0
+    for precision, rows, strategies in (("int8", None, ("gather", "streaming")),
+                                        ("int4", None, ("gather", "streaming")),
+                                        ("fp32", MESH_FP32_ROWS, ("gather", "streaming", "ring"))):
+        sel = slice(None, rows)
+        t0 = time.perf_counter()
+        one = RetrievalIndex(chunk_emb[sel], manuals[sel], pages[sel], precision=precision,
+                             device=dev)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        sharded, mesh_s = _on_mesh(tally, RetrievalIndex, chunk_emb[sel], manuals[sel],
+                                   pages[sel], precision=precision, mesh=mesh)
+        check(sharded._corpus.devices == mesh.data_devices, f"{precision}: shards misplaced")
+        ms = {}
+        for k in (10, 100):
+            for what, q, kw in (("keyed", q_img, dict(query_manuals=qman, query_pages=qpg)),
+                                ("wildcard", q_wild, dict(global_search=True))):
+                one.search(q, k=k, **kw)  # warm-up, untimed
+                t0 = time.perf_counter()
+                want = one.search(q, k=k, **kw)
+                ms.setdefault("one_device", {})[f"{what}_k{k}"] = (time.perf_counter() - t0) * 1e3
+                for strategy in strategies:
+                    sharded.search(q, k=k, strategy=strategy, **kw)  # warm-up, untimed
+                    got, s = _on_mesh(tally, sharded.search, q, k=k, strategy=strategy, **kw)
+                    ms.setdefault(strategy, {})[f"{what}_k{k}"] = s * 1e3
+                    gap = max(gap, _same_search(got, want, f"{precision} {strategy} {what} k={k}"))
+        out[precision] = {"N": sharded.n, "n_local": sharded._n_local, "build_s": mesh_s,
+                          "one_device_build_s": one_s, "search_ms": ms}
+        if precision == "int8":
+            int8_index = sharded
+        del one, sharded
+    out["max_value_gap"] = gap
+    return out, int8_index
+
+
+def _mesh_mutations(dev, sharded, tally, shared, queries, seed) -> dict:
+    """add of MESH_ADD rows (past the capacity: the shards regrow), remove
+    of a quarter and compact on ``sharded`` (the int8 mesh index over the
+    store), each step's searches against a fresh one-device index over the
+    live rows."""
+    from tpualign_torch.parallel.retrieval import RetrievalIndex
+
+    chunk_emb, manuals, pages = shared["chunk_emb"], shared["manuals"], shared["pages"]
+    q_img, qman, qpg = queries[0]
+    rng = np.random.default_rng(seed + 7)
+    new = chunk_emb[rng.choice(len(chunk_emb), MESH_ADD, replace=False)]
+    new = new + 0.05 * rng.normal(size=new.shape).astype(np.float32)
+    new /= np.linalg.norm(new, axis=1, keepdims=True)
+    new_pages = rng.integers(0, SERVE_PAGES, MESH_ADD)
+    new_man = [manuals[int(i)] for i in rng.integers(0, len(manuals), MESH_ADD)]
+    rows = np.concatenate([chunk_emb, new])
+    man, pg = list(manuals) + new_man, list(pages) + [int(p) for p in new_pages]
+    _, add_s = _on_mesh(tally, sharded.add, new, new_man, [int(p) for p in new_pages])
+    steps = {"add": {"N": sharded.n, "n_local": sharded._n_local, "s": add_s}}
+
+    def against_fresh(live, what):
+        """The mesh index (its ids are positions in ``live``) against a
+        fresh one-device index over the live rows."""
+        fresh = RetrievalIndex(rows[live], [man[i] for i in live], [pg[i] for i in live],
+                               precision="int8", device=dev)
+        for k in (10, 100):
+            for kw in (dict(query_manuals=qman, query_pages=qpg), dict(global_search=True)):
+                got, _ = _on_mesh(tally, sharded.search, q_img, k=k, **kw)
+                _same_search(got, fresh.search(q_img, k=k, **kw), f"int8 mesh after {what}, "
+                                                                  f"k={k}")
+
+    against_fresh(np.arange(len(rows)), "add")
+    gone = rng.choice(len(rows), int(MESH_REMOVE_SHARE * len(rows)), replace=False)
+    removed, remove_s = _on_mesh(tally, sharded.remove, gone)
+    check(removed == len(gone) and sharded.dead == len(gone), f"removed {removed}")
+    live, compact_s = _on_mesh(tally, sharded.compact)
+    check(np.array_equal(live, np.setdiff1d(np.arange(len(rows)), gone)), "compact's survivors")
+    against_fresh(live, "remove and compact")
+    steps["remove"] = {"rows": int(removed), "s": remove_s}
+    steps["compact"] = {"N": sharded.n, "n_local": sharded._n_local, "s": compact_s}
+    return steps
+
+
+def _mesh_engine(dev, mesh, tally, seed, distinct) -> dict:
+    """EmbedEngine(mesh=) over the slice's 2,048 images and 8,192 chunk
+    records, and one device-feed batch (K5 on every replica), against the
+    one-device engine with the same seeded weights, within
+    MESH_REPLICA_ATOL; on ``distinct`` cards, each card's idle share while
+    each engine embeds the images (_card_idle)."""
+    from tpualign_torch.config import ModelConfig
+    from tpualign_torch.parallel import EmbedEngine
+
+    images, chunks = _slice_inputs(seed)[:2]
+    one = EmbedEngine(ModelConfig("ViT-B-32"), device=dev, seed=seed, preprocess="device")
+    sharded = EmbedEngine(ModelConfig("ViT-B-32"), mesh=mesh, seed=seed, preprocess="device")
+    check(sharded.batch_size % mesh.shape["data"] == 0, f"batch {sharded.batch_size}")
+    sharded.encode_image_batch(images[:sharded.batch_size])  # warm-up, untimed
+    sharded.encode_text_batch([c["text"] for c in chunks[:sharded.batch_size]])
+    img, img_s = _on_mesh(tally, sharded.encode_image_batch, images)
+    txt, txt_s = _on_mesh(tally, sharded.embed_chunk_records, chunks)
+    rng = np.random.default_rng(seed)
+    u8 = [rng.integers(0, 256, (FEED_BUCKET, FEED_BUCKET, 3), dtype=np.uint8)
+          for _ in range(sharded.batch_size)]
+    hws = rng.integers(FEED_BUCKET // 2, FEED_BUCKET + 1, (len(u8), 2)).astype(np.int32)
+    feed, _ = _on_mesh(tally, sharded._encode_image_u8, u8, hws, None)
+    t0 = time.perf_counter()
+    want_img = one.encode_image_batch(images)
+    one_img_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_txt = one.embed_chunk_records(chunks)
+    one_txt_s = time.perf_counter() - t0
+    gaps = {"images": float(np.abs(img - want_img).max()),
+            "chunks": float(np.abs(txt - want_txt).max()),
+            "device_feed": float(np.abs(feed - one._encode_image_u8(u8, hws, None)).max())}
+    for what, g in gaps.items():
+        check(g <= MESH_REPLICA_ATOL,
+              f"EmbedEngine(mesh=) {what}: {g:.3g} from the one-device engine")
+    out = {"images": len(images), "chunks": len(chunks), "batch_size": sharded.batch_size,
+           "images_per_s": len(images) / img_s, "chunks_per_s": len(chunks) / txt_s,
+           "one_device_images_per_s": len(images) / one_img_s,
+           "one_device_chunks_per_s": len(chunks) / one_txt_s, "max_abs_gap": gaps,
+           "tolerance": MESH_REPLICA_ATOL}
+    if distinct:
+        out["idle"] = {}
+        for name, engine in (("one_device", one), ("mesh", sharded)):
+            idle = _card_idle(lambda: engine.encode_image_batch(images))
+            out["idle"][name] = {**idle, "images_per_s": len(images) / idle["window_ms"] * 1e3}
+    return out
+
+
+def _card_idle(fn) -> dict:
+    """fn() under torch.profiler; each card's idle share of the host-clock
+    window (1 - its merged kernel and copy time / the window; "not
+    measured" where the trace holds no device time for the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cards = range(torch.cuda.device_count())
+    for i in cards:
+        torch.cuda.synchronize(i)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        for i in cards:
+            torch.cuda.synchronize(i)
+        window_us = (time.perf_counter() - t0) * 1e6
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.setdefault(e.device_index, []).append((e.time_range.start, e.time_range.end))
+    share = {}
+    for i in cards:
+        busy, end = 0.0, -np.inf
+        for a, b in sorted(spans.get(i, [])):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        share[f"cuda:{i}"] = (max(0.0, 1.0 - busy / window_us) if spans.get(i)
+                              else "not measured")
+    return {"window_ms": window_us / 1e3, "idle_share": share}
+
+
+def _mesh_service(dev, mesh, tally, root, checkpoint, seed, shared) -> dict:
+    """build_service(mesh=) over the 1M-chunk store (int8, refine 4, the
+    checkpoint's towers replicated over the mesh) behind HTTP, against the
+    one-device service (the serve phase's engine): MESH_REQUESTS serial
+    /search_image and /search_text requests, answers equal; /stats reports
+    the mesh; p50 of each route alone."""
+    import urllib.request
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.serving.server import (
+        _ServiceBox, build_service, make_image_bytes_encoder, serve_schemas)
+
+    config = load_config({"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8",
+                          "RETRIEVAL_REFINE": "4", "CLIP_MODEL": "ViT-B-32", "SEED": str(seed),
+                          "CLIP_CHECKPOINT": checkpoint, "SERVE_QUERY_CACHE": "0"})
+    engine = shared["engine"]
+    t0 = time.perf_counter()
+    one = build_service(config, "vanilla_clip", encoder=engine.encode_text_batch,
+                        image_encoder=make_image_bytes_encoder(engine), device=dev)
+    one_s = time.perf_counter() - t0
+    sharded, mesh_s = _on_mesh(tally, build_service, config, "vanilla_clip", mesh=mesh)
+    images = shared["images"]
+    rng = np.random.default_rng(seed + 11)
+    asks = [("/search_image", {"image_ids": [images[int(i)]["image_id"]
+                                             for i in rng.integers(0, len(images), 2)], "k": 10})
+            for _ in range(MESH_REQUESTS)]
+    asks += [("/search_text", {"texts": [SERVE_TEXTS[j % len(SERVE_TEXTS)]], "k": 10,
+                               "global": True}) for j in range(MESH_REQUESTS)]
+    answers, lat = {}, {}
+    for name, service in (("one_device", one), ("mesh", sharded)):
+        httpd = serve_schemas({"vanilla_clip": _ServiceBox(service)}, "vanilla_clip",
+                              "127.0.0.1", 0)
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            for path, body in asks[:2] + asks[MESH_REQUESTS:MESH_REQUESTS + 1]:
+                _post(base, path, body)  # warm-up
+
+            def drive():
+                return [_timed_post(base, path, body) for path, body in asks]
+
+            if name == "mesh":
+                runs, _ = _on_mesh(tally, drive)
+                stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=60).read())
+                check(stats.get("mesh") == mesh.shape, f"/stats mesh {stats.get('mesh')}")
+            else:
+                runs = drive()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join()
+        answers[name] = [r for r, _ in runs]
+        lat[name] = {path: _pct([s for (p, _), (_, s) in zip(asks, runs) if p == path], 0.5)
+                     for path in ("/search_image", "/search_text")}
+    for (path, body), got, want in zip(asks, answers["mesh"], answers["one_device"]):
+        check(got["results"] == want["results"], f"{path} {body}: the mesh service differs")
+    return {"requests": len(asks), "answers_equal": True, "p50_ms": lat,
+            "service_build_s": {"one_device": one_s, "mesh": mesh_s}}
+
+
+def _mesh_daemon(env, work, name, args, images, pngs) -> dict:
+    """One ``serve`` process over the serve phase's store: its start, p50
+    of /search_image, /search_text (one fresh text a request, so that the
+    mesh engine runs it on its first replica as one card does) and
+    /search_image_bytes sent alone, requests/s under the serve phase's
+    clients, /stats' mesh, its kernel counts and its serial answers
+    (``pngs``: encoded image files)."""
+    import base64
+
+    daemon = _Daemon(env, work, name, "cuda", args)
+    try:
+        rng = np.random.default_rng(5)
+        asks = {"/search_image": [{"image_ids": [images[int(i)]["image_id"]
+                                                 for i in rng.integers(0, len(images), 2)],
+                                   "k": 10} for _ in range(MESH_PROBE_REQUESTS)],
+                "/search_text": [{"texts": [f"{SERVE_TEXTS[j % len(SERVE_TEXTS)]} {j}"], "k": 10,
+                                  "global": True} for j in range(MESH_PROBE_REQUESTS)],
+                "/search_image_bytes": [{"images_b64": [base64.b64encode(pngs[j % len(pngs)])
+                                                        .decode()], "k": 10}
+                                        for j in range(MESH_PROBE_REQUESTS)]}
+        for path, bodies in asks.items():
+            _post(daemon.url, path, bodies[0])  # warm-up
+        answers, p50 = {}, {}
+        for path, bodies in asks.items():
+            runs = [_timed_post(daemon.url, path, b) for b in bodies]
+            answers[path] = [r["results"] for r, _ in runs]
+            p50[path] = _pct([s for _, s in runs], 0.5)
+        ctx = multiprocessing.get_context("spawn")
+        recv, send = ctx.Pipe(duplex=False)
+        port = int(daemon.url.rsplit(":", 1)[1])
+        load = ctx.Process(target=_load, args=(port, [im["image_id"] for im in images], pngs,
+                                               SERVE_CLIENTS, SERVE_REQUESTS, send))
+        load.start()
+        check(recv.poll(600), f"{name}: the clients sent no answers within 600 s")
+        results, errors, wall = recv.recv()
+        load.join()
+        check(not errors and all(r["status"] == 200 for r in results),
+              f"{name}: client errors {errors[:2]}")
+        stats = daemon.get("/stats")
+    finally:
+        counts = daemon.stop()
+    return {"start_s": daemon.start_s, "p50_ms": p50, "clients": SERVE_CLIENTS,
+            "requests": len(results), "requests_per_s": len(results) / wall,
+            "mesh": stats.get("mesh"), "launches": counts, "answers": answers}
+
+
+def _mesh_serve_cli(seed, root, checkpoint, images, mesh) -> dict:
+    """``python -m tpualign_torch serve`` as a process over the serve
+    phase's store (int8, refine 4, the checkpoint's towers) on card 0, then
+    with ``--mesh-data`` over the mesh's cards (_mesh_daemon each): every
+    serial answer of the mesh daemon equal to the one-card daemon's."""
+    import os
+
+    work = os.path.join(root, "mesh-serve")
+    os.makedirs(work)
+    env = {"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8", "RETRIEVAL_REFINE": "4",
+           "CLIP_MODEL": "ViT-B-32", "SEED": str(seed), "CLIP_CHECKPOINT": checkpoint}
+    rng = np.random.default_rng(seed)
+    pngs = [_png(rng) for _ in range(4)]
+    daemons = {name: _mesh_daemon(env, work, name, extra, images, pngs)
+               for name, extra in (("one_card", ()),
+                                   ("mesh", ("--mesh-data", str(mesh.shape["data"]))))}
+    got, want = daemons["mesh"].pop("answers"), daemons["one_card"].pop("answers")
+    for path in want:
+        check(got[path] == want[path], f"serve --mesh-data {path}: answers differ from the "
+                                       "one-card daemon's")
+    check(daemons["mesh"]["mesh"] == mesh.shape, f"the mesh daemon's /stats: "
+                                                 f"{daemons['mesh']['mesh']}")
+    return {"answers_equal": True, **daemons}
+
+
+def _mesh_embed_cli(env, work, store, one_card_s, n_images) -> dict:
+    """``setup-db`` into a fresh store, then ``embed --mesh-data
+    MESH_SHARDS`` over stage 1's records of the pipeline phase (the towers
+    replicated on the first MESH_SHARDS cards, K5 on each): the process's
+    seconds and images/s beside the one-card ``embed`` process's, its
+    launches, and every stored embedding of every schema against the
+    one-card store's within MESH_REPLICA_ATOL."""
+    import os
+
+    from tpualign_torch.store import SCHEMAS, EmbeddingStore
+
+    mesh_env = {**env, "STORE_DIR": os.path.join(work, "store-mesh")}
+    _run_stage(["setup-db", "--device", "cuda"], mesh_env, work, "-mesh")
+    secs, launches, _ = _run_stage(["embed", "--device", "cuda", "--mesh-data",
+                                    str(MESH_SHARDS)], mesh_env, work, "-mesh")
+    check(launches["normalize_u8"] == MESH_SHARDS * -(-n_images // B),
+          f"embed --mesh-data launched K5 {launches['normalize_u8']} times")
+    mesh_store = EmbeddingStore(mesh_env["STORE_DIR"], embed_dim=512)
+    gap = 0.0
+    for schema in SCHEMAS:
+        for table in ("images", "text_chunks"):
+            ids, got = mesh_store.embedding_matrix(schema, table)
+            want_ids, want = store.embedding_matrix(schema, table)
+            check(list(ids) == list(want_ids) and got.shape == want.shape,
+                  f"embed --mesh-data {schema}/{table}: other rows than one card's")
+            gap = max(gap, float(np.abs(got - want).max()) if got.size else 0.0)
+    check(gap <= MESH_REPLICA_ATOL, f"embed --mesh-data: {gap:.3g} from one card's store")
+    return {"cards": MESH_SHARDS, "s": secs, "one_card_s": one_card_s,
+            "images_per_s": n_images / secs, "one_card_images_per_s": n_images / one_card_s,
+            "max_abs_gap": gap, "launches": launches}
+
+
+def phase_mesh(dev, seed, root, checkpoint, shared, mesh, where, tally, evaluator,
+               embed_cli) -> dict:
+    """The one-host mesh over the serve phase's store (see _mesh_indexes,
+    _mesh_mutations, _mesh_engine and _mesh_service), with the
+    Evaluator's check of the pipeline store (phase_mesh_evaluator, run
+    while that store existed); on distinct cards also each card's idle
+    share, ``serve --mesh-data`` as a process (_mesh_serve_cli) and the
+    pipeline phase's ``embed --mesh-data`` (``embed_cli``)."""
+    from tpualign_torch.store import EmbeddingStore
+
+    images = shared["images"]
+    _, img_emb = EmbeddingStore(root).embedding_matrix("vanilla_clip", "images")
+    keyed = (img_emb[:MESH_QUERIES], [im["manual_id"] for im in images[:MESH_QUERIES]],
+             [im["page"] for im in images[:MESH_QUERIES]])
+    queries = (keyed, img_emb[MESH_QUERIES:2 * MESH_QUERIES])
+    out = {"phase": "mesh", "mesh": {"shape": mesh.shape, "devices": [str(d) for d in
+                                                                      mesh.devices.flat],
+                                     "stands_on": where}}
+    out["indexes"], int8_index = _mesh_indexes(dev, mesh, tally, shared, queries)
+    out["mutations"] = _mesh_mutations(dev, int8_index, tally, shared, queries, seed)
+    del int8_index
+    distinct = len(set(mesh.devices.flat)) == mesh.devices.size
+    out["engine"] = _mesh_engine(dev, mesh, tally, seed, distinct)
+    out["service"] = _mesh_service(dev, mesh, tally, root, checkpoint, seed, shared)
+    out["evaluator"] = evaluator
+    if distinct:
+        out["serve_cli"] = _mesh_serve_cli(seed, root, checkpoint, images, mesh)
+        out["embed_cli"] = embed_cli
+    out["launches"] = dict(tally)
+    emit(out)
+    for name in ("fused_mha", "masked_sim_topk", "masked_sim_topk_quant", "normalize_u8"):
+        check(tally.get(name, 0) > 0, f"{name} was not launched on the mesh path")
+    return dict(tally)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="only the phases the mesh phase stands on (build, checkpoint, "
+                             "device_feed, pipeline, serve) and the mesh phase; no kernels line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    import os
+
     import tpualign_torch  # noqa: F401  (fails outside a checkout)
+    from tpualign_torch.store import SCHEMAS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3751,44 +4274,61 @@ def main() -> int:
 
     phase_build()
     lap("build")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    k1 = phase_k1(dev, gen)
-    lap("k1")
-    k2 = phase_k2(dev, gen)
-    lap("k2")
-    launches = phase_slice(dev, args.seed)
-    fp32_launches = phase_fp32_towers(dev, args.seed)
-    lap("slice")
-    int8_launches = phase_int8_towers(dev, args.seed)
-    lap("int8_towers")
-    k3 = phase_k3(dev, gen)
-    lap("k3")
-    k4 = phase_k4(dev, gen)
-    lap("k4")
-    k5 = phase_k5(dev, gen)
-    lap("k5")
+    if not args.mesh_only:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        k1 = phase_k1(dev, gen)
+        lap("k1")
+        k2 = phase_k2(dev, gen)
+        lap("k2")
+        launches = phase_slice(dev, args.seed)
+        fp32_launches = phase_fp32_towers(dev, args.seed)
+        lap("slice")
+        int8_launches = phase_int8_towers(dev, args.seed)
+        lap("int8_towers")
+        k3 = phase_k3(dev, gen)
+        lap("k3")
+        k4 = phase_k4(dev, gen)
+        lap("k4")
+        k5 = phase_k5(dev, gen)
+        lap("k5")
     with tempfile.TemporaryDirectory(prefix="tpualign_ckpt_") as ckpt_dir:
         checkpoint = phase_checkpoint(ckpt_dir, args.seed)
         lap("checkpoint")
         with tempfile.TemporaryDirectory(prefix="tpualign_feed_") as root:
             feed_names = phase_device_feed(dev, args.seed, root)
             lap("device_feed")
-            pipe_launches, k2_eval, ingest_launches = phase_pipeline(
+            pipe_launches, k2_eval, ingest_launches, mesh_embed = phase_pipeline(
                 dev, args.seed, root, feed_names, checkpoint)
             lap("pipeline")
-            train = phase_train(dev, args.seed, root, checkpoint, card)
-            lap("train")
-            hnsw_launches = phase_hnsw(dev, args.seed, root, checkpoint, card)
-            lap("hnsw")
+            if not args.mesh_only:
+                train = phase_train(dev, args.seed, root, checkpoint, card)
+                lap("train")
+                hnsw_launches = phase_hnsw(dev, args.seed, root, checkpoint, card)
+                lap("hnsw")
+            mesh, mesh_on = _mesh(dev)
+            mesh_tally = {}
+            mesh_eval = phase_mesh_evaluator(dev, os.path.join(root, "pipeline", "store"),
+                                             os.path.join(root, "pipeline"), SCHEMAS, mesh,
+                                             mesh_tally)
+            lap("mesh_evaluator")
         with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
             serve_launches, k3_serve, shared = phase_serve(dev, args.seed, root, checkpoint)
             lap("serve")
-            ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)
-            lap("serve_ivf")
-            live_launches = phase_live(dev, args.seed, root, shared)
-            lap("live")
+            if not args.mesh_only:
+                ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)
+                lap("serve_ivf")
+                live_launches = phase_live(dev, args.seed, root, shared)
+                lap("live")
+            mesh_launches = phase_mesh(dev, args.seed, root, checkpoint, shared, mesh, mesh_on,
+                                       mesh_tally, mesh_eval, mesh_embed)
+            lap("mesh")
             del shared
     emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t_start})
+    if args.mesh_only:
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     k1_head = next(r for r in k1 if r["shape"] == "vision" and r["dtype"] == "bfloat16")
     k1_fp32 = next(r for r in k1 if r["shape"] == "vision" and r["dtype"] == "float32")
@@ -3810,7 +4350,8 @@ def main() -> int:
                                "ingest": ingest_launches["fused_mha"],
                                "live": live_launches["fused_mha"],
                                "train": train_launches["fused_mha"],
-                               "hnsw": hnsw_launches["fused_mha"]},
+                               "hnsw": hnsw_launches["fused_mha"],
+                               "mesh": mesh_launches["fused_mha"]},
          "train_backward_recomputes": train_launches["fused_mha_backward"],
          "training": {"backward": "recomputes the plain attention (as tpualign's custom_vjp)",
                       "rows": train["k1_backward"],
@@ -3829,7 +4370,8 @@ def main() -> int:
          "launches": launches["masked_sim_topk"], **{k: k2_head[k] for k in keys},
          "launches_by_phase": {"slice": launches["masked_sim_topk"],
                                "pipeline": pipe_launches["masked_sim_topk"],
-                               "live": live_launches["masked_sim_topk"]},
+                               "live": live_launches["masked_sim_topk"],
+                               "mesh": mesh_launches["masked_sim_topk"]},
          "tolerance": {"values_atol": K2_TOL_VALUES, "tie_gap": K2_TIE_GAP},
          "at": (f"fp32 Q=1024 N=100000 D=512 k=100, {k2_head['admitted_tiles']} of "
                 f"{k2_head['tiles']} tiles admitted; at the "
@@ -3843,7 +4385,8 @@ def main() -> int:
          "launches": serve_launches["masked_sim_topk_quant"], **{k: k3_head[k] for k in keys},
          "launches_by_phase": {"serve": serve_launches["masked_sim_topk_quant"],
                                "serve_ivf": ivf_launches["masked_sim_topk_quant"],
-                               "live": live_launches["masked_sim_topk_quant"]},
+                               "live": live_launches["masked_sim_topk_quant"],
+                               "mesh": mesh_launches["masked_sim_topk_quant"]},
          "tolerance": k3_head["tolerance"],
          "at": (f"int8 (s8) Q=1024 N=1000000 D=512 k=40, {k3_head['admitted_tiles']} of "
                 f"{k3_head['tiles']} tiles admitted; launches from the serve phase; at the "
@@ -3857,7 +4400,8 @@ def main() -> int:
          "replaces": "tpualign/ops/pallas_kernels.py:778",
          "launches": ivf_launches["ivf_probe_topk"], **{k: k4_head[k] for k in keys},
          "launches_by_phase": {"serve_ivf": ivf_launches["ivf_probe_topk"],
-                               "live": live_launches["ivf_probe_topk"]},
+                               "live": live_launches["ivf_probe_topk"],
+                               "mesh": mesh_launches["ivf_probe_topk"]},
          "tolerance": k4_head["tolerance"],
          "at": (f"int8 (s8) Q=2 k={k4_head['k']}, the serve_ivf store's two keyed image "
                 f"queries at its calibrated {k4_head['n_probes']} probes, N={k4_head['N']} "
@@ -3869,7 +4413,8 @@ def main() -> int:
          "launches": pipe_launches["normalize_u8"], **{k: k5[k] for k in keys},
          "launches_by_phase": {"pipeline": pipe_launches["normalize_u8"],
                                "ingest": ingest_launches["normalize_u8"],
-                               "train": train_launches["normalize_u8"]},
+                               "train": train_launches["normalize_u8"],
+                               "mesh": mesh_launches["normalize_u8"]},
          "tolerance": "bit-identical",
          "at": "u8 (256, 224, 224, 3) -> fp32, one device-feed batch of ViT-B-32; launches "
                "from the pipeline phase's embed stage (IMAGE_PREPROCESS=device)"},

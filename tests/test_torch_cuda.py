@@ -948,3 +948,157 @@ def test_bf16_train_step_with_k1_matches_plain(dev, accum):
     for k, want in g0.items():
         err = (g1[k] - want).abs().max().item()
         assert err <= 5e-2 * want.abs().max().item() + 1e-12, (k, err)
+
+
+# -- more than one card: the per-card launch setup, and the mesh ------------------
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards (launches on a card other than card 0)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.cuda.device_count()
+
+
+# each kernel at a shape whose launch needs more than 48 KB of dynamic
+# shared memory where the kernel takes it (K1 bf16 at T=257, K2, K3, K4)
+MULTI_CARD = ["K1 bf16", "K1 fp32", "K2", "K3 s8", "K3 int4", "K4 fp32", "K4 s8", "K5"]
+
+
+def _kernel_case(name: str, dev) -> None:
+    """One launch of the kernel ``name`` on ``dev`` (a bare ``cuda`` is the
+    current card), held against its plain version there."""
+    from tpualign_torch.ops.normalize import normalize_u8, normalize_u8_reference
+
+    rng = np.random.default_rng(len(name))
+    if name == "K1 bf16":
+        _mha_case(dev, 2, 257, 3, 88, torch.bfloat16, False)
+    elif name == "K1 fp32":
+        _mha_case(dev, 4, 77, 8, 64, torch.float32, True)
+    elif name == "K2":
+        qv, qk, cv, ck = _paged_inputs(rng, 70, 30000, 512)
+        args = [torch.from_numpy(a).to(dev) for a in (qv, qk, cv, ck)]
+        before = masked_sim_topk.launches
+        vals, idx = masked_sim_topk(*args, 40)
+        torch.cuda.synchronize()
+        assert masked_sim_topk.launches == before + 1
+        _check_against_plain(vals, idx, *masked_sim_topk_reference(*args, 40))
+    elif name.startswith("K3"):
+        variant, quantizer = (("s8", "_quantize_rows") if name.endswith("s8")
+                              else ("int4", "_quantize_rows_int4"))
+        _k3_case(dev, variant, quantizer, True, *_paged_inputs(rng, 70, 30000, 512), 40)
+    elif name.startswith("K4"):
+        variant, quantizer = ("fp32", None) if name.endswith("fp32") else ("s8", "_quantize_rows")
+        _k4_case(dev, variant, quantizer, variant == "s8", _k4_paged(rng, 70), 40)
+    else:
+        x = torch.from_numpy(rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)).to(dev)
+        before = normalize_u8.launches
+        got = normalize_u8(x)
+        torch.cuda.synchronize()
+        assert normalize_u8.launches == before + 1
+        assert torch.equal(got, normalize_u8_reference(x))
+
+
+@pytest.mark.parametrize("name", MULTI_CARD)
+def test_kernels_on_a_bare_cuda_device_while_another_card_is_current(cards, name):
+    """``torch.device("cuda")`` while the last card is current: the kernel
+    launches there (not on card 0) and leaves that card current."""
+    last = cards - 1
+    with torch.cuda.device(last):
+        _kernel_case(name, torch.device("cuda"))
+        assert torch.cuda.current_device() == last
+
+
+@pytest.mark.parametrize("name", MULTI_CARD)
+def test_kernels_on_the_last_card_after_the_first(cards, name):
+    """A launch on card 0, then on the last card in the same process: the
+    shared-memory limit is set on each card (it applies to the current
+    card only), and card 0 stays current."""
+    torch.cuda.set_device(0)
+    _kernel_case(name, torch.device("cuda", 0))
+    _kernel_case(name, torch.device("cuda", cards - 1))
+    assert torch.cuda.current_device() == 0
+
+
+def _mesh_checks(mesh) -> None:
+    """The mesh phase of chip_smoke.py at a small size: the sharded index
+    at every precision and strategy, keyed and wildcard, k=10 and k=100,
+    against the one-device index on the first card (indices identical,
+    values equal); add, remove and compact against fresh indexes; the
+    data-parallel towers (K1 on every replica, K5 in the device feed)
+    within 1e-5 of the one-device engine: the replicas run the same
+    kernels on the same weights."""
+    from tpualign_torch.config import ModelConfig
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.normalize import normalize_u8
+    from tpualign_torch.parallel import EmbedEngine, RetrievalIndex
+
+    dev0 = mesh.data_devices[0]
+    rng = np.random.default_rng(4)
+    n, d = 20000, 512
+    c = rng.normal(size=(n, d)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    man = [f"m{i // 400}" for i in range(n)]
+    page = [i // 8 % 50 for i in range(n)]
+    pick = rng.integers(0, n, 64)
+    q = c[pick] + 0.2 * rng.normal(size=(64, d)).astype(np.float32)
+    qm, qp = [man[i] for i in pick], [page[i] for i in pick]
+    for precision, strategies in (("fp32", ("gather", "ring", "streaming")),
+                                  ("int8", ("gather", "streaming")),
+                                  ("int4", ("gather", "streaming")),
+                                  ("int2", ("gather", "streaming"))):
+        one = RetrievalIndex(c, man, page, precision=precision, device=dev0)
+        sharded = RetrievalIndex(c, man, page, precision=precision, mesh=mesh)
+        assert [p.device for p in sharded._corpus.parts] == mesh.data_devices
+        for k in (10, 100):
+            for kw in (dict(query_manuals=qm, query_pages=qp), dict(global_search=True)):
+                want = one.search(q, k=k, **kw)
+                for strategy in strategies:
+                    got = sharded.search(q, k=k, strategy=strategy, **kw)
+                    np.testing.assert_array_equal(got[1], want[1], err_msg=precision)
+                    np.testing.assert_array_equal(got[0], want[0], err_msg=precision)
+    # mutations: an add past the capacity, a remove of a quarter, compact
+    sharded = RetrievalIndex(c[:16000], man[:16000], page[:16000], precision="int8", mesh=mesh)
+    sharded.add(c[16000:], man[16000:], page[16000:])
+    gone = rng.choice(n, n // 4, replace=False)
+    assert sharded.remove(gone) == n // 4
+    live = sharded.compact()
+    np.testing.assert_array_equal(live, np.setdiff1d(np.arange(n), gone))
+    fresh = RetrievalIndex(c[live], [man[i] for i in live], [page[i] for i in live],
+                           precision="int8", device=dev0)
+    for kw in (dict(query_manuals=qm, query_pages=qp), dict(global_search=True)):
+        got, want = sharded.search(q, k=10, **kw), fresh.search(q, k=10, **kw)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+    # the towers, replicated
+    one = EmbedEngine(ModelConfig("ViT-B-32"), batch_size=8, device=dev0, preprocess="device")
+    sharded = EmbedEngine(ModelConfig("ViT-B-32"), batch_size=8, mesh=mesh, preprocess="device")
+    images = rng.normal(size=(10, 224, 224, 3)).astype(np.float32)
+    texts = ["replace the oil filter", "torque 25 Nm", "check the pump seal " * 5] * 3
+    u8 = [rng.integers(0, 256, (256, 256, 3), dtype=np.uint8) for _ in range(8)]
+    hws = np.asarray([[256, 256], [200, 180], [256, 120], [64, 256]] * 2, np.int32)
+    before = (fused_mha.launches, normalize_u8.launches)
+    got = (sharded.encode_image_batch(images), sharded.encode_text_batch(texts),
+           sharded._encode_image_u8(u8, hws, None))
+    torch.cuda.synchronize()
+    launched = (fused_mha.launches - before[0], normalize_u8.launches - before[1])
+    want = (one.encode_image_batch(images), one.encode_text_batch(texts),
+            one._encode_image_u8(u8, hws, None))
+    data = mesh.shape["data"]
+    assert launched[1] == data and launched[0] >= data * 12
+    for what, g, w in zip(("images", "texts", "device feed"), got, want):
+        gap = np.abs(g - w).max()
+        assert gap <= 1e-5, f"{what}: the replicas read {gap:.3g} from one device"
+
+
+def test_mesh_of_one_card_matches_one_device(dev):
+    from tpualign_torch.parallel import create_mesh
+
+    _mesh_checks(create_mesh(4, devices=[torch.device("cuda", 0)] * 4))
+
+
+def test_mesh_of_distinct_cards_matches_one_device(cards):
+    from tpualign_torch.parallel import create_mesh
+
+    _mesh_checks(create_mesh(min(cards, 4)))

@@ -260,13 +260,20 @@ def test_build_index_warns_as_tpualign(monkeypatch):
     warnings = []
     monkeypatch.setattr(retrieval_mod.log, "warning",
                         lambda msg, *a: warnings.append(msg % a if a else msg))
+    from tpualign_torch.parallel import create_mesh
+
     c, cman, cpage, _ = make_corpus(n=200)
     idx = build_index(c, cman, cpage, index_type="hnsw", precision="int8",
-                      recall_target=0.95, hnsw_ef_search=33, mesh=object())
+                      recall_target=0.95, hnsw_ef_search=33,
+                      mesh=create_mesh(2, devices=["cpu"] * 2))
     msgs = " ".join(warnings)
     assert "fp32" in msgs and "halfvec" in msgs and "RETRIEVAL_RECALL_TARGET" in msgs
     assert "mesh is ignored" in msgs
     assert idx.ef_search == 33 and not hasattr(idx, "calibrated_target")
+    # as tpualign: a mesh warns only for a data axis above 1
+    warnings.clear()
+    build_index(c, cman, cpage, index_type="hnsw", mesh=create_mesh(1, 2, devices=["cpu"] * 2))
+    assert "mesh" not in " ".join(warnings)
 
 
 def test_config_hnsw_keys_match_tpualigns():

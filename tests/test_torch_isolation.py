@@ -45,7 +45,8 @@ def test_imports_nothing_of_jax_or_tpualign():
                  "utils.checks", "pipeline", "cli", "ops.quant", "train.loss", "train.optim",
                  "train.step", "train.lora", "train.checkpoint", "train.trainer",
                  "utils.profiling", "utils.flops", "native.build", "native.bindings",
-                 "parallel.hnsw", "weaksup.calibration"):
+                 "parallel.hnsw", "weaksup.calibration", "parallel.mesh", "parallel.ring",
+                 "utils.debugging"):
         assert f"tpualign_torch.{name}" in imported, name
 
 
@@ -159,8 +160,8 @@ def test_native_modules_load_nothing_of_jax_or_tpualign():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-# mesh names, exempt until the multi-GPU slice (ROADMAP queue 1, item 2) lands
-MESH_EXEMPT = {"create_mesh", "default_mesh", "clip_param_specs", "shard_params"}
+# the tower-sharding names, exempt until the sharding.py slice (ROADMAP queue 1, item 2) lands
+MESH_EXEMPT = {"clip_param_specs", "shard_params"}
 
 
 def _exports(mod) -> set:
@@ -175,7 +176,8 @@ def _exports(mod) -> set:
 def test_package_exports_match_tpualign():
     """Every package ``__init__`` of tpualign has a twin in the port that
     exports each of its names (in ``__all__`` where the port's declares
-    one), the mesh names apart."""
+    one), ``create_mesh`` and ``default_mesh`` included, the tower-sharding
+    names apart."""
     import importlib
     import pkgutil
 
@@ -196,3 +198,6 @@ def test_package_exports_match_tpualign():
             missing[port_pkg.__name__] = lacking
     assert not missing, missing
     assert all(not hasattr(p, n) for _, p in pairs for n in MESH_EXEMPT)
+    import tpualign_torch.parallel as port_parallel
+
+    assert {"create_mesh", "default_mesh"} <= set(port_parallel.__all__)

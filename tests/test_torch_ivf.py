@@ -458,8 +458,10 @@ def test_empty_corpus_serves_exact_and_later_slices_raise():
     assert isinstance(index, port_retrieval.RetrievalIndex)
     assert (index.search(np.ones((2, 16), np.float32), k=3)[1] == -1).all()
     c = make_clustered(np.random.default_rng(14), n=256, d=16)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        IVFIndex(c, device="cpu", mesh=object())
+    from tpualign_torch.parallel import create_mesh
+
+    with pytest.raises(NotImplementedError, match="sharded IVF index"):
+        IVFIndex(c, device="cpu", mesh=create_mesh(2, devices=["cpu"] * 2))
     with pytest.raises(ValueError, match="non-empty"):
         IVFIndex(np.zeros((0, 16), np.float32), device="cpu")
     index = IVFIndex(c, n_lists=8, iters=2, device="cpu")

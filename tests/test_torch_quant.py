@@ -284,9 +284,12 @@ def _same_fp32(got, want):
 
 
 def test_later_slices_raise(corpus):
-    """Meshes are a later slice; IVF (tests/test_torch_ivf.py) and HNSW
+    """The sharded IVF index is a later slice (the exact index shards:
+    tests/test_torch_parallel.py); IVF (tests/test_torch_ivf.py) and HNSW
     (tests/test_torch_hnsw.py) are ported: HNSW builds its host graph, or
     says that it needs the native library."""
+    from tpualign_torch.parallel import create_mesh
+
     from tpualign_torch.native import native_available
 
     emb, manuals, pages = corpus
@@ -296,10 +299,11 @@ def test_later_slices_raise(corpus):
     else:
         with pytest.raises(RuntimeError, match="native library"):
             port_retrieval.build_index(emb, manuals, pages, index_type="hnsw", device="cpu")
-    for index_type in ("exact", "ivf"):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            port_retrieval.build_index(emb, manuals, pages, mesh=object(), device="cpu",
-                                       index_type=index_type)
+    mesh = create_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        port_retrieval.build_index(emb, manuals, pages, mesh=mesh, index_type="ivf")
+    exact = port_retrieval.build_index(emb, manuals, pages, mesh=mesh, precision="int8")
+    assert exact.mesh is mesh and exact._n_local == len(emb) // 2
     with pytest.raises(ValueError, match="retrieval_index"):
         port_retrieval.build_index(emb, manuals, pages, index_type="flat", device="cpu")
     # an empty corpus serves the exact index under RETRIEVAL_INDEX=ivf

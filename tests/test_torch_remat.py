@@ -6,8 +6,10 @@
   (``CLIP_REMAT=1``) gives the loss, the gradients and the updated params
   of the unwrapped step bit for bit on the CPU: the recompute runs the same
   fp32 operations on the same inputs in the same order;
-- ``MESH_DATA`` x ``MESH_MODEL`` above 1 raises ``NotImplementedError``
-  (the port runs on one device); a product of 1 loads, as in tpualign.
+- ``MESH_DATA`` and ``MESH_MODEL`` load as in tpualign; a mesh above one
+  device raises ``NotImplementedError`` where it would shard the towers
+  (the Trainer's step, a model axis in ``EmbedEngine``), naming that later
+  slice (``tests/test_torch_parallel.py`` covers the data axis).
 """
 
 import dataclasses
@@ -111,10 +113,21 @@ def test_remat_leaves_inference_alone(monkeypatch):
 
 @pytest.mark.parametrize("key", ["MESH_DATA", "MESH_MODEL"])
 def test_a_mesh_above_one_device_raises(monkeypatch, key):
+    from tpualign_torch.parallel import EmbedEngine, create_mesh
+    from tpualign_torch.train.trainer import Trainer
+
     monkeypatch.delenv("MESH_DATA", raising=False)
     monkeypatch.delenv("MESH_MODEL", raising=False)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        torch_config.load_config({key: "2"})
+    config = torch_config.load_config({key: "2"})
+    want = jax_load_config(env_file=None, overrides={key: "2"}).mesh
+    assert (config.mesh.data, config.mesh.model, config.mesh.num_devices) == (
+        want.data, want.model, 2)
+    mesh = create_mesh(config.mesh.data, config.mesh.model, devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="sharding.py"):
+        Trainer(config, mesh=mesh, device="cpu")
+    if key == "MESH_MODEL":
+        with pytest.raises(NotImplementedError, match="sharding.py"):
+            EmbedEngine(config.model, mesh=mesh)
 
 
 def test_the_default_mesh_loads_like_tpualign(monkeypatch):

@@ -118,11 +118,13 @@ def test_empty_corpus_and_queries():
 
 
 def test_deferred_options_raise():
-    """A mesh and the mesh strategies are later slices; precision,
-    recall_target, refine and refine_store work (tests/test_torch_quant.py),
-    and so do the mutations (tests/test_torch_mutations.py)."""
+    """A mesh that is not the port's raises (meshes: tests/test_torch_parallel.py);
+    precision, recall_target, refine and refine_store work
+    (tests/test_torch_quant.py), and so do the mutations
+    (tests/test_torch_mutations.py); on one device every strategy is the one
+    search, and an unknown one raises."""
     emb, manuals, pages = _corpus(n=20)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="tpualign_torch Mesh"):
         RetrievalIndex(emb, manuals, pages, device="cpu", mesh=object())
     for kw in ({"precision": "int8"}, {"precision": "int4"}, {"recall_target": 0.9},
                {"refine": 4, "precision": "int2"}, {"refine_store": "ram"}):
@@ -130,8 +132,11 @@ def test_deferred_options_raise():
     with pytest.raises(ValueError, match="precision"):
         RetrievalIndex(emb, manuals, pages, precision="fp16", device="cpu")
     port = RetrievalIndex(emb, manuals, pages, device="cpu", refine=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port.search(emb[:2], k=3, strategy="ring")
+    want = port.search(emb[:2], k=3)
+    for strategy in ("gather", "ring", "streaming"):
+        got = port.search(emb[:2], k=3, strategy=strategy)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
     with pytest.raises(ValueError, match="strategy"):
         port.search(emb[:2], k=3, strategy="bogus")
     ref = JaxIndex(emb, manuals, pages, refine=1)

@@ -95,10 +95,15 @@ def test_sharded_topk_search_without_a_mesh_matches_tpualign(k):
 
 
 def test_sharded_topk_search_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        sharded_topk_search(np.zeros((1, 4), np.float32), np.zeros(1, np.int32),
-                            np.zeros((2, 4), np.float32), np.zeros(2, np.int32), 1,
-                            mesh=object(), device="cpu")
+    """A mesh that is not the port's (tpualign's JAX mesh, or any other
+    object) is refused; the port's meshes: tests/test_torch_parallel.py."""
+    from tpualign.parallel.mesh import create_mesh as jax_create_mesh
+
+    for mesh in (object(), jax_create_mesh(2, 1)):
+        with pytest.raises(TypeError, match="tpualign_torch Mesh"):
+            sharded_topk_search(np.zeros((1, 4), np.float32), np.zeros(1, np.int32),
+                                np.zeros((2, 4), np.float32), np.zeros(2, np.int32), 1,
+                                mesh=mesh, device="cpu")
 
 
 @pytest.mark.parametrize("texts,context", [

@@ -11,7 +11,12 @@
 ``--write`` to store them) are tpualign's, with the same flags, environment
 keys and output. The commands that compute run on the GPU unless ``--device
 cpu`` is given; ``process``, ``filter`` and ``calibrate`` are host work and
-take no device.
+take no device. ``--mesh-data``/``--mesh-model`` (``MESH_DATA``/``MESH_MODEL``)
+give ``run``, ``setup-db``, ``embed``, ``evaluate``, ``ingest``, ``watch``,
+``serve`` and ``train`` tpualign's ``default_mesh``: the visible cards in
+order (with ``--device cpu``, the CPU device repeated, as the CPU tests'
+meshes are); ``train`` with a mesh raises, as the sharded train step is a
+later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ def _add_common(p: argparse.ArgumentParser, device: bool = True) -> None:
     p.add_argument("--model", default=None, help="CLIP model name (e.g. ViT-B-32)")
     p.add_argument("--language", default=None)
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--mesh-data", type=int, default=None)
+    p.add_argument("--mesh-model", type=int, default=None)
     if device:
         p.add_argument("--device", default="cuda",
                        help="cuda (the default) or cpu, where the kernels' plain versions run")
@@ -44,6 +51,7 @@ def _config_from(args):
     for attr, env in (("input_dir", "INPUT_DIR"), ("output_dir", "OUTPUT_DIR"),
                       ("store_dir", "STORE_DIR"), ("model", "CLIP_MODEL"),
                       ("language", "LANGUAGE"), ("batch_size", "BATCH_SIZE"),
+                      ("mesh_data", "MESH_DATA"), ("mesh_model", "MESH_MODEL"),
                       ("exclude_file", "EXCLUDE_TERMS_FILE"),
                       ("lora_rank", "LORA_RANK"), ("lora_alpha", "LORA_ALPHA"),
                       ("distill_from", "DISTILL_CHECKPOINT"),
@@ -53,6 +61,20 @@ def _config_from(args):
         if v is not None:
             overrides[env] = str(v)
     return load_config(overrides, env_file=args.env_file)
+
+
+def _mesh(config, device: str):
+    """tpualign's ``default_mesh(config.mesh)`` where ``MESH_DATA`` x
+    ``MESH_MODEL`` is above 1, else None; on ``--device cpu`` the mesh
+    repeats the CPU device."""
+    if config.mesh.num_devices <= 1:
+        return None
+    from tpualign_torch.parallel.mesh import create_mesh, default_mesh
+
+    if device == "cpu":
+        return create_mesh(config.mesh.data, config.mesh.model,
+                           devices=["cpu"] * config.mesh.num_devices)
+    return default_mesh(config.mesh)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -219,7 +241,10 @@ def _run_stage(args) -> int:
         print(f"Available schemas: {', '.join(SCHEMAS)}")
         return 1
     # stages 1-2 are host work and touch no device
-    pipe = Pipeline(_config_from(args), device=getattr(args, "device", "cpu"))
+    config = _config_from(args)
+    device = getattr(args, "device", "cpu")
+    pipe = Pipeline(config, device=device,
+                    mesh=_mesh(config, device) if hasattr(args, "device") else None)
     if args.command == "process":
         pipe.step_document_processing(force=True)
         return 0
@@ -248,10 +273,12 @@ def _run_stage(args) -> int:
 
 def _run_train(args) -> int:
     """Fine-tune on ``--schema``'s pairs and print the final metrics, as
-    ``tpualign train`` does (one device: a mesh is multi-GPU work)."""
+    ``tpualign train`` does (one device: the Trainer refuses a mesh, which
+    would shard the train step)."""
     from tpualign_torch.train.trainer import Trainer
 
-    trainer = Trainer(_config_from(args), device=args.device)
+    config = _config_from(args)
+    trainer = Trainer(config, mesh=_mesh(config, args.device), device=args.device)
     metrics = trainer.train(schema=args.schema, steps=args.steps,
                             batch_size=args.train_batch_size, ckpt_dir=args.ckpt_dir,
                             eval_every=args.eval_every, eval_fraction=args.eval_fraction,
@@ -266,7 +293,8 @@ def _run_ingest(args) -> int:
     tpualign's."""
     from tpualign_torch.pipeline import Pipeline, notify_sync
 
-    pipe = Pipeline(_config_from(args), device=args.device)
+    config = _config_from(args)
+    pipe = Pipeline(config, device=args.device, mesh=_mesh(config, args.device))
     if args.command == "watch":
         try:
             pipe.watch(interval_seconds=args.interval, evaluate=args.evaluate,
@@ -336,6 +364,7 @@ def _run_serve(args) -> int:
     from tpualign_torch.store import EmbeddingStore
 
     config = _config_from(args)
+    mesh = _mesh(config, args.device)
     if args.schema == "all":
         schemas = list(SCHEMAS)
     else:
@@ -359,14 +388,15 @@ def _run_serve(args) -> int:
 
     encoder = img_encoder = None
     if not args.no_text_tower:
-        engine = make_engine(config, args.device)
+        engine = make_engine(config, args.device, mesh)
         encoder = engine.encode_text_batch
         img_encoder = make_image_bytes_encoder(engine)
 
     boxes = {}
     for schema in schemas:
         try:
-            service = build_service(config, schema, encoder=encoder, image_encoder=img_encoder,
+            service = build_service(config, schema, mesh=mesh, encoder=encoder,
+                                    image_encoder=img_encoder,
                                     text_tower=not args.no_text_tower, device=args.device)
         except ValueError as e:
             # configuration errors exit cleanly, not with a traceback
@@ -375,7 +405,7 @@ def _run_serve(args) -> int:
         boxes[schema] = _ServiceBox(
             service,
             rebuild=lambda s=schema: build_service(
-                config, s, encoder=encoder, image_encoder=img_encoder,
+                config, s, mesh=mesh, encoder=encoder, image_encoder=img_encoder,
                 text_tower=not args.no_text_tower, device=args.device),
             fetch=lambda s=schema: fetch_snapshot(config, s))
     default = schemas[0]

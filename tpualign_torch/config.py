@@ -159,9 +159,11 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The ``MESH_DATA`` x ``MESH_MODEL`` device mesh, tpualign's fields.
-    The port runs on one device: ``load_config`` refuses a product above 1
-    until the multi-GPU slice is ported (ROADMAP queue 1, item 2)."""
+    """The ``MESH_DATA`` x ``MESH_MODEL`` device mesh, tpualign's fields:
+    ``data`` shards the corpus of exact retrieval and splits embedding
+    batches across the cards of one host (``parallel/mesh.py``); ``model``
+    would shard the towers, which the port does not do yet, so the towers
+    refuse a model axis above 1 where they would be sharded."""
 
     data: int = 1
     model: int = 1
@@ -410,10 +412,6 @@ def load_config(overrides: Optional[Mapping[str, str]] = None,
     )
     mesh = MeshConfig(data=int(_env(env, "MESH_DATA", "1")),
                       model=int(_env(env, "MESH_MODEL", "1")))
-    if mesh.num_devices > 1:
-        raise NotImplementedError(
-            f"MESH_DATA={mesh.data} MESH_MODEL={mesh.model}: a device mesh is not "
-            "ported yet (ROADMAP queue 1, item 2: multi-GPU); the port runs on one device")
     train = _train_config(env)
     serve_auto_compact = _optional(env, "SERVE_AUTO_COMPACT", float, ("", "off", "none"))
     if serve_auto_compact is not None and not 0.0 < serve_auto_compact <= 1.0:

@@ -105,6 +105,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_flags.cuh"
+
 namespace {
 
 constexpr int kMaxT = 257;
@@ -380,14 +382,10 @@ cudaError_t launch_bf16(const void* qkv, const void* mask, void* out, int batch,
   using G = Bf16Geometry<HD>;
   const int tp = (t_len + 15) & ~15;
   const size_t smem = 3 * sizeof(bf16) * (size_t)tp * G::kPitch;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const size_t most = 3 * sizeof(bf16) * (size_t)(kLong ? kMaxWarps * 16 : NT * 8) * G::kPitch;
-    cudaError_t err = cudaFuncSetAttribute(mha_bf16_kernel<HD, NT, kLong>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static devflags::PerDevice<bool> attr_set(false);
+  const size_t most = 3 * sizeof(bf16) * (size_t)(kLong ? kMaxWarps * 16 : NT * 8) * G::kPitch;
+  cudaError_t err = devflags::smem_limit_once(attr_set, mha_bf16_kernel<HD, NT, kLong>, most);
+  if (err != cudaSuccess) return err;
   mha_bf16_kernel<HD, NT, kLong><<<batch * heads, (tp / 16) * 32, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<bf16*>(out),
       t_len, heads, scale);
@@ -790,13 +788,10 @@ cudaError_t launch_f32(const void* qkv, const void* mask, void* out, int batch, 
                        int heads, float scale, cudaStream_t stream) {
   static_assert(PATH != F32Path::kChunked || (kF32Chunk / 8) * F32Geometry<HD>::kSegs <= NT,
                 "one context tile a thread when K and V are streamed");
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(mha_f32_kernel<HD, NT, KMAX, PATH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static devflags::PerDevice<bool> attr_set(false);
+  cudaError_t err =
+      devflags::smem_limit_once(attr_set, mha_f32_kernel<HD, NT, KMAX, PATH>, kSmemMax);
+  if (err != cudaSuccess) return err;
   const int tiles = PATH == F32Path::kChunked ? (t_len + kF32Chunk - 1) / kF32Chunk : 1;
   mha_f32_kernel<HD, NT, KMAX, PATH><<<dim3(batch * heads, tiles), NT,
                                        sizeof(float) * f32_smem_floats<HD>(PATH, t_len),

@@ -336,13 +336,9 @@ cudaError_t launch_fp32_sweep(const float* q, const int* qk, const float* c, con
                               UnionTiles<kBN> tiles, int nq, int d, int k, int splits,
                               const unsigned* admitted, float* out_v, int* out_i,
                               cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fp32_sweep_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static devflags::PerDevice<bool> attr_set(false);
+  cudaError_t err = devflags::smem_limit_once(attr_set, fp32_sweep_kernel<kVec>, kSmemBytes);
+  if (err != cudaSuccess) return err;
   const int tiles_per_split = (tiles.count() + splits - 1) / splits;
   dim3 grid((nq + kBQ - 1) / kBQ, splits);
   fp32_sweep_kernel<kVec><<<grid, kNT, kSmemBytes, stream>>>(

@@ -298,13 +298,9 @@ template <bool kVec>
 cudaError_t launch_sweep(const float* q, const int* qk, const float* c, const int* ck, int nq,
                          int n, int d, int k, int splits, int words, const unsigned* admitted,
                          float* out_v, int* out_i, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sweep_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static devflags::PerDevice<bool> attr_set(false);
+  cudaError_t err = devflags::smem_limit_once(attr_set, sweep_kernel<kVec>, kSmemBytes);
+  if (err != cudaSuccess) return err;
   const int n_tiles = (n + kBN - 1) / kBN;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
   dim3 grid((nq + kBQ - 1) / kBQ, splits);

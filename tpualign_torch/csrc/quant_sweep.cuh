@@ -355,14 +355,10 @@ cudaError_t launch_int_sweep(const int8_t* qq, const float* qs, const int* qk, c
                              int splits, const unsigned* admitted, float* out_v, int* out_i,
                              cudaStream_t stream) {
   using S = IntSweep<BQ, P>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(int_sweep_kernel<P, BQ, Tiles, kVec>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)S::kSmem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static devflags::PerDevice<bool> attr_set(false);
+  cudaError_t err =
+      devflags::smem_limit_once(attr_set, int_sweep_kernel<P, BQ, Tiles, kVec>, S::kSmem);
+  if (err != cudaSuccess) return err;
   const int tiles_per_split = (tiles.count() + splits - 1) / splits;
   const int words = admit_words(tiles.count());
   dim3 grid((nq + BQ - 1) / BQ, splits);
@@ -579,14 +575,9 @@ cudaError_t launch_sweep(const float* q, const int* qk, const int8_t* c, const f
   const size_t smem = sizeof(float) * ((size_t)kDK * kQLD + (size_t)kDK * kCLD) +
                       (sizeof(float) + sizeof(int)) * ((size_t)kBQ * kBN + (size_t)kBQ * KP) +
                       sizeof(int) * (2 * kBQ + kBN) + sizeof(float) * kBN;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(sweep_kernel<Tiles, KP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static devflags::PerDevice<bool> attr_set(false);
+  cudaError_t err = devflags::smem_limit_once(attr_set, sweep_kernel<Tiles, KP>, smem);
+  if (err != cudaSuccess) return err;
   const int tiles_per_split = (tiles.count() + splits - 1) / splits;
   const int words = admit_words(tiles.count());
   dim3 grid((nq + kBQ - 1) / kBQ, splits);

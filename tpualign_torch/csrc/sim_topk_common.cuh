@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_flags.cuh"
+
 namespace simtopk {
 // Internal linkage: every kernel library compiles its own copy, and no
 // static of a launch template (the shared-memory attribute flags) is
@@ -171,13 +173,15 @@ inline cudaError_t launch_merge(const void* part_v, const void* part_i, int nq, 
                                 int k, void* out_v, void* out_i, cudaStream_t stream) {
   const int slots = merge_slots(splits, k);
   const size_t smem = (sizeof(float) + sizeof(int)) * (size_t)slots;
-  static size_t smem_set = 48 << 10;  // the default limit
-  if (smem > smem_set) {
+  static devflags::PerDevice<size_t> smem_set(48 << 10);  // the default limit, per device
+  size_t* limit = smem_set.current();
+  if (limit == nullptr) return cudaErrorInvalidDevice;
+  if (smem > *limit) {
     cudaError_t err = cudaFuncSetAttribute(merge_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return err;
-    smem_set = smem;
+    *limit = smem;
   }
   merge_kernel<<<nq, kMergeThreads, smem, stream>>>(
       static_cast<const float*>(part_v), static_cast<const int*>(part_i), splits, slots, k,

@@ -26,6 +26,7 @@ import numpy as np
 
 import torch
 
+from tpualign_torch.parallel.mesh import shard_devices
 from tpualign_torch.parallel.retrieval import RetrievalIndex
 from tpualign_torch.store import EmbeddingStore
 from tpualign_torch.utils.device import resolve_device
@@ -112,12 +113,16 @@ class Evaluator:
     """Computes the full metric suite for each schema from the store.
 
     The search runs on ``device``: CUDA by default (raises when it is
-    absent), ``"cpu"`` for the plain path."""
+    absent), ``"cpu"`` for the plain path; or sharded over ``mesh``'s data
+    axis (``parallel/mesh.py``), whose first device then takes the place of
+    ``device``."""
 
     def __init__(self, store: EmbeddingStore, output_dir: str = "evaluation_results",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         self.store = store
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        devices = shard_devices(mesh)
+        self.device = resolve_device(device) if devices is None else devices[0]
         self.output_dir = Path(output_dir)
         self._cache: Dict[str, dict] = {}
 
@@ -138,6 +143,7 @@ class Evaluator:
             chunk_emb,
             [c["manual_id"] for c in chunks],
             [c.get("page") for c in chunks],
+            mesh=self.mesh,
             device=self.device,
         )
         if len(images):

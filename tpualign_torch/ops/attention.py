@@ -141,11 +141,9 @@ def _launch(qkv: torch.Tensor, num_heads: int, mask: Optional[torch.Tensor]) -> 
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     if b == 0:
         return out
-    rc = build.load("fused_mha")(
-        qkv.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
-        b, t, num_heads, hd,
-        1.0 / (hd ** 0.5), _DTYPES[qkv.dtype], qkv.device.index or 0,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
+    rc = build.call(
+        "fused_mha", qkv.device, qkv.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), b, t, num_heads, hd, 1.0 / (hd ** 0.5), _DTYPES[qkv.dtype],
     )
     if rc != 0:
         raise RuntimeError(f"fused_mha kernel launch failed: CUDA error {rc}")

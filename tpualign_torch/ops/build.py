@@ -20,7 +20,9 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["KERNELS", "build", "build_all", "load"]
+import torch
+
+__all__ = ["KERNELS", "build", "build_all", "call", "load"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -129,3 +131,14 @@ def load(name: str):
             fn.restype = ctypes.c_int
             _loaded[name] = fn
         return fn
+
+
+def call(name: str, device: torch.device, *args) -> int:
+    """Calls kernel ``name``'s entry point with ``args``, then the index of
+    the card ``device`` names (the current card for a bare ``cuda``) and
+    that card's current stream. The entry point makes the card current
+    (``cudaSetDevice``); the caller's current card is restored after.
+    Returns the entry point's ``cudaError_t``."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    with torch.cuda.device(index):
+        return load(name)(*args, index, torch.cuda.current_stream(index).cuda_stream)

@@ -176,13 +176,12 @@ def ivf_probe_topk(queries: torch.Tensor, query_keys: torch.Tensor, probes: torc
     splits = _splits(nq, n_tiles, dev, bq, _blocks_per_sm(variant, bq))
     buf, (qq, qs, bits, admitted, part_v, part_i) = _sweep_scratch(
         dev, nq, d, k, splits, bq, n_tiles, quantized, nq * -(-n_lists // 32) * 4)
-    rc = build.load("ivf_probe_topk")(
-        _VARIANT_CODE[variant], queries.data_ptr(), qk.data_ptr(), probes.data_ptr(),
+    rc = build.call(
+        "ivf_probe_topk", dev, _VARIANT_CODE[variant], queries.data_ptr(), qk.data_ptr(), probes.data_ptr(),
         probes.shape[1], uids.data_ptr(), len(uids), packed_emb.data_ptr(),
         None if packed_scales is None else packed_scales.data_ptr(), ck.data_ptr(),
         packed_emb.shape[0], capacity, n_lists, nq, d, k, splits, bq, qq, qs, bits, admitted,
-        part_v, part_i, vals.data_ptr(), idx.data_ptr(), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream,
+        part_v, part_i, vals.data_ptr(), idx.data_ptr(),
     )
     if rc != 0:
         raise RuntimeError(f"ivf_probe_topk kernel launch failed: CUDA error {rc}")

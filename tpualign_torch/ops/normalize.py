@@ -62,11 +62,8 @@ def normalize_u8(images_u8: torch.Tensor) -> torch.Tensor:
     if not images_u8.is_contiguous():
         raise ValueError("normalize_u8: images must be contiguous")
     out = torch.empty(images_u8.shape, dtype=torch.float32, device=dev)
-    rc = build.load("normalize_u8")(
-        images_u8.data_ptr(), out.data_ptr(), images_u8.numel(),
-        *map(float, _MEAN), *map(float, _INV_STD),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    rc = build.call("normalize_u8", dev, images_u8.data_ptr(), out.data_ptr(),
+                    images_u8.numel(), *map(float, _MEAN), *map(float, _INV_STD))
     if rc != 0:
         raise RuntimeError(f"normalize_u8 kernel launch failed: CUDA error {rc}")
     normalize_u8.launches += 1

@@ -307,10 +307,9 @@ def masked_sim_topk(queries: torch.Tensor, query_keys: torch.Tensor,
     splits = _splits(nq, n_tiles, dev, bq)
     buf, (_, _, admitted, part_v, part_i) = _sweep_scratch(dev, nq, d, k, splits, bq, n_tiles,
                                                            False)
-    rc = build.load("masked_sim_topk")(
-        q.data_ptr(), qk.data_ptr(), corpus.data_ptr(), corpus_keys.data_ptr(), nq, n, d, k,
-        splits, admitted, part_v, part_i, vals.data_ptr(), idx.data_ptr(), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream,
+    rc = build.call(
+        "masked_sim_topk", dev, q.data_ptr(), qk.data_ptr(), corpus.data_ptr(), corpus_keys.data_ptr(), nq, n, d, k,
+        splits, admitted, part_v, part_i, vals.data_ptr(), idx.data_ptr(),
     )
     if rc != 0:
         raise RuntimeError(f"masked_sim_topk kernel launch failed: CUDA error {rc}")
@@ -350,11 +349,10 @@ def masked_sim_topk_quant(queries: torch.Tensor, query_keys: torch.Tensor,
     splits = _splits(nq, n_tiles, dev, bq, _blocks_per_sm(variant, bq))
     buf, (qq, qs, admitted, part_v, part_i) = _sweep_scratch(dev, nq, d, k, splits, bq,
                                                              n_tiles, quantized)
-    rc = build.load("masked_sim_topk_quant")(
-        _VARIANT_CODE[variant], q.data_ptr(), qk.data_ptr(), corpus.data_ptr(),
+    rc = build.call(
+        "masked_sim_topk_quant", dev, _VARIANT_CODE[variant], q.data_ptr(), qk.data_ptr(), corpus.data_ptr(),
         corpus_scales.data_ptr(), corpus_keys.data_ptr(), nq, n, d, k, splits, bq, qq, qs,
-        admitted, part_v, part_i, vals.data_ptr(), idx.data_ptr(), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream,
+        admitted, part_v, part_i, vals.data_ptr(), idx.data_ptr(),
     )
     if rc != 0:
         raise RuntimeError(f"masked_sim_topk_quant kernel launch failed: CUDA error {rc}")

@@ -1,5 +1,5 @@
-"""Batched embedding engine on one device (the port's
-``tpualign.parallel.embed``).
+"""Batched embedding engine, on one device or data-parallel over a mesh
+(the port's ``tpualign.parallel.embed``).
 
 Images are decoded by a thread pool, in a background thread that keeps
 batches ahead of the device. The image feed is ``preprocess="host"`` (PIL
@@ -11,7 +11,17 @@ is tokenized and grouped into length buckets (16/32/77 by default), exact
 under the causal mask. Items that cannot be embedded (no file, a missing
 or corrupt file, empty text) get deterministic unit-norm placeholders
 derived from their ids. PyTorch runs eagerly, so the last batch is not
-padded. No mesh: multi-GPU is a later slice.
+padded.
+
+On a mesh (``parallel/mesh.py``) the towers are replicated on each data
+device (one replica a distinct device; int8 towers too), the batch is
+rounded to a multiple of the data axis as tpualign rounds it, and each
+batch's rows are split over the data devices: each slice runs the towers
+on its device (K1, and K5 in the device feed), the replicas launched in
+turn without a synchronize, and the outputs are gathered in order on the
+first device. The host decode pool stays one pool. A model axis above 1
+would shard the towers (tpualign's ``parallel/sharding.py``), a later
+slice, and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from tpualign_torch.models.clip import CLIP, build_clip, init_clip_params
 from tpualign_torch.models.convert import from_jax_params
 from tpualign_torch.models.loader import load_checkpoint_params
 from tpualign_torch.ops.preprocess import pad_to_bucket, preprocess_device, preprocess_host
+from tpualign_torch.parallel.mesh import shard_devices
 from tpualign_torch.tokenizer import ClipTokenizer
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
@@ -60,7 +71,9 @@ def placeholder_embedding(item_id: str, dim: int) -> np.ndarray:
 
 
 class EmbedEngine:
-    """CLIP embedding engine on one device.
+    """CLIP embedding engine on one device, or data-parallel over ``mesh``'s
+    data axis (see the module notes; a mesh names the devices, and
+    ``device`` is then not used).
 
     ``params``: the JAX package's parameter tree as nested dicts of numpy
     arrays (see ``tpualign_torch.models.convert``); None loads
@@ -85,10 +98,19 @@ class EmbedEngine:
         preprocess: str = "host",
         preprocess_bucket: int = 256,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
         if preprocess not in ("host", "device"):
             raise ValueError(f"preprocess must be host|device, got {preprocess!r}")
-        self.device = resolve_device(device)
+        devices = shard_devices(mesh)
+        if devices is not None and mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                f"a mesh with a model axis of {mesh.shape['model']} shards the towers "
+                "(tpualign's parallel/sharding.py), a later multi-GPU slice of tpualign_torch, "
+                "not yet ported; use a model axis of 1")
+        self.device = resolve_device(device) if devices is None else devices[0]
+        self.mesh = mesh
+        self._devices = devices or [self.device]
         self.decode_workers = decode_workers
         self.preprocess = preprocess
         self.preprocess_bucket = int(preprocess_bucket)
@@ -100,7 +122,9 @@ class EmbedEngine:
         else:
             self.text_buckets = None
         self.tokenizer = tokenizer or ClipTokenizer(context_length=self.variant.context_length)
-        self.batch_size = max(1, int(batch_size))
+        # a batch splits evenly over the data axis
+        dp = len(self._devices)
+        self.batch_size = max(dp, int(batch_size) // dp * dp)
 
         if params is None and model_config.checkpoint_path:
             params = load_checkpoint_params(model_config)
@@ -112,10 +136,34 @@ class EmbedEngine:
         else:
             from_jax_params(self.model, params)
         self.model.eval().requires_grad_(False)
+        # one replica of the towers on each distinct data device
+        self._replicas = {self.device: self.model}
+        for dev in self._devices:
+            if dev not in self._replicas:
+                replica = build_clip(model_config, dev)
+                replica.load_state_dict(self.model.state_dict())
+                self._replicas[dev] = replica.eval().requires_grad_(False)
 
     # -- batching -------------------------------------------------------------
 
-    def _run_batched(self, fn: Callable[[torch.Tensor], torch.Tensor],
+    def _data_parallel(self, fn: Callable[..., torch.Tensor], *inputs: torch.Tensor,
+                       non_blocking: bool = False) -> torch.Tensor:
+        """``fn(model, *inputs)`` with the inputs on the engine's device; on
+        a mesh, the inputs' rows split evenly over the data devices, each
+        slice through ``fn`` with that device's replica (launched in turn,
+        no synchronize between), the outputs gathered in order on the first
+        device."""
+        n_dev = len(self._devices)
+        outs = []
+        for s, dev in enumerate(self._devices):
+            rows = [torch.tensor_split(t, n_dev)[s] for t in inputs]
+            if len(rows[0]):
+                out = fn(self._replicas[dev], *(t.to(dev, non_blocking=non_blocking)
+                                                for t in rows))
+                outs.append(out.to(self.device, non_blocking=True))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def _run_batched(self, fn: Callable[[CLIP, torch.Tensor], torch.Tensor],
                      data: np.ndarray) -> np.ndarray:
         n = len(data)
         if n == 0:
@@ -124,15 +172,17 @@ class EmbedEngine:
         with torch.inference_mode():
             for start in range(0, n, self.batch_size):
                 batch = torch.from_numpy(np.ascontiguousarray(data[start:start + self.batch_size]))
-                outs.append(fn(batch.to(self.device)))
+                outs.append(self._data_parallel(fn, batch))
             # device -> host once at the end
             return torch.cat(outs).float().cpu().numpy()
 
-    def _encode_text(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.model.encode_text(tokens, normalize=True)
+    @staticmethod
+    def _encode_text(model: CLIP, tokens: torch.Tensor) -> torch.Tensor:
+        return model.encode_text(tokens, normalize=True)
 
-    def _encode_image(self, images: torch.Tensor) -> torch.Tensor:
-        return self.model.encode_image(images, normalize=True)
+    @staticmethod
+    def _encode_image(model: CLIP, images: torch.Tensor) -> torch.Tensor:
+        return model.encode_image(images, normalize=True)
 
     # -- public API -------------------------------------------------------------
 
@@ -165,17 +215,21 @@ class EmbedEngine:
                          pinned: Optional[torch.Tensor]) -> np.ndarray:
         """One device-feed batch: n (bucket, bucket, 3) uint8 buffers and
         their true (h, w) up (stacked into the pinned buffer on CUDA), then
-        preprocess and the image tower on the device."""
+        preprocess and the image tower on the device (on a mesh, each data
+        device its slice of the rows)."""
+        size = self.variant.image_size
+
+        def encode(model: CLIP, u8: torch.Tensor, hw: torch.Tensor) -> torch.Tensor:
+            return model.encode_image(preprocess_device(u8, hw, size), normalize=True)
+
         with torch.inference_mode():
             if pinned is not None:
                 host = pinned[:len(images_u8)]
                 np.stack(images_u8, out=host.numpy())
-                u8 = host.to(self.device, non_blocking=True)
             else:
-                u8 = torch.from_numpy(np.stack(images_u8)).to(self.device)
-            hw = torch.from_numpy(hws).to(self.device)
-            x = preprocess_device(u8, hw, self.variant.image_size)
-            return self._encode_image(x).float().cpu().numpy()
+                host = torch.from_numpy(np.stack(images_u8))
+            return self._data_parallel(encode, host, torch.from_numpy(hws),
+                                       non_blocking=pinned is not None).float().cpu().numpy()
 
     def embed_image_records(
         self,

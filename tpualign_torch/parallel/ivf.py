@@ -55,6 +55,7 @@ import torch
 from tpualign_torch.ops.ivf_topk import _membership, ivf_probe_topk
 from tpualign_torch.ops.sim_topk import SENTINEL_IDX, _unpack_codes, key_mask
 from tpualign_torch.ops.similarity import NEG_INF, WILDCARD_KEY
+from tpualign_torch.parallel.mesh import shard_devices
 from tpualign_torch.parallel.retrieval import (
     _QUANTIZERS, _pad_results, _refine_rescore, _round_up, _sentinel, _setup_refine, _tensor,
     encode_keys)
@@ -790,6 +791,12 @@ class IVFIndex:
 
 
 def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("IVFIndex(mesh=...) is the multi-GPU slice of tpualign_torch, "
+    """A mesh with a data axis above 1 would shard the lists (tpualign's
+    ``_add_sharded``, ``_compact_sharded``, ``_probe_depths_sharded`` and
+    sharded artifacts), a later slice; a one-device mesh is no mesh, as
+    tpualign's ``build_index`` passes it."""
+    devices = shard_devices(mesh)
+    if devices is not None and len(devices) > 1:
+        raise NotImplementedError("IVFIndex over a mesh's data axis is the sharded IVF index, "
+                                  "a later multi-GPU slice of tpualign_torch, "
                                   "not yet ported; build the index on one device")

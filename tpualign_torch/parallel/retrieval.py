@@ -1,5 +1,5 @@
-"""Exact and quantized same-page similarity search on one device (the
-port's ``tpualign.parallel.retrieval``).
+"""Exact and quantized same-page similarity search, on one device or
+sharded over a mesh's data axis (the port's ``tpualign.parallel.retrieval``).
 
 The corpus and its (manual, page) keys move to the device once, at
 construction; each search moves only the query block there and the
@@ -17,7 +17,24 @@ rescores them exactly, in float64 on the host, from a :class:`_RefineCorpus`
 ``jax.lax.approx_max_k`` lowers to an exact top-k, and so the port's top-k
 is exact too. ``build_index`` also builds the IVF index
 (``tpualign_torch.parallel.ivf``) and the host HNSW graph
-(``tpualign_torch.parallel.hnsw``). Meshes are a later slice.
+(``tpualign_torch.parallel.hnsw``).
+
+The corpus, its keys and scales are
+:class:`~tpualign_torch.parallel.mesh.ShardedRows`: one shard on one
+device, and on a mesh (``parallel/mesh.py``) with a data axis above 1 one
+shard a data device, each padded to ``n_local = ceil(N / shards)`` rows
+(pad rows keyed -1). A search over several shards runs K2 or
+K3 on every shard at ``min(k, n_local)``, the shard's winners offset by
+``shard * n_local``, copies the winners to the first device and merges
+them there by (value desc, index asc) with two stable sorts, exact at any
+scale. The strategies are tpualign's: "gather" and "streaming" both run
+the kernel per shard (tpualign's gather is a dense XLA top-k, exact off the
+TPU, so the two coincide in the port), and "ring" (``parallel/ring.py``)
+shards the queries too and moves each block with its running top-k from
+card to card. ``_pick_strategy`` is tpualign's router, with "on the card"
+for its "on a TPU"; ``ring`` over a quantized corpus warns once and runs
+gather. Growth keeps whole shards: an add past the capacity re-splits the
+rows into larger shards, and ``compact`` re-splits the survivors evenly.
 
 ``add``, ``remove`` and ``compact`` change the corpus in place of a
 rebuild, as pgvector's INSERT, DELETE and VACUUM do: appended rows take the
@@ -43,8 +60,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpualign_torch.ops.sim_topk import MAX_K, masked_sim_topk, masked_sim_topk_reference
+from tpualign_torch.ops.sim_topk import (
+    MAX_K, SENTINEL_IDX, masked_sim_topk, masked_sim_topk_reference)
 from tpualign_torch.ops.similarity import NEG_INF, WILDCARD_KEY
+from tpualign_torch.parallel.mesh import ShardedRows, shard_devices
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
 
@@ -184,6 +203,68 @@ def _sentinel(vals: np.ndarray, idx: np.ndarray):
     """Mark no-candidate slots as (NEG_INF, -1)."""
     bad = vals <= NEG_INF / 2
     return vals, np.where(bad, -1, idx).astype(np.int64)
+
+
+# -- search on one device, and the pieces of the sharded search ----------------
+
+
+def _device_topk(q: torch.Tensor, qk: torch.Tensor, corpus: torch.Tensor, keys: torch.Tensor,
+                 scales: Optional[torch.Tensor], k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One device's masked top-k over its rows: K2 (fp32) or K3 (with
+    ``scales``; int8 as s8, as tpualign routes on a TPU) for ``k <= 128``,
+    else the dense route, the plain version in query slabs that bound the
+    (Q, N) matrix and its sort. Slots without a candidate hold
+    ``(NEG_INF, SENTINEL_IDX)``."""
+    scored = dict(corpus_scales=scales, int8_mxu=True)
+    if k <= MAX_K:
+        return masked_sim_topk(q, qk, corpus, keys, k, **scored)
+    slab = max(1, DENSE_SLAB_BYTES // (16 * int(corpus.shape[0])))
+    parts = [masked_sim_topk_reference(q[s:s + slab], qk[s:s + slab], corpus, keys, k, **scored)
+             for s in range(0, len(q), slab)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _two_key_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
+    """Exact top-k along the last dimension by (value desc, index asc): a
+    stable sort by index, then a stable descending sort by value
+    (tpualign's lexicographic ``lax.sort`` on ``(-value, index)``)."""
+    by_idx = torch.sort(idx, dim=-1, stable=True).indices
+    vals, idx = vals.gather(-1, by_idx), idx.gather(-1, by_idx)
+    by_val = torch.sort(vals, dim=-1, descending=True, stable=True).indices[..., :k]
+    return vals.gather(-1, by_val), idx.gather(-1, by_val)
+
+
+def _offset(idx: torch.Tensor, offset: int) -> torch.Tensor:
+    """A shard's local winners as global corpus indices; the empty slots
+    keep SENTINEL_IDX."""
+    return torch.where(idx >= SENTINEL_IDX, idx, idx + offset)
+
+
+def _padded(rows: np.ndarray, n: int, fill) -> np.ndarray:
+    """``rows`` with ``fill`` rows after them up to ``n``."""
+    if len(rows) >= n:
+        return rows
+    return np.concatenate([rows, np.full((n - len(rows), *rows.shape[1:]), fill, rows.dtype)])
+
+
+def _select_rows(sharded: ShardedRows, sel: np.ndarray, n_local: int,
+                 fill) -> ShardedRows:
+    """New shards of ``n_local`` rows on the same devices holding the rows
+    at global positions ``sel`` (ascending), in order, and ``fill`` after
+    them: growth (``sel`` every live position) and compaction (the
+    survivors). Rows move between cards as device-to-device copies."""
+    old = sharded.rows_per_shard
+    parts = []
+    for s, dev in enumerate(sharded.devices):
+        chunk = sel[s * n_local:(s + 1) * n_local]
+        owner = chunk // old
+        pieces = [sharded.parts[o][torch.from_numpy(chunk[owner == o] - o * old).to(
+            sharded.parts[o].device)].to(dev) for o in np.unique(owner)]
+        if len(chunk) < n_local:
+            pieces.append(torch.full((n_local - len(chunk), *sharded.shape[1:]), fill,
+                                     dtype=sharded.dtype, device=dev))
+        parts.append(torch.cat(pieces))
+    return ShardedRows(parts)
 
 
 # -- refine -------------------------------------------------------------------
@@ -478,8 +559,10 @@ class RetrievalIndex:
     ``search(query_embs, query_manuals, query_pages, k)`` ranks, for each
     query, the corpus rows of the same manual and page (or every row, with
     ``global_search``). ``device`` defaults to CUDA and raises when it is
-    absent; pass ``device="cpu"`` for the plain path. ``mesh`` is a later
-    slice (multi-GPU) and raises.
+    absent; pass ``device="cpu"`` for the plain path. A ``mesh``
+    (``parallel/mesh.py``) names the devices instead: with a data axis
+    above 1 the corpus is sharded over it (see the module notes), and a
+    mesh of one data device holds the corpus on its first device.
     """
 
     def __init__(
@@ -494,20 +577,21 @@ class RetrievalIndex:
         refine_store: Optional[str] = None,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "RetrievalIndex(mesh=...) is the multi-GPU slice of tpualign_torch, "
-                "not yet ported; build the index on one device")
+        devices = shard_devices(mesh)
         if precision not in ("fp32",) + _QUANTIZED:
             raise ValueError(f"precision must be fp32, int8, int4 or int2, got {precision!r}"
                              + (" (fp16/halfvec is the RETRIEVAL_INDEX=hnsw rung)"
                                 if precision == "fp16" else ""))
         if recall_target is not None and not 0.0 < recall_target <= 1.0:
             raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if devices is None else devices[0]
+        # tpualign keeps the mesh only where it shards (a data axis above 1)
+        self.mesh = mesh if devices is not None and len(devices) > 1 else None
+        self._devices = devices if self.mesh is not None else [self.device]
         self.precision = precision
         self.recall_target = recall_target
         self._refine_store = refine_store
+        self._warned: set = set()
         corpus = np.asarray(corpus_embeddings, np.float32)
         self.vocab: Dict[str, int] = {}
         keys, self.vocab = encode_keys(corpus_manuals, corpus_pages, self.vocab)
@@ -516,22 +600,34 @@ class RetrievalIndex:
     def _fields(self, corpus: np.ndarray, keys: np.ndarray, refine: int) -> dict:
         """The corpus fields of an index over ``corpus``: its size, the
         refine stage, and the device rows (quantized at int8/int4/int2),
-        scales and keys (None when empty)."""
+        scales and keys (None when empty), each a :class:`ShardedRows` of
+        ``_n_local`` rows a shard: one shard on one device."""
         n = len(corpus)
         refine, rc = _setup_refine(refine, self.precision, corpus,
                                    keep_on_fp32=self.recall_target is not None,
                                    store=self._refine_store)
         out = {"n": n, "dim": corpus.shape[1] if corpus.ndim == 2 else 0, "refine": refine,
-               "_refine_corpus": rc, "_corpus": None, "_keys": None, "_corpus_scales": None}
+               "_refine_corpus": rc, "_corpus": None, "_keys": None, "_corpus_scales": None,
+               "_n_local": 0}
         if n == 0:
             return out
-        if self.precision in _QUANTIZED:
-            codes, scales = _QUANTIZERS[self.precision](corpus)
-            out["_corpus"] = _tensor(codes, self.device)
-            out["_corpus_scales"] = _tensor(scales, self.device)
-        else:
-            out["_corpus"] = _tensor(corpus, self.device)
-        out["_keys"] = _tensor(np.asarray(keys, np.int32), self.device)
+        keys = np.asarray(keys, np.int32)
+        n_local = -(-n // len(self._devices))
+        fields = {"_corpus": [], "_keys": [], "_corpus_scales": []}
+        for s, dev in enumerate(self._devices):
+            rows = slice(s * n_local, (s + 1) * n_local)
+            shard = _padded(corpus[rows], n_local, 0.0)
+            if self.precision in _QUANTIZED:
+                # quantized after padding, as tpualign does: every shard is
+                # quantized rows and their scales
+                shard, scales = _QUANTIZERS[self.precision](shard)
+                fields["_corpus_scales"].append(_tensor(scales, dev))
+            fields["_corpus"].append(_tensor(shard, dev))
+            fields["_keys"].append(_tensor(_padded(keys[rows], n_local, -1), dev))
+        for name, parts in fields.items():
+            if parts:
+                out[name] = ShardedRows(parts)
+        out["_n_local"] = n_local
         return out
 
     def _snapshot(self) -> "RetrievalIndex":
@@ -544,8 +640,9 @@ class RetrievalIndex:
     # -- mutations -------------------------------------------------------------------
 
     # Capacity growth: an add past the allocated rows reallocates to GROWTH x
-    # the rows needed, rounded up to 1024; slack rows carry key -1 (masked by
-    # every scorer), so most adds write into slack and reallocate nothing.
+    # the rows needed, rounded up to 1024 (and to whole shards on a mesh);
+    # slack rows carry key -1 (masked by every scorer), so most adds write
+    # into slack and reallocate nothing.
     GROWTH = 1.25
 
     def add(self, embeddings, manuals: Optional[Sequence[str]] = None,
@@ -565,6 +662,7 @@ class RetrievalIndex:
             keys, _ = encode_keys(manuals, pages, self.vocab)  # extends the vocab
         else:
             keys = np.zeros((m,), np.int32)
+        keys = np.asarray(keys, np.int32)
         if self.n == 0:
             self.__dict__.update(self._fields(rows, keys, self.refine))
             return
@@ -574,26 +672,44 @@ class RetrievalIndex:
             new_rows, new_scales = _QUANTIZERS[self.precision](rows)
         else:
             new_rows, new_scales = rows, None
-        corpus, scales = self._corpus, self._corpus_scales
-        cap, total = int(corpus.shape[0]), self.n + m
-        if total > cap:
-            grow = _round_up(max(total, int(cap * self.GROWTH)), 1024) - cap
-            corpus = torch.cat([corpus, corpus.new_zeros((grow, corpus.shape[1]))])
-            if scales is not None:
-                scales = torch.cat([scales, scales.new_ones((grow,))])
-            ckeys = torch.cat([self._keys, self._keys.new_full((grow,), -1)])
-        else:
-            ckeys = self._keys.clone()
-        # rows n..total are slack, keyed -1 in every key tensor this corpus
-        # has had, so the in-place write is invisible until the new keys go in
-        corpus[self.n:total] = _tensor(new_rows, self.device)
-        if scales is not None:
-            scales[self.n:total] = _tensor(new_scales, self.device)
-        ckeys[self.n:total] = _tensor(np.asarray(keys, np.int32), self.device)
-        fields = {"_corpus": corpus, "_keys": ckeys, "_corpus_scales": scales, "n": total}
+        fields = self._add_rows(new_rows, new_scales, keys)
         if self._refine_corpus is not None:
             fields["_refine_corpus"] = self._refine_corpus.appended(rows)
         self.__dict__.update(fields)
+
+    def _grown_capacity(self, cap: int, total: int, shards: int) -> int:
+        return -(-_round_up(max(total, int(cap * self.GROWTH)), 1024) // shards) * shards
+
+    def _add_rows(self, new_rows, new_scales, keys) -> dict:
+        """The rows go to global positions ``n..total``, in the last
+        shard(s); past the capacity every field is re-split into larger
+        whole shards first (fresh tensors), else only the key shards that
+        change are copied (the row slack they write is keyed -1 in the
+        older keys)."""
+        shards, n_local = len(self._devices), self._n_local
+        total = self.n + len(new_rows)
+        corpus, ckeys, scales = self._corpus, self._keys, self._corpus_scales
+        fresh = total > n_local * shards
+        if fresh:
+            n_local = self._grown_capacity(n_local * shards, total, shards) // shards
+            live = np.arange(self.n)
+            corpus = _select_rows(corpus, live, n_local, 0)
+            ckeys = _select_rows(ckeys, live, n_local, -1)
+            if scales is not None:
+                scales = _select_rows(scales, live, n_local, 1.0)
+        key_parts = list(ckeys.parts)
+        for s in range(self.n // n_local, (total - 1) // n_local + 1):
+            lo, hi = max(self.n, s * n_local), min(total, (s + 1) * n_local)
+            src, dst = slice(lo - self.n, hi - self.n), slice(lo - s * n_local, hi - s * n_local)
+            dev = self._devices[s]
+            corpus.parts[s][dst] = _tensor(new_rows[src], dev)
+            if scales is not None:
+                scales.parts[s][dst] = _tensor(new_scales[src], dev)
+            if not fresh:
+                key_parts[s] = key_parts[s].clone()
+            key_parts[s][dst] = _tensor(keys[src], dev)
+        return {"_corpus": corpus, "_keys": ShardedRows(key_parts), "_corpus_scales": scales,
+                "n": total, "_n_local": n_local}
 
     def remove(self, corpus_indices) -> int:
         """Tombstone rows (pgvector's DELETE): their keys become -2, which
@@ -604,11 +720,13 @@ class RetrievalIndex:
         idx = idx[(idx >= 0) & (idx < self.n)]
         if idx.size == 0 or self.n == 0:
             return 0
-        at = torch.from_numpy(idx).to(self.device)
-        removed = int((self._keys[at] != -2).sum())
-        keys = self._keys.clone()
-        keys[at] = -2
-        self.__dict__.update({"_keys": keys})
+        n_local, parts, removed = self._n_local, list(self._keys.parts), 0
+        for s in np.unique(idx // n_local):
+            at = torch.from_numpy(idx[idx // n_local == s] - s * n_local).to(parts[s].device)
+            removed += int((parts[s][at] != -2).sum())
+            parts[s] = parts[s].clone()
+            parts[s][at] = -2
+        self.__dict__.update({"_keys": ShardedRows(parts)})
         return removed
 
     @property
@@ -616,25 +734,29 @@ class RetrievalIndex:
         """Tombstoned rows awaiting :meth:`compact` (``/stats``' dead_rows)."""
         if self.n == 0:
             return 0
-        return int((self._keys == -2).sum())
+        return sum(int((p == -2).sum()) for p in self._keys.parts)
 
     def compact(self) -> np.ndarray:
         """Drop the tombstoned rows and the capacity slack (pgvector's
         VACUUM), renumber the survivors ``0..L-1`` in ascending old-id
         order, and return those old ids (the caller remaps its id-aligned
         state with them). Quantized rows move as they are, so the rankings
-        over the survivors do not change."""
+        over the survivors do not change. The survivors are re-split evenly
+        over the shards."""
         if self.n == 0:
             return np.zeros((0,), np.int64)
-        live = np.flatnonzero(self._keys[:self.n].cpu().numpy() != -2).astype(np.int64)
-        if live.size == self.n and int(self._corpus.shape[0]) == self.n:
+        keys = self._keys.cpu().numpy()[:self.n]
+        live = np.flatnonzero(keys != -2).astype(np.int64)
+        if live.size == self.n and int(self._keys.shape[0]) == self.n:
             return live  # no tombstones and no slack
-        fields = {"n": int(live.size), "_corpus": None, "_keys": None, "_corpus_scales": None}
+        fields = {"n": int(live.size), "_corpus": None, "_keys": None, "_corpus_scales": None,
+                  "_n_local": 0}
         if live.size:
-            at = torch.from_numpy(live).to(self.device)
-            fields.update(_corpus=self._corpus[at], _keys=self._keys[at],
-                          _corpus_scales=(None if self._corpus_scales is None
-                                          else self._corpus_scales[at]))
+            n_local = -(-live.size // len(self._devices))
+            fields.update(_corpus=_select_rows(self._corpus, live, n_local, 0),
+                          _keys=_select_rows(self._keys, live, n_local, -1), _n_local=n_local,
+                          _corpus_scales=(None if self._corpus_scales is None else
+                                          _select_rows(self._corpus_scales, live, n_local, 1.0)))
         if self._refine_corpus is not None:
             fields["_refine_corpus"] = (self._refine_corpus.selected(live) if live.size
                                         else self._refine_corpus.empty())
@@ -654,8 +776,10 @@ class RetrievalIndex:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k per query as host arrays: values ``(Q, k)`` fp32 and global
         corpus indices ``(Q, k)`` int64, with ``(NEG_INF, -1)`` in slots
-        without a candidate. ``global_search=True`` (or no manuals) lifts
-        the same-manual+page restriction."""
+        without a candidate. ``strategy`` is "auto" (the router), "gather",
+        "ring" or "streaming"; on one device every strategy is the one
+        search. ``global_search=True`` (or no manuals) lifts the
+        same-manual+page restriction."""
         queries = np.asarray(query_embeddings, np.float32)
         if global_search or query_manuals is None:
             qk = np.full(len(queries), WILDCARD_KEY, np.int32)
@@ -673,32 +797,70 @@ class RetrievalIndex:
         coalescer batches concurrent requests at this level."""
         return self._snapshot()._search_encoded(queries, qk, k, strategy)
 
+    # Per-device (Q, N / shards) fp32 score budget above which "auto" leaves
+    # gather for the streaming sweep (k <= 16 on the card) or the ring
+    # (tpualign's value, calibrated on its CPU mesh)
+    RING_THRESHOLD_BYTES = 2 * 1024**3
+
+    def _pick_strategy(self, nq: int, strategy: str, k: int = 10) -> str:
+        """tpualign's router, with "on the card" for its "on a TPU"."""
+        if strategy not in ("auto", "gather", "ring", "streaming"):
+            raise ValueError(f"strategy must be auto/gather/ring/streaming, got {strategy!r}")
+        if strategy != "auto":
+            return strategy
+        if self.mesh is None:
+            return "gather"
+        if 4 * nq * self._n_local <= self.RING_THRESHOLD_BYTES:
+            return "gather"
+        if k <= 16 and self.device.type == "cuda":
+            return "streaming"
+        if self.precision in _QUANTIZED:
+            return "gather"  # the ring has no quantized path
+        return "ring"
+
     def search_device(self, query_embeddings: torch.Tensor, query_keys: torch.Tensor,
                       k: int, strategy: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-        """Device-resident search: takes and returns tensors on the index's
-        device. Returns ``(vals (Q, min(k, n)) fp32, idx int32)``, where
-        slots without a candidate hold ``(NEG_INF, SENTINEL_IDX)``."""
-        self._check_strategy(strategy)
+        """Device-resident search: takes tensors (moved to the index's
+        first device) and returns tensors there: ``(vals (Q, min(k, n))``
+        fp32 on one device, ``(Q, min(k, shards * n_local))`` on a mesh,
+        ``idx`` int32), where slots without a candidate hold ``(NEG_INF,
+        SENTINEL_IDX)``; on a mesh, pad rows may appear as indices >= n
+        when a query has fewer than k candidates. The ring strategy needs Q
+        divisible by the data axis. One shard is searched alone, without
+        the offset and the merge."""
         snap = self._snapshot()
-        kk = min(k, snap.n)
+        strategy = snap._pick_strategy(query_embeddings.shape[0], strategy, k)
         q = query_embeddings.to(snap.device, torch.float32).contiguous()
         qk = query_keys.to(snap.device, torch.int32).contiguous()
-        scored = dict(corpus_scales=snap._corpus_scales, int8_mxu=True)
-        if kk <= MAX_K:
-            return masked_sim_topk(q, qk, snap._corpus, snap._keys, kk, **scored)
-        # dense route, in query slabs that bound the (Q, N) matrix and its sort
-        slab = max(1, DENSE_SLAB_BYTES // (16 * int(snap._corpus.shape[0])))
-        parts = [masked_sim_topk_reference(q[s:s + slab], qk[s:s + slab],
-                                           snap._corpus, snap._keys, kk, **scored)
-                 for s in range(0, len(q), slab)]
-        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+        scales = snap._corpus_scales
+        if len(snap._devices) == 1:
+            return _device_topk(q, qk, snap._corpus.parts[0], snap._keys.parts[0],
+                                None if scales is None else scales.parts[0], min(k, snap.n))
+        if strategy == "ring" and snap.precision in _QUANTIZED:
+            if "ring-quantized" not in self._warned:
+                self._warned.add("ring-quantized")
+                log.warning("strategy='ring' has no %s path; routing to 'gather' (same "
+                            "results, the integer kernel; 'streaming' is the same sweep)",
+                            snap.precision)
+            strategy = "gather"
+        if strategy == "ring":
+            from tpualign_torch.parallel.ring import ring_search_fn
 
-    @staticmethod
-    def _check_strategy(strategy: str) -> None:
-        if strategy in ("ring", "streaming"):
-            raise NotImplementedError(f"strategy={strategy!r} needs a mesh; not yet ported")
-        if strategy not in ("auto", "gather"):
-            raise ValueError(f"strategy must be auto/gather/ring/streaming, got {strategy!r}")
+            if q.shape[0] % len(snap._devices):
+                raise ValueError("ring strategy needs Q divisible by the data axis; pad "
+                                 "queries or use search()")
+            return ring_search_fn(snap.mesh, k)(q, qk, snap._corpus, snap._keys)
+        # gather and streaming: the kernel on every shard, launched in turn
+        # (each on its card's stream), the winners merged on the first card
+        k_local = min(k, snap._n_local)
+        vals, idx = [], []
+        for s, dev in enumerate(snap._devices):
+            v, i = _device_topk(q.to(dev, non_blocking=True), qk.to(dev, non_blocking=True),
+                                snap._corpus.parts[s], snap._keys.parts[s],
+                                None if scales is None else scales.parts[s], k_local)
+            vals.append(v.to(snap.device, non_blocking=True))
+            idx.append(_offset(i, s * snap._n_local).to(snap.device, non_blocking=True))
+        return _two_key_topk(torch.cat(vals, dim=1), torch.cat(idx, dim=1), k)
 
     def _search_encoded(self, queries: np.ndarray, qk: np.ndarray, k: int,
                         strategy: str = "auto") -> Tuple[np.ndarray, np.ndarray]:
@@ -706,10 +868,12 @@ class RetrievalIndex:
             # over-fetch k*refine candidates from the first stage, rescore
             # them exactly on the host, trim to k
             kf = min(max(k, k * self.refine), self.n)
-            if kf > REFINE_MAX_STREAM_K and 4 * len(queries) * self.n > STREAM_ONLY_SIM_BYTES:
+            # tpualign's beyond-HBM bound, per device on a mesh
+            big = (4 * len(queries) * self.n > STREAM_ONLY_SIM_BYTES if self.mesh is None
+                   else 4 * len(queries) * self._n_local > self.RING_THRESHOLD_BYTES)
+            if kf > REFINE_MAX_STREAM_K and big:
                 log.warning("refine over-fetch k*refine=%d clamped to %d, as tpualign "
-                            "clamps it past %d bytes of scores", kf, REFINE_MAX_STREAM_K,
-                            STREAM_ONLY_SIM_BYTES)
+                            "clamps it past its bound of scores", kf, REFINE_MAX_STREAM_K)
                 kf = REFINE_MAX_STREAM_K
             # with a rescore corpus the first-stage values are never read
             vals, idx = self._search_encoded_raw(queries, qk, kf, strategy,
@@ -724,17 +888,23 @@ class RetrievalIndex:
         if nq == 0 or self.n == 0:
             return (np.full((nq, k), NEG_INF, np.float32),
                     np.full((nq, k), -1, np.int64))
-        vals, idx = self.search_device(_tensor(np.asarray(queries, np.float32), self.device),
-                                       _tensor(np.asarray(qk, np.int32), self.device), k,
-                                       strategy)
-        idx = idx.cpu().numpy().astype(np.int64)
+        queries = np.asarray(queries, np.float32)
+        qk = np.asarray(qk, np.int32)
+        if self._pick_strategy(nq, strategy, k) == "ring":
+            # the ring shards the queries: pad them to whole blocks, keyed -2
+            strategy, pad = "ring", -nq % len(self._devices)
+            queries = _padded(queries, nq + pad, 0.0)
+            qk = _padded(qk, nq + pad, -2)
+        vals, idx = self.search_device(_tensor(queries, self.device), _tensor(qk, self.device),
+                                       k, strategy)
+        idx = idx[:nq].cpu().numpy().astype(np.int64)
         idx = np.where(idx >= self.n, -1, idx)
         if skip_vals:
             # every empty slot carries SENTINEL_IDX (>= n), so the indices
             # alone say which slots hold a candidate: fetch half the bytes
             vals = np.where(idx >= 0, 0.0, NEG_INF).astype(np.float32)
         else:
-            vals = vals.cpu().numpy()
+            vals = vals[:nq].cpu().numpy()
         vals, idx = _pad_results(vals, idx, k)
         return _sentinel(vals, idx)
 
@@ -744,15 +914,12 @@ def sharded_topk_search(queries: np.ndarray, query_keys: np.ndarray, corpus: np.
                         device: str | torch.device = "cuda") -> Tuple[np.ndarray, np.ndarray]:
     """One-shot top-k search over pre-encoded int32 keys (tpualign's
     function of the same name): a transient fp32 :class:`RetrievalIndex` on
-    ``device``. Returns ``(values, indices)``, both ``(Q, k)``; slots
-    without a candidate hold ``(NEG_INF, -1)``. A ``mesh`` raises until the
-    multi-GPU slice is ported (ROADMAP queue 1, item 2)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded_topk_search(mesh=...) is the multi-GPU slice of tpualign_torch, "
-            "not yet ported; search on one device")
+    ``device``, or sharded over ``mesh``'s data axis. Returns ``(values,
+    indices)``, both ``(Q, k)``; slots without a candidate hold
+    ``(NEG_INF, -1)``."""
     corpus = np.asarray(corpus, np.float32)
-    index = RetrievalIndex(np.zeros((0, corpus.shape[1]), np.float32), [], [], device=device)
+    index = RetrievalIndex(np.zeros((0, corpus.shape[1]), np.float32), [], [], mesh=mesh,
+                           device=device)
     index.__dict__.update(index._fields(corpus, np.asarray(corpus_keys, np.int32), 0))
     return index._search_encoded(np.asarray(queries, np.float32),
                                  np.asarray(query_keys, np.int32), k)
@@ -778,7 +945,8 @@ def build_index(
     device: str | torch.device = "cuda",
 ):
     """Index factory honoring the ``RETRIEVAL_INDEX`` knob, with tpualign's
-    signature. ``"exact"`` builds a :class:`RetrievalIndex`; ``refine`` and
+    signature. ``"exact"`` builds a :class:`RetrievalIndex`, sharded over
+    ``mesh``'s data axis when it is above 1; ``refine`` and
     ``refine_store`` (the ``RETRIEVAL_REFINE``/``RETRIEVAL_REFINE_STORE``
     knobs) set its refine stage. ``"ivf"`` builds an
     :class:`~tpualign_torch.parallel.ivf.IVFIndex` with ``ivf_lists`` and
@@ -847,10 +1015,12 @@ def _build_ivf(corpus_embeddings, corpus_manuals, corpus_pages, mesh, precision,
 def _build_hnsw(corpus_embeddings, corpus_manuals, corpus_pages, mesh, precision, recall_target,
                 refine, hnsw_m, hnsw_ef_construction, hnsw_ef_search, hnsw_cache):
     """``build_index``'s HNSW branch, tpualign's: a host graph, single
-    process; a mesh or an int precision is warned about and ignored."""
+    process; a mesh with a data axis above 1 or an int precision is warned
+    about and ignored."""
     from tpualign_torch.parallel.hnsw import HNSWIndex
 
-    if mesh is not None:
+    devices = shard_devices(mesh)
+    if devices is not None and len(devices) > 1:
         log.warning("RETRIEVAL_INDEX=hnsw is a host-native single-process index; the mesh is "
                     "ignored (use 'exact' or 'ivf' to shard the corpus across devices)")
     hnsw_precision = precision

@@ -33,6 +33,7 @@ import torch
 from tpualign_torch.config import PipelineConfig
 from tpualign_torch.data.filtering import filter_lexical_components, load_exclude_terms
 from tpualign_torch.data.processor import DocumentProcessor
+from tpualign_torch.parallel.mesh import shard_devices
 from tpualign_torch.store import SCHEMAS, EmbeddingStore
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
@@ -78,7 +79,9 @@ def notify_sync(base_url: str, timeout: float = 60.0,
 
 class Pipeline:
     """The five stages over a config; stages 3-5 on ``device`` (CUDA by
-    default; raises when it is absent unless ``device="cpu"``). ``engine``
+    default; raises when it is absent unless ``device="cpu"``), or with the
+    embedding engine and the Evaluator's index data-parallel over ``mesh``
+    (whose first device then takes the place of ``device``). ``engine``
     replaces the embedding engine (any object with ``embed_image_records``
     and ``embed_chunk_records``). ``nlp`` and ``lexical_fallback`` go to
     the ``DocumentProcessor`` of stage 1: ``"auto"`` loads spaCy for the
@@ -87,9 +90,11 @@ class Pipeline:
     def __init__(self, config: PipelineConfig, engine=None,
                  store: Optional[EmbeddingStore] = None,
                  device: str | torch.device = "cuda", nlp="auto",
-                 lexical_fallback: str = "heuristic"):
+                 lexical_fallback: str = "heuristic", mesh=None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        devices = shard_devices(mesh)
+        self.device = resolve_device(device) if devices is None else devices[0]
         self._engine = engine
         self.store = store or EmbeddingStore(config.store.root,
                                              embed_dim=config.model.variant.embed_dim)
@@ -117,6 +122,7 @@ class Pipeline:
                 preprocess_bucket=self.config.image_preprocess_bucket,
                 text_buckets=self.config.text_buckets,
                 device=self.device,
+                mesh=self.mesh,
             )
         return self._engine
 
@@ -366,7 +372,7 @@ class Pipeline:
 
         out = self.config.eval_output_dir
         try:
-            ev = Evaluator(self.store, output_dir=out, device=self.device)
+            ev = Evaluator(self.store, output_dir=out, device=self.device, mesh=self.mesh)
             metrics = ev.print_metrics_report(list(SCHEMAS))
         except Exception as e:
             log.warning("Evaluation completed with warnings: %s", e)

@@ -263,7 +263,8 @@ class _CorpusSnapshot:
 
 
 class RetrievalService:
-    """Device-resident retrieval over one schema's chunk corpus."""
+    """Device-resident retrieval over one schema's chunk corpus; with a
+    ``mesh``, the exact index is sharded over its data axis."""
 
     def __init__(
         self,
@@ -616,6 +617,7 @@ class RetrievalService:
     def stats(self) -> dict:
         # an HNSW index has no refine corpus (its scores are exact fp32)
         rc = getattr(self.index, "_refine_corpus", None)
+        mesh = getattr(self.index, "mesh", None)  # a sharded exact index's
         out = {
             "status": "ok",
             "schema": self.schema,
@@ -625,7 +627,7 @@ class RetrievalService:
             "image_search": self._image_embs is not None,
             "image_query": self.image_encoder is not None,
             "num_images": len(self._image_meta),
-            "mesh": None,
+            "mesh": dict(mesh.shape) if mesh is not None else None,
             "index": type(self.index).__name__,
             "precision": self.index.precision,
             "refine": self.index.refine,
@@ -750,15 +752,16 @@ def make_image_bytes_encoder(engine) -> Callable:
     return encode
 
 
-def make_engine(config, device="cuda"):
+def make_engine(config, device="cuda", mesh=None):
     """The towers ``serve`` and ``query --text`` encode with: the configured
     CLIP variant, its weights loaded from ``CLIP_CHECKPOINT`` when it is
-    set, else seeded (``EmbedEngine``)."""
+    set, else seeded (``EmbedEngine``), replicated over ``mesh``'s data
+    axis when one is given."""
     from tpualign_torch.parallel.embed import EmbedEngine
 
     return EmbedEngine(config.model, batch_size=64,
                        text_buckets=getattr(config, "text_buckets", (16, 32, 77)),
-                       seed=getattr(config, "seed", 0), device=device)
+                       seed=getattr(config, "seed", 0), device=device, mesh=mesh)
 
 
 def build_service(config, schema: str, mesh=None, text_tower: bool = True,
@@ -768,13 +771,15 @@ def build_service(config, schema: str, mesh=None, text_tower: bool = True,
     """Service over the store configured in ``config`` (the CLI's entry).
 
     ``encoder`` / ``image_encoder``: encode callables to share across the
-    services of several schemas (one tower pair for all of them)."""
+    services of several schemas (one tower pair for all of them). ``mesh``
+    shards the exact index over its data axis and, when no encoder is
+    given, replicates the towers over it."""
     store = EmbeddingStore(config.store.root, embed_dim=config.model.variant.embed_dim)
     if not store.has_embeddings(schema):
         raise ValueError(f"schema {schema} has no embeddings in {config.store.root}")
     chunk_ids, chunk_emb = store.embedding_matrix(schema, "text_chunks")
     if encoder is None and text_tower:
-        engine = make_engine(config, device)
+        engine = make_engine(config, device, mesh)
         encoder = engine.encode_text_batch
         if image_encoder is None:
             image_encoder = make_image_bytes_encoder(engine)

@@ -286,11 +286,12 @@ def _accum_train_step(state: TrainState, model: CLIP, images, token_ids: torch.T
 
 
 def make_sharded_train_step(model: CLIP, mesh, config: TrainConfig, state_sharding=None):
-    """The mesh step (data and tensor parallel, FSDP) is multi-GPU work,
-    not yet ported."""
+    """The mesh step (data and tensor parallel, FSDP) shards the towers
+    (tpualign's ``parallel/sharding.py``), a later slice: not yet ported."""
     raise NotImplementedError(
-        "the sharded train step (a mesh, TRAIN_FSDP) is multi-GPU work, not yet ported; "
-        "tpualign_torch trains on one device")
+        "the sharded train step (a mesh, TRAIN_FSDP) needs tpualign's parallel/sharding.py, "
+        "multi-GPU work of a later slice of tpualign_torch, not yet ported; it trains on one "
+        "device")
 
 
 def sample_patch_indices(rng: np.random.Generator, batch: int, num_patches: int,

@@ -105,7 +105,8 @@ class Trainer:
     ``params``: the JAX package's tree as nested numpy dicts (see
     ``models/convert.py``); None loads ``CLIP_CHECKPOINT`` when it is set,
     else draws the seeded weights. ``device`` defaults to CUDA and raises
-    when it is absent. A mesh or ``TRAIN_FSDP`` is multi-GPU work and
+    when it is absent. A mesh or ``TRAIN_FSDP`` would shard the train step
+    (tpualign's ``parallel/sharding.py``), a later slice of the port, and
     raises ``NotImplementedError``.
     """
 
@@ -113,8 +114,9 @@ class Trainer:
                  mesh=None, params=None, device: str | torch.device = "cuda"):
         if mesh is not None or config.train.fsdp:
             raise NotImplementedError(
-                "a mesh or TRAIN_FSDP is multi-GPU work, not yet ported; tpualign_torch "
-                "trains on one device")
+                "a mesh or TRAIN_FSDP shards the train step (tpualign's parallel/sharding.py), "
+                "multi-GPU work of a later slice of tpualign_torch, not yet ported; it trains "
+                "on one device")
         self.config = config
         self.device = resolve_device(device)
         self.variant = config.model.variant
