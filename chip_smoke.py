@@ -1,20 +1,22 @@
-"""Drives tpualign_torch's embed-and-search, pipeline, training, serving, HNSW and mesh paths.
+"""Drives tpualign_torch on the card: embed and search, pipeline, training, serving, HNSW, mesh.
 
     python3 chip_smoke.py [--seed 0] [--mesh-only]
 
 Run from the root of a checkout, on a machine with one CUDA card or more
 (an H100 for the numbers in PERF.md; the mesh phase takes four distinct
-cards where the host has four). ``--mesh-only`` runs 1., 8.-10., 11. and
-15. alone, with no kernels line: the four-card run. Phases, one JSON line
-each:
+cards where the host has four). ``--mesh-only`` runs 1., 8.-10., 16., 11.
+and 15. alone, with no kernels line: the four-card run. Phases, one JSON
+line each:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 1. build: the five kernels compiled from ``tpualign_torch/csrc/``, in
    parallel, and the native host library (``tpualign_torch/native``, g++)
    beside them;
 2. K1 ``fused_mha`` against its plain version at ViT-B-32's shapes (B=256:
-   vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal), fp32
-   (the CUDA-core kernel) and bf16 (the tensor-core kernel): eight rows,
+   vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal) and at
+   ViT-H-14's vision (B=32, T=257, D=1280, H=16, hd 80) whole and as one
+   card's part of a 4-way model axis (H=4), fp32 (the CUDA-core kernel) and
+   bf16 (the tensor-core kernel): twelve rows,
    with times for the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
    calls it), the kernel's and the yardstick's over a CUDA graph of 64
@@ -64,9 +66,9 @@ each:
    with the host feed, then the device feed: images/s of each, K5's
    launches, the profile of one batch of each, and 64 images' pixels on
    the card against the port's CPU path;
-10. pipeline: 512 ``*.synthdoc.json`` manuals x 8 pages (one raster image,
-    a device_feed file's bytes, and eight word lines per page: 4,096
-    images and 32,768 chunks) written by the port's
+10. pipeline: 384 ``*.synthdoc.json`` manuals x 8 pages (one raster image,
+    a device_feed file's bytes, and eight word lines per page: 3,072
+    images and 24,576 chunks) written by the port's
     ``write_synthetic_document``, through ``python -m tpualign_torch
     process``, ``filter``, ``setup-db``, ``embed`` (IMAGE_PREPROCESS=device,
     CLIP_CHECKPOINT) and ``evaluate`` as subprocesses, their kernel launch
@@ -77,7 +79,7 @@ each:
     embeddings, and every schema's alignment records against the CPU
     ``compute_alignments``. The cartesian metrics cannot see the ranking
     (every same-page chunk is true), so K2 is held against its plain
-    version at the Evaluator's own search (Q=4,096, N=32,768, 4,096 page
+    version at the Evaluator's own search (Q=3,072, N=24,576, 3,072 page
     keys, k=100), timed beside the plain version and the library yardstick
     (``torch.where(key_mask, q @ c.T, NEG_INF)`` + ``torch.topk``) with its
     bound and the corpus tiles it reads, and the weak-supervision schemas'
@@ -133,9 +135,9 @@ each:
     gradients within K1's step bounds; timed steps in this process with the
     device feed, then the host feed (step ms, the feed's wait, pairs/s,
     peak memory, the model-FLOP share); then ``python -m tpualign_torch
-    train`` as processes: 40 steps (device feed, held-out evaluation every
-    20), then 5 with LORA_RANK=8 and 5 at CLIP_QUANT=int8_qat side by
-    side, their K1, K1 backward and K5 counts; each checkpoint directory
+    train`` as processes side by side: 20 steps (device feed, held-out
+    evaluation every 10), 5 with LORA_RANK=8 and 5 at CLIP_QUANT=int8_qat,
+    their K1, K1 backward and K5 counts; each checkpoint directory
     as CLIP_CHECKPOINT of ``embed`` (the int8_qat one at CLIP_QUANT=int8;
     the three processes side by side) over the run subset, the stored
     embeddings against the trainer's export params bit for bit;
@@ -144,7 +146,7 @@ each:
     (built by g++ in 1.) times the tokenizer with and without its BPE
     merge core (8,192 texts of the slice's generator, then 1,024 texts of
     unseen words; identical ids) and the lexical counts native and in
-    Python over the store's 32,768 chunks and vocabulary; ``python -m
+    Python over the store's 24,576 chunks and vocabulary; ``python -m
     tpualign_torch index`` with RETRIEVAL_INDEX=hnsw, a 0.95 recall target
     and HNSW_CACHE as a subprocess (build and calibration seconds, the ef
     and recall it reached, memory); ``build_service`` loading the artifact
@@ -181,7 +183,28 @@ each:
     11., every serial answer equal), and, in the pipeline phase, ``embed
     --mesh-data 4`` over stage 1's records into a fresh store (seconds,
     images/s, every stored embedding within 1e-5 of the one-card store's);
-16. the seconds of each phase, the kernels line, the card line, and
+16. mesh_train, after hnsw over the pipeline phase's store (a line a part):
+    ViT-B-32 at full width, seeded, COMPUTE_DTYPE=float32, B=64: one step
+    of ``make_sharded_train_step`` on each of (4, 1), (2, 2), (1, 4) and
+    (4, 1) with TRAIN_FSDP against the one-card step on the same batch and
+    params (loss within 1e-4, grad_norm within 1e-3 relative, params within
+    1e-2 x lr where |g| >= 1e-3 x the leaf's max; FSDP against replicated
+    within 1e-5 and 2e-6), each card's peak; then 3 bf16 steps of
+    ``Trainer(mesh=)`` on (2, 2) over the store with the device feed (step
+    ms, the feed's wait, every card's peak; K1 forward and recompute on
+    every part of every block, K5 once a data row and step). Four distinct
+    cards where the host has them, else card 0 repeated; with
+    ``--mesh-only`` on four cards also one card's, (4, 1) and (4, 1) FSDP
+    Trainers in process with each card's idle share (``torch.profiler``,
+    the feed included), ``python -m tpualign_torch train`` as processes on
+    one card, with ``--mesh-data 4`` and with ``TRAIN_FSDP=1 --mesh-data
+    4`` (10 steps each: the loop's ms a step, pairs/s, each card's peak),
+    where a bf16 step's host time goes on one card and (2, 2) (forward,
+    backward, update, its CUDA events and their device time), and ViT-H-14
+    at its full widths, seeded (one fp32 step on (1, 4) and on
+    (4, 1) FSDP against one card's at 4 blocks a tower, B=8; 3 timed bf16
+    steps at full depth on (2, 2), B=64);
+17. the seconds of each phase, the kernels line, the card line, and
     ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -212,6 +235,10 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 B = 256  # BATCH_SIZE default
 K1_SHAPES = [("vision", 50, 768, 12, False), ("text16", 16, 512, 8, True),
              ("text32", 32, 512, 8, True), ("text77", 77, 512, 8, True)]
+# ViT-H-14's vision attention (hd 80) whole and as one card's part of a
+# 4-way model axis (tensor parallel: H/4 heads), at the train batch of a row
+K1_LARGE_SHAPES = [("h14_vision", 32, 257, 1280, 16, False),
+                   ("h14_vision_tp4", 32, 257, 320, 4, False)]
 K1_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2**-6, 2**-7)}  # (atol, rtol)
 K2_TOL_VALUES = 1e-5
 K2_TIE_GAP = 1e-6
@@ -316,9 +343,10 @@ def phase_k1(dev, gen):
     from tpualign_torch.ops.attention import fused_mha, fused_mha_reference
 
     rows = []
-    for name, t, d, heads, causal in K1_SHAPES:
+    for name, b, t, d, heads, causal in ([(n, B, *rest) for n, *rest in K1_SHAPES]
+                                         + K1_LARGE_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.randn(B, t, 3 * d, generator=gen, device=dev).to(dtype)
+            qkv = torch.randn(b, t, 3 * d, generator=gen, device=dev).to(dtype)
             mask = causal_mask(t, dev) if causal else None
             got = fused_mha(qkv, heads, mask)
             want = fused_mha_reference(qkv, heads, mask)
@@ -329,7 +357,7 @@ def phase_k1(dev, gen):
             check(bool((err <= atol + rtol * want.float().abs()).all()),
                   f"K1 {name} {dtype}: max abs error {err.max().item():.3g}")
             hd = d // heads
-            q, k, v = (x.reshape(B, t, heads, hd).transpose(1, 2).contiguous()
+            q, k, v = (x.reshape(b, t, heads, hd).transpose(1, 2).contiguous()
                        for x in qkv.split(d, dim=-1))
             kernel = functools.partial(fused_mha, qkv, heads, mask)
             library = functools.partial(F.scaled_dot_product_attention, q, k, v, is_causal=causal)
@@ -339,10 +367,10 @@ def phase_k1(dev, gen):
             lib_ms = graph_ms(library)
             plain_ms = time_ms(lambda: fused_mha_reference(qkv, heads, mask), 10)
             item = qkv.element_size()
-            nbytes = qkv.numel() * item + B * t * d * item + (t * t * 4 if causal else 0)
-            flops = 4.0 * B * heads * t * t * hd  # Q.K^T and P.V
+            nbytes = qkv.numel() * item + b * t * d * item + (t * t * 4 if causal else 0)
+            flops = 4.0 * b * heads * t * t * hd  # Q.K^T and P.V
             bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
-            rows.append({"shape": name, "dtype": str(dtype).split(".")[-1], "B": B, "T": t,
+            rows.append({"shape": name, "dtype": str(dtype).split(".")[-1], "B": b, "T": t,
                          "D": d, "heads": heads, "causal": causal,
                          "max_abs_err": err.max().item(), "atol": atol, "rtol": rtol,
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -2048,7 +2076,9 @@ def phase_live(dev, seed, root, shared):
 # K5 and the device image feed
 K5_SHAPE = (256, 224, 224, 3)          # one device-feed batch at ViT-B-32
 FEED_IMAGES, FEED_BUCKET = 2048, 256   # files of the device_feed phase; IMAGE_PREPROCESS_BUCKET
-PIPE_MANUALS, PIPE_PAGES, PIPE_CHUNKS_PER_PAGE = 512, 8, 8
+# 384 manuals: cut from 512 (PR 13) to keep the script inside its time limit
+# on hosts slow to start a process
+PIPE_MANUALS, PIPE_PAGES, PIPE_CHUNKS_PER_PAGE = 384, 8, 8
 PIPE_EXCLUDE = "check"  # the operator's exclusion list for stage 2
 PIPE_RUN_MANUALS = 32  # the one-command run's subset
 
@@ -2300,7 +2330,7 @@ def _line_words(text, top):
 
 
 def _manual_corpus(root, seed, feed_dir, feed_names):
-    """512 ``*.synthdoc.json`` manuals x 8 pages, written by the port's
+    """PIPE_MANUALS ``*.synthdoc.json`` manuals x 8 pages, written by the port's
     ``write_synthetic_document``. Each page holds one raster image (a
     device_feed file's bytes) with a native rect, or on every 53rd page
     only the page's image block (the processor's second bbox tier), and
@@ -2440,6 +2470,11 @@ def _dump():
                    "masked_sim_topk_quant": masked_sim_topk_quant.launches,
                    "normalize_u8": normalize_u8.launches,
                    "fused_mha_backward": fused_mha.backward_recomputes}, f)
+    import torch
+    if torch.cuda.is_available():
+        with open(path + ".mem", "w") as f:
+            json.dump([torch.cuda.max_memory_allocated(i) / 2**30
+                       for i in range(torch.cuda.device_count())], f)
 atexit.register(_dump)
 sys.argv = ["tpualign_torch"] + sys.argv[2:]
 runpy.run_module("tpualign_torch", run_name="__main__", alter_sys=True)
@@ -2665,7 +2700,7 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
     """The pipeline as a user runs it, from raw manuals: ``python -m
     tpualign_torch process``, ``filter``, ``setup-db``, ``embed``
     (IMAGE_PREPROCESS=device) and ``evaluate`` as subprocesses over 512
-    synthdoc manuals (4,096 images, 32,768 chunks), the towers loaded from
+    synthdoc manuals (3,072 images, 24,576 chunks), the towers loaded from
     the OpenCLIP checkpoint; stage 1's records against what the writer
     placed, the stored embeddings against the seeded engine bit for bit,
     metrics.json against a float64 recount, the alignment records against
@@ -2917,7 +2952,7 @@ def _ingest_notify(dev, env, work, feed_dir, feed_names, seed) -> dict:
 
 # steps of the train process and of the LoRA and int8_qat runs (those cut
 # from 10 to keep the script's time: 904 s with 10 on an H100, PERF.md)
-TRAIN_STEPS, TRAIN_SIDE_STEPS = 40, 5
+TRAIN_STEPS, TRAIN_SIDE_STEPS = 20, 5
 TRAIN_TIMED_STEPS = 4                    # in-process steps timed per feed, after one warm-up
 TRAIN_GRAD_REL, TRAIN_LOSS_REL = 5e-2, 1e-2  # bf16 towers: K1 against plain, accumulation
 K1_TRAIN_SHAPES = [("vision", 50, 768, 12, False), ("text77", 77, 512, 8, True)]
@@ -3086,20 +3121,27 @@ def _device_batch(trainer, item):
     return imgs, torch.from_numpy(tokens).long().to(dev), torch.from_numpy(weights).to(dev)
 
 
-def _timed_steps(trainer, triples, seed) -> dict:
-    """One warm-up step, then ``TRAIN_TIMED_STEPS`` steps at B=256 through
-    the feed: the wait for each batch (decode, upload) and the step on the
-    card (synchronised), peak memory, and the kernels' launches."""
+def _sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _timed_steps(trainer, triples, seed, steps=TRAIN_TIMED_STEPS) -> dict:
+    """One warm-up step, then ``steps`` steps at B=256 through the feed:
+    the wait for each batch (decode, upload) and the step on the cards
+    (synchronised), peak memory (the current card's, and every card's),
+    and the kernels' launches."""
     from tpualign_torch.ops.attention import fused_mha
     from tpualign_torch.ops.normalize import normalize_u8
 
     it = trainer.batches(triples, B, seed=seed)
     feed_s, step_s = [], []
     try:
-        for i in range(TRAIN_TIMED_STEPS + 1):
+        for i in range(steps + 1):
             if i == 1:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
+                _sync_all()
+                for card in range(torch.cuda.device_count()):
+                    torch.cuda.reset_peak_memory_stats(card)
                 fused_mha.launches = fused_mha.backward_recomputes = normalize_u8.launches = 0
             t0 = time.perf_counter()
             batch = _device_batch(trainer, next(it))
@@ -3107,7 +3149,7 @@ def _timed_steps(trainer, triples, seed) -> dict:
             t1 = time.perf_counter()
             trainer.state, m = trainer._step(trainer.state, *batch)
             loss = float(m["loss"])
-            torch.cuda.synchronize()
+            _sync_all()
             t2 = time.perf_counter()
             check(np.isfinite(loss), f"timed step {i}: loss {loss}")
             if i:
@@ -3122,6 +3164,8 @@ def _timed_steps(trainer, triples, seed) -> dict:
             "pairs_per_s_device": B / (step_ms / 1e3),
             "pairs_per_s_with_feed": B / ((step_ms + feed_ms) / 1e3),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_memory_gb_by_card": [torch.cuda.max_memory_allocated(i) / 2**30
+                                       for i in range(torch.cuda.device_count())],
             "launches": {"fused_mha": fused_mha.launches,
                          "fused_mha_backward": fused_mha.backward_recomputes,
                          "normalize_u8": normalize_u8.launches}}
@@ -3210,12 +3254,12 @@ def _train_process(dev, env, work, tag, steps, extra_args=()) -> tuple:
 
 def phase_train(dev, seed, root, checkpoint, card) -> dict:
     """Training on the pipeline phase's store (``clip_combined``'s weak
-    pairs over its 4,096 images), the towers from the checkpoint: the card
+    pairs over its 3,072 images), the towers from the checkpoint: the card
     checks (K1's backward, ``matmul_f32acc``'s gradients, one step with K1
     against the plain attention, GRAD_ACCUM_STEPS=4 against the full
     batch), timed in-process steps with the host and the device feed, then
-    ``python -m tpualign_torch train`` as processes (40 steps with held-out
-    evaluation; then side by side 5 with LORA_RANK=8 and 5 at
+    ``python -m tpualign_torch train`` as processes side by side (20 steps
+    with held-out evaluation, 5 with LORA_RANK=8 and 5 at
     CLIP_QUANT=int8_qat), each checkpoint directory as ``CLIP_CHECKPOINT``
     for ``embed`` against the trainer's export params, bit for bit."""
     import dataclasses as dc
@@ -3271,15 +3315,11 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
                                          str(TRAIN_STEPS // 2)), "none"),
              ("lora", {**env, "LORA_RANK": "8"}, TRAIN_SIDE_STEPS, (), "none"),
              ("int8_qat", {**env, "CLIP_QUANT": "int8_qat"}, TRAIN_SIDE_STEPS, (), "int8"))
-    # the full run alone, then the two short runs side by side (their
-    # seconds overlap: a 5-step run is mostly its process's start)
-    # the full run alone, then the two short runs side by side (their
-    # seconds overlap: a 5-step run is mostly its process's start)
+    # the three runs side by side (their seconds overlap: a short run is
+    # mostly its process's start, and a host slow to start one pays it once)
     runs, ckpts = {}, {}
-    tag, case_env, steps, flags, _ = cases[0]
-    ckpts[tag], runs[tag] = _train_process(dev, case_env, work, tag, steps, flags)
     side = [(tag, _beside(_train_process, dev, case_env, work, tag, steps, flags))
-            for tag, case_env, steps, flags, _ in cases[1:]]
+            for tag, case_env, steps, flags, _ in cases]
     for tag, run in side:
         ckpts[tag], runs[tag] = run.result()
     check(len(runs["full"]["heldout"]) == 3, f"held-out evaluations {runs['full']['heldout']}")
@@ -3842,7 +3882,7 @@ def _same_search(got, want, what) -> float:
 
 def phase_mesh_evaluator(dev, store_dir, work, schemas, mesh, tally) -> dict:
     """Evaluator(mesh=) over ``schemas`` of the store in ``store_dir`` (the
-    pipeline phase's: 4 schemas, 4,096 images, 32,768 chunks): its
+    pipeline phase's: 4 schemas, 3,072 images, 24,576 chunks): its
     metrics.json (written under ``work``) against the one-device
     Evaluator's, equal."""
     import contextlib
@@ -4241,6 +4281,395 @@ def phase_mesh(dev, seed, root, checkpoint, shared, mesh, where, tally, evaluato
     return dict(tally)
 
 
+# -- mesh_train: the sharded towers and the mesh train step ------------------------
+
+MESH_TRAIN_B = 64                      # the fp32 checks' global batch
+MESH_TRAIN_LR = 1e-3
+MESH_TRAIN_SHAPES = ((4, 1, False), (2, 2, False), (1, 4, False), (4, 1, True))
+MESH_LOSS_REL, MESH_NORM_REL = 1e-4, 1e-3    # tests/test_train.py:116's bounds
+FSDP_LOSS_REL, FSDP_PARAM_ATOL = 1e-5, 2e-6  # tests/test_train.py:765's bounds
+MESH_TRAIN_STEPS = 3                   # bf16 Trainer(mesh=) steps timed, after one warm-up
+MESH_IDLE_STEPS = 1                    # Trainer steps under the profiler (four cards)
+MESH_PROCESS_STEPS = 10                # each `train` process (four cards)
+H14_CUT_LAYERS, H14_CHECK_B = 4, 8     # ViT-H-14's fp32 checks: blocks a tower, batch
+H14_TIMED_B = 64                       # ViT-H-14 bf16 at full depth on (2, 2)
+
+
+def _mesh_of(dev, d, m):
+    """A (d, m) mesh on the first d*m cards where the host has them, else
+    on ``dev`` repeated."""
+    from tpualign_torch.parallel import create_mesh
+
+    if torch.cuda.device_count() >= d * m:
+        return create_mesh(d, m)
+    return create_mesh(d, m, devices=[dev] * (d * m))
+
+
+def _counted(tally, fn, *args):
+    """``fn(*args)`` on the mesh_train path: K1's and K5's counts set to 0
+    just before and read just after (every card synchronised) into
+    ``tally``; returns fn's result and its seconds."""
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.normalize import normalize_u8
+
+    _sync_all()
+    fused_mha.launches = fused_mha.backward_recomputes = normalize_u8.launches = 0
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _sync_all()
+    secs = time.perf_counter() - t0
+    for key, n in (("fused_mha", fused_mha.launches),
+                   ("fused_mha_backward", fused_mha.backward_recomputes),
+                   ("normalize_u8", normalize_u8.launches)):
+        tally[key] = tally.get(key, 0) + n
+    return out, secs
+
+
+def _card_peaks() -> list:
+    return [torch.cuda.max_memory_allocated(i) / 2**30 for i in range(torch.cuda.device_count())]
+
+
+def _reset_peaks():
+    _sync_all()
+    torch.cuda.empty_cache()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def _train_batch(dev, seed, b, image_size):
+    """Seeded pixels, token rows of random lengths (EOT the largest id) and
+    weak scores, on ``dev``."""
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randn(b, image_size, image_size, 3, generator=g, device=dev)
+    tokens = np.zeros((b, 77), np.int64)
+    for i, n in enumerate(rng.integers(4, 77, b)):
+        tokens[i, 0], tokens[i, n - 1] = 49406, 49407
+        tokens[i, 1:n - 1] = rng.integers(1, 49000, n - 2)
+    weak = torch.from_numpy(rng.random(b).astype(np.float32)).to(dev)
+    return images, torch.from_numpy(tokens).to(dev), weak
+
+
+def _one_card_step(model, cfg, batch):
+    """One step on ``model``'s card from its params: loss, grad_norm, the
+    gradients (fp32 copies) and the updated params."""
+    from tpualign_torch.train import step as S
+
+    state = S.create_train_state(model, S.model_params(model), cfg)
+    grads = {}
+    real = state.apply_gradients
+
+    def keep(g, n):
+        grads.update({k: v.float().clone() for k, v in g.items()})
+        return real(g, n)
+
+    state.apply_gradients = keep
+    state, m = S.train_step(state, model, *batch, cfg)
+    return float(m["loss"]), float(m["grad_norm"]), grads, S.export_params(state)
+
+
+def _params_gap(got, want, grads, lr) -> float:
+    """The largest |got - want| over the elements whose |g| is at least
+    1e-3 of their leaf's largest (tests/test_torch_train.py's
+    ``assert_params_close``: Adam's first step moves an element whose
+    near-zero gradient two summation orders give opposite signs by a full
+    lr either way); must be within 1e-2 x lr."""
+    worst = 0.0
+    for k, w in want.items():
+        g = grads[k].abs()
+        sel = g >= 1e-3 * g.max() if float(g.max()) > 0 else torch.ones_like(g, dtype=torch.bool)
+        diff = (got[k].float().to(w.device) - w.float()).abs()[sel]
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    check(worst <= 1e-2 * lr, f"params {worst:.3g} from the one-card step (bound {1e-2 * lr:.3g})")
+    return worst
+
+
+def _mesh_step_checks(dev, model, batch, shapes, tally, what) -> dict:
+    """One fp32 step on each mesh of ``shapes`` ((data, model, fsdp))
+    against the one-card step on the same batch and params: loss within
+    MESH_LOSS_REL, grad_norm within MESH_NORM_REL, params within the port's
+    train tests' bound; FSDP against the replicated mesh of its shape
+    within FSDP_LOSS_REL and FSDP_PARAM_ATOL. Per mesh: ms (host clock,
+    every card synchronised), each card's peak memory."""
+    import dataclasses as dc
+
+    from tpualign_torch.config import TrainConfig
+    from tpualign_torch.train import step as S
+
+    cfg = TrainConfig(learning_rate=MESH_TRAIN_LR, warmup_steps=0, total_steps=10)
+    _reset_peaks()
+    loss1, norm1, grads1, params1 = _one_card_step(model, cfg, batch)
+    out = {"one_card": {"loss": loss1, "grad_norm": norm1, "peak_memory_gb_by_card": _card_peaks()}}
+    replicated = {}
+    for d, m, fsdp in shapes:
+        mesh = _mesh_of(dev, d, m)
+        c = dc.replace(cfg, fsdp=fsdp)
+        run, shard_state = S.make_sharded_train_step(model, mesh, c)
+        _reset_peaks()
+        state = shard_state(S.create_train_state(model, S.model_params(model), c))
+        (state, metrics), secs = _counted(tally, run, state, *batch)
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        tag = f"{d}x{m}" + ("_fsdp" if fsdp else "")
+        check(abs(loss - loss1) <= MESH_LOSS_REL * abs(loss1)
+              and abs(norm - norm1) <= MESH_NORM_REL * abs(norm1),
+              f"{what} {tag}: loss {loss} / {loss1}, grad_norm {norm} / {norm1}")
+        params = S.export_params(state)
+        row = {"loss": loss, "grad_norm": norm, "ms": secs * 1e3,
+               "params_gap": _params_gap(params, params1, grads1, MESH_TRAIN_LR),
+               "peak_memory_gb_by_card": _card_peaks(),
+               "devices": [str(x) for x in mesh.devices.flat]}
+        if fsdp and (d, m) in replicated:
+            rloss, rparams = replicated[(d, m)]
+            gap = max(float((params[k] - rparams[k]).abs().max()) for k in rparams)
+            check(abs(loss - rloss) <= FSDP_LOSS_REL * abs(rloss) and gap <= FSDP_PARAM_ATOL,
+                  f"{what} {tag}: loss {loss} / {rloss} and params {gap:.3g} from replicated")
+            row["vs_replicated"] = {"loss": [loss, rloss], "params_max_abs": gap}
+        elif not fsdp:
+            replicated[(d, m)] = (loss, params)
+        out[tag] = row
+        del state, params
+    out["bounds"] = {"loss_rel": MESH_LOSS_REL, "grad_norm_rel": MESH_NORM_REL,
+                     "params": "1e-2 x lr where |g| >= 1e-3 x the leaf's max",
+                     "fsdp_vs_replicated": {"loss_rel": FSDP_LOSS_REL,
+                                            "params_atol": FSDP_PARAM_ATOL}}
+    return out
+
+
+def _step_parts(dev, seed) -> dict:
+    """Where a train step's host time goes: ViT-B-32 bf16, B=256, a seeded
+    batch, on one card, then on (2, 2) (distinct cards where the host has
+    four, else card 0 repeated): the forward (towers and loss), the
+    backward (autograd and the gradient sums) and the update (norm, AdamW),
+    each ended by a synchronize of every card (host clock, the mean of
+    MESH_TRAIN_STEPS after one warm-up), and the CUDA events of one profiled
+    step with their summed device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpualign_torch.config import TrainConfig, load_config
+    from tpualign_torch.models.clip import build_clip, init_clip_params
+    from tpualign_torch.train import step as S
+
+    config = load_config({"CLIP_MODEL": "ViT-B-32"})
+    model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
+    images, tokens, weak = _train_batch(dev, seed, B, config.model.variant.image_size)
+    cfg = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=10)
+
+    def one_step(state):
+        marks = [time.perf_counter()]
+        leaves = S._leaves(state.params)
+        img, txt, scale = S._encode(state, model, leaves, images, tokens, None)
+        loss, metrics = S._compose_loss(img, txt, scale, weak, cfg, None)
+        _sync_all()
+        marks.append(time.perf_counter())
+        grads = S._grads(loss, leaves)
+        _sync_all()
+        marks.append(time.perf_counter())
+        state, m = S._finish(state, grads, cfg, metrics)
+        float(m["loss"])
+        _sync_all()
+        marks.append(time.perf_counter())
+        return state, [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+
+    out = {}
+    for name, shape in (("one_card", None), ("2x2", (2, 2))):
+        state = S.create_train_state(model, S.model_params(model), cfg)
+        if shape is not None:
+            state = S.make_sharded_train_step(model, _mesh_of(dev, *shape), cfg)[1](state)
+        _sync_all()
+        state, _ = one_step(state)
+        parts = []
+        for _ in range(MESH_TRAIN_STEPS):
+            state, ms = one_step(state)
+            parts.append(ms)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = one_step(state)
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        mean = np.mean(parts, axis=0)
+        out[name] = {"forward_ms": mean[0], "backward_ms": mean[1], "update_ms": mean[2],
+                     "step_ms": float(mean.sum()), "cuda_events_a_step": len(kernels),
+                     "device_ms_a_step": sum(e.time_range.end - e.time_range.start
+                                             for e in kernels) / 1e3}
+        del state
+        _reset_peaks()
+    return out
+
+
+def _mesh_trainer(dev, env, triples, seed, mesh, tally, idle: bool) -> dict:
+    """``Trainer(mesh=)`` (or one card's Trainer when ``mesh`` is None) on
+    the pipeline store with the device feed, bf16, B=256: MESH_TRAIN_STEPS
+    timed steps (``_timed_steps``: step ms, the feed's wait, every card's
+    peak) and, with ``idle``, each card's idle share over MESH_IDLE_STEPS
+    more steps, the feed included (``_card_idle``)."""
+    from tpualign_torch.config import load_config
+    from tpualign_torch.train.trainer import Trainer
+
+    _reset_peaks()
+    trainer = (Trainer(load_config(env), mesh=mesh) if mesh is not None
+               else Trainer(load_config(env), device=dev))
+    row = _timed_steps(trainer, triples, seed, steps=MESH_TRAIN_STEPS)
+    if mesh is not None:
+        for key in ("fused_mha", "fused_mha_backward", "normalize_u8"):
+            tally[key] = tally.get(key, 0) + row["launches"][key]
+        d, m = mesh.shape["data"], mesh.shape["model"]
+        v = trainer.variant
+        blocks = (v.vision_layers + v.text_layers) * d * m * MESH_TRAIN_STEPS
+        check(row["launches"]["fused_mha"] == blocks
+              and row["launches"]["fused_mha_backward"] == blocks
+              and row["launches"]["normalize_u8"] == d * MESH_TRAIN_STEPS,
+              f"Trainer(mesh={d}x{m}): launches {row['launches']} in {MESH_TRAIN_STEPS} steps")
+        row["mesh"] = {"shape": mesh.shape, "devices": [str(x) for x in mesh.devices.flat]}
+    if idle:
+        it = trainer.batches(triples, B, seed=seed + 1)
+
+        def steps():
+            for _ in range(MESH_IDLE_STEPS):
+                trainer.state, m = trainer._step(trainer.state, *_device_batch(trainer, next(it)))
+                float(m["loss"])
+
+        try:
+            row["idle"] = _card_idle(steps)
+        finally:
+            it.close()
+    del trainer
+    return row
+
+
+def _mesh_train_process(env, work, tag, d, m, extra_env=(), extra_args=()) -> dict:
+    """``python -m tpualign_torch train`` over the pipeline store,
+    MESH_PROCESS_STEPS steps at B=256 (device feed, bf16): the trainer's
+    wall seconds of the loop (the feed's waits included), pairs/s, each
+    card's peak memory (written at exit), the kernels' launches (K1 24 a
+    block-part and step, forward and recompute; K5 one a data row and
+    step) and the final loss."""
+    import json
+    import os
+
+    metrics = os.path.join(work, f"metrics-{tag}.jsonl")
+    argv = ["train", "--device", "cuda", "--steps", str(MESH_PROCESS_STEPS),
+            "--train-batch-size", str(B), "--metrics-file", metrics, "--log-every", "5",
+            *extra_args]
+    secs, launches, _ = _run_stage(argv, {**env, **dict(extra_env)}, work, tag=f"-{tag}")
+    with open(os.path.join(work, f"counters-train-{tag}.json.mem")) as f:
+        peaks = json.load(f)
+    with open(metrics) as f:
+        final = [json.loads(line) for line in f][-1]
+    check(final["kind"] == "final" and np.isfinite(final["loss"]), f"train ({tag}): {final}")
+    steps = MESH_PROCESS_STEPS
+    check(launches["fused_mha_backward"] == 24 * d * m * steps
+          and launches["normalize_u8"] == d * steps,
+          f"train ({tag}): launches {launches} in {steps} steps on {d}x{m}")
+    wall = final["wall_seconds"]
+    return {"process_s": secs, "steps": steps, "loop_s": wall, "step_ms": wall / steps * 1e3,
+            "pairs_per_s": B * steps / wall, "peak_memory_gb_by_card": peaks,
+            "launches": launches, "final_loss": final["loss"]}
+
+
+def _h14(dev, seed, tally) -> dict:
+    """ViT-H-14 at its full widths (vision 1280 / 16 heads / hd 80, text
+    1024 / 16), seeded: one fp32 step on (1, 4) and on (4, 1) with FSDP
+    against one card's at H14_CUT_LAYERS blocks a tower (B=H14_CHECK_B);
+    then MESH_TRAIN_STEPS timed bf16 steps at full depth on (2, 2)
+    (B=H14_TIMED_B), each card's peak memory."""
+    import dataclasses as dc
+
+    from tpualign_torch.config import CLIP_VARIANTS, TrainConfig
+    from tpualign_torch.models.clip import CLIP, init_clip_params
+    from tpualign_torch.train import step as S
+
+    full = CLIP_VARIANTS["ViT-H-14"]
+    cut = dc.replace(full, name="ViT-H-14-cut", vision_layers=H14_CUT_LAYERS,
+                     text_layers=H14_CUT_LAYERS)
+    model = init_clip_params(CLIP(cut, False, torch.float32, True), seed=seed)
+    model = model.to(dev).requires_grad_(False)
+    batch = _train_batch(dev, seed, H14_CHECK_B, full.image_size)
+    out = {"cut": {"layers_a_tower": H14_CUT_LAYERS, "B": H14_CHECK_B, **_mesh_step_checks(
+        dev, model, batch, ((1, 4, False), (4, 1, True)), tally, "ViT-H-14 (cut)")}}
+    del model, batch
+    model = init_clip_params(CLIP(full, False, torch.bfloat16, True), seed=seed)
+    model = model.to(dev).requires_grad_(False)
+    cfg = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=10)
+    mesh = _mesh_of(dev, 2, 2)
+    run, shard_state = S.make_sharded_train_step(model, mesh, cfg)
+    state = shard_state(S.create_train_state(model, S.model_params(model), cfg))
+    model.to("meta")
+    batch = _train_batch(dev, seed + 1, H14_TIMED_B, full.image_size)
+    _reset_peaks()
+    state, m = run(state, *batch)  # warm-up
+    ms, losses = [], [float(m["loss"])]
+    for _ in range(MESH_TRAIN_STEPS):
+        (state, m), secs = _counted(tally, run, state, *batch)
+        ms.append(secs * 1e3)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"ViT-H-14 (2, 2) bf16: losses {losses}")
+    out["full_depth"] = {"mesh": "2x2", "B": H14_TIMED_B, "dtype": "bfloat16",
+                         "step_ms_each": ms, "step_ms": float(np.mean(ms)),
+                         "pairs_per_s": H14_TIMED_B / (float(np.mean(ms)) / 1e3),
+                         "losses": losses, "peak_memory_gb_by_card": _card_peaks(),
+                         "devices": [str(x) for x in mesh.devices.flat]}
+    del state
+    _reset_peaks()
+    return out
+
+
+def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> dict:
+    """The sharded towers and the mesh train step (see _mesh_step_checks,
+    _mesh_trainer): ViT-B-32 at full width, seeded, COMPUTE_DTYPE=float32,
+    B=MESH_TRAIN_B, one step on each of (4, 1), (2, 2), (1, 4) and (4, 1)
+    with TRAIN_FSDP against the one-card step; then MESH_TRAIN_STEPS bf16
+    steps of ``Trainer(mesh=)`` on (2, 2) over the pipeline store with the
+    device feed. Four distinct cards where the host has them (else card 0
+    repeated). With ``four_cards`` also: one card's Trainer, (4, 1) and
+    (4, 1) with TRAIN_FSDP in process (step ms, each card's idle share and
+    peak), ``train`` as processes on one card, with ``--mesh-data 4`` and
+    with ``TRAIN_FSDP=1 --mesh-data 4``, a step's host time by part
+    (_step_parts), and ViT-H-14 (_h14)."""
+    import os
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.models.clip import build_clip, init_clip_params
+    from tpualign_torch.store import EmbeddingStore
+    from tpualign_torch.train.trainer import build_pair_dataset
+
+    tally: dict = {}
+    head = {"phase": "mesh_train", "card": card, "model": "ViT-B-32"}
+
+    def part(name, row):  # each part its own line: a later part's failure keeps it
+        emit({**head, "part": name, name: row})
+
+    config = load_config({"CLIP_MODEL": "ViT-B-32", "COMPUTE_DTYPE": "float32"})
+    model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
+    batch = _train_batch(dev, seed, MESH_TRAIN_B, config.model.variant.image_size)
+    part("fp32_checks", {"B": MESH_TRAIN_B, **_mesh_step_checks(
+        dev, model, batch, MESH_TRAIN_SHAPES, tally, "ViT-B-32 fp32")})
+    del model, batch
+    env = _train_env(root, checkpoint, seed)
+    store = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
+    triples = build_pair_dataset(store, "clip_combined",
+                                 os.path.join(env["OUTPUT_DIR"], "images"))
+    runs = [("2x2", _mesh_of(dev, 2, 2), env)]
+    if four_cards:
+        runs = [("one_card", None, env), ("data4", _mesh_of(dev, 4, 1), env),
+                ("data4_fsdp", _mesh_of(dev, 4, 1), {**env, "TRAIN_FSDP": "1"})] + runs
+    part("trainer", {name: _mesh_trainer(dev, case_env, triples, seed, mesh, tally, four_cards)
+                     for name, mesh, case_env in runs})
+    if four_cards:
+        part("step_parts", _step_parts(dev, seed))
+    if four_cards:
+        work = os.path.join(root, "pipeline")
+        part("processes", {
+            "one_card": _mesh_train_process(env, work, "one-card", 1, 1),
+            "data4": _mesh_train_process(env, work, "data4", 4, 1,
+                                         extra_args=("--mesh-data", "4")),
+            "data4_fsdp": _mesh_train_process(env, work, "data4-fsdp", 4, 1,
+                                              extra_env={"TRAIN_FSDP": "1"},
+                                              extra_args=("--mesh-data", "4"))})
+        part("h14", _h14(dev, seed, tally))
+    emit({**head, "launches": dict(tally)})
+    for name in ("fused_mha", "fused_mha_backward", "normalize_u8"):
+        check(tally.get(name, 0) > 0, f"{name} was not launched on the mesh_train path")
+    return tally
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4305,6 +4734,9 @@ def main() -> int:
                 lap("train")
                 hnsw_launches = phase_hnsw(dev, args.seed, root, checkpoint, card)
                 lap("hnsw")
+            mesh_train = phase_mesh_train(dev, args.seed, root, checkpoint, card,
+                                          args.mesh_only and torch.cuda.device_count() >= 4)
+            lap("mesh_train")
             mesh, mesh_on = _mesh(dev)
             mesh_tally = {}
             mesh_eval = phase_mesh_evaluator(dev, os.path.join(root, "pipeline", "store"),
@@ -4351,8 +4783,10 @@ def main() -> int:
                                "live": live_launches["fused_mha"],
                                "train": train_launches["fused_mha"],
                                "hnsw": hnsw_launches["fused_mha"],
-                               "mesh": mesh_launches["fused_mha"]},
+                               "mesh": mesh_launches["fused_mha"],
+                               "mesh_train": mesh_train["fused_mha"]},
          "train_backward_recomputes": train_launches["fused_mha_backward"],
+         "mesh_train_backward_recomputes": mesh_train["fused_mha_backward"],
          "training": {"backward": "recomputes the plain attention (as tpualign's custom_vjp)",
                       "rows": train["k1_backward"],
                       "launches_in_process_steps": train["timed"]["device"]["launches"]},
@@ -4414,7 +4848,8 @@ def main() -> int:
          "launches_by_phase": {"pipeline": pipe_launches["normalize_u8"],
                                "ingest": ingest_launches["normalize_u8"],
                                "train": train_launches["normalize_u8"],
-                               "mesh": mesh_launches["normalize_u8"]},
+                               "mesh": mesh_launches["normalize_u8"],
+                               "mesh_train": mesh_train["normalize_u8"]},
          "tolerance": "bit-identical",
          "at": "u8 (256, 224, 224, 3) -> fp32, one device-feed batch of ViT-B-32; launches "
                "from the pipeline phase's embed stage (IMAGE_PREPROCESS=device)"},

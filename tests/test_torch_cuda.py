@@ -900,14 +900,14 @@ def test_int8_qat_carries_gradients_on_the_card(dev):
     assert torch.isfinite(gx.float()).all() and torch.isfinite(gw).all()
 
 
-def _small_clip(fused):
+def _small_clip(fused, dtype=torch.bfloat16):
     from tpualign_torch.config import ClipVariant
     from tpualign_torch.models.clip import CLIP, init_clip_params
 
     v = ClipVariant(name="small", embed_dim=64, image_size=32, patch_size=8, vision_width=128,
                     vision_layers=2, vision_heads=2, context_length=16, vocab_size=1000,
                     text_width=128, text_layers=2, text_heads=2)
-    return init_clip_params(CLIP(v, True, torch.bfloat16, fused), seed=0).to("cuda")
+    return init_clip_params(CLIP(v, True, dtype, fused), seed=0).to("cuda")
 
 
 @pytest.mark.parametrize("accum", [1, 2])
@@ -1102,3 +1102,63 @@ def test_mesh_of_distinct_cards_matches_one_device(cards):
     from tpualign_torch.parallel import create_mesh
 
     _mesh_checks(create_mesh(min(cards, 4)))
+
+
+# -- tensor parallel parts (the sharded towers) -------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,heads,hd,causal", [(50, 3, 64, False), (77, 2, 64, True),
+                                               (257, 4, 80, False)])
+def test_k1_on_a_tensor_parallel_part_of_card_1_while_card_0_is_current(cards, t, heads, hd,
+                                                                        causal, dtype):
+    """K1 on one card's part of a 4-way model axis (ViT-B-32 vision 12/4
+    heads, text 8/4, ViT-H-14 vision 16/4 at head dim 80) on card 1 while
+    card 0 is current, against its plain version; card 0 stays current."""
+    torch.cuda.set_device(0)
+    _mha_case(torch.device("cuda", 1), 8, t, heads, hd, dtype, causal)
+    assert torch.cuda.current_device() == 0
+
+
+def _sharded_step_checks(mesh) -> None:
+    """One fp32 step of a small CLIP (K1 in every attention, 2 heads a
+    tower split over the model axis) on ``mesh`` against the one-card step:
+    loss within 1e-4 and grad_norm within 1e-3 relative (tests/test_train.py:116),
+    K1 launched on every part of every block and recomputed as often."""
+    from tpualign_torch.config import TrainConfig
+    from tpualign_torch.train import step as S
+
+    gen = np.random.default_rng(3)
+    images = torch.from_numpy(gen.normal(size=(8, 32, 32, 3)).astype(np.float32)).to("cuda:0")
+    tokens = np.zeros((8, 16), np.int64)
+    tokens[:, 0], tokens[:, 1], tokens[:, 2] = 998, gen.integers(1, 100, 8), 999
+    tokens = torch.from_numpy(tokens).to("cuda:0")
+    weak = torch.from_numpy(gen.random(8).astype(np.float32)).to("cuda:0")
+    model = _small_clip(True, torch.float32).requires_grad_(False)
+    for fsdp in (False, True):
+        cfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10, fsdp=fsdp)
+        one = S.create_train_state(model, S.model_params(model), cfg)
+        _, m1 = S.train_step(one, model, images, tokens, weak, cfg)
+        run, shard_state = S.make_sharded_train_step(model, mesh, cfg)
+        state = shard_state(S.create_train_state(model, S.model_params(model), cfg))
+        before = (fused_mha.launches, fused_mha.backward_recomputes)
+        state, m2 = run(state, images, tokens, weak)
+        torch.cuda.synchronize()
+        parts = 4 * mesh.devices.size
+        assert (fused_mha.launches - before[0], fused_mha.backward_recomputes - before[1]) == (
+            parts, parts)
+        assert abs(float(m2["loss"]) - float(m1["loss"])) <= 1e-4 * abs(float(m1["loss"]))
+        assert abs(float(m2["grad_norm"]) - float(m1["grad_norm"])) <= 1e-3 * float(
+            m1["grad_norm"])
+
+
+def test_sharded_train_step_on_one_card_matches_one_card(dev):
+    from tpualign_torch.parallel import create_mesh
+
+    _sharded_step_checks(create_mesh(2, 2, devices=[torch.device("cuda", 0)] * 4))
+
+
+def test_sharded_train_step_on_distinct_cards_matches_one_card(cards):
+    from tpualign_torch.parallel import create_mesh
+
+    _sharded_step_checks(create_mesh(2, 2) if cards >= 4 else create_mesh(1, 2))

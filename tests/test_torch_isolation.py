@@ -46,7 +46,7 @@ def test_imports_nothing_of_jax_or_tpualign():
                  "train.step", "train.lora", "train.checkpoint", "train.trainer",
                  "utils.profiling", "utils.flops", "native.build", "native.bindings",
                  "parallel.hnsw", "weaksup.calibration", "parallel.mesh", "parallel.ring",
-                 "utils.debugging"):
+                 "utils.debugging", "parallel.sharding"):
         assert f"tpualign_torch.{name}" in imported, name
 
 
@@ -160,10 +160,6 @@ def test_native_modules_load_nothing_of_jax_or_tpualign():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-# the tower-sharding names, exempt until the sharding.py slice (ROADMAP queue 1, item 2) lands
-MESH_EXEMPT = {"clip_param_specs", "shard_params"}
-
-
 def _exports(mod) -> set:
     import types
 
@@ -176,8 +172,8 @@ def _exports(mod) -> set:
 def test_package_exports_match_tpualign():
     """Every package ``__init__`` of tpualign has a twin in the port that
     exports each of its names (in ``__all__`` where the port's declares
-    one), ``create_mesh`` and ``default_mesh`` included, the tower-sharding
-    names apart."""
+    one), ``create_mesh``, ``default_mesh``, ``clip_param_specs`` and
+    ``shard_params`` included."""
     import importlib
     import pkgutil
 
@@ -192,12 +188,13 @@ def test_package_exports_match_tpualign():
     missing = {}
     for jax_pkg, port_pkg in pairs:
         port_names = _exports(port_pkg)
-        lacking = sorted(n for n in _exports(jax_pkg) - MESH_EXEMPT
+        lacking = sorted(n for n in _exports(jax_pkg)
                          if not hasattr(port_pkg, n) or n not in port_names)
         if lacking:
             missing[port_pkg.__name__] = lacking
     assert not missing, missing
-    assert all(not hasattr(p, n) for _, p in pairs for n in MESH_EXEMPT)
+    parallel = importlib.import_module("tpualign_torch.parallel")
+    assert {"clip_param_specs", "shard_params"} <= set(parallel.__all__)
     import tpualign_torch.parallel as port_parallel
 
     assert {"create_mesh", "default_mesh"} <= set(port_parallel.__all__)

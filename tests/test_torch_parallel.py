@@ -299,7 +299,8 @@ def test_embed_engine_on_a_mesh(monkeypatch, tmp_path):
     """The towers replicated over the data axis: within 1e-6 of the port's
     one-device engine (images, the device feed, texts in their buckets)
     and within 1e-3 of tpualign's engine at fp32; the batch rounds to the
-    data axis; a model axis above 1 raises."""
+    data axis; a model axis of 2 (tensor parallel rows) gives the same
+    embeddings within 1e-6."""
     import dataclasses
 
     import jax
@@ -335,8 +336,12 @@ def test_embed_engine_on_a_mesh(monkeypatch, tmp_path):
     np.testing.assert_allclose(sharded.embed_image_records(image_records, tmp_path),
                                port.embed_image_records(image_records, tmp_path),
                                rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="sharding.py"):
-        EmbedEngine(torch_config.ModelConfig("tiny", parity_mode=True), mesh=port_mesh(4, 2))
+    # a model axis of 2: each data row runs the towers tensor parallel
+    tp = EmbedEngine(model_config, batch_size=12, params=host, device="cuda",
+                     mesh=port_mesh(4, 2), decode_workers=2)
+    assert tp.batch_size == 12 and tp.device == CPU
+    np.testing.assert_allclose(tp.encode_image_batch(images), one, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tp.embed_chunk_records(records), got, rtol=0, atol=1e-6)
 
 
 def test_evaluator_on_a_mesh_writes_the_golden_metrics(tmp_path):
@@ -363,7 +368,7 @@ def test_the_cli_takes_the_mesh_flags(tmp_path, monkeypatch):
     """``--mesh-data``/``--mesh-model`` set MESH_DATA/MESH_MODEL as
     tpualign's CLI sets them; ``evaluate --device cpu --mesh-data 4``
     evaluates over a 4-way CPU mesh and writes the golden metrics; ``train``
-    with a mesh raises, naming the sharding slice."""
+    hands its Trainer the (2, 2) CPU mesh of ``--mesh-data 2 --mesh-model 2``."""
     from tpualign import cli as jax_cli
     from tpualign_torch.pipeline import Pipeline
 
@@ -389,9 +394,21 @@ def test_the_cli_takes_the_mesh_flags(tmp_path, monkeypatch):
                            "--env-file", str(tmp_path / "none.env")]) == 0
     got = json.loads((tmp_path / "eval" / "metrics.json").read_text())
     _assert_metrics_equal(got, json.loads(GOLDEN.read_text()))
-    with pytest.raises(NotImplementedError, match="sharding.py"):
-        torch_cli.main(["train", "--device", "cpu", "--mesh-data", "2",
-                        "--env-file", str(tmp_path / "none.env")])
+    from tpualign_torch.train import trainer as torch_trainer
+
+    seen = {}
+
+    class Recorder:  # the mesh train itself: tests/test_torch_train_mesh.py
+        def __init__(self, config, mesh=None, device="cuda"):
+            seen.update(shape=mesh.shape, devices=set(mesh.devices.flat), device=device)
+
+        def train(self, **kw):
+            return {"loss": 1.0}
+
+    monkeypatch.setattr(torch_trainer, "Trainer", Recorder)
+    assert torch_cli.main(["train", "--device", "cpu", "--mesh-data", "2", "--mesh-model", "2",
+                           "--env-file", str(tmp_path / "none.env")]) == 0
+    assert seen == {"shape": {"data": 2, "model": 2}, "devices": {CPU}, "device": "cpu"}
 
 
 def test_cli_embed_on_a_mesh_stores_what_one_device_stores(tmp_path, monkeypatch,

@@ -6,10 +6,10 @@
   (``CLIP_REMAT=1``) gives the loss, the gradients and the updated params
   of the unwrapped step bit for bit on the CPU: the recompute runs the same
   fp32 operations on the same inputs in the same order;
-- ``MESH_DATA`` and ``MESH_MODEL`` load as in tpualign; a mesh above one
-  device raises ``NotImplementedError`` where it would shard the towers
-  (the Trainer's step, a model axis in ``EmbedEngine``), naming that later
-  slice (``tests/test_torch_parallel.py`` covers the data axis).
+- ``MESH_DATA`` and ``MESH_MODEL`` load as in tpualign; a ``CLIP_REMAT``
+  step of the Trainer and ``EmbedEngine`` on a mesh of two devices on
+  either axis match one device (``tests/test_torch_train_mesh.py`` holds
+  the mesh step against tpualign's).
 """
 
 import dataclasses
@@ -112,22 +112,41 @@ def test_remat_leaves_inference_alone(monkeypatch):
 
 
 @pytest.mark.parametrize("key", ["MESH_DATA", "MESH_MODEL"])
-def test_a_mesh_above_one_device_raises(monkeypatch, key):
+def test_a_mesh_above_one_device_raises(monkeypatch, tmp_path, key):
+    """(Named for what it held before the sharded towers existed.) A mesh of
+    two devices on either axis loads as tpualign's, and now runs: a
+    ``CLIP_REMAT=1`` step of the Trainer over it, every block checkpointed
+    with its tensor-parallel parts on a model axis, gives the loss and the
+    params of the one-device unwrapped step within 1e-5 (the sums of a
+    split product round differently), and ``EmbedEngine`` over it the same
+    embeddings within 1e-6."""
     from tpualign_torch.parallel import EmbedEngine, create_mesh
     from tpualign_torch.train.trainer import Trainer
 
     monkeypatch.delenv("MESH_DATA", raising=False)
     monkeypatch.delenv("MESH_MODEL", raising=False)
-    config = torch_config.load_config({key: "2"})
+    monkeypatch.setitem(torch_config.CLIP_VARIANTS, "tiny", TORCH_TINY)
+    env = {key: "2", "CLIP_MODEL": "tiny", "COMPUTE_DTYPE": "float32", "STORE_DIR": str(tmp_path),
+           "LEARNING_RATE": "1e-3", "WARMUP_STEPS": "0", "TOTAL_STEPS": "100"}
+    config = torch_config.load_config(env)
     want = jax_load_config(env_file=None, overrides={key: "2"}).mesh
     assert (config.mesh.data, config.mesh.model, config.mesh.num_devices) == (
         want.data, want.model, 2)
     mesh = create_mesh(config.mesh.data, config.mesh.model, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="sharding.py"):
-        Trainer(config, mesh=mesh, device="cpu")
-    if key == "MESH_MODEL":
-        with pytest.raises(NotImplementedError, match="sharding.py"):
-            EmbedEngine(config.model, mesh=mesh)
+    images, tokens, weak = (torch.from_numpy(x)
+                            for x in batch_for(TINY, 4, np.random.default_rng(2)))
+    one = Trainer(config, device="cpu")
+    _, want_m = one._step(one.state, images, tokens.long(), weak)
+    remat = Trainer(torch_config.load_config({**env, "CLIP_REMAT": "1"}), mesh=mesh)
+    state, got_m = remat._step(remat.state, images, tokens, weak)
+    np.testing.assert_allclose(float(got_m["loss"]), float(want_m["loss"]), rtol=1e-5)
+    got, ref = S.export_params(state), S.export_params(one.state)
+    for k in ref:
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), rtol=0, atol=1e-5, err_msg=k)
+    engine = EmbedEngine(config.model, mesh=mesh, batch_size=4)
+    single = EmbedEngine(config.model, device="cpu", batch_size=4)
+    np.testing.assert_allclose(engine.encode_image_batch(images.numpy()),
+                               single.encode_image_batch(images.numpy()), rtol=0, atol=1e-6)
 
 
 def test_the_default_mesh_loads_like_tpualign(monkeypatch):

@@ -553,9 +553,34 @@ def test_int8_qat_step_trains_like_jax(jax_pair):
             assert float(g.abs().max()) > 0, k
 
 
-def test_sharded_step_and_fsdp_raise():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        torch_step.make_sharded_train_step(None, object(), torch_config.TrainConfig())
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_sharded_step_and_fsdp_raise(jax_pair, fsdp):
+    """(Named for the refusal it held before the sharded step existed.) The
+    port's sharded step on a (4, 2) CPU mesh, replicated and with
+    TRAIN_FSDP, against its one-device step: loss and grad_norm rel 1e-5,
+    params by ``assert_params_close``; a mesh that is not the port's still
+    raises (``tests/test_torch_train_mesh.py`` holds it against tpualign)."""
+    from tpualign_torch.parallel.mesh import create_mesh
+
+    _, tree = jax_pair
+    images, tokens, weak = torch_batch(*batch_for(TINY, 8, np.random.default_rng(3)))
+    tcfg = configs(fsdp=fsdp)[1]
+    model = torch_model(tree)
+    one = torch_step.create_train_state(model, torch_step.model_params(model), tcfg)
+    grads = torch_grads(model, one, images, tokens, weak, tcfg)
+    one, m1 = torch_step.train_step(one, model, images, tokens, weak, tcfg)
+    run, shard_state = torch_step.make_sharded_train_step(
+        model, create_mesh(4, 2, devices=["cpu"] * 8), tcfg)
+    state = shard_state(torch_step.create_train_state(model, torch_step.model_params(model),
+                                                      tcfg))
+    state, m2 = run(state, images, tokens, weak)
+    assert state.params["text.token_embedding"].data_dim == (0 if fsdp else None)
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(m2["grad_norm"]), float(m1["grad_norm"]), rtol=1e-5)
+    assert_params_close(to_jax_layout(torch_step.export_params(state)),
+                        to_jax_layout(torch_step.export_params(one)), to_jax_layout(grads))
+    with pytest.raises(TypeError, match="tpualign_torch Mesh"):
+        torch_step.make_sharded_train_step(model, object(), tcfg)
 
 
 # -- the autograd of the card's paths, checked on the CPU ---------------------------------

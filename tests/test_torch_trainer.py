@@ -250,9 +250,12 @@ def test_train_errors_like_jax(small_store, tiny, jax_pair):  # noqa: F811
             t.train(schema="clip_combined", steps=1, eval_fraction=0.3)
         with pytest.raises(ValueError, match="no trainable pairs"):
             t.train(schema="clip_lexical", steps=1)
-    ov = overrides(store, images_dir, TRAIN_FSDP="1")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        torch_trainer.Trainer(torch_config.load_config(ov), device="cpu")
+    # TRAIN_FSDP without a mesh changes nothing, in both packages
+    jt, tt = trainers(store, images_dir, tree, TRAIN_FSDP="1")
+    assert tt.config.train.fsdp and tt.state.mesh is None
+    got = tt.train(schema="clip_combined", steps=1, batch_size=2)
+    want = jt.train(schema="clip_combined", steps=1, batch_size=2)
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
 
 
 def test_train_heldout_resume_and_metrics_file(small_store, tiny, jax_pair, tmp_path):  # noqa: F811

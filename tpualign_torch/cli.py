@@ -15,8 +15,9 @@ take no device. ``--mesh-data``/``--mesh-model`` (``MESH_DATA``/``MESH_MODEL``)
 give ``run``, ``setup-db``, ``embed``, ``evaluate``, ``ingest``, ``watch``,
 ``serve`` and ``train`` tpualign's ``default_mesh``: the visible cards in
 order (with ``--device cpu``, the CPU device repeated, as the CPU tests'
-meshes are); ``train`` with a mesh raises, as the sharded train step is a
-later slice.
+meshes are): the batches split over ``data``, the towers tensor parallel
+over ``model`` (``embed``, ``serve``, ``train``), and ``train`` with
+``TRAIN_FSDP=1`` splits the parameters, moments and EMA over ``data`` too.
 """
 
 from __future__ import annotations
@@ -273,8 +274,8 @@ def _run_stage(args) -> int:
 
 def _run_train(args) -> int:
     """Fine-tune on ``--schema``'s pairs and print the final metrics, as
-    ``tpualign train`` does (one device: the Trainer refuses a mesh, which
-    would shard the train step)."""
+    ``tpualign train`` does: on one device, or on ``--mesh-data`` x
+    ``--mesh-model`` devices (``Trainer(mesh=)``)."""
     from tpualign_torch.train.trainer import Trainer
 
     config = _config_from(args)

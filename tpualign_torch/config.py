@@ -160,10 +160,10 @@ class ModelConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """The ``MESH_DATA`` x ``MESH_MODEL`` device mesh, tpualign's fields:
-    ``data`` shards the corpus of exact retrieval and splits embedding
-    batches across the cards of one host (``parallel/mesh.py``); ``model``
-    would shard the towers, which the port does not do yet, so the towers
-    refuse a model axis above 1 where they would be sharded."""
+    ``data`` shards the corpus of exact retrieval and splits embedding and
+    training batches across the cards of one host (``parallel/mesh.py``);
+    ``model`` splits the towers' heads and MLP columns over the cards of
+    each data row (``parallel/sharding.py``)."""
 
     data: int = 1
     model: int = 1
@@ -240,7 +240,7 @@ class TrainConfig:
     image_feed: str = "host"         # "host" pixels or "device" uint8 buckets
     augment: str = "none"            # "rrc": device feed only
     lora_base_dtype: str = "float32"
-    # parsed for tpualign's keys; the port's trainer raises on it (one card)
+    # TRAIN_FSDP: on a mesh, params, moments and EMA also split over ``data``
     fsdp: bool = False
 
 

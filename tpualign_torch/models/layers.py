@@ -91,10 +91,26 @@ class MultiHeadAttention(nn.Module):
         self.out_proj_kernel = nn.Parameter(torch.empty(width, width))
         self.out_proj_bias = nn.Parameter(torch.zeros(width))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                tp: Optional[list] = None) -> torch.Tensor:
+        """``tp``: this block's parts on the cards of a model row,
+        ``[(in_proj_kernel, in_proj_bias, out_proj_kernel)]`` (see
+        ``parallel/sharding.py``): each card runs its heads, K1 included, and
+        its rows of ``out_proj``; the partial products are summed on ``x``'s
+        card, then the replicated bias is added."""
         cdt = self.compute_dtype
-        qkv = dense(x, self.in_proj_kernel, self.in_proj_bias, cdt, self.quant).to(cdt)
         attend = fused_mha if self.use_fused_attention else fused_mha_reference
+        if tp is not None:
+            heads = self.num_heads // len(tp)
+            total = None
+            for in_kernel, in_bias, out_kernel in tp:
+                dev = in_kernel.device
+                qkv = dense(x.to(dev), in_kernel, in_bias, cdt, self.quant).to(cdt)
+                ctx = attend(qkv, heads, None if mask is None else mask.to(dev))
+                part = dense(ctx, out_kernel, None, cdt, self.quant).to(x.device)
+                total = part if total is None else total + part
+            return (total + self.out_proj_bias).to(x.dtype)
+        qkv = dense(x, self.in_proj_kernel, self.in_proj_bias, cdt, self.quant).to(cdt)
         ctx = attend(qkv, self.num_heads, mask)
         return dense(ctx, self.out_proj_kernel, self.out_proj_bias, cdt,
                      self.quant).to(x.dtype)
@@ -114,8 +130,17 @@ class MLP(nn.Module):
         self.c_proj_kernel = nn.Parameter(torch.empty(hidden, width))
         self.c_proj_bias = nn.Parameter(torch.zeros(width))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp: Optional[list] = None) -> torch.Tensor:
+        """``tp``: ``[(c_fc_kernel, c_fc_bias, c_proj_kernel)]`` per card of a
+        model row, summed as :class:`MultiHeadAttention`'s parts are."""
         cdt = self.compute_dtype
+        if tp is not None:
+            total = None
+            for fc_kernel, fc_bias, proj_kernel in tp:
+                y = self.act(dense(x.to(fc_kernel.device), fc_kernel, fc_bias, cdt, self.quant))
+                part = dense(y, proj_kernel, None, cdt, self.quant).to(x.device)
+                total = part if total is None else total + part
+            return (total + self.c_proj_bias).to(x.dtype)
         y = self.act(dense(x, self.c_fc_kernel, self.c_fc_bias, cdt, self.quant))
         y = dense(y, self.c_proj_kernel, self.c_proj_bias, cdt, self.quant)
         return y.to(x.dtype)
@@ -134,14 +159,20 @@ class ResidualBlock(nn.Module):
         self.ln_2 = LayerNorm(width)
         self.mlp = MLP(width, mlp_hidden, use_quick_gelu, compute_dtype, quant)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), mask)
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                tp: Optional[dict] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), mask, None if tp is None else tp["attn"])
+        return x + self.mlp(self.ln_2(x), None if tp is None else tp["mlp"])
+
+
+# the block parameters a model axis splits: with ``tp`` their parts are used
+TP_SPLIT = ("attn.in_proj_kernel", "attn.in_proj_bias", "attn.out_proj_kernel",
+            "mlp.c_fc_kernel", "mlp.c_fc_bias", "mlp.c_proj_kernel")
 
 
 def _run_block(block: ResidualBlock, names, x: torch.Tensor, mask: Optional[torch.Tensor],
-               *tensors: torch.Tensor) -> torch.Tensor:
-    return functional_call(block, dict(zip(names, tensors)), (x, mask))
+               tp: Optional[dict], *tensors: torch.Tensor) -> torch.Tensor:
+    return functional_call(block, dict(zip(names, tensors)), (x, mask, tp))
 
 
 class Transformer(nn.Module):
@@ -155,7 +186,9 @@ class Transformer(nn.Module):
     The block's parameter tensors are inputs of the checkpointed call, so
     the recompute uses the tensors of the forward even when the step
     supplied them through ``functional_call``, whose swap has ended by the
-    backward. Without autograd nothing changes."""
+    backward. Without autograd nothing changes. A block's tensor-parallel
+    parts reach the recompute as the same tensors (an argument of the
+    checkpointed call)."""
 
     def __init__(self, width: int, num_layers: int, num_heads: int,
                  mlp_hidden: Optional[int], use_quick_gelu: bool,
@@ -170,13 +203,18 @@ class Transformer(nn.Module):
             for _ in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                tp: Optional[list] = None) -> torch.Tensor:
+        """``tp``: one dict of tensor-parallel parts a block (see
+        :class:`ResidualBlock`), or None."""
         remat = self.remat and torch.is_grad_enabled()
-        for block in self.resblocks:
+        for k, block in enumerate(self.resblocks):
+            parts = None if tp is None else tp[k]
             if remat:
-                names, tensors = zip(*block.named_parameters())
-                x = checkpoint(_run_block, block, names, x, mask, *tensors,
+                names, tensors = zip(*((n, p) for n, p in block.named_parameters()
+                                       if parts is None or not n.endswith(TP_SPLIT)))
+                x = checkpoint(_run_block, block, names, x, mask, parts, *tensors,
                                use_reentrant=False)
             else:
-                x = block(x, mask)
+                x = block(x, mask, parts)
         return x

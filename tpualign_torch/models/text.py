@@ -46,8 +46,9 @@ class TextTransformer(nn.Module):
         self.ln_final = LayerNorm(width)
         self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
 
-    def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
-        """token_ids: (B, T) int, zero-padded after EOT, T <= context_length."""
+    def forward(self, token_ids: torch.Tensor, tp: Optional[list] = None) -> torch.Tensor:
+        """token_ids: (B, T) int, zero-padded after EOT, T <= context_length;
+        ``tp``: the blocks' tensor-parallel parts (``parallel/sharding.py``)."""
         t = token_ids.shape[1]
         if t > self.context_length:
             raise ValueError(
@@ -56,7 +57,7 @@ class TextTransformer(nn.Module):
         ids = token_ids.long()
         x = self.token_embedding[ids].to(cdt)
         x = x + self.positional_embedding.to(cdt)[None, :t]
-        x = self.transformer(x, causal_mask(t, x.device))
+        x = self.transformer(x, causal_mask(t, x.device), tp)
         x = self.ln_final(x)
         eot = ids.argmax(dim=-1)  # first maximum
         x = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -48,12 +48,14 @@ class VisionTransformer(nn.Module):
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 
     def forward(self, images: torch.Tensor,
-                patch_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+                patch_indices: Optional[torch.Tensor] = None,
+                tp: Optional[list] = None) -> torch.Tensor:
         """images: (B, H, W, 3) float, already normalized -> (B, embed) fp32.
 
         ``patch_indices``: optional (B, K) integer indices of the VISIBLE
         patches (FLIP masking, arXiv:2212.00794): the transformer runs on
-        the class token and those K patches only. None keeps them all."""
+        the class token and those K patches only. None keeps them all.
+        ``tp``: the blocks' tensor-parallel parts (``parallel/sharding.py``)."""
         b, h, w, ch = images.shape
         p, s = self.patch_size, self.image_size
         if (h, w, ch) != (s, s, 3):
@@ -74,6 +76,6 @@ class VisionTransformer(nn.Module):
         else:
             x = torch.cat([cls, x], dim=1) + pos[None]
         x = self.ln_pre(x)
-        x = self.transformer(x)
+        x = self.transformer(x, None, tp)
         x = self.ln_post(x[:, 0, :])
         return matmul_f32acc(x.to(cdt), self.proj.to(cdt))

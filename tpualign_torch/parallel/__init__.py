@@ -4,7 +4,9 @@ from tpualign_torch.parallel.ivf import IVFIndex
 from tpualign_torch.parallel.mesh import create_mesh, default_mesh
 from tpualign_torch.parallel.retrieval import (
     RetrievalIndex, build_index, encode_keys, sharded_topk_search)
+from tpualign_torch.parallel.sharding import clip_param_specs, shard_params
 
 __all__ = ["EmbedEngine", "HNSWIndex", "IVFIndex", "RetrievalIndex", "build_index",
-           "create_mesh", "default_mesh", "encode_keys", "placeholder_embedding",
-           "sharded_topk_search", "truncate_to_bucket"]
+           "clip_param_specs", "create_mesh", "default_mesh", "encode_keys",
+           "placeholder_embedding", "shard_params", "sharded_topk_search",
+           "truncate_to_bucket"]

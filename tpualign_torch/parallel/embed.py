@@ -13,15 +13,16 @@ or corrupt file, empty text) get deterministic unit-norm placeholders
 derived from their ids. PyTorch runs eagerly, so the last batch is not
 padded.
 
-On a mesh (``parallel/mesh.py``) the towers are replicated on each data
-device (one replica a distinct device; int8 towers too), the batch is
-rounded to a multiple of the data axis as tpualign rounds it, and each
-batch's rows are split over the data devices: each slice runs the towers
-on its device (K1, and K5 in the device feed), the replicas launched in
-turn without a synchronize, and the outputs are gathered in order on the
-first device. The host decode pool stays one pool. A model axis above 1
-would shard the towers (tpualign's ``parallel/sharding.py``), a later
-slice, and raises.
+On a mesh (``parallel/mesh.py``) the batch is rounded to a multiple of the
+data axis as tpualign rounds it, and each batch's rows are split over the
+data rows: each slice runs the towers on its row (K1, and K5 in the device
+feed on the row's first device), the rows launched in turn without a
+synchronize, and the outputs are gathered in order on the first device.
+With a model axis of 1 the towers are replicated on each data device (one
+replica a distinct device; int8 towers too); above 1 they are laid out by
+``parallel/sharding.py``'s TP specs and each row runs them tensor parallel
+over its devices (``RowTowers``: K1 on each card's heads; the int8 towers
+take a model axis of 1). The host decode pool stays one pool.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from tpualign_torch.models.convert import from_jax_params
 from tpualign_torch.models.loader import load_checkpoint_params
 from tpualign_torch.ops.preprocess import pad_to_bucket, preprocess_device, preprocess_host
 from tpualign_torch.parallel.mesh import shard_devices
+from tpualign_torch.parallel.sharding import RowTowers, row_params, shard_params
 from tpualign_torch.tokenizer import ClipTokenizer
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
@@ -103,11 +105,6 @@ class EmbedEngine:
         if preprocess not in ("host", "device"):
             raise ValueError(f"preprocess must be host|device, got {preprocess!r}")
         devices = shard_devices(mesh)
-        if devices is not None and mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                f"a mesh with a model axis of {mesh.shape['model']} shards the towers "
-                "(tpualign's parallel/sharding.py), a later multi-GPU slice of tpualign_torch, "
-                "not yet ported; use a model axis of 1")
         self.device = resolve_device(device) if devices is None else devices[0]
         self.mesh = mesh
         self._devices = devices or [self.device]
@@ -136,30 +133,37 @@ class EmbedEngine:
         else:
             from_jax_params(self.model, params)
         self.model.eval().requires_grad_(False)
+        if mesh is not None and mesh.shape["model"] > 1:
+            # each data row runs the towers tensor parallel over its devices
+            sharded = shard_params(dict(self.model.named_parameters()), mesh)
+            self._towers = [RowTowers(self.model, row_params(sharded, i))
+                            for i in range(len(self._devices))]
+            return
         # one replica of the towers on each distinct data device
-        self._replicas = {self.device: self.model}
+        replicas = {self.device: self.model}
         for dev in self._devices:
-            if dev not in self._replicas:
+            if dev not in replicas:
                 replica = build_clip(model_config, dev)
                 replica.load_state_dict(self.model.state_dict())
-                self._replicas[dev] = replica.eval().requires_grad_(False)
+                replicas[dev] = replica.eval().requires_grad_(False)
+        self._towers = [replicas[dev] for dev in self._devices]
 
     # -- batching -------------------------------------------------------------
 
     def _data_parallel(self, fn: Callable[..., torch.Tensor], *inputs: torch.Tensor,
                        non_blocking: bool = False) -> torch.Tensor:
         """``fn(model, *inputs)`` with the inputs on the engine's device; on
-        a mesh, the inputs' rows split evenly over the data devices, each
-        slice through ``fn`` with that device's replica (launched in turn,
-        no synchronize between), the outputs gathered in order on the first
-        device."""
+        a mesh, the inputs' rows split evenly over the data rows, each slice
+        through ``fn`` with that row's towers on its first device (launched
+        in turn, no synchronize between), the outputs gathered in order on
+        the first device."""
         n_dev = len(self._devices)
         outs = []
         for s, dev in enumerate(self._devices):
             rows = [torch.tensor_split(t, n_dev)[s] for t in inputs]
             if len(rows[0]):
-                out = fn(self._replicas[dev], *(t.to(dev, non_blocking=non_blocking)
-                                                for t in rows))
+                out = fn(self._towers[s], *(t.to(dev, non_blocking=non_blocking)
+                                            for t in rows))
                 outs.append(out.to(self.device, non_blocking=True))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 

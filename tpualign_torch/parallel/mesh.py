@@ -1,12 +1,15 @@
 """The device mesh of one host (the port's ``tpualign.parallel.mesh``).
 
-Axes: ``data`` (the corpus of exact retrieval and the batches of the
-embedding engine are split over it) and ``model`` (tensor parallelism for
-the towers, a later slice of the port). A :class:`Mesh` is a
-``(data, model)`` grid of ``torch.device``s that one process drives, as one
-JAX controller drives the chips ``jax.devices()`` lists on a TPU host: each
-data shard lives on the first device of its model row (replicated over
-``model``), kernels launch on each device's current stream, which runs
+Axes: ``data`` (the corpus of exact retrieval, the batches of the
+embedding engine and of the train step are split over it) and ``model``
+(tensor parallelism for the towers, ``parallel/sharding.py``). A
+:class:`Mesh` is a ``(data, model)`` grid of ``torch.device``s that one
+process drives, as one JAX controller drives the chips ``jax.devices()``
+lists on a TPU host. Each data row is a model row of devices: the row's
+first device holds its corpus shard and its slice of a batch, and each
+device of the row holds one tensor-parallel part of the towers
+(``ShardedTensor`` gathers parts to one device and scatters a tensor back
+into them). Kernels launch on each device's current stream, which runs
 asynchronously across the cards, and results are gathered on the first
 device. Processes on several hosts (``torch.distributed``) are a later
 slice.
@@ -49,6 +52,11 @@ class Mesh:
     def data_devices(self) -> List[torch.device]:
         """The home of each data shard: the first device of each model row."""
         return [self.devices[i, 0] for i in range(self.devices.shape[0])]
+
+    def row(self, i: int) -> List[torch.device]:
+        """Data row ``i``'s model row: the devices its tensor-parallel parts
+        lie on, its home first."""
+        return list(self.devices[i])
 
 
 def _visible_cards() -> List[torch.device]:

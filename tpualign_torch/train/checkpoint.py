@@ -5,7 +5,9 @@ A checkpoint directory holds one ``<step>/`` per save, each with one
 ``state.pt``: a ``torch.save`` of ``{params, opt_state, step}`` and, when
 the state has them, ``ema_params``, ``frozen_params`` and ``lora_scale``
 (tensors on the CPU, plain ints and floats; ``torch.load(weights_only=True)``
-reads it). The newest three saves are kept. A tpualign orbax directory
+reads it). The newest three saves are kept. A mesh state's sharded
+tensors are gathered whole into the same file; a restore lays them back out
+in the receiving state's layout (TP and FSDP). A tpualign orbax directory
 cannot be read here: orbax does not import without JAX, so it raises one
 clear error.
 """
@@ -19,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from tpualign_torch.parallel.sharding import ShardedTensor
 from tpualign_torch.utils.logging import get_logger
 
 log = get_logger("train.checkpoint")
@@ -30,6 +33,8 @@ MAX_TO_KEEP = 3
 
 
 def _to_cpu(obj):
+    if isinstance(obj, ShardedTensor):
+        return obj.full().detach().cpu()
     if torch.is_tensor(obj):
         return obj.detach().cpu()
     if isinstance(obj, dict):
@@ -39,7 +44,9 @@ def _to_cpu(obj):
 
 def _to_device(obj, like):
     """``obj``'s tensors on the device (and in the dtype) of the matching
-    tensors of ``like``."""
+    tensors of ``like``; into ``like``'s layout where it is sharded."""
+    if torch.is_tensor(obj) and isinstance(like, ShardedTensor):
+        return ShardedTensor.from_full(obj, like.mesh, like.spec, like.perm, like.dtype)
     if torch.is_tensor(obj):
         if torch.is_tensor(like):
             return obj.to(device=like.device, dtype=like.dtype)
@@ -147,7 +154,8 @@ def restore_checkpoint(directory: str | Path, state, step: Optional[int] = None)
     state.step = int(restored["step"])
     if getattr(state, "ema_params", None) is not None:
         ema = restored.get("ema_params")
-        state.ema_params = ({k: v.clone() for k, v in state.params.items()} if ema is None
+        state.ema_params = ({k: (v.map(torch.clone) if isinstance(v, ShardedTensor) else v.clone())
+                             for k, v in state.params.items()} if ema is None
                             else _to_device(ema, state.ema_params))
     if state.frozen_params is not None and restored.get("frozen_params") is not None:
         state.frozen_params = _to_device(restored["frozen_params"], state.frozen_params)

@@ -8,8 +8,17 @@ logit-scale clamp (``ln 100``) and the EMA. On the card the towers' bf16
 projections are cuBLAS products with a gradient
 (``ops/dense.py::matmul_f32acc``), attention is K1 forward with the
 recomputing backward (``ops/attention.py``), and a device-feed batch goes
-through ``ops/preprocess.py::preprocess_device`` (K5) first. One device:
-the sharded step is multi-GPU work and raises.
+through ``ops/preprocess.py::preprocess_device`` (K5) first.
+
+:func:`make_sharded_train_step` runs the same step over a mesh of one
+process (``parallel/mesh.py``): the state's tensors are
+``ShardedTensor``s laid out by ``parallel/sharding.py``'s specs (TP over
+``model``, FSDP over ``data`` with ``TRAIN_FSDP``); each data row runs the
+towers on its slice of the batch, tensor parallel inside its row (K1 on
+each card's heads, K5 on the row's first card), the features are gathered
+on the mesh's first card with a differentiable copy and the loss is taken
+there as on one device; each gradient is summed over the positions that
+hold the same slice, and every device updates its own parts.
 """
 
 from __future__ import annotations
@@ -23,6 +32,10 @@ from torch.func import functional_call
 
 from tpualign_torch.config import TrainConfig
 from tpualign_torch.models.clip import CLIP
+from tpualign_torch.parallel.mesh import shard_devices
+from tpualign_torch.parallel.sharding import (
+    RowTowers, ShardedTensor, check_model_split, model_slices, row_params, shard_params,
+    split_rows)
 from tpualign_torch.train.loss import clip_contrastive_loss, distill_kl_loss, siglip_loss
 from tpualign_torch.train.optim import AdamW, global_norm
 
@@ -56,11 +69,32 @@ def _as_pixels(images, model: CLIP) -> torch.Tensor:
     return images
 
 
+def _flat(tree: dict) -> list:
+    """The tensors of a dict of tensors or of ``ShardedTensor``s (every
+    part), in a fixed order."""
+    out = []
+    for v in tree.values():
+        if isinstance(v, ShardedTensor):
+            out.extend(p for row in v.parts for p in row)
+        else:
+            out.append(v)
+    return out
+
+
+def _unflat(tree: dict, tensors: list) -> dict:
+    """``tensors`` (in :func:`_flat`'s order) back into ``tree``'s layout."""
+    it = iter(tensors)
+    return {k: (v.map(lambda _: next(it)) if isinstance(v, ShardedTensor) else next(it))
+            for k, v in tree.items()}
+
+
 @dataclasses.dataclass
 class TrainState:
     """``params`` are trained in place; ``ema_params`` (None = off) is what
     export and evaluation prefer; under LoRA ``params`` is the adapter dict
-    and ``frozen_params`` the base, merged with ``lora_scale``."""
+    and ``frozen_params`` the base, merged with ``lora_scale``. On a mesh
+    (``mesh`` set, by :func:`make_sharded_train_step`'s ``shard_state``)
+    every tensor dict holds ``ShardedTensor``s."""
 
     step: int
     params: Params
@@ -69,12 +103,17 @@ class TrainState:
     ema_params: Optional[Params] = None
     frozen_params: Optional[Params] = None
     lora_scale: float = 0.0
+    mesh: object = None
 
     @torch.no_grad()
     def apply_gradients(self, grads: Params, g_norm: torch.Tensor) -> "TrainState":
-        self.opt_state = self.tx.update(self.params, grads, self.opt_state, g_norm)
+        if self.mesh is None:
+            self.opt_state = self.tx.update(self.params, grads, self.opt_state, g_norm)
+        else:
+            self.opt_state = _sharded_update(self.tx, self.params, grads, self.opt_state, g_norm)
         # clamp the learned temperature (CLIP standard); trainable under LoRA too
-        self.params["logit_scale"].clamp_(max=MAX_LOGIT_SCALE)
+        for scale in _flat({"s": self.params["logit_scale"]}):
+            scale.clamp_(max=MAX_LOGIT_SCALE)
         self.step += 1
         return self
 
@@ -144,23 +183,33 @@ def create_train_state(model: CLIP, params: Params, config: TrainConfig) -> Trai
 
 @torch.no_grad()
 def _update_ema(state: TrainState, config: TrainConfig) -> TrainState:
-    """``ema = ema·d + (1 - d)·params`` over the NEW params."""
+    """``ema = ema·d + (1 - d)·params`` over the NEW params (on a mesh,
+    part by part)."""
     if state.ema_params is None or config.ema_decay <= 0.0:
         return state
     d = config.ema_decay
-    names = list(state.ema_params)
-    ema = [state.ema_params[k] for k in names]
+    ema = _flat(state.ema_params)
     new = torch._foreach_add(torch._foreach_mul(ema, d),
-                             torch._foreach_mul([state.params[k] for k in names], 1.0 - d))
-    state.ema_params = {k: n.to(e.dtype) for k, n, e in zip(names, new, ema)}
+                             torch._foreach_mul(_flat({k: state.params[k]
+                                                       for k in state.ema_params}), 1.0 - d))
+    state.ema_params = _unflat(state.ema_params, [n.to(e.dtype) for n, e in zip(new, ema)])
     return state
 
 
 @torch.no_grad()
 def export_params(state: TrainState) -> Params:
     """The dict to embed and serve with: the EMA when tracked, else the
-    params; under LoRA merged into the frozen base."""
+    params; under LoRA merged into the frozen base. A mesh state is
+    gathered to its first device."""
     trainable = state.ema_params if state.ema_params is not None else state.params
+    if state.mesh is not None:
+        trainable = {k: v.full() for k, v in trainable.items()}
+        if state.frozen_params is not None:
+            from tpualign_torch.train.lora import lora_apply
+
+            base = {k: v.full() for k, v in state.frozen_params.items()}
+            trainable = lora_apply(base, trainable, state.lora_scale)
+        return trainable
     return {k: v.detach() for k, v in state.effective_params(trainable).items()}
 
 
@@ -191,18 +240,32 @@ def _compose_loss(img, txt, scale, weak_scores, config: TrainConfig,
 
 
 def _leaves(params: Params) -> Params:
-    """Fresh autograd leaves sharing the params' storage."""
-    return {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    """Fresh autograd leaves sharing the params' storage (a mesh state's:
+    every part)."""
+    def leaf(v):
+        return v.detach().requires_grad_(True)
+
+    return {k: (v.map(leaf) if isinstance(v, ShardedTensor) else leaf(v))
+            for k, v in params.items()}
 
 
 def _encode(state: TrainState, model: CLIP, params: Params, images, tokens, patch_indices):
+    if state.mesh is not None:
+        return _mesh_encode(state, model, params, images, tokens, patch_indices)
     return functional_call(model, state.effective_params(params),
                            (_as_pixels(images, model), tokens, patch_indices))
 
 
+def _grads(loss: torch.Tensor, leaves: Params) -> Params:
+    if leaves and isinstance(next(iter(leaves.values())), ShardedTensor):
+        return _mesh_grads(loss, leaves)
+    return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
 def _finish(state: TrainState, grads: Params, config: TrainConfig,
             metrics: dict) -> Tuple[TrainState, dict]:
-    g_norm = global_norm(list(grads.values()))
+    g_norm = (global_norm(list(grads.values())) if state.mesh is None
+              else _sharded_norm(grads, state.mesh.devices[0, 0]))
     state = _update_ema(state.apply_gradients(grads, g_norm), config)
     metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in metrics.items()}
     metrics["grad_norm"] = g_norm
@@ -229,8 +292,7 @@ def train_step(state: TrainState, model: CLIP, images, token_ids: torch.Tensor,
     leaves = _leaves(state.params)
     img, txt, scale = _encode(state, model, leaves, images, token_ids, patch_indices)
     loss, metrics = _compose_loss(img, txt, scale, weak_scores, config, teacher)
-    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-    return _finish(state, grads, config, metrics)
+    return _finish(state, _grads(loss, leaves), config, metrics)
 
 
 def _split(x, a: int, m: int):
@@ -274,24 +336,198 @@ def _accum_train_step(state: TrainState, model: CLIP, images, token_ids: torch.T
         img_full = torch.cat([img_all[:i], img_i[None], img_all[i + 1:]]).reshape(b, -1)
         txt_full = torch.cat([txt_all[:i], txt_i[None], txt_all[i + 1:]]).reshape(b, -1)
         loss, metrics = _compose_loss(img_full, txt_full, scale, weak_scores, config, teacher)
-        g = torch.autograd.grad(loss, list(leaves.values()))
+        g = _grads(loss, leaves)
         if grads is None:
-            grads = dict(zip(leaves, g))
+            grads = g
         else:
-            torch._foreach_add_(list(grads.values()), list(g))
-    grads["logit_scale"] = grads["logit_scale"] / torch.tensor(
-        float(a), dtype=grads["logit_scale"].dtype, device=grads["logit_scale"].device)
+            torch._foreach_add_(_flat(grads), _flat(g))
+    for t in _flat({"s": grads["logit_scale"]}):
+        t.div_(torch.tensor(float(a), dtype=t.dtype, device=t.device))
     # every pass computes the same full-batch loss; report the last
     return _finish(state, grads, config, metrics)
 
 
+def _to(x, device):
+    """A batch leaf (or a device-feed tuple) on ``device``."""
+    if isinstance(x, (tuple, list)):
+        return tuple(_to(v, device) for v in x)
+    return None if x is None else x.to(device)
+
+
+def _row_params(state: TrainState, params: Params, i: int) -> dict:
+    """What data row ``i`` runs the towers on (``row_params``); under LoRA
+    the frozen base's parts merged with the replicated adapters, each part
+    with its kernel's slice of the adapter (``W_j + scale·A_j@B_j``)."""
+    rows = row_params(params, i)
+    if state.frozen_params is None:
+        return rows
+    out = {}
+    for name, base in row_params(state.frozen_params, i).items():
+        if f"{name}.a" not in rows:
+            out[name] = rows.get(name, base)
+            continue
+        a, b = rows[f"{name}.a"], rows[f"{name}.b"]
+        if torch.is_tensor(base):
+            out[name] = (base + state.lora_scale * torch.matmul(a, b)).to(base.dtype)
+            continue
+        layout = state.frozen_params[name]
+        m = len(base)
+        if layout.model_dim == 0:
+            a_parts, b_parts = model_slices(a, layout.spec, None, m), [b] * m
+        else:
+            a_parts, b_parts = [a] * m, model_slices(b, layout.spec, layout.perm, m)
+        out[name] = [(w + state.lora_scale * torch.matmul(aj.to(w.device), bj.to(w.device)))
+                     .to(w.dtype) for w, aj, bj in zip(base, a_parts, b_parts)]
+    return out
+
+
+def _mesh_encode(state: TrainState, model: CLIP, params: Params, images, tokens,
+                 patch_indices):
+    """Each data row's towers on its slice of the batch (moved to the row's
+    first device); the features gathered on the mesh's first device, the
+    logit scale row 0's."""
+    mesh = state.mesh
+    d, first = mesh.shape["data"], mesh.devices[0, 0]
+    imgs, toks = split_rows(images, d), split_rows(tokens, d)
+    pidx = [None] * d if patch_indices is None else split_rows(patch_indices, d)
+    img_all, txt_all, scale = [], [], None
+    for i in range(d):
+        home = mesh.row(i)[0]
+        towers = RowTowers(model, _row_params(state, params, i))
+        img, txt, s = towers(_as_pixels(_to(imgs[i], home), model), toks[i].to(home),
+                             _to(pidx[i], home))
+        img_all.append(img.to(first))
+        txt_all.append(txt.to(first))
+        scale = s if scale is None else scale
+    return torch.cat(img_all), torch.cat(txt_all), scale
+
+
+def _mesh_grads(loss: torch.Tensor, leaves: Dict[str, ShardedTensor]) -> Dict[str, ShardedTensor]:
+    """The gradient of every part: the sum (in row order, on the first
+    position's device) of the gradients that the positions holding the same
+    slice received, copied to each of them. A replicated parameter sums
+    over the data rows; an FSDP slice has its sum over the rows from
+    autograd already (its gather's backward)."""
+    order = [(name, i, j) for name, st in leaves.items() for i, j in st.positions()]
+    got = dict(zip(order, torch.autograd.grad(
+        loss, [leaves[n].parts[i][j] for n, i, j in order], allow_unused=True)))
+    out = {}
+    for name, st in leaves.items():
+        groups: dict = {}
+        for i, j in st.positions():
+            groups.setdefault(st.group(i, j), []).append((i, j))
+        parts = [[None] * len(row) for row in st.parts]
+        for pos in groups.values():
+            head = st.parts[pos[0][0]][pos[0][1]]
+            total = None
+            for i, j in pos:
+                g = got[(name, i, j)]
+                if g is not None:
+                    g = g.to(head.device)
+                    total = g if total is None else total + g
+            if total is None:
+                total = torch.zeros_like(head)
+            for n, (i, j) in enumerate(pos):
+                parts[i][j] = total if n == 0 else total.to(st.parts[i][j].device, copy=True)
+        out[name] = st.like(parts)
+    return out
+
+
+def _sharded_norm(grads: Dict[str, ShardedTensor], first: torch.device) -> torch.Tensor:
+    """``global_norm`` over every distinct slice once, summed on ``first``."""
+    heads = []
+    for st in grads.values():
+        seen = set()
+        for i, j in st.positions():
+            if st.group(i, j) not in seen:
+                seen.add(st.group(i, j))
+                heads.append(st.parts[i][j])
+    norms = torch.stack([n.float().to(first) for n in torch._foreach_norm(heads)])
+    return torch.sqrt(torch.sum(norms * norms))
+
+
+def _sharded_update(tx: AdamW, params, grads, opt_state: dict, g_norm: torch.Tensor) -> dict:
+    """AdamW on every device's own parts (its slice of the moments with
+    them); the parts that repeat a slice get the same update from the same
+    values, so they stay equal."""
+    by_device: dict = {}
+    for name, st in params.items():
+        for i, j in st.positions():
+            by_device.setdefault(st.parts[i][j].device, []).append((name, i, j))
+    mu, nu = opt_state["mu"], opt_state["nu"]
+    for dev, keys in by_device.items():
+        def pick(tree):
+            return {(n, i, j): tree[n].parts[i][j] for n, i, j in keys}
+
+        new = tx.update(pick(params), pick(grads),
+                        {"count": opt_state["count"], "mu": pick(mu), "nu": pick(nu)},
+                        g_norm.to(dev))
+        for n, i, j in keys:
+            mu[n].parts[i][j] = new["mu"][(n, i, j)]
+            nu[n].parts[i][j] = new["nu"][(n, i, j)]
+    return {"count": opt_state["count"] + 1, "mu": mu, "nu": nu}
+
+
+def _as_tensor(x):
+    if x is None or torch.is_tensor(x):
+        return x
+    if isinstance(x, (tuple, list)):
+        return tuple(_as_tensor(v) for v in x)
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
 def make_sharded_train_step(model: CLIP, mesh, config: TrainConfig, state_sharding=None):
-    """The mesh step (data and tensor parallel, FSDP) shards the towers
-    (tpualign's ``parallel/sharding.py``), a later slice: not yet ported."""
-    raise NotImplementedError(
-        "the sharded train step (a mesh, TRAIN_FSDP) needs tpualign's parallel/sharding.py, "
-        "multi-GPU work of a later slice of tpualign_torch, not yet ported; it trains on one "
-        "device")
+    """The step over ``mesh``: the batch split over ``data``, the towers
+    tensor parallel over ``model`` by ``clip_param_specs``; with
+    ``config.fsdp`` every parameter of two dimensions or more, its moments
+    and its EMA also split over ``data`` (gathered before use, their
+    gradients summed back to their owners). Under LoRA the adapters
+    replicate and the frozen base takes the full TP(+FSDP) layout.
+
+    Returns ``(step_fn, shard_state)``: ``shard_state`` lays a one-device
+    ``TrainState`` out on the mesh (fresh tensors: a mesh that repeats a
+    device never aliases the caller's params or one part with another);
+    ``step_fn(state, images, token_ids, weak_scores, patch_indices=None,
+    teacher=None)`` takes numpy arrays or tensors on any device, runs one
+    step and returns the state and the metrics (on the first device, where
+    the loss is taken with the teacher's rows). ``state_sharding`` is
+    tpualign's argument and is not used.
+    """
+    _reject_quantized_model(model)
+    shard_devices(mesh)  # refuses anything but the port's Mesh
+    check_model_split(model, mesh.shape["model"])
+    first = mesh.devices[0, 0]
+
+    def laid_out(tree: Params, like: Dict[str, ShardedTensor]) -> Dict[str, ShardedTensor]:
+        return {k: ShardedTensor.from_full(v, mesh, like[k].spec, like[k].perm)
+                for k, v in tree.items()}
+
+    def shard_state(state: TrainState) -> TrainState:
+        lora = state.frozen_params is not None
+        params = shard_params(state.params, mesh, fsdp=config.fsdp and not lora)
+        opt = state.opt_state
+        return TrainState(
+            step=int(state.step), params=params,
+            opt_state={"count": int(opt["count"]), "mu": laid_out(opt["mu"], params),
+                       "nu": laid_out(opt["nu"], params)},
+            tx=state.tx,
+            ema_params=(None if state.ema_params is None
+                        else laid_out(state.ema_params, params)),
+            frozen_params=(shard_params(state.frozen_params, mesh, fsdp=config.fsdp)
+                           if lora else None),
+            lora_scale=state.lora_scale, mesh=mesh)
+
+    def run(state: TrainState, images, token_ids, weak_scores, patch_indices=None,
+            teacher=None):
+        weak = _as_tensor(weak_scores)
+        pidx = _as_tensor(patch_indices)
+        if teacher is not None:
+            teacher = tuple(_as_tensor(t).to(first) for t in teacher)
+        return train_step(state, model, _as_tensor(images), _as_tensor(token_ids).long(),
+                          None if weak is None else weak.to(first), config,
+                          None if pidx is None else pidx.long(), teacher)
+
+    return run, shard_state
 
 
 def sample_patch_indices(rng: np.random.Generator, batch: int, num_patches: int,

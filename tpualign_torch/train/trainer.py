@@ -6,8 +6,10 @@ or for vanilla_clip from the same-page cartesian pairs with weight 1;
 images decode in a worker process's thread pool ahead of the step (host feed: PIL bicubic
 pixels; device feed: uint8 buckets that the step resizes on the card and
 normalises through K5), texts tokenize to the 77-token context with the
-length buckets; the step runs on one device; checkpoints go to
-``train/checkpoint.py``. The numpy RNG streams are tpualign's (``seed``
+length buckets; the step runs on one device, or over a mesh of one
+process (``Trainer(mesh=)``, ``make_sharded_train_step``: the batch split
+over ``data``, the towers tensor parallel over ``model``, ``TRAIN_FSDP``);
+checkpoints go to ``train/checkpoint.py``. The numpy RNG streams are tpualign's (``seed``
 the shuffle, ``seed+1`` the patch masks, ``seed+2`` the crops, ``seed+3``
 the held-out split), so one seed gives both packages the same batches.
 """
@@ -33,11 +35,14 @@ from tpualign_torch.models.convert import from_jax_params
 from tpualign_torch.models.loader import load_checkpoint_params
 from tpualign_torch.ops.preprocess import pad_to_bucket, preprocess_host, sample_crop_boxes
 from tpualign_torch.parallel.embed import truncate_to_bucket
+from tpualign_torch.parallel.mesh import shard_devices
+from tpualign_torch.parallel.sharding import RowTowers, row_params, shard_params
 from tpualign_torch.store import EmbeddingStore
 from tpualign_torch.tokenizer import ClipTokenizer
 from tpualign_torch.train.step import (
     create_train_state,
     export_params,
+    make_sharded_train_step,
     model_params,
     sample_patch_indices,
     train_step,
@@ -100,25 +105,28 @@ def _encode_with(model: CLIP, params, images=None, tokens=None) -> torch.Tensor:
 
 
 class Trainer:
-    """Fine-tunes the CLIP towers on store pairs, on one device.
+    """Fine-tunes the CLIP towers on store pairs, on one device or over
+    ``mesh``.
 
     ``params``: the JAX package's tree as nested numpy dicts (see
     ``models/convert.py``); None loads ``CLIP_CHECKPOINT`` when it is set,
     else draws the seeded weights. ``device`` defaults to CUDA and raises
-    when it is absent. A mesh or ``TRAIN_FSDP`` would shard the train step
-    (tpualign's ``parallel/sharding.py``), a later slice of the port, and
-    raises ``NotImplementedError``.
+    when it is absent. With ``mesh`` (``parallel/mesh.py``; it names the
+    devices, and ``device`` is then not used) the state is laid out on the
+    mesh (``TRAIN_FSDP`` splits parameters, moments and EMA over ``data``
+    too), each step splits its batch over the data rows (the device feed's
+    resize and K5 on each row's first card), held-out evaluation runs the
+    towers data and tensor parallel over the mesh, and the model's own
+    parameters are released (the mesh holds the weights). ``TRAIN_FSDP``
+    without a mesh changes nothing, as in tpualign.
     """
 
     def __init__(self, config: PipelineConfig, store: Optional[EmbeddingStore] = None,
                  mesh=None, params=None, device: str | torch.device = "cuda"):
-        if mesh is not None or config.train.fsdp:
-            raise NotImplementedError(
-                "a mesh or TRAIN_FSDP shards the train step (tpualign's parallel/sharding.py), "
-                "multi-GPU work of a later slice of tpualign_torch, not yet ported; it trains "
-                "on one device")
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        devices = shard_devices(mesh)
+        self.device = resolve_device(device) if devices is None else devices[0]
         self.variant = config.model.variant
         self.store = store or EmbeddingStore(config.store.root,
                                              embed_dim=self.variant.embed_dim)
@@ -134,6 +142,11 @@ class Trainer:
         self.model.requires_grad_(False)
         self.state = create_train_state(self.model, model_params(self.model), config.train)
         model, tc = self.model, config.train
+        if mesh is not None:
+            self._step, shard_state = make_sharded_train_step(model, mesh, tc)
+            self.state = shard_state(self.state)
+            model.to("meta")
+            return
 
         def _single_step(state, images, token_ids, weak_scores, patch_indices=None,
                          teacher=None):
@@ -257,15 +270,28 @@ class Trainer:
                  len(paths), len(texts), uimg.shape[1])
         return t_img, t_txt, t_scale
 
+    @torch.no_grad()
     def _embed(self, model: CLIP, params, images: Optional[np.ndarray],
                tokens: Optional[np.ndarray], batch_size: int) -> np.ndarray:
+        """Unit-norm embeddings in batches; ``params`` a parameter dict, or
+        one ``RowTowers`` a data row of the mesh (each batch's rows split
+        over them, the results gathered in order)."""
         data = images if images is not None else tokens
         out = []
         for s0 in range(0, len(data), batch_size):
             chunk = torch.from_numpy(np.ascontiguousarray(data[s0: s0 + batch_size]))
-            chunk = chunk.to(self.device)
-            emb = (_encode_with(model, params, images=chunk) if images is not None
-                   else _encode_with(model, params, tokens=chunk))
+            if isinstance(params, list):
+                parts = [(rows, towers) for rows, towers in
+                         zip(torch.tensor_split(chunk, len(params)), params) if len(rows)]
+                emb = torch.cat([
+                    (towers.encode_image(rows.to(towers.device), normalize=True)
+                     if images is not None
+                     else towers.encode_text(rows.to(towers.device), normalize=True))
+                    .to(self.device) for rows, towers in parts])
+            else:
+                chunk = chunk.to(self.device)
+                emb = (_encode_with(model, params, images=chunk) if images is not None
+                       else _encode_with(model, params, tokens=chunk))
             out.append(emb.float().cpu().numpy())
         if not out:
             return np.zeros((0, model.variant.embed_dim), np.float32)
@@ -307,6 +333,11 @@ class Trainer:
         are taken on the host (ties: ascending index)."""
         params = self.export_params
         imgs, tokens, gt, _n_pairs, _n_texts = self._prepare_heldout(triples, batch_size)
+        if self.mesh is not None:
+            sharded = shard_params(params, self.mesh)
+            del params
+            params = [RowTowers(self.model, row_params(sharded, i))
+                      for i in range(self.mesh.shape["data"])]
         ie = self._embed(self.model, params, imgs, None, batch_size)
         te = self._embed(self.model, params, None, tokens, batch_size)
         sims = ie @ te.T  # (P, T)
