@@ -4,8 +4,8 @@
 
 Run from the root of a checkout, on a machine with one CUDA card or more
 (an H100 for the numbers in PERF.md; the mesh phase takes four distinct
-cards where the host has four). ``--mesh-only`` runs 1., 8.-10., 16., 11.
-and 15. alone, with no kernels line: the four-card run. Phases, one JSON
+cards where the host has four). ``--mesh-only`` runs 1., 8.-10., 16., 17.,
+11. and 15. alone, with no kernels line: the four-card run. Phases, one JSON
 line each:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
@@ -61,14 +61,14 @@ line each:
    the port's loader bit for bit (and as ``.safetensors`` where that
    package is installed); the pipeline, serve and serve_ivf phases load
    their towers from it;
-9. device_feed: 2,048 seeded smooth PNG/JPEG files (96-1,200 px per side,
+9. device_feed: 1,536 seeded smooth PNG/JPEG files (96-1,200 px per side,
    about a third above the 256 bucket) through ``embed_image_records``
    with the host feed, then the device feed: images/s of each, K5's
    launches, the profile of one batch of each, and 64 images' pixels on
    the card against the port's CPU path;
-10. pipeline: 384 ``*.synthdoc.json`` manuals x 8 pages (one raster image,
-    a device_feed file's bytes, and eight word lines per page: 3,072
-    images and 24,576 chunks) written by the port's
+10. pipeline: 256 ``*.synthdoc.json`` manuals x 8 pages (one raster image,
+    a device_feed file's bytes, and eight word lines per page: 2,048
+    images and 16,384 chunks) written by the port's
     ``write_synthetic_document``, through ``python -m tpualign_torch
     process``, ``filter``, ``setup-db``, ``embed`` (IMAGE_PREPROCESS=device,
     CLIP_CHECKPOINT) and ``evaluate`` as subprocesses, their kernel launch
@@ -79,7 +79,7 @@ line each:
     embeddings, and every schema's alignment records against the CPU
     ``compute_alignments``. The cartesian metrics cannot see the ranking
     (every same-page chunk is true), so K2 is held against its plain
-    version at the Evaluator's own search (Q=3,072, N=24,576, 3,072 page
+    version at the Evaluator's own search (Q=2,048, N=16,384, 2,048 page
     keys, k=100), timed beside the plain version and the library yardstick
     (``torch.where(key_mask, q @ c.T, NEG_INF)`` + ``torch.topk``) with its
     bound and the corpus tiles it reads, and the weak-supervision schemas'
@@ -135,8 +135,8 @@ line each:
     gradients within K1's step bounds; timed steps in this process with the
     device feed, then the host feed (step ms, the feed's wait, pairs/s,
     peak memory, the model-FLOP share); then ``python -m tpualign_torch
-    train`` as processes side by side: 20 steps (device feed, held-out
-    evaluation every 10), 5 with LORA_RANK=8 and 5 at CLIP_QUANT=int8_qat,
+    train`` as processes: 10 steps (device feed, held-out evaluation every
+    5), then 5 with LORA_RANK=8 and 5 at CLIP_QUANT=int8_qat side by side,
     their K1, K1 backward and K5 counts; each checkpoint directory
     as CLIP_CHECKPOINT of ``embed`` (the int8_qat one at CLIP_QUANT=int8;
     the three processes side by side) over the run subset, the stored
@@ -146,7 +146,7 @@ line each:
     (built by g++ in 1.) times the tokenizer with and without its BPE
     merge core (8,192 texts of the slice's generator, then 1,024 texts of
     unseen words; identical ids) and the lexical counts native and in
-    Python over the store's 24,576 chunks and vocabulary; ``python -m
+    Python over the store's 16,384 chunks and vocabulary; ``python -m
     tpualign_torch index`` with RETRIEVAL_INDEX=hnsw, a 0.95 recall target
     and HNSW_CACHE as a subprocess (build and calibration seconds, the ef
     and recall it reached, memory); ``build_service`` loading the artifact
@@ -167,10 +167,17 @@ line each:
     store, its metrics.json against the one-device Evaluator's; after live,
     over the serve phase's store, the sharded exact index against the
     one-device index (int8 and int4 over 1,000,000 rows with gather and
-    streaming, fp32 over 100,000 with gather, streaming and ring; 1,024
-    keyed and 1,024 wildcard queries at k=10 and k=100: indices identical,
+    streaming, fp32 over 100,000 with gather, streaming and ring; 512
+    keyed and 512 wildcard queries at k=10 and k=100: indices identical,
     values within 1e-6) and the search ms of each, /add of 4,096 rows, a
-    remove of 25 % and compact against fresh indexes, ``EmbedEngine(mesh=)``
+    remove of 25 % and compact against fresh indexes, the sharded IVF index
+    (int8 over the 1,000,000 rows, 256 lists a shard: build and calibration
+    to a 0.95 target; at full probe every answer against the sharded exact
+    index over the int8 rows' dequantization, at the calibrated probes every
+    answer against the per-shard plain K4 version merged alike, a save and
+    load round trip, add, remove and compact against a fresh sharded build;
+    recall@10 and ms a search at Q=2, k=40 beside a one-device index's),
+    ``EmbedEngine(mesh=)``
     over the slice's images and chunks and one device-feed batch (images/s,
     chunks/s) within 1e-5 of the one-device engine, and
     ``build_service(mesh=)`` behind HTTP, its /search_image and
@@ -180,7 +187,11 @@ line each:
     embed the slice's images (``torch.profiler``), ``python -m
     tpualign_torch serve`` as a process on card 0 and with ``--mesh-data
     4`` (start, p50 of each route alone, requests/s under the clients of
-    11., every serial answer equal), and, in the pipeline phase, ``embed
+    11., every serial answer equal), the same ``--mesh-data 4`` daemon under
+    RETRIEVAL_INDEX=ivf (its /search_image and /search_text answers, serial
+    and the clients', against the per-shard plain K4 version over the
+    artifact it wrote, with the exact rescore), and, in the pipeline phase,
+    ``embed
     --mesh-data 4`` over stage 1's records into a fresh store (seconds,
     images/s, every stored embedding within 1e-5 of the one-card store's);
 16. mesh_train, after hnsw over the pipeline phase's store (a line a part):
@@ -198,13 +209,24 @@ line each:
     Trainers in process with each card's idle share (``torch.profiler``,
     the feed included), ``python -m tpualign_torch train`` as processes on
     one card, with ``--mesh-data 4`` and with ``TRAIN_FSDP=1 --mesh-data
-    4`` (10 steps each: the loop's ms a step, pairs/s, each card's peak),
+    4`` (3 steps each: the loop's ms a step, pairs/s, each card's peak),
     where a bf16 step's host time goes on one card and (2, 2) (forward,
     backward, update, its CUDA events and their device time), and ViT-H-14
     at its full widths, seeded (one fp32 step on (1, 4) and on
     (4, 1) FSDP against one card's at 4 blocks a tower, B=8; 3 timed bf16
     steps at full depth on (2, 2), B=64);
-17. the seconds of each phase, the kernels line, the card line, and
+17. multihost, with four cards and ``--mesh-only`` only: processes across
+    the cards (``tpualign_torch.parallel.multihost``, NCCL), each started
+    with COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID and its
+    CUDA_VISIBLE_DEVICES: two processes of two cards (the sum across them;
+    the exact index at int8 and fp32 over 100,000 seeded rows, sharded over
+    hybrid_mesh(1), gather and streaming, every answer equal to this
+    process's one-process mesh on the same four cards; one ViT-B-32 fp32
+    step on hybrid_mesh(2) at B=64 against mesh_train's one-process (2, 2)
+    step, the two processes' loss equal), then, as a measurement, four
+    processes of one card running the (4, 1) bf16 step at B=256 beside the
+    same step in this process (step ms, each card's idle share);
+18. the seconds of each phase, the kernels line, the card line, and
     ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -2075,10 +2097,10 @@ def phase_live(dev, seed, root, shared):
 
 # K5 and the device image feed
 K5_SHAPE = (256, 224, 224, 3)          # one device-feed batch at ViT-B-32
-FEED_IMAGES, FEED_BUCKET = 2048, 256   # files of the device_feed phase; IMAGE_PREPROCESS_BUCKET
-# 384 manuals: cut from 512 (PR 13) to keep the script inside its time limit
-# on hosts slow to start a process
-PIPE_MANUALS, PIPE_PAGES, PIPE_CHUNKS_PER_PAGE = 384, 8, 8
+FEED_IMAGES, FEED_BUCKET = 1536, 256   # files of the device_feed phase; IMAGE_PREPROCESS_BUCKET
+# 256 manuals and 1,536 feed files (cut from 512 and 2,048) keep the script
+# inside its time limit on hosts slow to start a process
+PIPE_MANUALS, PIPE_PAGES, PIPE_CHUNKS_PER_PAGE = 256, 8, 8
 PIPE_EXCLUDE = "check"  # the operator's exclusion list for stage 2
 PIPE_RUN_MANUALS = 32  # the one-command run's subset
 
@@ -2174,7 +2196,7 @@ def check_drift(got: np.ndarray, want: np.ndarray, what: str) -> dict:
 
 
 def phase_device_feed(dev, seed, root):
-    """``embed_image_records`` over 2,048 files with the host feed, then the
+    """``embed_image_records`` over 1,536 files with the host feed, then the
     device feed (ViT-B-32, bf16, batch 256): images/s of each, the idle
     share of one batch of each, and 64 images' pixels on the card against
     the port's CPU path."""
@@ -2463,11 +2485,13 @@ import atexit, json, runpy, sys
 from tpualign_torch.ops.attention import fused_mha
 from tpualign_torch.ops.normalize import normalize_u8
 from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
+from tpualign_torch.ops.ivf_topk import ivf_probe_topk
 path = sys.argv[1]
 def _dump():
     with open(path, "w") as f:
         json.dump({"fused_mha": fused_mha.launches, "masked_sim_topk": masked_sim_topk.launches,
                    "masked_sim_topk_quant": masked_sim_topk_quant.launches,
+                   "ivf_probe_topk": ivf_probe_topk.launches,
                    "normalize_u8": normalize_u8.launches,
                    "fused_mha_backward": fused_mha.backward_recomputes}, f)
     import torch
@@ -2699,8 +2723,8 @@ def _run_twice(dev, env, work) -> dict:
 def phase_pipeline(dev, seed, root, feed_names, checkpoint):
     """The pipeline as a user runs it, from raw manuals: ``python -m
     tpualign_torch process``, ``filter``, ``setup-db``, ``embed``
-    (IMAGE_PREPROCESS=device) and ``evaluate`` as subprocesses over 512
-    synthdoc manuals (3,072 images, 24,576 chunks), the towers loaded from
+    (IMAGE_PREPROCESS=device) and ``evaluate`` as subprocesses over 256
+    synthdoc manuals (2,048 images, 16,384 chunks), the towers loaded from
     the OpenCLIP checkpoint; stage 1's records against what the writer
     placed, the stored embeddings against the seeded engine bit for bit,
     metrics.json against a float64 recount, the alignment records against
@@ -2950,9 +2974,9 @@ def _ingest_notify(dev, env, work, feed_dir, feed_names, seed) -> dict:
             "dir": os.path.basename(work)}
 
 
-# steps of the train process and of the LoRA and int8_qat runs (those cut
-# from 10 to keep the script's time: 904 s with 10 on an H100, PERF.md)
-TRAIN_STEPS, TRAIN_SIDE_STEPS = 20, 5
+# steps of the train process and of the LoRA and int8_qat runs (cut from 40
+# and 10 to keep the script within its time limit as phases were added)
+TRAIN_STEPS, TRAIN_SIDE_STEPS = 10, 5
 TRAIN_TIMED_STEPS = 4                    # in-process steps timed per feed, after one warm-up
 TRAIN_GRAD_REL, TRAIN_LOSS_REL = 5e-2, 1e-2  # bf16 towers: K1 against plain, accumulation
 K1_TRAIN_SHAPES = [("vision", 50, 768, 12, False), ("text77", 77, 512, 8, True)]
@@ -3254,13 +3278,13 @@ def _train_process(dev, env, work, tag, steps, extra_args=()) -> tuple:
 
 def phase_train(dev, seed, root, checkpoint, card) -> dict:
     """Training on the pipeline phase's store (``clip_combined``'s weak
-    pairs over its 3,072 images), the towers from the checkpoint: the card
+    pairs over its 2,048 images), the towers from the checkpoint: the card
     checks (K1's backward, ``matmul_f32acc``'s gradients, one step with K1
     against the plain attention, GRAD_ACCUM_STEPS=4 against the full
     batch), timed in-process steps with the host and the device feed, then
-    ``python -m tpualign_torch train`` as processes side by side (20 steps
-    with held-out evaluation, 5 with LORA_RANK=8 and 5 at
-    CLIP_QUANT=int8_qat), each checkpoint directory as ``CLIP_CHECKPOINT``
+    ``python -m tpualign_torch train`` as processes (10 steps with held-out
+    evaluation, then 5 with LORA_RANK=8 and 5 at CLIP_QUANT=int8_qat side by
+    side), each checkpoint directory as ``CLIP_CHECKPOINT``
     for ``embed`` against the trainer's export params, bit for bit."""
     import dataclasses as dc
     import os
@@ -3315,11 +3339,14 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
                                          str(TRAIN_STEPS // 2)), "none"),
              ("lora", {**env, "LORA_RANK": "8"}, TRAIN_SIDE_STEPS, (), "none"),
              ("int8_qat", {**env, "CLIP_QUANT": "int8_qat"}, TRAIN_SIDE_STEPS, (), "int8"))
-    # the three runs side by side (their seconds overlap: a short run is
-    # mostly its process's start, and a host slow to start one pays it once)
+    # the full run, then the two short ones side by side (a short run is
+    # mostly its process's start; three at once, the full run's held-out
+    # evaluation beside two training steps, filled the card's 80 GB)
     runs, ckpts = {}, {}
+    tag, case_env, steps, flags, _ = cases[0]
+    ckpts[tag], runs[tag] = _train_process(dev, case_env, work, tag, steps, flags)
     side = [(tag, _beside(_train_process, dev, case_env, work, tag, steps, flags))
-            for tag, case_env, steps, flags, _ in cases]
+            for tag, case_env, steps, flags, _ in cases[1:]]
     for tag, run in side:
         ckpts[tag], runs[tag] = run.result()
     check(len(runs["full"]["heldout"]) == 3, f"held-out evaluations {runs['full']['heldout']}")
@@ -3821,12 +3848,13 @@ def phase_hnsw(dev, seed, root, checkpoint, card) -> dict:
 # the mesh phase: a 4-way data mesh (four distinct cards where the host has
 # them, else the first card four times) over the serve phase's store
 MESH_SHARDS = 4
-MESH_QUERIES = 1024       # keyed image queries, and as many wildcard ones
+MESH_QUERIES = 512        # keyed image queries, and as many wildcard ones
 MESH_FP32_ROWS = 100_000  # the fp32 index: the first rows of the store
 MESH_ADD = 4096
 MESH_REMOVE_SHARE = 0.25
 MESH_REQUESTS = 16        # serial /search_image and /search_text requests a service
 MESH_PROBE_REQUESTS = 32  # serial requests a route, each serve daemon (four cards)
+MESH_IVF_TARGET = 0.95    # the sharded IVF index's recall target (RETRIEVAL_RECALL_TARGET)
 # replicas run the same kernels on the same weights: their embeddings read
 # 0 (images) and 1.5e-8 (chunks) from one device's on one card and on four
 MESH_REPLICA_ATOL = 1e-5
@@ -3882,7 +3910,7 @@ def _same_search(got, want, what) -> float:
 
 def phase_mesh_evaluator(dev, store_dir, work, schemas, mesh, tally) -> dict:
     """Evaluator(mesh=) over ``schemas`` of the store in ``store_dir`` (the
-    pipeline phase's: 4 schemas, 3,072 images, 24,576 chunks): its
+    pipeline phase's: 4 schemas, 2,048 images, 16,384 chunks): its
     metrics.json (written under ``work``) against the one-device
     Evaluator's, equal."""
     import contextlib
@@ -4001,6 +4029,184 @@ def _mesh_mutations(dev, sharded, tally, shared, queries, seed) -> dict:
     steps["remove"] = {"rows": int(removed), "s": remove_s}
     steps["compact"] = {"N": sharded.n, "n_local": sharded._n_local, "s": compact_s}
     return steps
+
+
+def _plain_sharded_ivf(index, q, qk, k, n_probes):
+    """The plain path of a sharded IVF search: on every shard its probes
+    and union, the plain K4 version over its layout (query slabs of
+    K4_SLAB), the packed rows mapped to global ids, then the shards'
+    winners merged by (value desc, id asc) on the first device, as the
+    index merges them. Returns device (vals, ids), (NEG_INF, -1) empty."""
+    from tpualign_torch.ops.ivf_topk import ivf_probe_topk_reference
+    from tpualign_torch.ops.similarity import NEG_INF
+    from tpualign_torch.parallel.ivf import _probe, _union
+    from tpualign_torch.parallel.retrieval import _two_key_topk
+
+    ll, vals, ids = index.n_lists_local, [], []
+    for s, dev in enumerate(index._devices):
+        qs, qks = q.to(dev), qk.to(dev)
+        probe = _probe(qs, qks, index.centroids.parts[s], n_probes, ll)
+        uids = _union(probe, ll, index.spill_blocks)
+        emb, keys, pids = index._emb.parts[s], index._keys.parts[s], index._ids.parts[s]
+        scales = None if index._scales is None else index._scales.parts[s]
+        v, pidx = _k4_slabs(lambda a, b, c: ivf_probe_topk_reference(
+            a, b, c, uids, emb, keys, k, index.capacity, ll, packed_scales=scales,
+            int8_mxu=index.int8_mxu and scales is not None), qs, qks, probe)
+        empty = pidx >= 2**30
+        i = pids[pidx.clamp(max=len(pids) - 1).long()].long()
+        vals.append(torch.where(empty, torch.full_like(v, NEG_INF), v).to(index.device))
+        ids.append(torch.where(empty, torch.full_like(i, -1), i).to(index.device))
+    return _two_key_topk(torch.cat(vals, dim=1), torch.cat(ids, dim=1), k)
+
+
+def _plain_sharded_refined(index, emb, keys, k=10):
+    """_plain_sharded_ivf for k*refine candidates at the index's probes,
+    then the exact host rescore: host (vals, idx) as ``index.search``."""
+    from tpualign_torch.parallel.retrieval import NEG_INF, _refine_rescore
+
+    kf = min(k * max(1, index.refine), index.n)
+    q = torch.from_numpy(np.ascontiguousarray(emb, np.float32)).to(index.device)
+    qk = torch.from_numpy(np.asarray(keys, np.int32)).to(index.device)
+    _, idx = _plain_sharded_ivf(index, q, qk, kf, index.n_probes)
+    idx = idx.cpu().numpy()
+    vals = np.where(idx >= 0, 0.0, NEG_INF).astype(np.float32)
+    return _refine_rescore(np.asarray(emb, np.float32), vals, idx, index._refine_corpus, k)
+
+
+def _host_topk(got, want, what) -> float:
+    """compare_topk over host (vals, idx) pairs."""
+    return compare_topk(*(torch.from_numpy(np.asarray(x)) for x in (*got, *want)), what)
+
+
+def _mesh_ivf(dev, mesh, tally, shared, queries, seed, root) -> dict:
+    """The sharded IVF index (int8, the default geometry: MESH_SHARDS
+    shards of 256 lists) over the store's 1,000,000 chunks on the mesh:
+    build and calibration to MESH_IVF_TARGET (the K4 counts around them and
+    every mesh search); at full probe every answer equals the sharded exact
+    index over the int8 rows' dequantization (K2; compare_topk's
+    tolerance: the union route's cuBLAS product sums in another order); at
+    the calibrated probes every answer equals the per-shard plain K4
+    version merged the same way, bit for bit (s8 integer products); a
+    save and load round trip; add of MESH_ADD rows, remove of a quarter and
+    compact, then every full-probe answer against a fresh sharded build
+    over the live rows; recall@10 against exact fp32 and ms a search at
+    the serving shape (Q=2, k=40) beside a one-device index's."""
+    from tpualign_torch.parallel.ivf import IVFIndex
+    from tpualign_torch.parallel.retrieval import _QUANTIZERS, RetrievalIndex, encode_keys
+
+    chunk_emb, manuals, pages = shared["chunk_emb"], shared["manuals"], shared["pages"]
+    (q_img, qman, qpg), q_wild = queries
+    searches = (("keyed", q_img, dict(query_manuals=qman, query_pages=qpg)),
+                ("wildcard", q_wild, dict(global_search=True)))
+    index, build_s = _on_mesh(tally, IVFIndex, chunk_emb, manuals, pages, precision="int8",
+                              mesh=mesh)
+    check(index.n_lists_local == 256 and index.n_lists == 256 * MESH_SHARDS
+          and [p.device for p in index._emb.parts] == mesh.data_devices,
+          f"sharded IVF geometry: {index.n_lists_local} lists a shard, capacity "
+          f"{index.capacity}")
+    probes, calibrate_s = _on_mesh(tally, index.calibrate, MESH_IVF_TARGET)
+    out = {"N": index.n, "shards": MESH_SHARDS, "n_lists_local": index.n_lists_local,
+           "capacity": index.capacity, "spill_blocks": index.spill_blocks,
+           "build_s": build_s, "calibrate_s": calibrate_s, "target": MESH_IVF_TARGET,
+           "n_probes": probes}
+
+    # full probe against the sharded exact index over the dequantized rows
+    codes, scales = _QUANTIZERS["int8"](chunk_emb)
+    exact = RetrievalIndex(codes.astype(np.float32) * scales[:, None], manuals, pages,
+                           mesh=mesh)
+    del codes, scales
+    gap = 0.0
+    for what, q, kw in searches:
+        got, _ = _on_mesh(tally, index.search, q, k=10, n_probes=index.n_lists_local, **kw)
+        gap = max(gap, _host_topk(got, exact.search(q, k=10, **kw),
+                                  f"sharded IVF full probe {what}"))
+    del exact
+    out["full_probe_vs_exact"] = {"queries": 2 * MESH_QUERIES, "k": 10, "max_abs_err": gap,
+                                  "tolerance": {"values_atol": K2_TOL_VALUES,
+                                                "tie_gap": K2_TIE_GAP}}
+
+    # the calibrated probes: K4 on every shard against its plain version
+    for what, q, kw in searches:
+        qk = (encode_keys(qman, qpg, dict(index.vocab))[0] if what == "keyed"
+              else np.full(len(q), -3, np.int32))
+        qt = torch.from_numpy(np.ascontiguousarray(q)).to(index.device)
+        qkt = torch.from_numpy(np.asarray(qk, np.int32)).to(index.device)
+        (v, i), _ = _on_mesh(tally, index.search_device, qt, qkt, 40)
+        pv, pi = _plain_sharded_ivf(index, qt, qkt, 40, index.n_probes)
+        check(torch.equal(i, pi) and torch.equal(v, pv),
+              f"sharded IVF {what} at {index.n_probes} probes: K4 differs from its plain "
+              f"version ({int((i != pi).sum())} slots)")
+    out["probed_vs_plain"] = {"k": 40, "tolerance": "identical"}
+
+    # save and load onto the same mesh
+    import os
+
+    path = os.path.join(root, "mesh-ivf.npz")
+    index.save(path)
+    loaded = IVFIndex.load(path, chunk_emb, mesh=mesh)
+    # unused slots (id -1) hold inert rows, another one after a load
+    same = all(torch.equal(a, b) for a, b in zip(loaded._ids.parts + loaded._keys.parts,
+                                                 index._ids.parts + index._keys.parts))
+    same = same and all(torch.equal(a[i >= 0], b[i >= 0]) for a, b, i in zip(
+        loaded._emb.parts, index._emb.parts, index._ids.parts))
+    check(same and loaded.n_probes == index.n_probes, "the sharded artifact loads another layout")
+    for what, q, kw in searches:
+        a, b = loaded.search(q, k=10, **kw), index.search(q, k=10, **kw)
+        check(np.array_equal(a[1], b[1]) and np.array_equal(a[0], b[0]),
+              f"sharded IVF {what}: the loaded artifact answers otherwise")
+    del loaded
+
+    # the serving shape: Q=2 keyed image queries, k = 10 x refine 4
+    q2 = torch.from_numpy(np.ascontiguousarray(q_img[1:3])).to(dev)
+    k2 = torch.from_numpy(encode_keys(qman[1:3], qpg[1:3], dict(index.vocab))[0]).to(dev)
+    t0 = time.perf_counter()
+    one = IVFIndex(chunk_emb, manuals, pages, precision="int8", device=dev)
+    torch.cuda.synchronize()
+    one_build_s = time.perf_counter() - t0
+    one.calibrate(MESH_IVF_TARGET)
+    (_, _), _ = _on_mesh(tally, index.search_device, q2, k2, 40)
+    out["serving_shape"] = {"Q": 2, "k": 40,
+                            "ms": time_ms(lambda: index.search_device(q2, k2, 40), 20),
+                            "one_device_ms": time_ms(lambda: one.search_device(q2, k2, 40), 20),
+                            "one_device_n_probes": one.n_probes,
+                            "one_device_build_s": one_build_s}
+    q_rec = shared["img_emb"][:SERVE_RECALL_QUERIES]
+    wild = np.full(len(q_rec), -3, np.int32)
+    out["recall_at_10"] = {}
+    for name, ix in (("sharded", index), ("one_device", one)):
+        _, got = (_on_mesh(tally, ix.search_encoded, q_rec, wild, 10)[0] if ix is index
+                  else ix.search_encoded(q_rec, wild, 10))
+        out["recall_at_10"][name] = float(np.mean([len(set(a) & set(b)) / 10
+                                                   for a, b in zip(got, shared["exact"])]))
+    del one
+
+    # add, remove a quarter, compact; then full probe against a fresh build
+    rng = np.random.default_rng(seed + 13)
+    new = chunk_emb[rng.choice(len(chunk_emb), MESH_ADD, replace=False)]
+    new = new + 0.05 * rng.normal(size=new.shape).astype(np.float32)
+    new /= np.linalg.norm(new, axis=1, keepdims=True)
+    new_pages = [int(p) for p in rng.integers(0, SERVE_PAGES, MESH_ADD)]
+    new_man = [manuals[int(i)] for i in rng.integers(0, len(manuals), MESH_ADD)]
+    _, add_s = _on_mesh(tally, index.add, new, new_man, new_pages)
+    rows = np.concatenate([chunk_emb, new])
+    man, pg = list(manuals) + new_man, list(pages) + new_pages
+    gone = rng.choice(len(rows), int(MESH_REMOVE_SHARE * len(rows)), replace=False)
+    removed, remove_s = _on_mesh(tally, index.remove, gone)
+    check(removed == len(gone) and index.dead == len(gone), f"sharded IVF removed {removed}")
+    live, compact_s = _on_mesh(tally, index.compact)
+    check(np.array_equal(live, np.setdiff1d(np.arange(len(rows)), gone)),
+          "sharded IVF compact's survivors")
+    fresh = IVFIndex(rows[live], [man[i] for i in live], [pg[i] for i in live],
+                     precision="int8", mesh=mesh)
+    gap = 0.0
+    for what, q, kw in searches:
+        got, _ = _on_mesh(tally, index.search, q, k=10, n_probes=index.n_lists_local, **kw)
+        gap = max(gap, _host_topk(got, fresh.search(q, k=10, n_probes=fresh.n_lists_local,
+                                                    **kw), f"sharded IVF after mutations {what}"))
+    out["mutations"] = {"add_s": add_s, "remove_s": remove_s, "compact_s": compact_s,
+                        "N": index.n, "spill_blocks": index.spill_blocks,
+                        "full_probe_vs_fresh_max_abs_err": gap}
+    return out
 
 
 def _mesh_engine(dev, mesh, tally, seed, distinct) -> dict:
@@ -4186,14 +4392,16 @@ def _mesh_daemon(env, work, name, args, images, pngs) -> dict:
         counts = daemon.stop()
     return {"start_s": daemon.start_s, "p50_ms": p50, "clients": SERVE_CLIENTS,
             "requests": len(results), "requests_per_s": len(results) / wall,
-            "mesh": stats.get("mesh"), "launches": counts, "answers": answers}
+            "mesh": stats.get("mesh"), "index": stats.get("index"), "ivf": stats.get("ivf"),
+            "launches": counts, "answers": answers, "asks": asks, "load": results}
 
 
-def _mesh_serve_cli(seed, root, checkpoint, images, mesh) -> dict:
+def _mesh_serve_cli(seed, root, checkpoint, images, mesh, shared) -> dict:
     """``python -m tpualign_torch serve`` as a process over the serve
     phase's store (int8, refine 4, the checkpoint's towers) on card 0, then
     with ``--mesh-data`` over the mesh's cards (_mesh_daemon each): every
-    serial answer of the mesh daemon equal to the one-card daemon's."""
+    serial answer of the mesh daemon equal to the one-card daemon's; then
+    the ``--mesh-data`` daemon under RETRIEVAL_INDEX=ivf (_mesh_ivf_daemon)."""
     import os
 
     work = os.path.join(root, "mesh-serve")
@@ -4211,7 +4419,69 @@ def _mesh_serve_cli(seed, root, checkpoint, images, mesh) -> dict:
                                        "one-card daemon's")
     check(daemons["mesh"]["mesh"] == mesh.shape, f"the mesh daemon's /stats: "
                                                  f"{daemons['mesh']['mesh']}")
+    for d in daemons.values():
+        del d["asks"], d["load"]
+    daemons["mesh_ivf"] = _mesh_ivf_daemon(env, work, images, pngs, mesh, shared)
     return {"answers_equal": True, **daemons}
+
+
+def _mesh_ivf_daemon(env, work, images, pngs, mesh, shared) -> dict:
+    """``serve --mesh-data`` under RETRIEVAL_INDEX=ivf (the sharded IVF
+    index, built, calibrated to MESH_IVF_TARGET and saved to IVF_CACHE by
+    the daemon), through _mesh_daemon; its serial /search_image and
+    /search_text answers and every /search_image answer of the clients'
+    mix against the plain path (per-shard plain K4 at the daemon's probes,
+    the exact rescore) over the artifact it wrote, loaded here on the same
+    cards; texts are encoded here by the one-card engine (the mesh engine
+    encodes one text a request on its first replica, as one card does)."""
+    import os
+
+    from tpualign_torch.parallel.ivf import IVFIndex
+    from tpualign_torch.parallel.retrieval import WILDCARD_KEY, encode_keys
+    from tpualign_torch.store import EmbeddingStore
+
+    cache = os.path.join(work, "vanilla_clip.ivf.npz")  # names its schema: used as it is
+    ivf_env = {**env, "RETRIEVAL_INDEX": "ivf", "RETRIEVAL_RECALL_TARGET": str(MESH_IVF_TARGET),
+               "IVF_CACHE": cache}
+    run = _mesh_daemon(ivf_env, work, "mesh-ivf", ("--mesh-data", str(mesh.shape["data"])),
+                       images, pngs)
+    check(run["mesh"] == mesh.shape and run["index"] == "IVFIndex" and os.path.exists(cache),
+          f"the IVF mesh daemon's /stats: {run['mesh']} {run['index']}")
+    check(run["launches"].get("ivf_probe_topk", 0) > 0, "the IVF mesh daemon launched no K4")
+    index = IVFIndex.load(cache, shared["chunk_emb"], refine=4, mesh=mesh)
+    check(index.n_probes == run["ivf"]["n_probes"], f"artifact probes {index.n_probes}")
+    chunk_ids = list(EmbeddingStore(env["STORE_DIR"]).embedding_matrix(
+        "vanilla_clip", "text_chunks")[0])
+    _, img_emb = EmbeddingStore(env["STORE_DIR"]).embedding_matrix("vanilla_clip", "images")
+    by_id = {im["image_id"]: (i, im) for i, im in enumerate(images)}
+
+    def plain_images(image_ids):
+        rows = np.stack([img_emb[by_id[i][0]] for i in image_ids])
+        keys = encode_keys([by_id[i][1]["manual_id"] for i in image_ids],
+                           [by_id[i][1]["page"] for i in image_ids], dict(index.vocab))[0]
+        return _pairs(*_plain_sharded_refined(index, rows, keys), chunk_ids)
+
+    answers, checked = run.pop("answers"), 0
+    for body, got in zip(run["asks"]["/search_image"], answers["/search_image"]):
+        check(_as_pairs(got) == plain_images(body["image_ids"]),
+              f"serve --mesh-data (ivf) /search_image {body}: differs from the plain path")
+        checked += 1
+    texts = [b["texts"][0] for b in run["asks"]["/search_text"]]
+    emb = np.concatenate([shared["engine"].encode_text_batch([t]) for t in texts])
+    want = _pairs(*_plain_sharded_refined(index, emb, np.full(len(texts), WILDCARD_KEY,
+                                                              np.int32)), chunk_ids)
+    for text, got, w in zip(texts, answers["/search_text"], want):
+        check(_as_pairs(got)[0] == w,
+              f"serve --mesh-data (ivf) /search_text {text!r}: differs from the plain path")
+        checked += 1
+    for r in run.pop("load"):
+        if r["kind"] == "search_image":
+            check(_as_pairs(r["response"]["results"]) == plain_images(r["request"]["image_ids"]),
+                  "serve --mesh-data (ivf): a client's /search_image differs from the plain path")
+            checked += 1
+    del run["asks"]
+    run["answers_checked"] = checked
+    return run
 
 
 def _mesh_embed_cli(env, work, store, one_card_s, n_images) -> dict:
@@ -4249,7 +4519,7 @@ def _mesh_embed_cli(env, work, store, one_card_s, n_images) -> dict:
 def phase_mesh(dev, seed, root, checkpoint, shared, mesh, where, tally, evaluator,
                embed_cli) -> dict:
     """The one-host mesh over the serve phase's store (see _mesh_indexes,
-    _mesh_mutations, _mesh_engine and _mesh_service), with the
+    _mesh_mutations, _mesh_ivf, _mesh_engine and _mesh_service), with the
     Evaluator's check of the pipeline store (phase_mesh_evaluator, run
     while that store existed); on distinct cards also each card's idle
     share, ``serve --mesh-data`` as a process (_mesh_serve_cli) and the
@@ -4267,16 +4537,18 @@ def phase_mesh(dev, seed, root, checkpoint, shared, mesh, where, tally, evaluato
     out["indexes"], int8_index = _mesh_indexes(dev, mesh, tally, shared, queries)
     out["mutations"] = _mesh_mutations(dev, int8_index, tally, shared, queries, seed)
     del int8_index
+    out["ivf"] = _mesh_ivf(dev, mesh, tally, {**shared, "img_emb": img_emb}, queries, seed, root)
     distinct = len(set(mesh.devices.flat)) == mesh.devices.size
     out["engine"] = _mesh_engine(dev, mesh, tally, seed, distinct)
     out["service"] = _mesh_service(dev, mesh, tally, root, checkpoint, seed, shared)
     out["evaluator"] = evaluator
     if distinct:
-        out["serve_cli"] = _mesh_serve_cli(seed, root, checkpoint, images, mesh)
+        out["serve_cli"] = _mesh_serve_cli(seed, root, checkpoint, images, mesh, shared)
         out["embed_cli"] = embed_cli
     out["launches"] = dict(tally)
     emit(out)
-    for name in ("fused_mha", "masked_sim_topk", "masked_sim_topk_quant", "normalize_u8"):
+    for name in ("fused_mha", "masked_sim_topk", "masked_sim_topk_quant", "ivf_probe_topk",
+                 "normalize_u8"):
         check(tally.get(name, 0) > 0, f"{name} was not launched on the mesh path")
     return dict(tally)
 
@@ -4290,7 +4562,7 @@ MESH_LOSS_REL, MESH_NORM_REL = 1e-4, 1e-3    # tests/test_train.py:116's bounds
 FSDP_LOSS_REL, FSDP_PARAM_ATOL = 1e-5, 2e-6  # tests/test_train.py:765's bounds
 MESH_TRAIN_STEPS = 3                   # bf16 Trainer(mesh=) steps timed, after one warm-up
 MESH_IDLE_STEPS = 1                    # Trainer steps under the profiler (four cards)
-MESH_PROCESS_STEPS = 10                # each `train` process (four cards)
+MESH_PROCESS_STEPS = 3                 # each `train` process (four cards)
 H14_CUT_LAYERS, H14_CHECK_B = 4, 8     # ViT-H-14's fp32 checks: blocks a tower, batch
 H14_TIMED_B = 64                       # ViT-H-14 bf16 at full depth on (2, 2)
 
@@ -4639,8 +4911,8 @@ def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> dic
     config = load_config({"CLIP_MODEL": "ViT-B-32", "COMPUTE_DTYPE": "float32"})
     model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
     batch = _train_batch(dev, seed, MESH_TRAIN_B, config.model.variant.image_size)
-    part("fp32_checks", {"B": MESH_TRAIN_B, **_mesh_step_checks(
-        dev, model, batch, MESH_TRAIN_SHAPES, tally, "ViT-B-32 fp32")})
+    checks = _mesh_step_checks(dev, model, batch, MESH_TRAIN_SHAPES, tally, "ViT-B-32 fp32")
+    part("fp32_checks", {"B": MESH_TRAIN_B, **checks})
     del model, batch
     env = _train_env(root, checkpoint, seed)
     store = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
@@ -4667,7 +4939,254 @@ def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> dic
     emit({**head, "launches": dict(tally)})
     for name in ("fused_mha", "fused_mha_backward", "normalize_u8"):
         check(tally.get(name, 0) > 0, f"{name} was not launched on the mesh_train path")
-    return tally
+    return tally, checks
+
+
+# -- multihost: processes across the cards of one host ---------------------------
+
+MULTIHOST_ROWS = 100_000   # the seeded corpus every process builds alike
+MULTIHOST_PAGES = 2_000
+MULTIHOST_QUERIES = 512    # keyed queries, and as many wildcard ones
+MULTIHOST_QUAD_B = 256     # the (4, 1) bf16 step's global batch (BATCH_SIZE)
+MULTIHOST_QUAD_STEPS = 3   # timed steps, after one warm-up
+
+
+def _multihost_corpus(seed):
+    """Unit rows around page topics (16 duplicated: exact ties across
+    shards), their manuals and pages, keyed queries near stored rows and
+    wildcard ones; numpy-seeded, so every process builds the same."""
+    rng = np.random.default_rng(seed + 23)
+    topics = rng.normal(size=(MULTIHOST_PAGES, 512)).astype(np.float32)
+    page = rng.integers(0, MULTIHOST_PAGES, MULTIHOST_ROWS)
+    rows = topics[page] + 1.5 * rng.normal(size=(MULTIHOST_ROWS, 512)).astype(np.float32)
+    rows[-16:] = rows[:16]
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    manuals = [f"m{p // 100}" for p in page]
+    pages = [int(p % 100) for p in page]
+    pick = rng.integers(0, MULTIHOST_ROWS, 2 * MULTIHOST_QUERIES)
+    q = rows[pick] + 0.1 * rng.normal(size=(len(pick), 512)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    keyed = (q[:MULTIHOST_QUERIES], [manuals[i] for i in pick[:MULTIHOST_QUERIES]],
+             [pages[i] for i in pick[:MULTIHOST_QUERIES]])
+    return rows, manuals, pages, keyed, q[MULTIHOST_QUERIES:]
+
+
+def _multihost_searches(mesh, seed) -> tuple:
+    """The exact index over _multihost_corpus on ``mesh`` at int8 and
+    fp32, gather and streaming, keyed and wildcard, k=10 and k=100: host
+    answers by name, and the ms of each search (host clock)."""
+    from tpualign_torch.parallel.retrieval import RetrievalIndex
+
+    rows, manuals, pages, (qk, qman, qpg), qw = _multihost_corpus(seed)
+    answers, ms = {}, {}
+    for precision in ("int8", "fp32"):
+        index = RetrievalIndex(rows, manuals, pages, precision=precision, mesh=mesh)
+        for strategy in ("gather", "streaming"):
+            for k in (10, 100):
+                for what, q, kw in (("keyed", qk, dict(query_manuals=qman, query_pages=qpg)),
+                                    ("wildcard", qw, dict(global_search=True))):
+                    name = f"{precision}-{strategy}-k{k}-{what}"
+                    index.search(q, k=k, strategy=strategy, **kw)  # warm-up, untimed
+                    t0 = time.perf_counter()
+                    answers[name] = index.search(q, k=k, strategy=strategy, **kw)
+                    ms[name] = (time.perf_counter() - t0) * 1e3
+        del index
+    return answers, ms
+
+
+def _timed_mesh_steps(model, mesh, batch, steps) -> dict:
+    """The step ``Trainer(mesh=)`` runs (make_sharded_train_step) on a
+    seeded batch of float pixels: one warm-up step, ``steps`` timed ones
+    (host clock, every visible card synchronised), then each visible
+    card's idle share over one more (_card_idle)."""
+    from tpualign_torch.config import TrainConfig
+    from tpualign_torch.train import step as S
+
+    cfg = TrainConfig(learning_rate=MESH_TRAIN_LR, warmup_steps=0, total_steps=100)
+    run, shard_state = S.make_sharded_train_step(model, mesh, cfg)
+    state = shard_state(S.create_train_state(model, S.model_params(model), cfg))
+    state, m = run(state, *batch)
+    _sync_all()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = run(state, *batch)
+    _sync_all()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    idle = _card_idle(lambda: run(state, *batch))
+    return {"ms": ms, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "idle": idle, "steps": steps}
+
+
+def _multihost_worker(mode, work, seed) -> int:
+    """One process of the multihost phase (its cards named by
+    CUDA_VISIBLE_DEVICES, the group by COORDINATOR_ADDRESS, NUM_PROCESSES
+    and PROCESS_ID): ``pair`` (two processes of two cards: the sum across
+    them, the sharded searches on hybrid_mesh(1), one ViT-B-32 fp32 step on
+    hybrid_mesh(2) at B=MESH_TRAIN_B) or ``quad`` (four processes of one
+    card: the (4, 1) bf16 step at B=MULTIHOST_QUAD_B, timed). Prints its
+    results as one JSON line."""
+    import os
+
+    import torch.distributed as dist
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.models.clip import build_clip, init_clip_params
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.parallel.multihost import (
+        hybrid_mesh, initialize_distributed, process_sum)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = int(seed)
+    check(initialize_distributed(), "the worker was started without COORDINATOR_ADDRESS")
+    pid, world = dist.get_rank(), dist.get_world_size()
+    out = {"mode": mode, "process": pid, "processes": world, "backend": dist.get_backend(),
+           "cards": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    if mode == "pair":
+        mesh = hybrid_mesh(model_parallel=2)
+        check(mesh.shape == {"data": 2, "model": 2} and mesh.local_rows == [pid],
+              f"hybrid_mesh(2): {mesh.shape}, rows {mesh.local_rows}")
+        # every position of this process's row adds its process's id + 1
+        local = torch.tensor(float(len(mesh.row(pid)) * (pid + 1)), device=mesh.home)
+        total = float(process_sum(mesh, [local])[0])
+        check(total == 6.0, f"the sum across the processes is {total}, not 6.0")
+        out["all_reduce"] = total
+        data4 = hybrid_mesh(model_parallel=1)
+        check(data4.shape == {"data": 4, "model": 1} and data4.local_rows == [2 * pid, 2 * pid + 1],
+              f"hybrid_mesh(1): {data4.shape}, rows {data4.local_rows}")
+        answers, out["search_ms"] = _multihost_searches(data4, seed)
+        np.savez(os.path.join(work, f"multihost-{pid}.npz"),
+                 **{f"{name}-{part}": arr for name, pair in answers.items()
+                    for part, arr in zip(("v", "i"), pair)})
+        config = load_config({"CLIP_MODEL": "ViT-B-32", "COMPUTE_DTYPE": "float32"})
+        model = init_clip_params(build_clip(config.model, mesh.home), seed=seed)
+        batch = _train_batch(mesh.home, seed, MESH_TRAIN_B, config.model.variant.image_size)
+        from tpualign_torch.config import TrainConfig
+        from tpualign_torch.train import step as S
+
+        cfg = TrainConfig(learning_rate=MESH_TRAIN_LR, warmup_steps=0, total_steps=10)
+        run, shard_state = S.make_sharded_train_step(model.requires_grad_(False), mesh, cfg)
+        state = shard_state(S.create_train_state(model, S.model_params(model), cfg))
+        _sync_all()
+        fused_mha.launches = 0
+        t0 = time.perf_counter()
+        state, m = run(state, *batch)
+        _sync_all()
+        out["step"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                       "ms": (time.perf_counter() - t0) * 1e3, "k1_launches": fused_mha.launches}
+    else:
+        mesh = hybrid_mesh(model_parallel=1)
+        check(mesh.shape == {"data": world, "model": 1} and mesh.local_rows == [pid],
+              f"hybrid_mesh(1): {mesh.shape}, rows {mesh.local_rows}")
+        config = load_config({"CLIP_MODEL": "ViT-B-32"})
+        model = init_clip_params(build_clip(config.model, mesh.home), seed=seed)
+        batch = _train_batch(mesh.home, seed, MULTIHOST_QUAD_B, config.model.variant.image_size)
+        out["step"] = _timed_mesh_steps(model.requires_grad_(False), mesh, batch,
+                                        MULTIHOST_QUAD_STEPS)
+    dist.barrier()
+    dist.destroy_process_group()
+    emit(out)
+    return 0
+
+
+def _multihost_run(mode, visible, work, seed, timeout=600) -> list:
+    """_multihost_worker(``mode``) in ``len(visible)`` processes, process i
+    on the cards ``visible[i]`` (CUDA_VISIBLE_DEVICES), one NCCL group at a
+    free local port; every process is waited for (killed past
+    ``timeout``). Returns each process's JSON line."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
+    procs = []
+    for pid, cards in enumerate(visible):
+        env = dict(os.environ, PYTHONPATH=path, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   NUM_PROCESSES=str(len(visible)), PROCESS_ID=str(pid),
+                   CUDA_VISIBLE_DEVICES=cards)
+        err = open(os.path.join(work, f"multihost-{mode}-{pid}.err"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke._multihost_worker(*sys.argv[1:]))", mode, work, str(seed)],
+            stdout=subprocess.PIPE, stderr=err, text=True, cwd=work, env=env), err))
+    outs = []
+    try:
+        deadline = time.monotonic() + timeout
+        for p, _ in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p, err in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+    for pid, ((p, err), out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0 and out.strip(), f"multihost {mode} process {pid} exited "
+                                                 f"{p.returncode}: {open(err.name).read()[-3000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out in outs]
+
+
+def phase_multihost(dev, seed, root, card, mesh_train_checks) -> dict:
+    """Processes across the four cards (parallel/multihost.py, NCCL): two
+    processes of two cards (_multihost_worker ``pair``) against this
+    process's one-process mesh on the same four cards: every sharded
+    search answer equal (indices identical, values within 1e-6), the
+    (2, 2) step's loss within MESH_LOSS_REL and grad_norm within
+    MESH_NORM_REL of the one-process (2, 2) step of mesh_train's fp32
+    checks (the same seeded params and batch), the two processes' loss
+    and grad_norm equal; then, as a measurement, four processes of one
+    card (``quad``) beside the same (4, 1) bf16 step in this process:
+    step ms and each card's idle share."""
+    import os
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.models.clip import build_clip, init_clip_params
+    from tpualign_torch.parallel import create_mesh
+
+    work = os.path.join(root, "multihost")
+    os.makedirs(work)
+    out = {"phase": "multihost", "card": card}
+    t0 = time.perf_counter()
+    pair = _multihost_run("pair", ["0,1", "2,3"], work, seed)
+    out["pair_s"] = time.perf_counter() - t0
+    want, _ = _multihost_searches(create_mesh(4), seed)
+    gap = 0.0
+    for pid in range(2):
+        got = np.load(os.path.join(work, f"multihost-{pid}.npz"))
+        for name, pair_want in want.items():
+            gap = max(gap, _same_search((got[f"{name}-v"], got[f"{name}-i"]), pair_want,
+                                        f"multihost process {pid} {name}"))
+    one = mesh_train_checks["2x2"]
+    losses = [p["step"]["loss"] for p in pair]
+    norms = [p["step"]["grad_norm"] for p in pair]
+    check(losses[0] == losses[1] and norms[0] == norms[1],
+          f"the two processes report loss {losses} and grad_norm {norms}")
+    check(abs(losses[0] - one["loss"]) <= MESH_LOSS_REL * abs(one["loss"])
+          and abs(norms[0] - one["grad_norm"]) <= MESH_NORM_REL * abs(one["grad_norm"]),
+          f"the two-process (2, 2) step: loss {losses[0]} / {one['loss']}, grad_norm "
+          f"{norms[0]} / {one['grad_norm']}")
+    out["pair"] = {"processes": pair, "searches": len(want), "search_max_abs_gap": gap,
+                   "one_process_2x2": {"loss": one["loss"], "grad_norm": one["grad_norm"],
+                                       "ms": one["ms"]}}
+    t0 = time.perf_counter()
+    quad = _multihost_run("quad", ["0", "1", "2", "3"], work, seed)
+    out["quad_s"] = time.perf_counter() - t0
+    config = load_config({"CLIP_MODEL": "ViT-B-32"})
+    model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
+    batch = _train_batch(dev, seed, MULTIHOST_QUAD_B, config.model.variant.image_size)
+    in_process = _timed_mesh_steps(model, create_mesh(4), batch, MULTIHOST_QUAD_STEPS)
+    del model, batch
+    out["quad"] = {"B": MULTIHOST_QUAD_B, "dtype": "bfloat16",
+                   "four_processes": {"ms": max(p["step"]["ms"] for p in quad),
+                                      "ms_by_process": [p["step"]["ms"] for p in quad],
+                                      "idle": [p["step"]["idle"] for p in quad],
+                                      "loss": [p["step"]["loss"] for p in quad]},
+                   "one_process": in_process}
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -4734,9 +5253,13 @@ def main() -> int:
                 lap("train")
                 hnsw_launches = phase_hnsw(dev, args.seed, root, checkpoint, card)
                 lap("hnsw")
-            mesh_train = phase_mesh_train(dev, args.seed, root, checkpoint, card,
-                                          args.mesh_only and torch.cuda.device_count() >= 4)
+            four_cards = args.mesh_only and torch.cuda.device_count() >= 4
+            mesh_train, train_checks = phase_mesh_train(dev, args.seed, root, checkpoint, card,
+                                                        four_cards)
             lap("mesh_train")
+            if four_cards:
+                phase_multihost(dev, args.seed, root, card, train_checks)
+                lap("multihost")
             mesh, mesh_on = _mesh(dev)
             mesh_tally = {}
             mesh_eval = phase_mesh_evaluator(dev, os.path.join(root, "pipeline", "store"),

@@ -1162,3 +1162,89 @@ def test_sharded_train_step_on_distinct_cards_matches_one_card(cards):
     from tpualign_torch.parallel import create_mesh
 
     _sharded_step_checks(create_mesh(2, 2) if cards >= 4 else create_mesh(1, 2))
+
+
+# -- the sharded IVF index ---------------------------------------------------------
+
+
+def _sharded_ivf_checks(mesh, tmp_path) -> None:
+    """A sharded IVF artifact written on the CPU (a CPU mesh of as many
+    shards), loaded onto ``mesh``: probed searches (K4 on every shard, each
+    on its card) return the CPU's corpus ids, one launch a shard and
+    search; a build on the cards at full probe equals the exact index on
+    the first card; add, remove and compact at full probe equal a fresh
+    sharded build over the live rows."""
+    from tpualign_torch.ops.ivf_topk import ivf_probe_topk
+    from tpualign_torch.parallel import RetrievalIndex, create_mesh
+    from tpualign_torch.parallel.ivf import IVFIndex
+
+    shards = mesh.shape["data"]
+    rng = np.random.default_rng(6)
+    centers = rng.normal(size=(64, 512)).astype(np.float32)
+    emb = centers[rng.integers(0, 64, 20000)] + rng.normal(size=(20000, 512)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    manuals, pages = [f"m{i % 7}" for i in range(20000)], [i % 13 for i in range(20000)]
+    q = emb[:37] + 0.1 * rng.normal(size=(37, 512)).astype(np.float32)
+    searches = ({"query_manuals": manuals[:37], "query_pages": pages[:37]},
+                {"global_search": True})
+    for precision in ("fp32", "int8"):
+        IVFIndex(emb, manuals, pages, n_lists=64, iters=4, precision=precision,
+                 mesh=create_mesh(shards, devices=["cpu"] * shards),
+                 device="cpu").save(tmp_path / f"{precision}.npz")
+        card = IVFIndex.load(tmp_path / f"{precision}.npz", emb, mesh=mesh)
+        cpu = IVFIndex.load(tmp_path / f"{precision}.npz", emb,
+                            mesh=create_mesh(shards, devices=["cpu"] * shards), device="cpu")
+        assert [p.device for p in card._emb.parts] == mesh.data_devices
+        before = ivf_probe_topk.launches
+        for kw in searches:
+            got, want = card.search(q, k=10, n_probes=3, **kw), cpu.search(q, k=10, n_probes=3,
+                                                                          **kw)
+            np.testing.assert_array_equal(got[1], want[1], err_msg=precision)
+            np.testing.assert_allclose(got[0], want[0],
+                                       atol=1e-5 if precision == "fp32" else 0)
+        assert ivf_probe_topk.launches == before + 2 * shards
+    built = IVFIndex(emb, manuals, pages, n_lists=64, iters=4, mesh=mesh)
+    exact = RetrievalIndex(emb, manuals, pages, device=mesh.data_devices[0])
+    for kw in searches:
+        got = built.search(q, k=10, n_probes=built.n_lists_local, **kw)
+        want = exact.search(q, k=10, **kw)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], atol=1e-5)
+    grown = IVFIndex(emb[:16000], manuals[:16000], pages[:16000], n_lists=64, iters=4,
+                     precision="int8", mesh=mesh)
+    grown.add(emb[16000:], manuals[16000:], pages[16000:])
+    gone = rng.choice(20000, 5000, replace=False)
+    assert grown.remove(gone) == 5000
+    live = grown.compact()
+    np.testing.assert_array_equal(live, np.setdiff1d(np.arange(20000), gone))
+    fresh = IVFIndex(emb[live], [manuals[i] for i in live], [pages[i] for i in live],
+                     n_lists=64, iters=4, precision="int8", mesh=mesh)
+    for kw in searches:
+        # the union route's cuBLAS product over another layout: an ulp apart
+        got = grown.search(q, k=10, n_probes=grown.n_lists_local, **kw)
+        want = fresh.search(q, k=10, n_probes=fresh.n_lists_local, **kw)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+
+
+def test_sharded_ivf_on_one_card_matches_the_cpu(dev, tmp_path):
+    from tpualign_torch.parallel import create_mesh
+
+    _sharded_ivf_checks(create_mesh(4, devices=[torch.device("cuda", 0)] * 4), tmp_path)
+
+
+def test_sharded_ivf_on_two_cards_matches_the_cpu(cards, tmp_path):
+    from tpualign_torch.parallel import create_mesh
+
+    _sharded_ivf_checks(create_mesh(2), tmp_path)
+
+
+@pytest.mark.parametrize("variant,quantizer", [("fp32", None), ("s8", "_quantize_rows")])
+def test_k4_on_card_1_while_card_0_is_current(cards, variant, quantizer):
+    """One K4 launch on card 1 while card 0 is current (a sharded IVF
+    index's second shard), against its plain version; card 0 stays
+    current."""
+    torch.cuda.set_device(0)
+    _k4_case(torch.device("cuda", 1), variant, quantizer, variant == "s8",
+             _k4_paged(np.random.default_rng(11), 70), 40)
+    assert torch.cuda.current_device() == 0

@@ -46,7 +46,7 @@ def test_imports_nothing_of_jax_or_tpualign():
                  "train.step", "train.lora", "train.checkpoint", "train.trainer",
                  "utils.profiling", "utils.flops", "native.build", "native.bindings",
                  "parallel.hnsw", "weaksup.calibration", "parallel.mesh", "parallel.ring",
-                 "utils.debugging", "parallel.sharding"):
+                 "utils.debugging", "parallel.sharding", "parallel.multihost"):
         assert f"tpualign_torch.{name}" in imported, name
 
 
@@ -64,6 +64,36 @@ def test_no_source_line_imports_jax_flax_optax_or_tpualign():
             for i, line in enumerate(f.read_text(encoding="utf-8").splitlines(), 1)
             if pattern.match(line)]
     assert len(files) > 60 and not hits, hits
+
+
+def test_multihost_imports_torch_distributed_and_nothing_of_jax():
+    """``parallel/multihost.py`` imports torch and ``torch.distributed`` (and
+    the port's own mesh) and nothing of JAX or tpualign; importing it joins
+    no process group."""
+    import ast
+    from pathlib import Path
+
+    import tpualign_torch.parallel.multihost as multihost
+
+    tree = ast.parse(Path(multihost.__file__).read_text(encoding="utf-8"))
+    roots = {(node.module if isinstance(node, ast.ImportFrom) else alias.name)
+             for node in ast.walk(tree) if isinstance(node, (ast.Import, ast.ImportFrom))
+             for alias in node.names}
+    assert {"torch", "torch.distributed"} <= roots
+    assert {r.split(".")[0] for r in roots} <= {"__future__", "os", "typing", "numpy", "torch",
+                                                "tpualign_torch"}, roots
+    code = textwrap.dedent("""
+        import sys
+        import torch.distributed as dist
+        import tpualign_torch.parallel.multihost
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpualign"))
+        print(bad)
+        sys.exit(1 if bad or dist.is_initialized() else 0)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

@@ -460,8 +460,8 @@ def test_empty_corpus_serves_exact_and_later_slices_raise():
     c = make_clustered(np.random.default_rng(14), n=256, d=16)
     from tpualign_torch.parallel import create_mesh
 
-    with pytest.raises(NotImplementedError, match="sharded IVF index"):
-        IVFIndex(c, device="cpu", mesh=create_mesh(2, devices=["cpu"] * 2))
+    sharded = IVFIndex(c, device="cpu", mesh=create_mesh(2, devices=["cpu"] * 2))
+    assert sharded.mesh is not None and len(sharded._ids.parts) == 2
     with pytest.raises(ValueError, match="non-empty"):
         IVFIndex(np.zeros((0, 16), np.float32), device="cpu")
     index = IVFIndex(c, n_lists=8, iters=2, device="cpu")

@@ -284,8 +284,9 @@ def _same_fp32(got, want):
 
 
 def test_later_slices_raise(corpus):
-    """The sharded IVF index is a later slice (the exact index shards:
-    tests/test_torch_parallel.py); IVF (tests/test_torch_ivf.py) and HNSW
+    """The sharded IVF index builds on a mesh (tests/test_torch_ivf_sharded.py;
+    the exact index shards: tests/test_torch_parallel.py); IVF
+    (tests/test_torch_ivf.py) and HNSW
     (tests/test_torch_hnsw.py) are ported: HNSW builds its host graph, or
     says that it needs the native library."""
     from tpualign_torch.parallel import create_mesh
@@ -300,8 +301,9 @@ def test_later_slices_raise(corpus):
         with pytest.raises(RuntimeError, match="native library"):
             port_retrieval.build_index(emb, manuals, pages, index_type="hnsw", device="cpu")
     mesh = create_mesh(2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_retrieval.build_index(emb, manuals, pages, mesh=mesh, index_type="ivf")
+    sharded = port_retrieval.build_index(emb, manuals, pages, mesh=mesh, index_type="ivf")
+    assert type(sharded).__name__ == "IVFIndex" and sharded.mesh is mesh
+    assert len(sharded._ids.parts) == 2 and sharded.n == len(emb)
     exact = port_retrieval.build_index(emb, manuals, pages, mesh=mesh, precision="int8")
     assert exact.mesh is mesh and exact._n_local == len(emb) // 2
     with pytest.raises(ValueError, match="retrieval_index"):

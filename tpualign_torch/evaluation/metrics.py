@@ -26,7 +26,7 @@ import numpy as np
 
 import torch
 
-from tpualign_torch.parallel.mesh import shard_devices
+from tpualign_torch.parallel.mesh import one_process, shard_devices
 from tpualign_torch.parallel.retrieval import RetrievalIndex
 from tpualign_torch.store import EmbeddingStore
 from tpualign_torch.utils.device import resolve_device
@@ -122,6 +122,7 @@ class Evaluator:
         self.store = store
         self.mesh = mesh
         devices = shard_devices(mesh)
+        one_process(mesh, "Evaluator(mesh=)")
         self.device = resolve_device(device) if devices is None else devices[0]
         self.output_dir = Path(output_dir)
         self._cache: Dict[str, dict] = {}

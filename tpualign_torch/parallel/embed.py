@@ -41,7 +41,7 @@ from tpualign_torch.models.clip import CLIP, build_clip, init_clip_params
 from tpualign_torch.models.convert import from_jax_params
 from tpualign_torch.models.loader import load_checkpoint_params
 from tpualign_torch.ops.preprocess import pad_to_bucket, preprocess_device, preprocess_host
-from tpualign_torch.parallel.mesh import shard_devices
+from tpualign_torch.parallel.mesh import one_process, shard_devices
 from tpualign_torch.parallel.sharding import RowTowers, row_params, shard_params
 from tpualign_torch.tokenizer import ClipTokenizer
 from tpualign_torch.utils.device import resolve_device
@@ -105,6 +105,7 @@ class EmbedEngine:
         if preprocess not in ("host", "device"):
             raise ValueError(f"preprocess must be host|device, got {preprocess!r}")
         devices = shard_devices(mesh)
+        one_process(mesh, "EmbedEngine(mesh=)")
         self.device = resolve_device(device) if devices is None else devices[0]
         self.mesh = mesh
         self._devices = devices or [self.device]

@@ -39,7 +39,22 @@ mask as the exact index.
   slots every older key tensor masks (-1), and one ``__dict__`` update;
   searches run on a snapshot (:meth:`IVFIndex._snapshot`).
 
-Meshes are a later slice of the port.
+- **Sharded** (a mesh whose data axis is above 1; tpualign's FAISS-style
+  sharded IVF): the rows split into contiguous shards of ``n_local`` rows
+  (padded to the k-means block), one shard a data device; each shard runs
+  its own k-means over its rows into ``n_lists_local`` lists and packs its
+  own layout, with the capacity and spill blocks of the largest list over
+  all shards (every shard has one geometry) and global corpus ids. A
+  search runs K4 (or the union route) on every shard at ``n_probes`` per
+  shard and merges the winners exactly on the first data device by
+  (value desc, id asc). ``add`` routes each row to its globally nearest
+  centroid's shard and list (a full tail grows every shard's by the same
+  blocks), ``remove`` tombstones by global id, ``compact`` re-packs the
+  survivors across the shards without requantization, and the artifact
+  records the shard count. On a mesh across processes
+  (``parallel/multihost.py``) each process builds and searches its own
+  shards and the winners of every process merge through an all-gather;
+  the mutations, calibration and the artifact there take one process.
 """
 
 from __future__ import annotations
@@ -55,10 +70,10 @@ import torch
 from tpualign_torch.ops.ivf_topk import _membership, ivf_probe_topk
 from tpualign_torch.ops.sim_topk import SENTINEL_IDX, _unpack_codes, key_mask
 from tpualign_torch.ops.similarity import NEG_INF, WILDCARD_KEY
-from tpualign_torch.parallel.mesh import shard_devices
+from tpualign_torch.parallel.mesh import ShardedRows, one_process, shard_devices
 from tpualign_torch.parallel.retrieval import (
-    _QUANTIZERS, _pad_results, _refine_rescore, _round_up, _sentinel, _setup_refine, _tensor,
-    encode_keys)
+    _QUANTIZERS, _merge_processes, _pad_results, _padded, _refine_rescore, _round_up, _sentinel,
+    _setup_refine, _tensor, _two_key_topk, encode_keys)
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
 
@@ -202,14 +217,6 @@ def _union(probe: torch.Tensor, n_lists: int, spill_blocks: int) -> torch.Tensor
     return torch.cat([real.to(torch.int32), spill.to(torch.int32)])
 
 
-def _two_key_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
-    """Top-k by (value desc, index asc): two stable sorts."""
-    o1 = torch.sort(idx, dim=1, stable=True).indices
-    v1, i1 = torch.gather(vals, 1, o1), torch.gather(idx, 1, o1)
-    o2 = torch.sort(v1, dim=1, descending=True, stable=True).indices[:, :k]
-    return torch.gather(v1, 1, o2), torch.gather(i1, 1, o2)
-
-
 def _ivf_union_search(q, qk, centroids, pemb, pkeys, pids, pscales, k: int, n_probes: int,
                       n_lists: int, capacity: int, spill_blocks: int, chunk: int,
                       exact_ties: bool):
@@ -267,16 +274,34 @@ def _ivf_kernel_search(q, qk, centroids, pemb, pkeys, pids, pscales, k: int, n_p
             torch.where(empty, torch.full_like(ids, -1), ids))
 
 
-def _probe_depths(q, nbr, centroids, positions, n_lists: int, capacity: int):
+def _probe_depths(q, nbr, centroids, positions, n_lists: int, capacity: int, shards: int,
+                  total_local: int):
     """(S, k) probe depth at which each neighbour is found: the rank of its
     cluster among the query's centroid scores (float64, as :func:`_probe`
-    ranks them), 0 for spilled rows (always scanned), -1 for empty slots."""
+    ranks them), 0 for spilled rows (always scanned), -1 for empty slots.
+    Over ``shards`` shards of ``total_local`` packed rows and ``n_lists``
+    lists each (tpualign's ``_probe_depths_sharded``), the rank is among
+    the neighbour's own shard's centroids, since probes apply per shard."""
     qc = q.to(torch.float64) @ centroids.to(torch.float64).T
-    block = positions[nbr.clamp(min=0)].to(torch.int64) // capacity
-    s_c = torch.gather(qc, 1, block.clamp(max=n_lists - 1))
-    rank = (qc[:, None, :] > s_c[:, :, None]).sum(dim=2)
+    pos = positions[nbr.clamp(min=0)].to(torch.int64)
+    shard, block = pos // total_local, (pos % total_local) // capacity
+    s_c = torch.gather(qc, 1, shard * n_lists + block.clamp(max=n_lists - 1))
+    same = (torch.arange(shards * n_lists, device=q.device) // n_lists)[None, None, :] \
+        == shard[:, :, None]
+    rank = ((qc[:, None, :] > s_c[:, :, None]) & same).sum(dim=2)
     depth = torch.where(block > n_lists, torch.zeros_like(rank), rank)
     return torch.where(nbr >= 0, depth, torch.full_like(depth, -1))
+
+
+def _shard_rows(n: int, shards: int) -> int:
+    """tpualign's rows a shard: ``ceil(n / shards)`` padded to the k-means
+    block it picks (the largest power of two up to 2**14 that the rows
+    reach, at least 8)."""
+    n_local = -(-n // shards)
+    block = 1 << 14
+    while block > n_local:
+        block //= 2
+    return _round_up(n_local, max(block, 8))
 
 
 class IVFIndex:
@@ -288,7 +313,9 @@ class IVFIndex:
     ``(NEG_INF, -1)`` sentinels; ``n_probes=n_lists`` is exact. Defaults
     follow IVFFlat practice: ``n_lists ~ sqrt(N)`` (rounded up to 8) and
     ``n_probes = n_lists // 8``. ``device`` defaults to CUDA and raises when
-    it is absent; pass ``device="cpu"`` for the plain path. ``int8_mxu``
+    it is absent; pass ``device="cpu"`` for the plain path. A ``mesh`` with a
+    data axis above 1 shards the index over it (the module notes); then
+    ``n_lists_local`` lists a shard and ``n_probes`` apply per shard. ``int8_mxu``
     defaults to the s8 route (as ``RetrievalIndex`` takes). ``use_kernel``
     forces (True) or refuses (False) the K4 route; ``query_block`` goes
     into the artifact and searches do not use it. Both keep tpualign's
@@ -319,8 +346,8 @@ class IVFIndex:
     ):
         if precision not in ("fp32", "int8", "int4", "int2"):
             raise ValueError(f"precision must be fp32|int8|int4|int2, got {precision}")
-        _no_mesh(mesh)
-        self.device = dev = resolve_device(device)
+        self.mesh = _sharding_mesh(mesh)
+        self.device = dev = resolve_device(device) if self.mesh is None else self.mesh.home
         self.vocab: Dict[str, int] = {}
         self.use_kernel = use_kernel
         self.int8_mxu = True if int8_mxu is None else bool(int8_mxu)
@@ -358,6 +385,10 @@ class IVFIndex:
             keys, self.vocab = encode_keys(corpus_manuals, corpus_pages, self.vocab)
         else:
             keys = np.zeros(self.n, np.int32)
+        if self.mesh is not None:
+            self._build_sharded(corpus, keys, corpus_scales if prequantized else None, n_lists,
+                                n_probes, int(iters), capacity_factor, query_block, cluster_chunk)
+            return
 
         if n_lists is None:
             n_lists = max(8, min(_round_up(int(self.n ** 0.5), 8), self.n))
@@ -413,6 +444,88 @@ class IVFIndex:
         at = self._ids.clamp(min=0).to(torch.int64)
         return rows[at], None if scales is None else scales[at]
 
+    def _build_sharded(self, corpus: np.ndarray, keys: np.ndarray,
+                       scales_in: Optional[np.ndarray], n_lists: Optional[int],
+                       n_probes: Optional[int], iters: int, capacity_factor: float,
+                       query_block: int, cluster_chunk: int) -> None:
+        """tpualign's ``_build_sharded``: ``n_local`` rows a shard (padded
+        with zero rows keyed -1: the packed int4 zero byte, scale 0 for
+        int2 and 1 otherwise), ``n_lists_local`` lists a shard (rounded to
+        8, at least what the capacity clamp needs), each shard's k-means on
+        its own device from its rows ``arange(ll) * n_local // ll``, then
+        one global capacity and spill from the largest list of any shard,
+        each shard packed with global ids and its own rows' scales; fp32
+        rows are quantized along the layout."""
+        mesh = self.mesh
+        self._devices = devices = mesh.data_devices
+        ndev, dim, precision = len(devices), self.dim, self.precision
+        max_cap = _max_capacity(dim, {"int8": 1, "int4": 0, "int2": 0}.get(precision, 4),
+                                int8_mxu=self.int8_mxu and precision == "int8")
+        n_local = _shard_rows(self.n, ndev)
+        if n_lists is None:
+            n_lists = max(8 * ndev, min(_round_up(int(self.n ** 0.5), 8), self.n))
+        ll = max(8, _round_up(-(-int(n_lists) // ndev), 8))
+        ll = max(ll, _round_up(-(-int(np.ceil(capacity_factor * n_local)) // max_cap), 8))
+        self.n_lists_local, self.n_lists = ll, ll * ndev
+        self.n_probes = max(1, ll // 8) if n_probes is None else min(int(n_probes), ll)
+        self.query_block = int(query_block)
+        self.cluster_chunk = max(1, int(cluster_chunk))
+
+        fill = INT4_ZERO_BYTE if corpus.dtype == np.uint8 else 0
+        if scales_in is not None:
+            scales_in = np.asarray(scales_in, np.float32).reshape(-1)
+        init = torch.from_numpy((np.arange(ll, dtype=np.int64) * n_local) // ll)
+        built = {}
+        for s in mesh.local_rows:
+            dev, sel = devices[s], slice(s * n_local, (s + 1) * n_local)
+            rows_np = _padded(corpus[sel], n_local, fill)
+            rows = _tensor(rows_np, dev)
+            sc = (None if scales_in is None else
+                  _tensor(_padded(scales_in[sel], n_local, 0.0 if precision == "int2" else 1.0),
+                          dev))
+            at = init.to(dev)
+            cent, assign, sizes = _kmeans(rows, sc, _dequant(rows[at], None if sc is None
+                                                             else sc[at], dim), iters, dim)
+            built[s] = (rows_np, rows, sc, cent, assign, sizes)
+        local_sizes = torch.stack([built[s][5].to(self.device) for s in mesh.local_rows])
+        if mesh.distributed:
+            from tpualign_torch.parallel.multihost import process_gather
+
+            local_sizes = torch.cat(process_gather(mesh, local_sizes))
+        sizes = local_sizes.cpu().numpy().reshape(ndev, ll)
+        cap = _round_up(max(1, int(np.ceil(capacity_factor * n_local / ll))), 128)
+        cap = min(cap, _round_up(int(sizes.max()), 128), max_cap)
+        overflow = np.maximum(sizes - cap, 0).sum(axis=1)
+        self.capacity = cap
+        self.spill = int(overflow.sum())
+        self.spill_blocks = max(1, -(-int(overflow.max()) // cap))
+        if self.spill:
+            log.info("sharded IVF build: %d/%d rows spilled past capacity %d (max %d on one "
+                     "shard)", self.spill, self.n, cap, int(overflow.max()))
+        parts: Dict[str, list] = {"centroids": [], "_ids": [], "_keys": [], "_emb": [],
+                                  "_scales": []}
+        for s in range(ndev):
+            if s not in built:
+                for p in parts.values():
+                    p.append(None)
+                continue
+            rows_np, rows, sc, cent, assign, _ = built.pop(s)
+            dev = devices[s]
+            ids, pkeys = _pack(_tensor(_padded(keys[s * n_local:(s + 1) * n_local], n_local, -1),
+                                       dev), assign, ll, cap, self.spill_blocks)
+            if scales_in is None and precision != "fp32":
+                codes, row_scales = _QUANTIZERS[precision](rows_np)
+                rows, sc = _tensor(codes, dev), _tensor(row_scales, dev)
+            at = ids.clamp(min=0).to(torch.int64)
+            parts["centroids"].append(cent)
+            parts["_ids"].append(torch.where(ids >= 0, ids + s * n_local, ids))
+            parts["_keys"].append(pkeys)
+            parts["_emb"].append(rows[at])
+            parts["_scales"].append(None if sc is None else sc[at])
+            del rows, sc, assign
+        for name, p in parts.items():
+            setattr(self, name, None if all(t is None for t in p) else ShardedRows(p))
+
     def _snapshot(self) -> "IVFIndex":
         """A shallow copy holding one consistent set of fields (see
         ``RetrievalIndex._snapshot``)."""
@@ -420,8 +533,11 @@ class IVFIndex:
 
     def _nearest_list(self, rows: torch.Tensor) -> np.ndarray:
         """Each row's nearest centroid, by the fp32 product and the first
-        maximum, as the k-means assignment takes it."""
-        return torch.argmax(rows @ self.centroids.T, dim=1).cpu().numpy()
+        maximum, as the k-means assignment takes it; over every shard's
+        centroids on a mesh (a global list id ``shard * n_lists_local +
+        list``)."""
+        cent = self.centroids if self.mesh is None else self.centroids.to(self.device)
+        return torch.argmax(rows.to(self.device) @ cent.T, dim=1).cpu().numpy()
 
     # -- mutations --------------------------------------------------------------------
 
@@ -443,6 +559,10 @@ class IVFIndex:
             new_keys, _ = encode_keys(manuals, pages, self.vocab)
         else:
             new_keys = np.zeros((m,), np.int32)
+        if self.mesh is not None:
+            one_process(self.mesh, "IVFIndex.add on a mesh")
+            self._add_sharded(rows, np.asarray(new_keys, np.int32))
+            return
         dev, cap, n_lists = self.device, self.capacity, self.n_lists
         assign = self._nearest_list(_tensor(rows, dev))
         # used slots of each block, contiguous from slot 0
@@ -494,6 +614,74 @@ class IVFIndex:
             state["_refine_corpus"] = self._refine_corpus.appended(rows)
         self.__dict__.update(state)
 
+    def _add_sharded(self, rows: np.ndarray, new_keys: np.ndarray) -> None:
+        """tpualign's ``_add_sharded``: each row goes to its globally
+        nearest centroid's shard and list, after the block's used slots,
+        and rows that find the block full go to that shard's spill tail
+        (in ascending id order); when a tail overflows, every shard's tail
+        grows by the same whole blocks (new tensors). Rows are written in
+        place only into slots every older key tensor masks."""
+        devices, ndev = self._devices, len(self._devices)
+        ll, cap, m = self.n_lists_local, self.capacity, len(rows)
+        assign = self._nearest_list(_tensor(rows, self.device))
+        blocks = ll + 1 + self.spill_blocks
+        used = np.stack([(k.reshape(-1, cap) != -1).sum(dim=1).cpu().numpy()
+                         for k in self._keys.parts])
+        order = np.argsort(assign, kind="stable")
+        a_sorted = assign[order]
+        sh_sorted, ls_sorted = a_sorted // ll, a_sorted % ll
+        starts = np.searchsorted(a_sorted, np.arange(ndev * ll), side="left")
+        slot = used[sh_sorted, ls_sorted] + np.arange(m) - starts[a_sorted]
+        over = slot >= cap
+        spill_used = used[:, ll + 1:].sum(axis=1)  # the tails fill contiguously
+        n_over_sh = np.bincount(sh_sorted[over], minlength=ndev)
+        spill_rank = np.zeros(m, np.int64)
+        for s in np.flatnonzero(n_over_sh):
+            spill_rank[over & (sh_sorted == s)] = np.arange(n_over_sh[s])
+        emb, keys, ids, scales = (list(f.parts) if f is not None else None
+                                  for f in (self._emb, self._keys, self._ids, self._scales))
+        spill_blocks, fresh = self.spill_blocks, False
+        need = int((spill_used + n_over_sh).max())
+        if need > spill_blocks * cap:
+            add_blocks = -(-(need - spill_blocks * cap) // cap)
+            grow = add_blocks * cap
+            fill = INT4_ZERO_BYTE if emb[0].dtype == torch.uint8 else 0
+            emb = [torch.cat([t, t.new_full((grow, t.shape[1]), fill)]) for t in emb]
+            keys = [torch.cat([t, t.new_full((grow,), -1)]) for t in keys]
+            ids = [torch.cat([t, t.new_full((grow,), -1)]) for t in ids]
+            if scales is not None:
+                scales = [torch.cat([t, t.new_ones((grow,))]) for t in scales]
+            spill_blocks += add_blocks
+            blocks += add_blocks
+            fresh = True
+            log.info("sharded IVF add: the spill tails grew by %d block(s) a shard to hold %d "
+                     "overflow row(s)", add_blocks, int(over.sum()))
+        dest_sorted = ls_sorted.astype(np.int64) * cap + slot
+        dest_sorted[over] = (ll + 1) * cap + spill_used[sh_sorted[over]] + spill_rank[over]
+        dest = np.empty(m, np.int64)
+        dest[order] = dest_sorted
+        shard = np.empty(m, np.int64)
+        shard[order] = sh_sorted
+        new_rows, new_scales = self._quantize_new_rows(rows)
+        new_ids = np.arange(self.n, self.n + m, dtype=np.int32)
+        for s in np.unique(shard):
+            sel, dev = np.flatnonzero(shard == s), devices[s]
+            at = torch.from_numpy(dest[sel]).to(dev)
+            if not fresh:
+                keys[s], ids[s] = keys[s].clone(), ids[s].clone()
+            emb[s][at] = _tensor(new_rows[sel], dev)
+            if scales is not None:
+                scales[s][at] = _tensor(new_scales[sel], dev)
+            keys[s][at] = _tensor(new_keys[sel], dev)
+            ids[s][at] = _tensor(new_ids[sel], dev)
+        state = {"_emb": ShardedRows(emb), "_keys": ShardedRows(keys), "_ids": ShardedRows(ids),
+                 "_scales": None if scales is None else ShardedRows(scales), "n": self.n + m,
+                 "spill": self.spill + int(over.sum()), "spill_blocks": spill_blocks,
+                 "_positions_cache": None, "_corpus_fp": None}
+        if self._refine_corpus is not None:
+            state["_refine_corpus"] = self._refine_corpus.appended(rows)
+        self.__dict__.update(state)
+
     def _quantize_new_rows(self, rows: np.ndarray):
         """New fp32 rows on the build's per-row grid, so a full-probe search
         over an added index equals a fresh build over the combined corpus."""
@@ -511,6 +699,8 @@ class IVFIndex:
         ids = ids[(ids >= 0) & (ids < self.n)]
         if ids.size == 0:
             return 0
+        if self.mesh is not None:
+            return self._remove_sharded(ids)
         want = torch.from_numpy(ids).to(self.device)
         pos = self._positions[want].to(torch.int64)
         live = self._ids[pos] == want.to(torch.int32)
@@ -520,9 +710,30 @@ class IVFIndex:
         self.__dict__.update({"_keys": keys})
         return removed
 
+    def _remove_sharded(self, ids: np.ndarray) -> int:
+        """``remove`` on a mesh: the global ids find their shard and slot
+        through :attr:`_positions`; each shard that changes gets new keys."""
+        one_process(self.mesh, "IVFIndex.remove on a mesh")
+        total = self._ids.rows_per_shard
+        pos = self._positions[torch.from_numpy(ids).to(self.device)].cpu().numpy().astype(np.int64)
+        keys, removed = list(self._keys.parts), 0
+        for s in np.unique(pos // total):
+            sel = pos // total == s
+            at = torch.from_numpy(pos[sel] - s * total).to(keys[s].device)
+            want = torch.from_numpy(ids[sel].astype(np.int32)).to(keys[s].device)
+            live = self._ids.parts[s][at] == want
+            removed += int((live & (keys[s][at] != -2)).sum())
+            keys[s] = keys[s].clone()
+            keys[s][at[live]] = -2
+        self.__dict__.update({"_keys": ShardedRows(keys)})
+        return removed
+
     @property
     def dead(self) -> int:
         """Tombstoned rows awaiting :meth:`compact`."""
+        if self.mesh is not None:
+            one_process(self.mesh, "IVFIndex.dead on a mesh")
+            return sum(int((k == -2).sum()) for k in self._keys.parts)
         return int((self._keys == -2).sum())
 
     def compact(self) -> np.ndarray:
@@ -533,6 +744,8 @@ class IVFIndex:
         ascending old-id order. Capacity stays; the spill tail re-sizes.
         Returns the ascending surviving old ids. Raises ValueError when it
         would empty the index (rebuild from the store instead)."""
+        if self.mesh is not None:
+            return self._compact_sharded()
         ids_h = self._ids.cpu().numpy()
         keys_h = self._keys.cpu().numpy()
         live_old = np.sort(ids_h[(ids_h >= 0) & (keys_h != -2)]).astype(np.int64)
@@ -566,6 +779,94 @@ class IVFIndex:
             state["_refine_corpus"] = self._refine_corpus.selected(live_old)
         self.__dict__.update(state)
         return live_old
+
+    def _compact_sharded(self) -> np.ndarray:
+        """tpualign's ``_compact_sharded``: the survivors in ascending old-id
+        order keep their shard and list where they sat in a list, and spill
+        rows go to their globally nearest centroid's shard and list; every
+        shard's tail re-sizes to the largest overflow. One gather a shard
+        (device-to-device copies where a row changes shard) moves the rows
+        and scales unrequantized; unused slots take the shard's own padding
+        block."""
+        one_process(self.mesh, "IVFIndex.compact on a mesh")
+        devices, ndev = self._devices, len(self._devices)
+        ll, cap = self.n_lists_local, self.capacity
+        total_old = self._ids.rows_per_shard
+        ids_h = self._ids.cpu().numpy()
+        keys_h = self._keys.cpu().numpy()
+        live_slots = np.flatnonzero((ids_h >= 0) & (keys_h != -2))
+        live_slots = live_slots[np.argsort(ids_h[live_slots])].astype(np.int64)
+        live_old = ids_h[live_slots].astype(np.int64)
+        n_new = int(live_old.size)
+        if n_new == 0:
+            raise ValueError("compact would empty the index — rebuild from the store instead")
+        sh, lblk = live_slots // total_old, (live_slots % total_old) // cap
+        assign = np.where(lblk < ll, sh * ll + lblk, -1).astype(np.int64)
+        spill_sel = np.flatnonzero(assign < 0)
+        if spill_sel.size:
+            assign[spill_sel] = self._nearest_list(self._rows_at(live_slots[spill_sel]))
+        order = np.argsort(assign, kind="stable")
+        a_sorted = assign[order]
+        starts = np.searchsorted(a_sorted, np.arange(ndev * ll), side="left")
+        rank = np.arange(n_new) - starts[a_sorted]
+        over = rank >= cap
+        sh2 = a_sorted // ll
+        overflow_sh = np.bincount(sh2[over], minlength=ndev)
+        spill_blocks = max(1, -(-int(overflow_sh.max()) // cap))
+        total_new = (ll + 1 + spill_blocks) * cap
+        dest_sorted = sh2 * total_new + (a_sorted % ll) * cap + rank
+        for s in np.flatnonzero(overflow_sh):
+            sel = over & (sh2 == s)
+            dest_sorted[sel] = s * total_new + (ll + 1) * cap + np.arange(int(overflow_sh[s]))
+        dest = np.empty(n_new, np.int64)
+        dest[order] = dest_sorted
+        perm = np.repeat(np.arange(ndev, dtype=np.int64) * total_old + ll * cap, total_new)
+        perm[dest] = live_slots
+        keys_new = np.full(ndev * total_new, -1, np.int32)
+        keys_new[dest] = keys_h[live_slots]
+        ids_new = np.full(ndev * total_new, -1, np.int32)
+        ids_new[dest] = np.arange(n_new, dtype=np.int32)
+
+        def moved(field: ShardedRows) -> ShardedRows:
+            parts = []
+            for s, dev in enumerate(devices):
+                src = perm[s * total_new:(s + 1) * total_new]
+                owner = src // total_old
+                out = torch.empty((total_new, *field.shape[1:]), dtype=field.dtype, device=dev)
+                for o in np.unique(owner):
+                    sel = np.flatnonzero(owner == o)
+                    rows = field.parts[o][torch.from_numpy(src[sel] - o * total_old).to(
+                        field.parts[o].device)]
+                    out[torch.from_numpy(sel).to(dev)] = rows.to(dev)
+                parts.append(out)
+            return ShardedRows(parts)
+
+        def placed(arr: np.ndarray) -> ShardedRows:
+            return ShardedRows([_tensor(arr[s * total_new:(s + 1) * total_new], dev)
+                                for s, dev in enumerate(devices)])
+
+        state = {"_emb": moved(self._emb), "_keys": placed(keys_new), "_ids": placed(ids_new),
+                 "_scales": None if self._scales is None else moved(self._scales),
+                 "n": n_new, "spill": int(over.sum()), "spill_blocks": spill_blocks,
+                 "_positions_cache": None, "_corpus_fp": None}
+        if self._refine_corpus is not None:
+            state["_refine_corpus"] = self._refine_corpus.selected(live_old)
+        self.__dict__.update(state)
+        return live_old
+
+    def _rows_at(self, slots: np.ndarray) -> torch.Tensor:
+        """fp32 rows of the global packed ``slots`` of a sharded layout, on
+        the first device, in order."""
+        total = self._emb.rows_per_shard
+        out = torch.empty((len(slots), self.dim), dtype=torch.float32, device=self.device)
+        for s in np.unique(slots // total):
+            sel = np.flatnonzero(slots // total == s)
+            part = self._emb.parts[s]
+            at = torch.from_numpy(slots[sel] - s * total).to(part.device)
+            rows = _dequant(part[at], None if self._scales is None else self._scales.parts[s][at],
+                            self.dim)
+            out[torch.from_numpy(sel).to(self.device)] = rows.to(self.device)
+        return out
 
     # -- search ------------------------------------------------------------------------
 
@@ -622,8 +923,11 @@ class IVFIndex:
                       n_probes: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-resident probed search: tensors in, ``(vals (Q, k), corpus
         ids (Q, k) int64)`` out on the index's device, ``(NEG_INF, -1)`` in
-        empty slots."""
+        empty slots. On a mesh ``n_probes`` applies per shard (at most
+        ``n_lists_local``)."""
         snap = self._snapshot()
+        if snap.mesh is not None:
+            return snap._sharded_search(query_embeddings, query_keys, k, n_probes)
         p = snap.n_probes if n_probes is None else min(int(n_probes), snap.n_lists)
         exact_ties = p == snap.n_lists
         q = query_embeddings.to(snap.device, torch.float32).contiguous()
@@ -633,6 +937,34 @@ class IVFIndex:
         if snap._kernel_path(exact_ties, k):
             return _ivf_kernel_search(*args, int8_mxu=snap.int8_mxu)
         return _ivf_union_search(*args, snap.cluster_chunk, exact_ties)
+
+    def _sharded_search(self, query_embeddings: torch.Tensor, query_keys: torch.Tensor, k: int,
+                        n_probes: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tpualign's ``_sharded_search_fn``: the K4 (or union) route on every
+        shard this process holds, each on its device's stream, then the
+        winners merged on the first device by (value desc, id asc); across
+        processes, every process's winners too."""
+        ll = self.n_lists_local
+        p = self.n_probes if n_probes is None else min(int(n_probes), ll)
+        exact_ties = p == ll
+        kernel = self._kernel_path(exact_ties, k)
+        q = query_embeddings.to(self.device, torch.float32).contiguous()
+        qk = query_keys.to(self.device, torch.int32).contiguous()
+        vals, ids = [], []
+        for s in self.mesh.local_rows:
+            dev = self._devices[s]
+            args = (q.to(dev, non_blocking=True), qk.to(dev, non_blocking=True),
+                    self.centroids.parts[s], self._emb.parts[s], self._keys.parts[s],
+                    self._ids.parts[s], None if self._scales is None else self._scales.parts[s],
+                    k, p, ll, self.capacity, self.spill_blocks)
+            v, i = (_ivf_kernel_search(*args, int8_mxu=self.int8_mxu) if kernel
+                    else _ivf_union_search(*args, self.cluster_chunk, exact_ties))
+            vals.append(v.to(self.device, non_blocking=True))
+            ids.append(i.to(self.device, non_blocking=True))
+        vals, ids = _two_key_topk(torch.cat(vals, dim=1), torch.cat(ids, dim=1), k)
+        if self.mesh.distributed:
+            vals, ids = _merge_processes(self.mesh, vals, ids, k)
+        return vals, ids
 
     # -- probe calibration -------------------------------------------------------------
 
@@ -645,20 +977,27 @@ class IVFIndex:
         the share of depths below P. Returns the count."""
         if not 0.0 < recall_target <= 1.0:
             raise ValueError(f"recall_target in (0, 1], got {recall_target}")
+        one_process(self.mesh, "IVFIndex.calibrate on a mesh")
         s = min(int(sample), self.n)
         sel = torch.from_numpy((np.arange(s, dtype=np.int64) * self.n) // s).to(self.device)
         pos = self._positions[sel].to(torch.int64)
-        q = _dequant(self._emb[pos], None if self._scales is None else self._scales[pos],
-                     self.dim)
+        if self.mesh is None:
+            q = _dequant(self._emb[pos], None if self._scales is None else self._scales[pos],
+                         self.dim)
+            cent, shards, ll, total = self.centroids, 1, self.n_lists, len(self._ids)
+        else:
+            q = self._rows_at(pos.cpu().numpy())
+            cent, shards = self.centroids.to(self.device), len(self._devices)
+            ll, total = self.n_lists_local, self._ids.rows_per_shard
         qk = np.full(s, WILDCARD_KEY, np.int32)
         _, nbr = self.search_encoded(q.cpu().numpy(), qk, k, n_probes=self.n_lists)
-        depth = _probe_depths(q, torch.from_numpy(nbr).to(self.device), self.centroids,
-                              self._positions, self.n_lists, self.capacity).cpu().numpy()
+        depth = _probe_depths(q, torch.from_numpy(nbr).to(self.device), cent, self._positions,
+                              ll, self.capacity, shards, total).cpu().numpy()
         depths = np.sort(depth[depth >= 0])
         if depths.size == 0:
             return self.n_probes
         idx = min(int(np.ceil(recall_target * depths.size)) - 1, depths.size - 1)
-        p = max(1, min(int(depths[idx]) + 1, self.n_lists))
+        p = max(1, min(int(depths[idx]) + 1, ll))
         log.info("IVF calibration: n_probes=%d reaches recall@%d %.4f (target %.3f, %d sample "
                  "queries)", p, k, float(np.mean(depths < p)), recall_target, s)
         self.n_probes = p
@@ -667,12 +1006,14 @@ class IVFIndex:
 
     @property
     def _positions(self) -> torch.Tensor:
-        """Packed row of each corpus id, built once."""
+        """Packed row of each corpus id, built once (on a mesh, the row of
+        the shard-major layout: ``shard * rows_per_shard + slot``)."""
         cached = getattr(self, "_positions_cache", None)
         if cached is None:
-            dest = torch.where(self._ids >= 0, self._ids, self.n).to(torch.int64)
+            ids = self._ids if self.mesh is None else self._ids.to(self.device)
+            dest = torch.where(ids >= 0, ids, self.n).to(torch.int64)
             cached = torch.zeros(self.n + 1, dtype=torch.int32, device=self.device)
-            cached[dest] = torch.arange(len(self._ids), dtype=torch.int32, device=self.device)
+            cached[dest] = torch.arange(len(ids), dtype=torch.int32, device=self.device)
             cached = cached[:self.n]
             self._positions_cache = cached
         return cached
@@ -682,7 +1023,9 @@ class IVFIndex:
     def save(self, path) -> None:
         """Write the index structure (centroids, the layout's ids and keys,
         geometry, vocab and the corpus fingerprint) in tpualign's ``.npz``
-        format; the rows stay in the store."""
+        format; the rows stay in the store. A sharded index also records
+        ``ndev`` and ``n_lists_local``, and its arrays are shard-major."""
+        one_process(self.mesh, "IVFIndex.save on a mesh")
         meta = {
             "n": self.n, "dim": self.dim, "n_lists": self.n_lists,
             "n_probes": self.n_probes, "capacity": self.capacity,
@@ -694,6 +1037,9 @@ class IVFIndex:
             "vocab": self.vocab,
             "fingerprint": self._corpus_fp,
         }
+        if self.mesh is not None:
+            meta["ndev"] = len(self._devices)
+            meta["n_lists_local"] = self.n_lists_local
         np.savez_compressed(
             path,
             centroids=self.centroids.cpu().numpy().astype(np.float32),
@@ -710,15 +1056,23 @@ class IVFIndex:
         """Rebuild a saved index around the same corpus (row order as at
         the build; ids index into it): one gather replaces k-means.
         Precision follows the artifact (fp32 rows are quantized along the
-        layout). Raises ValueError for an artifact of another corpus shape
-        or content, or of a mesh."""
-        _no_mesh(mesh)
-        dev = resolve_device(device)
+        layout). A sharded artifact loads onto a ``mesh`` whose data axis
+        is its shard count, each shard's rows gathered onto its device.
+        Raises ValueError for an artifact of another corpus shape or
+        content, a sharded artifact without such a mesh, or a one-device
+        artifact with a mesh (tpualign's messages)."""
+        use_mesh = _sharding_mesh(mesh)
+        one_process(use_mesh, "IVFIndex.load on a mesh")
         z = np.load(path)
         meta = json.loads(bytes(z["meta"]).decode())
-        if meta.get("ndev") is not None:
-            raise ValueError(f"artifact is sharded over {meta['ndev']} devices; the multi-GPU "
-                             f"slice of tpualign_torch is not yet ported: rebuild on one device")
+        saved_ndev = meta.get("ndev")
+        if saved_ndev is None and use_mesh is not None:
+            raise ValueError("artifact is single-device; rebuild to shard it over a mesh")
+        if saved_ndev is not None and (use_mesh is None
+                                       or use_mesh.shape["data"] != saved_ndev):
+            raise ValueError(f"artifact is sharded over {saved_ndev} devices; pass a mesh with "
+                             f"a data axis of {saved_ndev}")
+        dev = resolve_device(device) if use_mesh is None else use_mesh.home
         corpus = np.asarray(corpus_embeddings)
         prequantized = corpus.dtype in (np.int8, np.uint8)
         want_cols = (meta["dim"] // (4 if meta["precision"] == "int2" else 2)
@@ -739,6 +1093,7 @@ class IVFIndex:
                                  "fingerprint mismatch); rebuild the index")
         self = cls.__new__(cls)
         self.device = dev
+        self.mesh = use_mesh
         self.vocab = {k: int(v) for k, v in meta["vocab"].items()}
         self._corpus_fp = tuple(saved_fp) if saved_fp else None
         self.use_kernel = use_kernel
@@ -758,9 +1113,8 @@ class IVFIndex:
         self.refine, self._refine_corpus = _setup_refine(
             refine, self.precision, corpus_embeddings, store=refine_store,
             prequantized=prequantized)
-        self.centroids = torch.from_numpy(np.asarray(z["centroids"], np.float32)).to(dev)
-        self._ids = torch.from_numpy(np.asarray(z["pids"], np.int32)).to(dev)
-        self._keys = torch.from_numpy(np.asarray(z["pkeys"], np.int32)).to(dev)
+        centroids = np.asarray(z["centroids"], np.float32)
+        pids, pkeys = np.asarray(z["pids"], np.int32), np.asarray(z["pkeys"], np.int32)
         scales = None
         if prequantized:
             if corpus_scales is None:
@@ -770,14 +1124,36 @@ class IVFIndex:
                 raise ValueError("fp32 index cannot load an int8 corpus")
             if corpus.dtype == np.uint8 and self.precision not in ("int4", "int2"):
                 raise ValueError(f"{self.precision} index cannot load a packed corpus")
-            rows = corpus
-            scales = _tensor(np.asarray(corpus_scales, np.float32).reshape(-1), dev)
+            rows, scales = corpus, np.asarray(corpus_scales, np.float32).reshape(-1)
         elif self.precision in _QUANTIZERS:
-            rows, row_scales = _QUANTIZERS[self.precision](np.asarray(corpus, np.float32))
-            scales = _tensor(row_scales, dev)
+            rows, scales = _QUANTIZERS[self.precision](np.asarray(corpus, np.float32))
         else:
             rows = np.asarray(corpus, np.float32)
-        self._emb, self._scales = self._gather(_tensor(rows, dev), scales)
+        if use_mesh is None:
+            self.centroids = torch.from_numpy(centroids).to(dev)
+            self._ids, self._keys = _tensor(pids, dev), _tensor(pkeys, dev)
+            self._emb, self._scales = self._gather(
+                _tensor(rows, dev), None if scales is None else _tensor(scales, dev))
+            return self
+        # each shard's slots gather their rows (any shard's: adds route
+        # rows across shards) from the host corpus onto the shard's device
+        self._devices = use_mesh.data_devices
+        self.n_lists_local = meta["n_lists_local"]
+        ndev = len(self._devices)
+        fields: Dict[str, list] = {"centroids": [], "_ids": [], "_keys": [], "_emb": [],
+                                   "_scales": []}
+        for s, d in enumerate(self._devices):
+            ids = pids[s * len(pids) // ndev:(s + 1) * len(pids) // ndev]
+            at = np.maximum(ids, 0)
+            fields["centroids"].append(_tensor(centroids[s * self.n_lists_local:
+                                                         (s + 1) * self.n_lists_local], d))
+            fields["_ids"].append(_tensor(ids, d))
+            fields["_keys"].append(_tensor(pkeys[s * len(pids) // ndev:
+                                                 (s + 1) * len(pids) // ndev], d))
+            fields["_emb"].append(_tensor(rows[at], d))
+            fields["_scales"].append(None if scales is None else _tensor(scales[at], d))
+        for name, parts in fields.items():
+            setattr(self, name, None if parts[0] is None else ShardedRows(parts))
         return self
 
     @property
@@ -790,13 +1166,8 @@ class IVFIndex:
         return total * (row + 8 + scale) + self.n_lists * self.dim * 4
 
 
-def _no_mesh(mesh) -> None:
-    """A mesh with a data axis above 1 would shard the lists (tpualign's
-    ``_add_sharded``, ``_compact_sharded``, ``_probe_depths_sharded`` and
-    sharded artifacts), a later slice; a one-device mesh is no mesh, as
-    tpualign's ``build_index`` passes it."""
+def _sharding_mesh(mesh):
+    """``mesh`` where its data axis is above 1 (the sharded index), else
+    None: a one-device mesh is no mesh, as tpualign keeps it."""
     devices = shard_devices(mesh)
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError("IVFIndex over a mesh's data axis is the sharded IVF index, "
-                                  "a later multi-GPU slice of tpualign_torch, "
-                                  "not yet ported; build the index on one device")
+    return mesh if devices is not None and len(devices) > 1 else None

@@ -32,21 +32,49 @@ import torch
 
 from tpualign_torch.config import MeshConfig
 
-__all__ = ["Mesh", "ShardedRows", "create_mesh", "default_mesh", "shard_devices"]
+__all__ = ["Mesh", "ShardedRows", "create_mesh", "default_mesh", "one_process",
+           "shard_devices"]
 
 
 class Mesh:
     """A ``(data, model)`` grid of devices: ``devices`` (an object array of
     that shape), ``axis_names`` and ``shape`` (axis name -> size, as
-    ``mesh.shape["data"]`` is read throughout tpualign)."""
+    ``mesh.shape["data"]`` is read throughout tpualign). ``processes`` (one
+    rank a data row, ascending) and ``rank`` make it a mesh across
+    processes; None is one process holding every row."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str] = ("data", "model")):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str] = ("data", "model"),
+                 processes: Optional[Sequence[int]] = None, rank: int = 0):
         if devices.ndim != 2 or len(axis_names) != 2:
             raise ValueError(f"a mesh is a 2-D grid with two axis names, got shape "
                              f"{devices.shape} and {tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
+        self.processes = None if processes is None else [int(p) for p in processes]
+        self.rank = int(rank)
+        if self.processes is not None:
+            if len(self.processes) != devices.shape[0] or self.processes != sorted(self.processes):
+                raise ValueError(f"processes {self.processes} must name each of the "
+                                 f"{devices.shape[0]} data rows, in ascending order")
+            if self.rank not in self.processes:
+                raise ValueError(f"process {self.rank} holds no row of the mesh")
+        self.local_rows = [i for i in range(devices.shape[0]) if self.is_local(i)]
+
+    @property
+    def distributed(self) -> bool:
+        """True when the rows span more than one process."""
+        return self.processes is not None and len(set(self.processes)) > 1
+
+    def is_local(self, i: int) -> bool:
+        """Whether this process holds data row ``i``."""
+        return self.processes is None or self.processes[i] == self.rank
+
+    @property
+    def home(self) -> torch.device:
+        """The first device of this process's first row: where its results
+        gather and its collectives run."""
+        return self.devices[self.local_rows[0], 0]
 
     @property
     def data_devices(self) -> List[torch.device]:
@@ -101,33 +129,53 @@ def shard_devices(mesh: Optional[Mesh]) -> Optional[List[torch.device]]:
     return mesh.data_devices
 
 
+def one_process(mesh: Optional[Mesh], what: str) -> None:
+    """Raise ``NotImplementedError`` naming ``what`` when ``mesh`` spans
+    processes: the parts of the port that take only a mesh of one process."""
+    if mesh is not None and getattr(mesh, "distributed", False):
+        raise NotImplementedError(f"{what} across processes is not ported; it takes a mesh of "
+                                  f"one process (ROADMAP queue 1)")
+
+
 class ShardedRows:
     """A ``(shards * rows_per_shard, ...)`` tensor split by rows over a
     mesh's data axis: ``parts[s]`` holds rows ``[s * rows_per_shard,
     (s + 1) * rows_per_shard)`` on ``devices[s]``. ``spec`` names the mesh
     axis of each dimension, as a JAX ``PartitionSpec`` does; one shard lies
-    whole on its device and has no spec."""
+    whole on its device and has no spec. On a mesh across processes the
+    shards of the other processes' rows are None."""
 
-    def __init__(self, parts: List[torch.Tensor]):
-        rows = {int(p.shape[0]) for p in parts}
-        if not parts or len(rows) != 1:
+    def __init__(self, parts: List[Optional[torch.Tensor]]):
+        held = [p for p in parts if p is not None]
+        rows = {int(p.shape[0]) for p in held}
+        if not held or len(rows) != 1:
             raise ValueError(f"shards must be non-empty and of equal rows, got {sorted(rows)}")
         self.parts = parts
         self.rows_per_shard = rows.pop()
-        self.spec = (("data",) + (None,) * (parts[0].dim() - 1)) if len(parts) > 1 else None
+        self.spec = (("data",) + (None,) * (held[0].dim() - 1)) if len(parts) > 1 else None
 
     @property
-    def devices(self) -> List[torch.device]:
-        return [p.device for p in self.parts]
+    def _held(self) -> torch.Tensor:
+        return next(p for p in self.parts if p is not None)
+
+    @property
+    def devices(self) -> List[Optional[torch.device]]:
+        return [None if p is None else p.device for p in self.parts]
 
     @property
     def shape(self) -> tuple:
-        return (self.rows_per_shard * len(self.parts), *self.parts[0].shape[1:])
+        return (self.rows_per_shard * len(self.parts), *self._held.shape[1:])
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.parts[0].dtype
+        return self._held.dtype
+
+    def to(self, device) -> torch.Tensor:
+        """The whole tensor on ``device`` (every shard must be held here)."""
+        if any(p is None for p in self.parts):
+            raise NotImplementedError("the shards of other processes are not held here")
+        return torch.cat([p.to(device) for p in self.parts])
 
     def cpu(self) -> torch.Tensor:
         """The whole tensor on the host."""
-        return torch.cat([p.cpu() for p in self.parts])
+        return self.to("cpu")

@@ -35,6 +35,11 @@ card to card. ``_pick_strategy`` is tpualign's router, with "on the card"
 for its "on a TPU"; ``ring`` over a quantized corpus warns once and runs
 gather. Growth keeps whole shards: an add past the capacity re-splits the
 rows into larger shards, and ``compact`` re-splits the survivors evenly.
+On a mesh across processes (``parallel/multihost.py``) every process is
+given the whole corpus and keeps only its own rows' shards; gather and
+streaming merge each process's winners, then all-gather every process's
+``(Q, k)`` winners and merge them again, so that every process holds the
+global answer. The ring and the mutations there take one process.
 
 ``add``, ``remove`` and ``compact`` change the corpus in place of a
 rebuild, as pgvector's INSERT, DELETE and VACUUM do: appended rows take the
@@ -63,7 +68,7 @@ import torch
 from tpualign_torch.ops.sim_topk import (
     MAX_K, SENTINEL_IDX, masked_sim_topk, masked_sim_topk_reference)
 from tpualign_torch.ops.similarity import NEG_INF, WILDCARD_KEY
-from tpualign_torch.parallel.mesh import ShardedRows, shard_devices
+from tpualign_torch.parallel.mesh import ShardedRows, one_process, shard_devices
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
 
@@ -232,6 +237,16 @@ def _two_key_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
     vals, idx = vals.gather(-1, by_idx), idx.gather(-1, by_idx)
     by_val = torch.sort(vals, dim=-1, descending=True, stable=True).indices[..., :k]
     return vals.gather(-1, by_val), idx.gather(-1, by_val)
+
+
+def _merge_processes(mesh, vals: torch.Tensor, idx: torch.Tensor, k: int):
+    """The winners of every process of ``mesh`` (equal widths), gathered on
+    this process's home device and merged by (value desc, index asc): the
+    global top-k, the same on every process."""
+    from tpualign_torch.parallel.multihost import process_gather
+
+    return _two_key_topk(torch.cat(process_gather(mesh, vals), dim=-1),
+                         torch.cat(process_gather(mesh, idx), dim=-1), k)
 
 
 def _offset(idx: torch.Tensor, offset: int) -> torch.Tensor:
@@ -584,7 +599,7 @@ class RetrievalIndex:
                                 if precision == "fp16" else ""))
         if recall_target is not None and not 0.0 < recall_target <= 1.0:
             raise ValueError(f"recall_target must be in (0, 1], got {recall_target}")
-        self.device = resolve_device(device) if devices is None else devices[0]
+        self.device = resolve_device(device) if devices is None else mesh.home
         # tpualign keeps the mesh only where it shards (a data axis above 1)
         self.mesh = mesh if devices is not None and len(devices) > 1 else None
         self._devices = devices if self.mesh is not None else [self.device]
@@ -615,6 +630,11 @@ class RetrievalIndex:
         n_local = -(-n // len(self._devices))
         fields = {"_corpus": [], "_keys": [], "_corpus_scales": []}
         for s, dev in enumerate(self._devices):
+            if self.mesh is not None and not self.mesh.is_local(s):
+                # another process's shard
+                for name in fields if self.precision in _QUANTIZED else ("_corpus", "_keys"):
+                    fields[name].append(None)
+                continue
             rows = slice(s * n_local, (s + 1) * n_local)
             shard = _padded(corpus[rows], n_local, 0.0)
             if self.precision in _QUANTIZED:
@@ -663,6 +683,7 @@ class RetrievalIndex:
         else:
             keys = np.zeros((m,), np.int32)
         keys = np.asarray(keys, np.int32)
+        one_process(self.mesh, "RetrievalIndex.add on a mesh")
         if self.n == 0:
             self.__dict__.update(self._fields(rows, keys, self.refine))
             return
@@ -720,6 +741,7 @@ class RetrievalIndex:
         idx = idx[(idx >= 0) & (idx < self.n)]
         if idx.size == 0 or self.n == 0:
             return 0
+        one_process(self.mesh, "RetrievalIndex.remove on a mesh")
         n_local, parts, removed = self._n_local, list(self._keys.parts), 0
         for s in np.unique(idx // n_local):
             at = torch.from_numpy(idx[idx // n_local == s] - s * n_local).to(parts[s].device)
@@ -734,6 +756,7 @@ class RetrievalIndex:
         """Tombstoned rows awaiting :meth:`compact` (``/stats``' dead_rows)."""
         if self.n == 0:
             return 0
+        one_process(self.mesh, "RetrievalIndex.dead on a mesh")
         return sum(int((p == -2).sum()) for p in self._keys.parts)
 
     def compact(self) -> np.ndarray:
@@ -745,6 +768,7 @@ class RetrievalIndex:
         over the shards."""
         if self.n == 0:
             return np.zeros((0,), np.int64)
+        one_process(self.mesh, "RetrievalIndex.compact on a mesh")
         keys = self._keys.cpu().numpy()[:self.n]
         live = np.flatnonzero(keys != -2).astype(np.int64)
         if live.size == self.n and int(self._keys.shape[0]) == self.n:
@@ -814,8 +838,8 @@ class RetrievalIndex:
             return "gather"
         if k <= 16 and self.device.type == "cuda":
             return "streaming"
-        if self.precision in _QUANTIZED:
-            return "gather"  # the ring has no quantized path
+        if self.precision in _QUANTIZED or self.mesh.distributed:
+            return "gather"  # the ring has no quantized path, nor one across processes
         return "ring"
 
     def search_device(self, query_embeddings: torch.Tensor, query_keys: torch.Tensor,
@@ -846,21 +870,27 @@ class RetrievalIndex:
         if strategy == "ring":
             from tpualign_torch.parallel.ring import ring_search_fn
 
+            one_process(snap.mesh, "The ring strategy")
             if q.shape[0] % len(snap._devices):
                 raise ValueError("ring strategy needs Q divisible by the data axis; pad "
                                  "queries or use search()")
             return ring_search_fn(snap.mesh, k)(q, qk, snap._corpus, snap._keys)
         # gather and streaming: the kernel on every shard, launched in turn
         # (each on its card's stream), the winners merged on the first card
+        # (and across processes, every process's merged winners again)
         k_local = min(k, snap._n_local)
         vals, idx = [], []
-        for s, dev in enumerate(snap._devices):
+        for s in snap.mesh.local_rows:
+            dev = snap._devices[s]
             v, i = _device_topk(q.to(dev, non_blocking=True), qk.to(dev, non_blocking=True),
                                 snap._corpus.parts[s], snap._keys.parts[s],
                                 None if scales is None else scales.parts[s], k_local)
             vals.append(v.to(snap.device, non_blocking=True))
             idx.append(_offset(i, s * snap._n_local).to(snap.device, non_blocking=True))
-        return _two_key_topk(torch.cat(vals, dim=1), torch.cat(idx, dim=1), k)
+        vals, idx = _two_key_topk(torch.cat(vals, dim=1), torch.cat(idx, dim=1), k)
+        if snap.mesh.distributed:
+            vals, idx = _merge_processes(snap.mesh, vals, idx, k)
+        return vals, idx
 
     def _search_encoded(self, queries: np.ndarray, qk: np.ndarray, k: int,
                         strategy: str = "auto") -> Tuple[np.ndarray, np.ndarray]:

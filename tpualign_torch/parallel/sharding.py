@@ -27,6 +27,12 @@ columns. Card ``j`` of a row holds the q, k and v columns of heads ``[j·H/m,
 blocks would put q and half of k on one card at m=2. ``perm`` records that
 column order; gathering a tensor undoes it, so the values agree.
 
+On a mesh across processes (``parallel/multihost.py``) a process holds
+the parts of its own rows only (the others are None) and
+:meth:`ShardedTensor.positions` lists those; a tensor that FSDP splits
+over ``data`` would need its slices from other processes, which is not
+ported (``NotImplementedError``).
+
 :class:`RowTowers` runs the towers of one data row: the replicated
 parameters on the row's first card, each model-split parameter as its
 parts on the row's cards.
@@ -39,7 +45,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch.func import functional_call
 
-from tpualign_torch.parallel.mesh import Mesh
+from tpualign_torch.parallel.mesh import Mesh, one_process
 
 __all__ = ["clip_param_specs", "shard_params", "data_spec", "ShardedTensor", "RowTowers",
            "row_params", "model_slices", "check_model_split"]
@@ -111,7 +117,8 @@ class ShardedTensor:
     ``parts[i][j]`` lies on ``mesh.devices[i, j]`` and holds the slice the
     spec gives that device (split over ``data`` by ``i`` where the spec
     names it, over ``model`` by ``j`` in ``perm``'s order where it names
-    ``model``, whole elsewhere)."""
+    ``model``, whole elsewhere); None where another process holds row
+    ``i``."""
 
     def __init__(self, parts: List[List[torch.Tensor]], spec: Spec, shape, mesh: Mesh,
                  perm: Optional[torch.Tensor] = None):
@@ -131,7 +138,10 @@ class ShardedTensor:
         src = t.detach()
         if perm is not None:
             src = src.index_select(st.model_dim, perm.to(src.device))
-        st.parts = [[st._fresh(src, i, j, dtype or t.dtype) for j in range(m)] for i in range(d)]
+        if st.data_dim is not None:
+            one_process(mesh, "FSDP (a parameter split over data)")
+        st.parts = [[st._fresh(src, i, j, dtype or t.dtype) if mesh.is_local(i) else None
+                     for j in range(m)] for i in range(d)]
         return st
 
     def _fresh(self, src: torch.Tensor, i: int, j: int, dtype: torch.dtype) -> torch.Tensor:
@@ -149,15 +159,17 @@ class ShardedTensor:
         return ShardedTensor(parts, self.spec, self.shape, self.mesh, self.perm)
 
     def map(self, fn) -> "ShardedTensor":
-        return self.like([[fn(p) for p in row] for row in self.parts])
+        return self.like([[None if p is None else fn(p) for p in row] for row in self.parts])
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.parts[0][0].dtype
+        i, j = self.positions()[0]
+        return self.parts[i][j].dtype
 
     def positions(self):
-        d, m = self.mesh.devices.shape
-        return [(i, j) for i in range(d) for j in range(m)]
+        """The grid positions whose parts this process holds."""
+        m = self.mesh.devices.shape[1]
+        return [(i, j) for i in self.mesh.local_rows for j in range(m)]
 
     def group(self, i: int, j: int) -> tuple:
         """The key shared by the positions that hold the same slice."""
@@ -173,11 +185,12 @@ class ShardedTensor:
 
     def full(self, device=None) -> torch.Tensor:
         """The whole tensor on ``device`` (default: the first device)."""
-        dev = torch.device(device) if device is not None else self.mesh.devices[0, 0]
+        dev = torch.device(device) if device is not None else self.mesh.home
         d, m = self.mesh.devices.shape
         cols = []
         for j in range(m if self.model_dim is not None else 1):
-            rows = [self.parts[i][j].to(dev) for i in range(d if self.data_dim is not None else 1)]
+            rows = [self.parts[i][j].to(dev) for i in (range(d) if self.data_dim is not None
+                                                       else self.mesh.local_rows[:1])]
             cols.append(torch.cat(rows, self.data_dim) if len(rows) > 1 else rows[0])
         t = torch.cat(cols, self.model_dim) if len(cols) > 1 else cols[0]
         if self.perm is not None:

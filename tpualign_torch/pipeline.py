@@ -33,7 +33,7 @@ import torch
 from tpualign_torch.config import PipelineConfig
 from tpualign_torch.data.filtering import filter_lexical_components, load_exclude_terms
 from tpualign_torch.data.processor import DocumentProcessor
-from tpualign_torch.parallel.mesh import shard_devices
+from tpualign_torch.parallel.mesh import one_process, shard_devices
 from tpualign_torch.store import SCHEMAS, EmbeddingStore
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
@@ -94,6 +94,7 @@ class Pipeline:
         self.config = config
         self.mesh = mesh
         devices = shard_devices(mesh)
+        one_process(mesh, "Pipeline(mesh=)")
         self.device = resolve_device(device) if devices is None else devices[0]
         self._engine = engine
         self.store = store or EmbeddingStore(config.store.root,

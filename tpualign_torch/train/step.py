@@ -19,6 +19,15 @@ each card's heads, K5 on the row's first card), the features are gathered
 on the mesh's first card with a differentiable copy and the loss is taken
 there as on one device; each gradient is summed over the positions that
 hold the same slice, and every device updates its own parts.
+
+Over a mesh across processes (``parallel/multihost.py``) every process
+passes the same global batch and runs its own rows on their slices; the
+features of every row are all-gathered on each process's first card (the
+process's own rows stay in the autograd graph, and the logit scale counts
+on the process holding row 0 only), every process takes the same loss, and
+each gradient is summed over the processes (one all-reduce), so every
+process applies the same update and reports the same loss and
+``grad_norm``. FSDP across processes is not ported.
 """
 
 from __future__ import annotations
@@ -75,7 +84,7 @@ def _flat(tree: dict) -> list:
     out = []
     for v in tree.values():
         if isinstance(v, ShardedTensor):
-            out.extend(p for row in v.parts for p in row)
+            out.extend(p for row in v.parts for p in row if p is not None)
         else:
             out.append(v)
     return out
@@ -265,7 +274,7 @@ def _grads(loss: torch.Tensor, leaves: Params) -> Params:
 def _finish(state: TrainState, grads: Params, config: TrainConfig,
             metrics: dict) -> Tuple[TrainState, dict]:
     g_norm = (global_norm(list(grads.values())) if state.mesh is None
-              else _sharded_norm(grads, state.mesh.devices[0, 0]))
+              else _sharded_norm(grads, state.mesh.home))
     state = _update_ema(state.apply_gradients(grads, g_norm), config)
     metrics = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in metrics.items()}
     metrics["grad_norm"] = g_norm
@@ -385,13 +394,17 @@ def _mesh_encode(state: TrainState, model: CLIP, params: Params, images, tokens,
                  patch_indices):
     """Each data row's towers on its slice of the batch (moved to the row's
     first device); the features gathered on the mesh's first device, the
-    logit scale row 0's."""
+    logit scale row 0's. Across processes each process runs its own rows
+    and all-gathers the others' features (process_gather: only its own
+    stay in its graph); a process without row 0 takes its scale detached,
+    so that the scale's gradient is counted once in the sum over the
+    processes."""
     mesh = state.mesh
-    d, first = mesh.shape["data"], mesh.devices[0, 0]
+    d, first = mesh.shape["data"], mesh.home
     imgs, toks = split_rows(images, d), split_rows(tokens, d)
     pidx = [None] * d if patch_indices is None else split_rows(patch_indices, d)
     img_all, txt_all, scale = [], [], None
-    for i in range(d):
+    for i in mesh.local_rows:
         home = mesh.row(i)[0]
         towers = RowTowers(model, _row_params(state, params, i))
         img, txt, s = towers(_as_pixels(_to(imgs[i], home), model), toks[i].to(home),
@@ -399,7 +412,14 @@ def _mesh_encode(state: TrainState, model: CLIP, params: Params, images, tokens,
         img_all.append(img.to(first))
         txt_all.append(txt.to(first))
         scale = s if scale is None else scale
-    return torch.cat(img_all), torch.cat(txt_all), scale
+    img, txt = torch.cat(img_all), torch.cat(txt_all)
+    if mesh.distributed:
+        from tpualign_torch.parallel.multihost import process_gather
+
+        img, txt = torch.cat(process_gather(mesh, img)), torch.cat(process_gather(mesh, txt))
+        if not mesh.is_local(0):
+            scale = scale.detach()
+    return img, txt, scale
 
 
 def _mesh_grads(loss: torch.Tensor, leaves: Dict[str, ShardedTensor]) -> Dict[str, ShardedTensor]:
@@ -407,7 +427,9 @@ def _mesh_grads(loss: torch.Tensor, leaves: Dict[str, ShardedTensor]) -> Dict[st
     position's device) of the gradients that the positions holding the same
     slice received, copied to each of them. A replicated parameter sums
     over the data rows; an FSDP slice has its sum over the rows from
-    autograd already (its gather's backward)."""
+    autograd already (its gather's backward). Across processes each
+    slice's sum over this process's positions is then summed over the
+    processes (process_sum)."""
     order = [(name, i, j) for name, st in leaves.items() for i, j in st.positions()]
     got = dict(zip(order, torch.autograd.grad(
         loss, [leaves[n].parts[i][j] for n, i, j in order], allow_unused=True)))
@@ -417,6 +439,7 @@ def _mesh_grads(loss: torch.Tensor, leaves: Dict[str, ShardedTensor]) -> Dict[st
         for i, j in st.positions():
             groups.setdefault(st.group(i, j), []).append((i, j))
         parts = [[None] * len(row) for row in st.parts]
+        totals = []
         for pos in groups.values():
             head = st.parts[pos[0][0]][pos[0][1]]
             total = None
@@ -425,12 +448,22 @@ def _mesh_grads(loss: torch.Tensor, leaves: Dict[str, ShardedTensor]) -> Dict[st
                 if g is not None:
                     g = g.to(head.device)
                     total = g if total is None else total + g
-            if total is None:
-                total = torch.zeros_like(head)
+            totals.append(torch.zeros_like(head) if total is None else total)
+        out[name] = (st, groups, parts, totals)
+    mesh = next(iter(leaves.values())).mesh
+    if mesh.distributed:
+        from tpualign_torch.parallel.multihost import process_sum
+
+        summed = iter(process_sum(mesh, [t for *_, totals in out.values() for t in totals]))
+        out = {name: (st, groups, parts, [next(summed) for _ in totals])
+               for name, (st, groups, parts, totals) in out.items()}
+    grads = {}
+    for name, (st, groups, parts, totals) in out.items():
+        for pos, total in zip(groups.values(), totals):
             for n, (i, j) in enumerate(pos):
                 parts[i][j] = total if n == 0 else total.to(st.parts[i][j].device, copy=True)
-        out[name] = st.like(parts)
-    return out
+        grads[name] = st.like(parts)
+    return grads
 
 
 def _sharded_norm(grads: Dict[str, ShardedTensor], first: torch.device) -> torch.Tensor:
@@ -496,7 +529,7 @@ def make_sharded_train_step(model: CLIP, mesh, config: TrainConfig, state_shardi
     _reject_quantized_model(model)
     shard_devices(mesh)  # refuses anything but the port's Mesh
     check_model_split(model, mesh.shape["model"])
-    first = mesh.devices[0, 0]
+    first = mesh.home
 
     def laid_out(tree: Params, like: Dict[str, ShardedTensor]) -> Dict[str, ShardedTensor]:
         return {k: ShardedTensor.from_full(v, mesh, like[k].spec, like[k].perm)

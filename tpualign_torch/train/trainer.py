@@ -35,7 +35,7 @@ from tpualign_torch.models.convert import from_jax_params
 from tpualign_torch.models.loader import load_checkpoint_params
 from tpualign_torch.ops.preprocess import pad_to_bucket, preprocess_host, sample_crop_boxes
 from tpualign_torch.parallel.embed import truncate_to_bucket
-from tpualign_torch.parallel.mesh import shard_devices
+from tpualign_torch.parallel.mesh import one_process, shard_devices
 from tpualign_torch.parallel.sharding import RowTowers, row_params, shard_params
 from tpualign_torch.store import EmbeddingStore
 from tpualign_torch.tokenizer import ClipTokenizer
@@ -126,6 +126,7 @@ class Trainer:
         self.config = config
         self.mesh = mesh
         devices = shard_devices(mesh)
+        one_process(mesh, "Trainer(mesh=)")
         self.device = resolve_device(device) if devices is None else devices[0]
         self.variant = config.model.variant
         self.store = store or EmbeddingStore(config.store.root,
