@@ -5,7 +5,9 @@
 Run from the root of a checkout, on a machine with one CUDA card or more
 (an H100 for the numbers in PERF.md; the mesh phase takes four distinct
 cards where the host has four). ``--mesh-only`` runs 1., 8.-10., 16., 17.,
-11. and 15. alone, with no kernels line: the four-card run. Phases, one JSON
+11. and 15. alone, with no kernels line: the four-card run; it skips the
+checks that the one-card run makes (the stored embeddings against the
+seeded engine, the serve phase's int4 and int2 rungs). Phases, one JSON
 line each:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
@@ -201,31 +203,42 @@ line each:
     params (loss within 1e-4, grad_norm within 1e-3 relative, params within
     1e-2 x lr where |g| >= 1e-3 x the leaf's max; FSDP against replicated
     within 1e-5 and 2e-6), each card's peak; then 3 bf16 steps of
-    ``Trainer(mesh=)`` on (2, 2) over the store with the device feed (step
-    ms, the feed's wait, every card's peak; K1 forward and recompute on
-    every part of every block, K5 once a data row and step). Four distinct
-    cards where the host has them, else card 0 repeated; with
-    ``--mesh-only`` on four cards also one card's, (4, 1) and (4, 1) FSDP
-    Trainers in process with each card's idle share (``torch.profiler``,
-    the feed included), ``python -m tpualign_torch train`` as processes on
-    one card, with ``--mesh-data 4`` and with ``TRAIN_FSDP=1 --mesh-data
-    4`` (3 steps each: the loop's ms a step, pairs/s, each card's peak),
-    where a bf16 step's host time goes on one card and (2, 2) (forward,
-    backward, update, its CUDA events and their device time), and ViT-H-14
-    at its full widths, seeded (one fp32 step on (1, 4) and on
-    (4, 1) FSDP against one card's at 4 blocks a tower, B=8; 3 timed bf16
-    steps at full depth on (2, 2), B=64);
+    ``Trainer(mesh=)`` with TRAIN_FSDP on (2, 2) over the store with the
+    device feed, after one warm-up (step ms, the feed's wait, every step's
+    loss, every card's peak; K1 forward and recompute on every part of
+    every block, K5 once a data row and step). Four distinct cards where
+    the host has them, else card 0 repeated; without ``--mesh-only`` also
+    the (2, 2) Trainer without FSDP and a bf16 step's host time by part
+    (forward, backward, update; one card and (2, 2)); with ``--mesh-only``
+    on four cards also (4, 1) and (4, 1) FSDP Trainers in process with each card's
+    idle share (``torch.profiler``, the feed included; the FSDP one over
+    the pairs the multihost quad trains on), ``python -m tpualign_torch
+    train`` as processes with ``--mesh-data 4`` and with ``TRAIN_FSDP=1
+    --mesh-data 4`` (3 steps each: the loop's ms a step, pairs/s, each
+    card's peak), and ViT-H-14 at its full widths, seeded (one fp32 step on
+    (1, 4) and on (4, 1) FSDP against one card's at 4 blocks a tower, B=8;
+    3 timed bf16 steps at full depth on (2, 2), B=64);
 17. multihost, with four cards and ``--mesh-only`` only: processes across
     the cards (``tpualign_torch.parallel.multihost``, NCCL), each started
     with COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID and its
     CUDA_VISIBLE_DEVICES: two processes of two cards (the sum across them;
     the exact index at int8 and fp32 over 100,000 seeded rows, sharded over
-    hybrid_mesh(1), gather and streaming, every answer equal to this
-    process's one-process mesh on the same four cards; one ViT-B-32 fp32
-    step on hybrid_mesh(2) at B=64 against mesh_train's one-process (2, 2)
-    step, the two processes' loss equal), then, as a measurement, four
-    processes of one card running the (4, 1) bf16 step at B=256 beside the
-    same step in this process (step ms, each card's idle share);
+    hybrid_mesh(1), built, after 256 keyed rows added past its capacity,
+    after a remove of a quarter and after a compact, gather and streaming,
+    every answer, tombstone count and compact permutation equal to this
+    process's one-process mesh on the same four cards, and the fp32 ring
+    bit-equal to gather; one ViT-B-32 fp32 step on hybrid_mesh(2) at B=64
+    against mesh_train's one-process (2, 2) step, the two processes' loss
+    equal; ``Trainer(mesh=hybrid_mesh(2))`` with TRAIN_FSDP, 3 bf16 steps
+    at B=256 with the device feed, its losses equal on both processes and
+    within 1e-4 of mesh_train's in-process (2, 2) FSDP Trainer, its
+    checkpoint read here bit-equal to process 0's export), then four
+    processes of one card running ``Trainer(mesh=hybrid_mesh(1))`` with
+    TRAIN_FSDP for 10 steps with held-out evaluation at the start and the
+    end (losses equal across the processes and within 1e-4 of mesh_train's
+    in-process (4, 1) FSDP Trainer, held-out metrics equal; step ms,
+    pairs/s, the feed's share, each card's idle share and peak), and each
+    process's K1, K2, K3 and K5 launches;
 18. the seconds of each phase, the kernels line, the card line, and
     ``{"ok": true, ...}`` last.
 
@@ -1450,13 +1463,14 @@ def _query_cli(env, image_id, service, dev):
     return secs
 
 
-def phase_serve(dev, seed, root, checkpoint):
+def phase_serve(dev, seed, root, checkpoint, precisions=("int8", "int4", "int2")):
     """The serving path: the port's store, build_service + serve_schemas at
     int8 with refine 4 and ViT-B-32 towers loaded from the checkpoint
     (``/stats`` reports it), eight clients, every answer held against the
-    plain path; then int4 and int2 rebuilds, recall against exact fp32,
-    and the ``query --image-id`` CLI. Returns the launches, and what
-    serve_ivf reuses."""
+    plain path; then the index rebuilt standalone at each of
+    ``precisions`` (the four-card run: int8 alone, the one-card run checks
+    the int4 and int2 rungs), recall against exact fp32, and the ``query
+    --image-id`` CLI. Returns the launches, and what serve_ivf reuses."""
     from tpualign_torch.config import load_config
     from tpualign_torch.ops.attention import fused_mha
     from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
@@ -1545,7 +1559,7 @@ def phase_serve(dev, seed, root, checkpoint):
     rungs = {}
     cli = _beside(_query_cli, {"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8",
                                "RETRIEVAL_REFINE": "4"}, images[7]["image_id"], service, dev)
-    for precision in ("int8", "int4", "int2"):
+    for precision in precisions:
         kw = dict(index_kwargs(config, "vanilla_clip"), precision=precision)
         t0 = time.perf_counter()
         rung = build_index(chunk_emb, manuals, pages, device=dev, **kw)
@@ -2720,7 +2734,7 @@ def _run_twice(dev, env, work) -> dict:
                        "metrics_identical": True}}
 
 
-def phase_pipeline(dev, seed, root, feed_names, checkpoint):
+def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True):
     """The pipeline as a user runs it, from raw manuals: ``python -m
     tpualign_torch process``, ``filter``, ``setup-db``, ``embed``
     (IMAGE_PREPROCESS=device) and ``evaluate`` as subprocesses over 256
@@ -2731,7 +2745,9 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
     the CPU ``compute_alignments``; beside them, ``run`` in one command
     over 32 of the manuals, twice, then ``ingest`` over that store
     (``_ingest_notify``); with MESH_SHARDS cards or more, ``embed
-    --mesh-data`` (_mesh_embed_cli). Returns the launches of the five
+    --mesh-data`` (_mesh_embed_cli). Without ``bitwise`` (the four-card
+    run: the one-card run checks it) the stored embeddings are not held
+    against the seeded engine. Returns the launches of the five
     stages, K2 at the Evaluator's search, ingest's launches and the mesh
     embed's record (None on fewer cards)."""
     import json
@@ -2789,10 +2805,11 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint):
         metrics = json.load(f)
     check(sorted(metrics) == sorted(SCHEMAS), f"metrics.json holds {sorted(metrics)}")
     store = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
-    t0 = time.perf_counter()
-    bitwise = _check_embeddings_bitwise(dev, env, store, images, chunks,
-                                        os.path.join(out, "images"))
-    bitwise["s"] = time.perf_counter() - t0
+    if bitwise:
+        t0 = time.perf_counter()
+        bitwise = _check_embeddings_bitwise(dev, env, store, images, chunks,
+                                            os.path.join(out, "images"))
+        bitwise["s"] = time.perf_counter() - t0
     # on a host of MESH_SHARDS cards or more: the same stage on the mesh
     mesh_embed = (_mesh_embed_cli(env, work, store, secs["embed"], len(images))
                   if torch.cuda.device_count() >= MESH_SHARDS else None)
@@ -3153,13 +3170,13 @@ def _sync_all():
 def _timed_steps(trainer, triples, seed, steps=TRAIN_TIMED_STEPS) -> dict:
     """One warm-up step, then ``steps`` steps at B=256 through the feed:
     the wait for each batch (decode, upload) and the step on the cards
-    (synchronised), peak memory (the current card's, and every card's),
-    and the kernels' launches."""
+    (synchronised), every step's loss (the warm-up's first), peak memory
+    (the current card's, and every card's), and the kernels' launches."""
     from tpualign_torch.ops.attention import fused_mha
     from tpualign_torch.ops.normalize import normalize_u8
 
     it = trainer.batches(triples, B, seed=seed)
-    feed_s, step_s = [], []
+    feed_s, step_s, losses = [], [], []
     try:
         for i in range(steps + 1):
             if i == 1:
@@ -3173,6 +3190,7 @@ def _timed_steps(trainer, triples, seed, steps=TRAIN_TIMED_STEPS) -> dict:
             t1 = time.perf_counter()
             trainer.state, m = trainer._step(trainer.state, *batch)
             loss = float(m["loss"])
+            losses.append(loss)
             _sync_all()
             t2 = time.perf_counter()
             check(np.isfinite(loss), f"timed step {i}: loss {loss}")
@@ -3184,6 +3202,7 @@ def _timed_steps(trainer, triples, seed, steps=TRAIN_TIMED_STEPS) -> dict:
     step_ms = 1e3 * float(np.mean(step_s))
     feed_ms = 1e3 * float(np.mean(feed_s))
     return {"step_ms": step_ms, "feed_wait_ms": feed_ms, "step_ms_each": [1e3 * x for x in step_s],
+            "losses": losses,
             "feed_share": feed_ms / (feed_ms + step_ms),
             "pairs_per_s_device": B / (step_ms / 1e3),
             "pairs_per_s_with_feed": B / ((step_ms + feed_ms) / 1e3),
@@ -4707,89 +4726,29 @@ def _mesh_step_checks(dev, model, batch, shapes, tally, what) -> dict:
     return out
 
 
-def _step_parts(dev, seed) -> dict:
-    """Where a train step's host time goes: ViT-B-32 bf16, B=256, a seeded
-    batch, on one card, then on (2, 2) (distinct cards where the host has
-    four, else card 0 repeated): the forward (towers and loss), the
-    backward (autograd and the gradient sums) and the update (norm, AdamW),
-    each ended by a synchronize of every card (host clock, the mean of
-    MESH_TRAIN_STEPS after one warm-up), and the CUDA events of one profiled
-    step with their summed device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from tpualign_torch.config import TrainConfig, load_config
-    from tpualign_torch.models.clip import build_clip, init_clip_params
-    from tpualign_torch.train import step as S
-
-    config = load_config({"CLIP_MODEL": "ViT-B-32"})
-    model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
-    images, tokens, weak = _train_batch(dev, seed, B, config.model.variant.image_size)
-    cfg = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=10)
-
-    def one_step(state):
-        marks = [time.perf_counter()]
-        leaves = S._leaves(state.params)
-        img, txt, scale = S._encode(state, model, leaves, images, tokens, None)
-        loss, metrics = S._compose_loss(img, txt, scale, weak, cfg, None)
-        _sync_all()
-        marks.append(time.perf_counter())
-        grads = S._grads(loss, leaves)
-        _sync_all()
-        marks.append(time.perf_counter())
-        state, m = S._finish(state, grads, cfg, metrics)
-        float(m["loss"])
-        _sync_all()
-        marks.append(time.perf_counter())
-        return state, [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
-
-    out = {}
-    for name, shape in (("one_card", None), ("2x2", (2, 2))):
-        state = S.create_train_state(model, S.model_params(model), cfg)
-        if shape is not None:
-            state = S.make_sharded_train_step(model, _mesh_of(dev, *shape), cfg)[1](state)
-        _sync_all()
-        state, _ = one_step(state)
-        parts = []
-        for _ in range(MESH_TRAIN_STEPS):
-            state, ms = one_step(state)
-            parts.append(ms)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, _ = one_step(state)
-        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        mean = np.mean(parts, axis=0)
-        out[name] = {"forward_ms": mean[0], "backward_ms": mean[1], "update_ms": mean[2],
-                     "step_ms": float(mean.sum()), "cuda_events_a_step": len(kernels),
-                     "device_ms_a_step": sum(e.time_range.end - e.time_range.start
-                                             for e in kernels) / 1e3}
-        del state
-        _reset_peaks()
-    return out
-
-
-def _mesh_trainer(dev, env, triples, seed, mesh, tally, idle: bool) -> dict:
-    """``Trainer(mesh=)`` (or one card's Trainer when ``mesh`` is None) on
-    the pipeline store with the device feed, bf16, B=256: MESH_TRAIN_STEPS
-    timed steps (``_timed_steps``: step ms, the feed's wait, every card's
-    peak) and, with ``idle``, each card's idle share over MESH_IDLE_STEPS
-    more steps, the feed included (``_card_idle``)."""
+def _mesh_trainer(env, triples, seed, mesh, tally, idle: bool) -> dict:
+    """``Trainer(mesh=)`` on the pipeline store's ``triples`` with the
+    device feed, bf16, B=256: MESH_TRAIN_STEPS timed steps
+    (``_timed_steps``: step ms, the feed's wait, every step's loss, every
+    card's peak) and, with ``idle``, each card's idle share over
+    MESH_IDLE_STEPS more steps, the feed included (``_card_idle``)."""
     from tpualign_torch.config import load_config
     from tpualign_torch.train.trainer import Trainer
 
     _reset_peaks()
-    trainer = (Trainer(load_config(env), mesh=mesh) if mesh is not None
-               else Trainer(load_config(env), device=dev))
+    trainer = Trainer(load_config(env), mesh=mesh)
     row = _timed_steps(trainer, triples, seed, steps=MESH_TRAIN_STEPS)
-    if mesh is not None:
-        for key in ("fused_mha", "fused_mha_backward", "normalize_u8"):
-            tally[key] = tally.get(key, 0) + row["launches"][key]
-        d, m = mesh.shape["data"], mesh.shape["model"]
-        v = trainer.variant
-        blocks = (v.vision_layers + v.text_layers) * d * m * MESH_TRAIN_STEPS
-        check(row["launches"]["fused_mha"] == blocks
-              and row["launches"]["fused_mha_backward"] == blocks
-              and row["launches"]["normalize_u8"] == d * MESH_TRAIN_STEPS,
-              f"Trainer(mesh={d}x{m}): launches {row['launches']} in {MESH_TRAIN_STEPS} steps")
-        row["mesh"] = {"shape": mesh.shape, "devices": [str(x) for x in mesh.devices.flat]}
+    for key in ("fused_mha", "fused_mha_backward", "normalize_u8"):
+        tally[key] = tally.get(key, 0) + row["launches"][key]
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    v = trainer.variant
+    blocks = (v.vision_layers + v.text_layers) * d * m * MESH_TRAIN_STEPS
+    check(row["launches"]["fused_mha"] == blocks
+          and row["launches"]["fused_mha_backward"] == blocks
+          and row["launches"]["normalize_u8"] == d * MESH_TRAIN_STEPS,
+          f"Trainer(mesh={d}x{m}): launches {row['launches']} in {MESH_TRAIN_STEPS} steps")
+    row["mesh"] = {"shape": mesh.shape, "devices": [str(x) for x in mesh.devices.flat],
+                   "fsdp": trainer.config.train.fsdp, "pairs": len(triples)}
     if idle:
         it = trainer.batches(triples, B, seed=seed + 1)
 
@@ -4883,24 +4842,87 @@ def _h14(dev, seed, tally) -> dict:
     return out
 
 
-def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> dict:
+def _step_parts(dev, seed) -> dict:
+    """Where a train step's host time goes: ViT-B-32 bf16, B=256, a seeded
+    batch, on one card, then on (2, 2) (distinct cards where the host has
+    four, else card 0 repeated): the forward (towers and loss), the
+    backward (autograd and the gradient sums) and the update (norm, AdamW),
+    each ended by a synchronize of every card (host clock, the mean of
+    MESH_TRAIN_STEPS after one warm-up), and the CUDA events of one profiled
+    step with their summed device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpualign_torch.config import TrainConfig, load_config
+    from tpualign_torch.models.clip import build_clip, init_clip_params
+    from tpualign_torch.train import step as S
+
+    config = load_config({"CLIP_MODEL": "ViT-B-32"})
+    model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
+    images, tokens, weak = _train_batch(dev, seed, B, config.model.variant.image_size)
+    cfg = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=10)
+
+    def one_step(state):
+        marks = [time.perf_counter()]
+        leaves = S._leaves(state.params)
+        img, txt, scale = S._encode(state, model, leaves, images, tokens, None)
+        loss, metrics = S._compose_loss(img, txt, scale, weak, cfg, None)
+        _sync_all()
+        marks.append(time.perf_counter())
+        grads = S._grads(loss, leaves)
+        _sync_all()
+        marks.append(time.perf_counter())
+        state, m = S._finish(state, grads, cfg, metrics)
+        float(m["loss"])
+        _sync_all()
+        marks.append(time.perf_counter())
+        return state, [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+
+    out = {}
+    for name, shape in (("one_card", None), ("2x2", (2, 2))):
+        state = S.create_train_state(model, S.model_params(model), cfg)
+        if shape is not None:
+            state = S.make_sharded_train_step(model, _mesh_of(dev, *shape), cfg)[1](state)
+        _sync_all()
+        state, _ = one_step(state)
+        parts = []
+        for _ in range(MESH_TRAIN_STEPS):
+            state, ms = one_step(state)
+            parts.append(ms)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = one_step(state)
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        mean = np.mean(parts, axis=0)
+        out[name] = {"forward_ms": mean[0], "backward_ms": mean[1], "update_ms": mean[2],
+                     "step_ms": float(mean.sum()), "cuda_events_a_step": len(kernels),
+                     "device_ms_a_step": sum(e.time_range.end - e.time_range.start
+                                             for e in kernels) / 1e3}
+        del state
+        _reset_peaks()
+    return out
+
+
+def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> tuple:
     """The sharded towers and the mesh train step (see _mesh_step_checks,
     _mesh_trainer): ViT-B-32 at full width, seeded, COMPUTE_DTYPE=float32,
     B=MESH_TRAIN_B, one step on each of (4, 1), (2, 2), (1, 4) and (4, 1)
     with TRAIN_FSDP against the one-card step; then MESH_TRAIN_STEPS bf16
-    steps of ``Trainer(mesh=)`` on (2, 2) over the pipeline store with the
-    device feed. Four distinct cards where the host has them (else card 0
-    repeated). With ``four_cards`` also: one card's Trainer, (4, 1) and
-    (4, 1) with TRAIN_FSDP in process (step ms, each card's idle share and
-    peak), ``train`` as processes on one card, with ``--mesh-data 4`` and
-    with ``TRAIN_FSDP=1 --mesh-data 4``, a step's host time by part
-    (_step_parts), and ViT-H-14 (_h14)."""
+    steps of ``Trainer(mesh=)`` with TRAIN_FSDP on (2, 2) over the pipeline
+    store with the device feed. Four distinct cards where the host has them
+    (else card 0 repeated). Without ``four_cards`` also the (2, 2) Trainer
+    without FSDP and a step's host time by part (_step_parts). With
+    ``four_cards`` also: (4, 1) and (4, 1) with TRAIN_FSDP in process (step
+    ms, each card's idle share and peak; the FSDP one over the pairs the
+    multihost phase's quad trains on), ``train`` as processes with
+    ``--mesh-data 4`` and with ``TRAIN_FSDP=1 --mesh-data 4``, and ViT-H-14
+    (_h14). Returns the launches, the fp32 checks and the Trainers' rows
+    (the multihost phase holds its Trainers to the (2, 2) and (4, 1) FSDP
+    ones)."""
     import os
 
     from tpualign_torch.config import load_config
     from tpualign_torch.models.clip import build_clip, init_clip_params
     from tpualign_torch.store import EmbeddingStore
-    from tpualign_torch.train.trainer import build_pair_dataset
+    from tpualign_torch.train.trainer import build_pair_dataset, heldout_split
 
     tally: dict = {}
     head = {"phase": "mesh_train", "card": card, "model": "ViT-B-32"}
@@ -4918,18 +4940,22 @@ def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> dic
     store = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
     triples = build_pair_dataset(store, "clip_combined",
                                  os.path.join(env["OUTPUT_DIR"], "images"))
-    runs = [("2x2", _mesh_of(dev, 2, 2), env)]
+    fsdp = {**env, "TRAIN_FSDP": "1"}
+    runs = [("2x2_fsdp", _mesh_of(dev, 2, 2), fsdp, triples)]
     if four_cards:
-        runs = [("one_card", None, env), ("data4", _mesh_of(dev, 4, 1), env),
-                ("data4_fsdp", _mesh_of(dev, 4, 1), {**env, "TRAIN_FSDP": "1"})] + runs
-    part("trainer", {name: _mesh_trainer(dev, case_env, triples, seed, mesh, tally, four_cards)
-                     for name, mesh, case_env in runs})
-    if four_cards:
+        quad_triples = heldout_split(triples, seed, QUAD_EVAL_FRACTION)[1]
+        runs = [("data4", _mesh_of(dev, 4, 1), env, triples),
+                ("data4_fsdp", _mesh_of(dev, 4, 1), fsdp, quad_triples)] + runs
+    else:
+        runs = [("2x2", _mesh_of(dev, 2, 2), env, triples)] + runs
+    trainers = {name: _mesh_trainer(case_env, case_triples, seed, mesh, tally, four_cards)
+                for name, mesh, case_env, case_triples in runs}
+    part("trainer", trainers)
+    if not four_cards:
         part("step_parts", _step_parts(dev, seed))
     if four_cards:
         work = os.path.join(root, "pipeline")
         part("processes", {
-            "one_card": _mesh_train_process(env, work, "one-card", 1, 1),
             "data4": _mesh_train_process(env, work, "data4", 4, 1,
                                          extra_args=("--mesh-data", "4")),
             "data4_fsdp": _mesh_train_process(env, work, "data4-fsdp", 4, 1,
@@ -4939,7 +4965,7 @@ def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> dic
     emit({**head, "launches": dict(tally)})
     for name in ("fused_mha", "fused_mha_backward", "normalize_u8"):
         check(tally.get(name, 0) > 0, f"{name} was not launched on the mesh_train path")
-    return tally, checks
+    return tally, checks, trainers
 
 
 # -- multihost: processes across the cards of one host ---------------------------
@@ -4947,14 +4973,18 @@ def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> dic
 MULTIHOST_ROWS = 100_000   # the seeded corpus every process builds alike
 MULTIHOST_PAGES = 2_000
 MULTIHOST_QUERIES = 512    # keyed queries, and as many wildcard ones
-MULTIHOST_QUAD_B = 256     # the (4, 1) bf16 step's global batch (BATCH_SIZE)
-MULTIHOST_QUAD_STEPS = 3   # timed steps, after one warm-up
+MULTIHOST_ADD = 256        # keyed rows added past the index's capacity
+MULTIHOST_REMOVE_SHARE = 0.25
+QUAD_STEPS = 10            # the (4, 1) FSDP Trainer's steps in four processes
+QUAD_EVAL_FRACTION = 0.1   # its held-out share, evaluated at the start and the end
 
 
 def _multihost_corpus(seed):
     """Unit rows around page topics (16 duplicated: exact ties across
     shards), their manuals and pages, keyed queries near stored rows and
-    wildcard ones; numpy-seeded, so every process builds the same."""
+    wildcard ones, MULTIHOST_ADD keyed rows to add (4 of them ties with
+    stored rows) and the ids to remove after the add; numpy-seeded, so
+    every process builds the same."""
     rng = np.random.default_rng(seed + 23)
     topics = rng.normal(size=(MULTIHOST_PAGES, 512)).astype(np.float32)
     page = rng.integers(0, MULTIHOST_PAGES, MULTIHOST_ROWS)
@@ -4968,63 +4998,159 @@ def _multihost_corpus(seed):
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     keyed = (q[:MULTIHOST_QUERIES], [manuals[i] for i in pick[:MULTIHOST_QUERIES]],
              [pages[i] for i in pick[:MULTIHOST_QUERIES]])
-    return rows, manuals, pages, keyed, q[MULTIHOST_QUERIES:]
+    extra = rng.integers(0, MULTIHOST_PAGES, MULTIHOST_ADD)
+    add = topics[extra] + 1.5 * rng.normal(size=(MULTIHOST_ADD, 512)).astype(np.float32)
+    add[:4] = rows[16:20]
+    add /= np.linalg.norm(add, axis=1, keepdims=True)
+    added = (add, [f"m{p // 100}" for p in extra], [int(p % 100) for p in extra])
+    total = MULTIHOST_ROWS + MULTIHOST_ADD
+    remove = np.sort(rng.choice(total, int(total * MULTIHOST_REMOVE_SHARE), replace=False))
+    return rows, manuals, pages, keyed, q[MULTIHOST_QUERIES:], added, remove
 
 
 def _multihost_searches(mesh, seed) -> tuple:
-    """The exact index over _multihost_corpus on ``mesh`` at int8 and
-    fp32, gather and streaming, keyed and wildcard, k=10 and k=100: host
-    answers by name, and the ms of each search (host clock)."""
+    """The exact index over _multihost_corpus on ``mesh`` at int8 and fp32:
+    built, after MULTIHOST_ADD keyed rows past its capacity, after a remove
+    of MULTIHOST_REMOVE_SHARE of the ids and after a compact, each time
+    gather and streaming, keyed and wildcard, k=10 and k=100; then the fp32
+    ring over the keyed queries (Q a multiple of 4), bit-equal to gather.
+    Returns the host answers by name, the tombstone counts and compact
+    permutations by name, and the ms of each search (host clock)."""
     from tpualign_torch.parallel.retrieval import RetrievalIndex
 
-    rows, manuals, pages, (qk, qman, qpg), qw = _multihost_corpus(seed)
-    answers, ms = {}, {}
-    for precision in ("int8", "fp32"):
-        index = RetrievalIndex(rows, manuals, pages, precision=precision, mesh=mesh)
+    rows, manuals, pages, (qk, qman, qpg), qw, added, remove = _multihost_corpus(seed)
+    answers, facts, ms = {}, {}, {}
+
+    def searches(index, stage):
         for strategy in ("gather", "streaming"):
             for k in (10, 100):
                 for what, q, kw in (("keyed", qk, dict(query_manuals=qman, query_pages=qpg)),
                                     ("wildcard", qw, dict(global_search=True))):
-                    name = f"{precision}-{strategy}-k{k}-{what}"
+                    name = f"{index.precision}-{stage}-{strategy}-k{k}-{what}"
                     index.search(q, k=k, strategy=strategy, **kw)  # warm-up, untimed
                     t0 = time.perf_counter()
                     answers[name] = index.search(q, k=k, strategy=strategy, **kw)
                     ms[name] = (time.perf_counter() - t0) * 1e3
+
+    for precision in ("int8", "fp32"):
+        index = RetrievalIndex(rows, manuals, pages, precision=precision, mesh=mesh)
+        searches(index, "built")
+        capacity = index._n_local
+        index.add(*added)
+        check(index._n_local > capacity, f"{precision}: the add did not grow the capacity")
+        searches(index, "add")
+        facts[f"{precision}-counts"] = np.array([index.remove(remove), index.dead, index.n])
+        searches(index, "remove")
+        facts[f"{precision}-perm"] = index.compact()
+        facts[f"{precision}-compacted"] = np.array([index.dead, index.n, index._n_local])
+        searches(index, "compact")
+        if precision == "fp32":
+            ring = index.search(qk, qman, qpg, k=10, strategy="ring")
+            gather = answers["fp32-compact-gather-k10-keyed"]
+            check(all(np.array_equal(a, b) for a, b in zip(ring, gather)),
+                  "the fp32 ring differs from gather")
+            answers["fp32-compact-ring-k10-keyed"] = ring
         del index
-    return answers, ms
+    return answers, facts, ms
 
 
-def _timed_mesh_steps(model, mesh, batch, steps) -> dict:
-    """The step ``Trainer(mesh=)`` runs (make_sharded_train_step) on a
-    seeded batch of float pixels: one warm-up step, ``steps`` timed ones
-    (host clock, every visible card synchronised), then each visible
-    card's idle share over one more (_card_idle)."""
-    from tpualign_torch.config import TrainConfig
-    from tpualign_torch.train import step as S
+def _params_digest(tree, prefix="") -> dict:
+    """sha256 of every leaf of a JAX-layout tree of arrays, by path."""
+    import hashlib
 
-    cfg = TrainConfig(learning_rate=MESH_TRAIN_LR, warmup_steps=0, total_steps=100)
-    run, shard_state = S.make_sharded_train_step(model, mesh, cfg)
-    state = shard_state(S.create_train_state(model, S.model_params(model), cfg))
-    state, m = run(state, *batch)
-    _sync_all()
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_params_digest(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+    return out
+
+
+def _multihost_trainer(env, mesh, work, tag, steps, eval_fraction, idle: bool) -> dict:
+    """``Trainer(mesh=)`` in this process of a mesh across processes, over
+    the pipeline store (bf16, the device feed, B=256, ``env``'s
+    TRAIN_FSDP): ``train`` for ``steps`` steps into ``<work>/<tag>-ck``
+    (held-out evaluation at the start and the end when ``eval_fraction``
+    > 0), through a wrapper around the Trainer's step: every step's loss,
+    the step synchronised on this process's cards (host clock), the wait
+    before it (the feed), with ``idle`` the last step under the profiler
+    (this process's cards' idle share); the kernels' launches, each card's
+    peak memory, the held-out trajectory, and process 0's digest of the
+    export params (which every process gathers)."""
+    import os
+
+    from tpualign_torch.config import load_config
+    from tpualign_torch.models.convert import to_jax_layout
+    from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.normalize import normalize_u8
+    from tpualign_torch.train.trainer import Trainer
+
+    trainer = Trainer(load_config(env), mesh=mesh)
+    real = trainer._step
+    losses, step_s, feed_s, ended, profiled = [], [], [], [], {}
+
+    def timed(*args):
+        _sync_all()
+        t0 = time.perf_counter()
+        if ended:
+            feed_s.append(t0 - ended[-1])
+        if idle and len(losses) == steps - 1:
+            box = []
+            profiled.update(_card_idle(lambda: box.append(real(*args))))
+            result = box[0]
+        else:
+            result = real(*args)
+        losses.append(float(result[1]["loss"]))
+        _sync_all()
+        ended.append(time.perf_counter())
+        step_s.append(ended[-1] - t0)
+        return result
+
+    trainer._step = timed
+    _reset_peaks()
+    fused_mha.launches = fused_mha.backward_recomputes = normalize_u8.launches = 0
     t0 = time.perf_counter()
-    for _ in range(steps):
-        state, m = run(state, *batch)
-    _sync_all()
-    ms = (time.perf_counter() - t0) / steps * 1e3
-    idle = _card_idle(lambda: run(state, *batch))
-    return {"ms": ms, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "idle": idle, "steps": steps}
+    out = trainer.train(schema="clip_combined", steps=steps, batch_size=B, log_every=1,
+                        ckpt_dir=os.path.join(work, f"{tag}-ck"),
+                        eval_every=steps if eval_fraction else 0, eval_fraction=eval_fraction,
+                        metrics_file=os.path.join(work, f"{tag}-metrics.jsonl"))
+    train_s = time.perf_counter() - t0
+    launches = {"fused_mha": fused_mha.launches,
+                "fused_mha_backward": fused_mha.backward_recomputes,
+                "normalize_u8": normalize_u8.launches}
+    rows, m = len(mesh.local_rows), mesh.shape["model"]
+    v = trainer.variant
+    check(launches["fused_mha_backward"] == (v.vision_layers + v.text_layers) * rows * m * steps
+          and launches["normalize_u8"] == rows * steps and launches["fused_mha"] > 0,
+          f"Trainer across processes ({tag}): launches {launches} in {steps} steps")
+    export = trainer.export_params  # every process gathers; process 0 digests
+    digest = (_params_digest(to_jax_layout({k: t.float().cpu() for k, t in export.items()}))
+              if mesh.rank == mesh.processes[0] else None)
+    timed = step_s[1:-1] if idle else step_s[1:]  # past the warm-up, not profiled
+    step_ms = 1e3 * float(np.mean(timed))
+    feed_ms = 1e3 * float(np.mean(feed_s[:len(timed)]))  # the waits before them
+    return {"steps": steps, "losses": losses, "final": {k: out[k] for k in ("loss", "grad_norm")},
+            "heldout": out.get("heldout"), "train_s": train_s,
+            "step_ms_each": [1e3 * x for x in step_s], "step_ms": step_ms,
+            "feed_wait_ms": feed_ms, "feed_share": feed_ms / (feed_ms + step_ms),
+            "pairs_per_s_device": B / (step_ms / 1e3),
+            "pairs_per_s_with_feed": B / ((step_ms + feed_ms) / 1e3),
+            "idle": profiled or None, "peak_memory_gb_by_card": _card_peaks(),
+            "launches": launches, "digest": digest}
 
 
-def _multihost_worker(mode, work, seed) -> int:
+def _multihost_worker(mode, work, seed, root, checkpoint) -> int:
     """One process of the multihost phase (its cards named by
     CUDA_VISIBLE_DEVICES, the group by COORDINATOR_ADDRESS, NUM_PROCESSES
     and PROCESS_ID): ``pair`` (two processes of two cards: the sum across
-    them, the sharded searches on hybrid_mesh(1), one ViT-B-32 fp32 step on
-    hybrid_mesh(2) at B=MESH_TRAIN_B) or ``quad`` (four processes of one
-    card: the (4, 1) bf16 step at B=MULTIHOST_QUAD_B, timed). Prints its
-    results as one JSON line."""
+    them; the sharded searches and mutations on hybrid_mesh(1); one
+    ViT-B-32 fp32 step on hybrid_mesh(2) at B=MESH_TRAIN_B; then
+    ``Trainer(mesh=hybrid_mesh(2))`` with TRAIN_FSDP for MESH_TRAIN_STEPS
+    steps into a checkpoint) or ``quad`` (four processes of one card:
+    ``Trainer(mesh=hybrid_mesh(1))`` with TRAIN_FSDP for QUAD_STEPS steps
+    with held-out evaluation, timed). Prints its results as one JSON
+    line."""
     import os
 
     import torch.distributed as dist
@@ -5032,6 +5158,7 @@ def _multihost_worker(mode, work, seed) -> int:
     from tpualign_torch.config import load_config
     from tpualign_torch.models.clip import build_clip, init_clip_params
     from tpualign_torch.ops.attention import fused_mha
+    from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
     from tpualign_torch.parallel.multihost import (
         hybrid_mesh, initialize_distributed, process_sum)
 
@@ -5042,6 +5169,7 @@ def _multihost_worker(mode, work, seed) -> int:
     pid, world = dist.get_rank(), dist.get_world_size()
     out = {"mode": mode, "process": pid, "processes": world, "backend": dist.get_backend(),
            "cards": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    fsdp_env = _train_env(root, checkpoint, seed, TRAIN_FSDP="1")
     if mode == "pair":
         mesh = hybrid_mesh(model_parallel=2)
         check(mesh.shape == {"data": 2, "model": 2} and mesh.local_rows == [pid],
@@ -5054,10 +5182,20 @@ def _multihost_worker(mode, work, seed) -> int:
         data4 = hybrid_mesh(model_parallel=1)
         check(data4.shape == {"data": 4, "model": 1} and data4.local_rows == [2 * pid, 2 * pid + 1],
               f"hybrid_mesh(1): {data4.shape}, rows {data4.local_rows}")
-        answers, out["search_ms"] = _multihost_searches(data4, seed)
+        masked_sim_topk.launches = masked_sim_topk_quant.launches = 0
+        t0 = time.perf_counter()
+        answers, facts, out["search_ms"] = _multihost_searches(data4, seed)
+        out["index_s"] = time.perf_counter() - t0
+        out["index_launches"] = {"masked_sim_topk": masked_sim_topk.launches,
+                                 "masked_sim_topk_quant": masked_sim_topk_quant.launches}
+        check(masked_sim_topk.launches > 0 and masked_sim_topk_quant.launches > 0,
+              f"the searches launched {out['index_launches']}")
         np.savez(os.path.join(work, f"multihost-{pid}.npz"),
                  **{f"{name}-{part}": arr for name, pair in answers.items()
-                    for part, arr in zip(("v", "i"), pair)})
+                    for part, arr in zip(("v", "i"), pair)},
+                 **{f"fact-{name}": arr for name, arr in facts.items()})
+        del answers
+        torch.cuda.empty_cache()
         config = load_config({"CLIP_MODEL": "ViT-B-32", "COMPUTE_DTYPE": "float32"})
         model = init_clip_params(build_clip(config.model, mesh.home), seed=seed)
         batch = _train_batch(mesh.home, seed, MESH_TRAIN_B, config.model.variant.image_size)
@@ -5074,22 +5212,23 @@ def _multihost_worker(mode, work, seed) -> int:
         _sync_all()
         out["step"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                        "ms": (time.perf_counter() - t0) * 1e3, "k1_launches": fused_mha.launches}
+        del state, model, batch, run, shard_state
+        torch.cuda.empty_cache()
+        out["trainer"] = _multihost_trainer(fsdp_env, mesh, work, "pair", MESH_TRAIN_STEPS, 0.0,
+                                            idle=False)
     else:
         mesh = hybrid_mesh(model_parallel=1)
         check(mesh.shape == {"data": world, "model": 1} and mesh.local_rows == [pid],
               f"hybrid_mesh(1): {mesh.shape}, rows {mesh.local_rows}")
-        config = load_config({"CLIP_MODEL": "ViT-B-32"})
-        model = init_clip_params(build_clip(config.model, mesh.home), seed=seed)
-        batch = _train_batch(mesh.home, seed, MULTIHOST_QUAD_B, config.model.variant.image_size)
-        out["step"] = _timed_mesh_steps(model.requires_grad_(False), mesh, batch,
-                                        MULTIHOST_QUAD_STEPS)
+        out["trainer"] = _multihost_trainer(fsdp_env, mesh, work, "quad", QUAD_STEPS,
+                                            QUAD_EVAL_FRACTION, idle=True)
     dist.barrier()
     dist.destroy_process_group()
     emit(out)
     return 0
 
 
-def _multihost_run(mode, visible, work, seed, timeout=600) -> list:
+def _multihost_run(mode, visible, work, seed, root, checkpoint, timeout=600) -> list:
     """_multihost_worker(``mode``) in ``len(visible)`` processes, process i
     on the cards ``visible[i]`` (CUDA_VISIBLE_DEVICES), one NCCL group at a
     free local port; every process is waited for (killed past
@@ -5110,7 +5249,8 @@ def _multihost_run(mode, visible, work, seed, timeout=600) -> list:
         err = open(os.path.join(work, f"multihost-{mode}-{pid}.err"), "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-c", "import sys, chip_smoke; "
-             "sys.exit(chip_smoke._multihost_worker(*sys.argv[1:]))", mode, work, str(seed)],
+             "sys.exit(chip_smoke._multihost_worker(*sys.argv[1:]))", mode, work, str(seed),
+             root, checkpoint],
             stdout=subprocess.PIPE, stderr=err, text=True, cwd=work, env=env), err))
     outs = []
     try:
@@ -5129,36 +5269,56 @@ def _multihost_run(mode, visible, work, seed, timeout=600) -> list:
     return [json.loads(out.strip().splitlines()[-1]) for out in outs]
 
 
-def phase_multihost(dev, seed, root, card, mesh_train_checks) -> dict:
+def _same_losses(got, want, what) -> float:
+    """Every process's per-step losses equal, and within MESH_LOSS_REL of
+    ``want`` (an in-process Trainer's, step for step); returns the largest
+    relative gap."""
+    check(all(g == got[0] for g in got), f"{what}: the processes report {got}")
+    n = min(len(got[0]), len(want))
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got[0][:n], want[:n]))
+    check(gap <= MESH_LOSS_REL, f"{what}: losses {got[0][:n]} against in-process {want[:n]}")
+    return gap
+
+
+def phase_multihost(dev, seed, root, card, checkpoint, mesh_train_checks, trainers) -> dict:
     """Processes across the four cards (parallel/multihost.py, NCCL): two
     processes of two cards (_multihost_worker ``pair``) against this
-    process's one-process mesh on the same four cards: every sharded
-    search answer equal (indices identical, values within 1e-6), the
-    (2, 2) step's loss within MESH_LOSS_REL and grad_norm within
-    MESH_NORM_REL of the one-process (2, 2) step of mesh_train's fp32
-    checks (the same seeded params and batch), the two processes' loss
-    and grad_norm equal; then, as a measurement, four processes of one
-    card (``quad``) beside the same (4, 1) bf16 step in this process:
-    step ms and each card's idle share."""
+    process's one-process mesh on the same four cards: every search answer
+    of the built, grown, tombstoned and compacted index equal (indices
+    identical, values within 1e-6), its tombstone counts and compact
+    permutation equal, the fp32 ring equal; the (2, 2) fp32 step's loss
+    within MESH_LOSS_REL and grad_norm within MESH_NORM_REL of the
+    one-process (2, 2) step of mesh_train's fp32 checks, the two processes'
+    equal; the (2, 2) FSDP Trainer's losses equal on both processes and
+    within MESH_LOSS_REL of mesh_train's in-process (2, 2) FSDP Trainer
+    step for step, and its checkpoint, read here by ``load_trained_params``,
+    bit-equal to the params process 0 exported. Then four processes of one
+    card (``quad``): the (4, 1) FSDP Trainer with held-out evaluation, its
+    losses equal across the processes and within MESH_LOSS_REL of
+    mesh_train's in-process (4, 1) FSDP Trainer over the same pairs, the
+    held-out metrics equal; step ms, pairs/s, the feed's share, each card's
+    idle share and peak beside the in-process Trainer's."""
     import os
 
-    from tpualign_torch.config import load_config
-    from tpualign_torch.models.clip import build_clip, init_clip_params
     from tpualign_torch.parallel import create_mesh
+    from tpualign_torch.train.checkpoint import load_trained_params
 
     work = os.path.join(root, "multihost")
     os.makedirs(work)
     out = {"phase": "multihost", "card": card}
     t0 = time.perf_counter()
-    pair = _multihost_run("pair", ["0,1", "2,3"], work, seed)
+    pair = _multihost_run("pair", ["0,1", "2,3"], work, seed, root, checkpoint)
     out["pair_s"] = time.perf_counter() - t0
-    want, _ = _multihost_searches(create_mesh(4), seed)
+    want, facts, _ = _multihost_searches(create_mesh(4), seed)
     gap = 0.0
     for pid in range(2):
         got = np.load(os.path.join(work, f"multihost-{pid}.npz"))
         for name, pair_want in want.items():
             gap = max(gap, _same_search((got[f"{name}-v"], got[f"{name}-i"]), pair_want,
                                         f"multihost process {pid} {name}"))
+        for name, fact in facts.items():
+            check(np.array_equal(got[f"fact-{name}"], fact),
+                  f"multihost process {pid} {name}: {got[f'fact-{name}']} against {fact}")
     one = mesh_train_checks["2x2"]
     losses = [p["step"]["loss"] for p in pair]
     norms = [p["step"]["grad_norm"] for p in pair]
@@ -5168,23 +5328,54 @@ def phase_multihost(dev, seed, root, card, mesh_train_checks) -> dict:
           and abs(norms[0] - one["grad_norm"]) <= MESH_NORM_REL * abs(one["grad_norm"]),
           f"the two-process (2, 2) step: loss {losses[0]} / {one['loss']}, grad_norm "
           f"{norms[0]} / {one['grad_norm']}")
-    out["pair"] = {"processes": pair, "searches": len(want), "search_max_abs_gap": gap,
-                   "one_process_2x2": {"loss": one["loss"], "grad_norm": one["grad_norm"],
-                                       "ms": one["ms"]}}
+    in_2x2 = trainers["2x2_fsdp"]
+    pair_gap = _same_losses([p["trainer"]["losses"] for p in pair], in_2x2["losses"],
+                            "the two-process (2, 2) FSDP Trainer")
+    saved = _params_digest(load_trained_params(os.path.join(work, "pair-ck")))
+    check(saved == pair[0]["trainer"]["digest"],
+          "the two-process checkpoint differs from the params process 0 exported")
+    out["pair"] = {
+        "processes": [{k: v for k, v in p.items() if k not in ("trainer",)} for p in pair],
+        "searches": len(want), "search_max_abs_gap": gap, "facts": {
+            k: v.tolist() if v.size < 8 else int(v.size) for k, v in facts.items()},
+        "one_process_2x2": {"loss": one["loss"], "grad_norm": one["grad_norm"],
+                            "ms": one["ms"]},
+        "trainer": {"losses": pair[0]["trainer"]["losses"], "loss_max_rel_gap": pair_gap,
+                    "in_process_2x2_fsdp_losses": in_2x2["losses"],
+                    "checkpoint_bit_equal": True, "leaves": len(saved),
+                    "launches_by_process": [p["trainer"]["launches"] for p in pair],
+                    "train_s": [p["trainer"]["train_s"] for p in pair],
+                    "peak_memory_gb_by_process": [p["trainer"]["peak_memory_gb_by_card"]
+                                                  for p in pair]}}
     t0 = time.perf_counter()
-    quad = _multihost_run("quad", ["0", "1", "2", "3"], work, seed)
+    quad = _multihost_run("quad", ["0", "1", "2", "3"], work, seed, root, checkpoint)
     out["quad_s"] = time.perf_counter() - t0
-    config = load_config({"CLIP_MODEL": "ViT-B-32"})
-    model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
-    batch = _train_batch(dev, seed, MULTIHOST_QUAD_B, config.model.variant.image_size)
-    in_process = _timed_mesh_steps(model, create_mesh(4), batch, MULTIHOST_QUAD_STEPS)
-    del model, batch
-    out["quad"] = {"B": MULTIHOST_QUAD_B, "dtype": "bfloat16",
-                   "four_processes": {"ms": max(p["step"]["ms"] for p in quad),
-                                      "ms_by_process": [p["step"]["ms"] for p in quad],
-                                      "idle": [p["step"]["idle"] for p in quad],
-                                      "loss": [p["step"]["loss"] for p in quad]},
-                   "one_process": in_process}
+    in_4x1 = trainers["data4_fsdp"]
+    rows = [p["trainer"] for p in quad]
+    quad_gap = _same_losses([r["losses"] for r in rows], in_4x1["losses"],
+                            "the four-process (4, 1) FSDP Trainer")
+    check(all(r["heldout"] == rows[0]["heldout"] for r in rows) and rows[0]["heldout"],
+          f"the four processes' held-out metrics: {[r['heldout'] for r in rows]}")
+    step_ms = max(r["step_ms"] for r in rows)
+    feed_ms = max(r["feed_wait_ms"] for r in rows)
+    out["quad"] = {
+        "B": B, "dtype": "bfloat16", "fsdp": True, "steps": QUAD_STEPS,
+        "eval_fraction": QUAD_EVAL_FRACTION, "heldout": rows[0]["heldout"],
+        "losses": rows[0]["losses"], "loss_max_rel_gap": quad_gap,
+        "step_ms": step_ms, "feed_wait_ms": feed_ms, "feed_share": feed_ms / (feed_ms + step_ms),
+        "pairs_per_s_device": B / (step_ms / 1e3),
+        "pairs_per_s_with_feed": B / ((step_ms + feed_ms) / 1e3),
+        "by_process": [{k: r[k] for k in ("step_ms", "step_ms_each", "feed_wait_ms", "idle",
+                                          "peak_memory_gb_by_card", "launches", "train_s")}
+                       for r in rows],
+        "in_process_4x1_fsdp": {k: in_4x1[k] for k in (
+            "step_ms", "feed_wait_ms", "feed_share", "pairs_per_s_device",
+            "pairs_per_s_with_feed", "losses", "peak_memory_gb_by_card")}
+        | {"idle": in_4x1.get("idle")}}
+    out["launches_by_process"] = {
+        "pair": [{**p["index_launches"], **p["trainer"]["launches"],
+                  "fused_mha_fp32_step": p["step"]["k1_launches"]} for p in pair],
+        "quad": [r["launches"] for r in rows]}
     emit(out)
     return out
 
@@ -5246,7 +5437,7 @@ def main() -> int:
             feed_names = phase_device_feed(dev, args.seed, root)
             lap("device_feed")
             pipe_launches, k2_eval, ingest_launches, mesh_embed = phase_pipeline(
-                dev, args.seed, root, feed_names, checkpoint)
+                dev, args.seed, root, feed_names, checkpoint, bitwise=not args.mesh_only)
             lap("pipeline")
             if not args.mesh_only:
                 train = phase_train(dev, args.seed, root, checkpoint, card)
@@ -5254,11 +5445,11 @@ def main() -> int:
                 hnsw_launches = phase_hnsw(dev, args.seed, root, checkpoint, card)
                 lap("hnsw")
             four_cards = args.mesh_only and torch.cuda.device_count() >= 4
-            mesh_train, train_checks = phase_mesh_train(dev, args.seed, root, checkpoint, card,
-                                                        four_cards)
+            mesh_train, train_checks, trainers = phase_mesh_train(
+                dev, args.seed, root, checkpoint, card, four_cards)
             lap("mesh_train")
             if four_cards:
-                phase_multihost(dev, args.seed, root, card, train_checks)
+                phase_multihost(dev, args.seed, root, card, checkpoint, train_checks, trainers)
                 lap("multihost")
             mesh, mesh_on = _mesh(dev)
             mesh_tally = {}
@@ -5267,7 +5458,9 @@ def main() -> int:
                                              mesh_tally)
             lap("mesh_evaluator")
         with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
-            serve_launches, k3_serve, shared = phase_serve(dev, args.seed, root, checkpoint)
+            serve_launches, k3_serve, shared = phase_serve(
+                dev, args.seed, root, checkpoint,
+                precisions=("int8",) if args.mesh_only else ("int8", "int4", "int2"))
             lap("serve")
             if not args.mesh_only:
                 ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)

@@ -67,9 +67,10 @@ dist.destroy_process_group()
 """
 
 
-def run_workers(body: str, out_dir) -> list:
+def run_workers(body: str, out_dir, timeout: float = 180) -> list:
     """``body`` in two processes of one gloo group; returns each one's
-    standard output (a failure shows its standard error)."""
+    standard output (a failure shows its standard error). Each process is
+    killed past ``timeout`` seconds."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -85,7 +86,7 @@ def run_workers(body: str, out_dir) -> list:
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=180))
+            outs.append(p.communicate(timeout=timeout))
     finally:
         for p in procs:
             if p.poll() is None:

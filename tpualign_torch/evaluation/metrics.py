@@ -115,7 +115,8 @@ class Evaluator:
     The search runs on ``device``: CUDA by default (raises when it is
     absent), ``"cpu"`` for the plain path; or sharded over ``mesh``'s data
     axis (``parallel/mesh.py``), whose first device then takes the place of
-    ``device``."""
+    ``device``. A mesh across processes raises ``NotImplementedError``, as
+    tpualign's Evaluator fails there (ROADMAP settled difference 24)."""
 
     def __init__(self, store: EmbeddingStore, output_dir: str = "evaluation_results",
                  device: str | torch.device = "cuda", mesh=None):

@@ -93,6 +93,16 @@ def preprocess_host(pil_image, image_size: int = 224) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def bucket_hw(h: int, w: int, bucket: int) -> Tuple[int, int]:
+    """The (h, w) that :func:`pad_to_bucket` gives an image of ``h`` x ``w``
+    pixels: shrunk to ``int(side * bucket / max(h, w))`` where a side
+    exceeds the bucket, else unchanged."""
+    if h <= bucket and w <= bucket:
+        return h, w
+    scale = bucket / max(h, w)
+    return max(1, int(h * scale)), max(1, int(w * scale))
+
+
 def pad_to_bucket(decoded: np.ndarray, bucket: int) -> Tuple[np.ndarray, Tuple[int, int]]:
     """Pad a decoded (h, w, 3) uint8 image into a (bucket, bucket, 3) buffer.
 
@@ -105,10 +115,8 @@ def pad_to_bucket(decoded: np.ndarray, bucket: int) -> Tuple[np.ndarray, Tuple[i
     if h > bucket or w > bucket:
         from PIL import Image
 
-        scale = bucket / max(h, w)
-        nh, nw = max(1, int(h * scale)), max(1, int(w * scale))
-        decoded = np.asarray(Image.fromarray(decoded).resize((nw, nh), Image.BICUBIC))
-        h, w = nh, nw
+        h, w = bucket_hw(h, w, bucket)
+        decoded = np.asarray(Image.fromarray(decoded).resize((w, h), Image.BICUBIC))
     out = np.zeros((bucket, bucket, 3), np.uint8)
     out[:h, :w] = decoded
     return out, (h, w)

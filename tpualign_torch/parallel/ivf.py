@@ -54,7 +54,9 @@ mask as the exact index.
   records the shard count. On a mesh across processes
   (``parallel/multihost.py``) each process builds and searches its own
   shards and the winners of every process merge through an all-gather;
-  the mutations, calibration and the artifact there take one process.
+  the mutations, calibration and the artifact there take one process, as
+  in tpualign, which cannot build the index across processes at all
+  (ROADMAP settled difference 24).
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ device of the row holds one tensor-parallel part of the towers
 (``ShardedTensor`` gathers parts to one device and scatters a tensor back
 into them). Kernels launch on each device's current stream, which runs
 asynchronously across the cards, and results are gathered on the first
-device. Processes on several hosts (``torch.distributed``) are a later
-slice.
+device. A mesh whose rows span processes (on one host or several) is built
+by ``parallel/multihost.py``'s ``hybrid_mesh``: each process then holds
+its own rows, and the data axis crosses processes through collectives.
 
 Without ``devices`` a mesh takes the visible CUDA cards in order and never
 repeats one. An explicit list may repeat a device: ``[torch.device("cpu")]
@@ -131,10 +132,14 @@ def shard_devices(mesh: Optional[Mesh]) -> Optional[List[torch.device]]:
 
 def one_process(mesh: Optional[Mesh], what: str) -> None:
     """Raise ``NotImplementedError`` naming ``what`` when ``mesh`` spans
-    processes: the parts of the port that take only a mesh of one process."""
+    processes: the parts that tpualign cannot run across processes either
+    (the embedding engine and what embeds through it, the Evaluator, the
+    IVF index's mutations, calibration and artifact; ROADMAP settled
+    difference 24)."""
     if mesh is not None and getattr(mesh, "distributed", False):
-        raise NotImplementedError(f"{what} across processes is not ported; it takes a mesh of "
-                                  f"one process (ROADMAP queue 1)")
+        raise NotImplementedError(f"{what} across processes is not supported: tpualign cannot "
+                                  f"run it across processes either, and it takes a mesh of "
+                                  f"one process here (ROADMAP settled difference 24)")
 
 
 class ShardedRows:

@@ -8,8 +8,14 @@ inside one process (its tensor-parallel parts exchange by ``.to()``), so
 only the ``data`` axis crosses processes, and it does so through
 collectives on each process's first device (:attr:`Mesh.home`): the
 sharded search all-gathers every process's ``(Q, k)`` winners and merges
-them, and the sharded train step all-gathers the features of every data
-row and sums the gradients over the processes.
+them; the sharded train step all-gathers the features of every data row
+and sums the gradients over the processes, and under FSDP all-gathers the
+parameter slices before use (:func:`process_gather_all`) and
+reduce-scatters their gradients (:func:`process_reduce_scatter`); the
+index's mutations broadcast the shards whose rows change process; the ring
+hands its blocks from process to process point to point. NCCL runs the
+collectives on the cards and gloo on the CPU; gloo has no reduce-scatter,
+so there every process all-reduces and keeps its own part.
 
 Start each process with ``COORDINATOR_ADDRESS`` (``host:port`` of process
 0), ``NUM_PROCESSES`` and ``PROCESS_ID`` in its environment, and, on a
@@ -32,7 +38,8 @@ from tpualign_torch.utils.logging import get_logger
 log = get_logger("parallel.multihost")
 
 __all__ = ["initialize_distributed", "hybrid_mesh", "hybrid_device_order", "process_gather",
-           "process_sum"]
+           "process_gather_all", "process_broadcast", "process_sum", "process_reduce_scatter",
+           "process_barrier"]
 
 
 def initialize_distributed(
@@ -145,17 +152,90 @@ def process_gather(mesh: Mesh, t: torch.Tensor) -> List[torch.Tensor]:
     return out
 
 
+def _by_dtype(tensors: List[torch.Tensor]) -> List[List[int]]:
+    """The positions of ``tensors`` grouped by dtype, in a fixed order."""
+    groups: dict = {}
+    for n, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(n)
+    return [groups[d] for d in sorted(groups, key=str)]
+
+
+def process_gather_all(mesh: Mesh, tensors: List[torch.Tensor]) -> List[List[torch.Tensor]]:
+    """Every process's ``tensors`` (each process passes the same shapes and
+    dtypes in the same order), in process order, on this process's home
+    device: one :func:`process_gather` a dtype over the flattened tensors.
+    This process's entry is its own list; the others' are new tensors."""
+    ranks = _ranks(mesh)
+    out: List[List[Optional[torch.Tensor]]] = [[None] * len(tensors) for _ in ranks]
+    out[ranks.index(mesh.rank)] = list(tensors)
+    for at in _by_dtype(tensors):
+        flat = torch.cat([tensors[n].detach().reshape(-1).to(mesh.home) for n in at])
+        for p, buf in enumerate(process_gather(mesh, flat)):
+            if ranks[p] == mesh.rank:
+                continue
+            start = 0
+            for n in at:
+                size = tensors[n].numel()
+                out[p][n] = buf[start:start + size].reshape(tensors[n].shape)
+                start += size
+    return out
+
+
+def process_broadcast(mesh: Mesh, t: Optional[torch.Tensor], shape, dtype: torch.dtype,
+                      src: int) -> torch.Tensor:
+    """Process ``src``'s ``t`` on every process of ``mesh``, on this
+    process's home device; the other processes pass its ``shape`` and
+    ``dtype`` (``t`` is not read there)."""
+    buf = (t.to(mesh.home).contiguous() if mesh.rank == src
+           else torch.empty(shape, dtype=dtype, device=mesh.home))
+    dist.broadcast(buf, src=src)
+    return buf
+
+
+def process_reduce_scatter(mesh: Mesh, parts: List[List[torch.Tensor]]) -> List[torch.Tensor]:
+    """``parts[p]`` is what this process adds to process ``p``'s tensors
+    (process order; every process passes the same shapes): returns this
+    process's tensors summed over every process, on its home device. NCCL
+    reduce-scatters one buffer a dtype; gloo has no reduce-scatter, so
+    there the buffer is all-reduced and each process keeps its part."""
+    ranks = _ranks(mesh)
+    mine = parts[ranks.index(mesh.rank)]
+    out: List[Optional[torch.Tensor]] = [None] * len(mine)
+    for at in _by_dtype(mine):
+        chunks = [torch.cat([parts[p][n].reshape(-1).to(mesh.home) for n in at])
+                  for p in range(len(ranks))]
+        if dist.get_backend() == "nccl":
+            flat = torch.empty_like(chunks[0])
+            dist.reduce_scatter_tensor(flat, torch.cat(chunks))
+        else:
+            whole = torch.cat(chunks)
+            dist.all_reduce(whole)
+            size = chunks[0].numel()
+            flat = whole[ranks.index(mesh.rank) * size:(ranks.index(mesh.rank) + 1) * size]
+        start = 0
+        for n in at:
+            size = mine[n].numel()
+            out[n] = flat[start:start + size].reshape(mine[n].shape)
+            start += size
+    return out
+
+
+def process_barrier(mesh: Mesh) -> None:
+    """Wait until every process of ``mesh`` arrives (on its home card
+    under NCCL)."""
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[mesh.home.index])
+    else:
+        dist.barrier()
+
+
 def process_sum(mesh: Mesh, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
     """Each tensor summed over the processes of ``mesh`` (one all-reduce a
     dtype, flattened on the home device); returns new tensors on the
     tensors' own devices. Every process passes the same shapes in the same
     order."""
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
-    by_dtype: dict = {}
-    for n, t in enumerate(tensors):
-        by_dtype.setdefault(t.dtype, []).append(n)
-    for dtype in sorted(by_dtype, key=str):
-        at = by_dtype[dtype]
+    for at in _by_dtype(tensors):
         flat = torch.cat([tensors[n].reshape(-1).to(mesh.home) for n in at])
         dist.all_reduce(flat)
         start = 0

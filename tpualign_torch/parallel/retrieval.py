@@ -39,7 +39,13 @@ On a mesh across processes (``parallel/multihost.py``) every process is
 given the whole corpus and keeps only its own rows' shards; gather and
 streaming merge each process's winners, then all-gather every process's
 ``(Q, k)`` winners and merge them again, so that every process holds the
-global answer. The ring and the mutations there take one process.
+global answer; the ring hands a block from the last card of one process to
+the first of the next point to point. Every process applies the same
+mutations with the same arguments: each writes only its own shards' rows,
+keys and scales, the tombstone counts are summed over the processes, and
+where rows change shard (growth past the capacity, ``compact``) an old
+shard that another process's new shard takes rows from is broadcast, one
+shard at a time, and each process takes its new shards' rows.
 
 ``add``, ``remove`` and ``compact`` change the corpus in place of a
 rebuild, as pgvector's INSERT, DELETE and VACUUM do: appended rows take the
@@ -60,7 +66,7 @@ import os
 import re
 import tempfile
 import weakref
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,7 +74,7 @@ import torch
 from tpualign_torch.ops.sim_topk import (
     MAX_K, SENTINEL_IDX, masked_sim_topk, masked_sim_topk_reference)
 from tpualign_torch.ops.similarity import NEG_INF, WILDCARD_KEY
-from tpualign_torch.parallel.mesh import ShardedRows, one_process, shard_devices
+from tpualign_torch.parallel.mesh import ShardedRows, shard_devices
 from tpualign_torch.utils.device import resolve_device
 from tpualign_torch.utils.logging import get_logger
 
@@ -262,23 +268,58 @@ def _padded(rows: np.ndarray, n: int, fill) -> np.ndarray:
     return np.concatenate([rows, np.full((n - len(rows), *rows.shape[1:]), fill, rows.dtype)])
 
 
+def _process_rows(sharded: ShardedRows, mesh) -> torch.Tensor:
+    """Every shard of ``sharded`` across the processes of ``mesh``, whole on
+    this process's home device (one all-gather: each process holds as many
+    shards, and the processes hold the rows in order)."""
+    from tpualign_torch.parallel.multihost import process_gather
+
+    own = torch.cat([p.to(mesh.home) for p in sharded.parts if p is not None])
+    return torch.cat(process_gather(mesh, own))
+
+
 def _select_rows(sharded: ShardedRows, sel: np.ndarray, n_local: int,
-                 fill) -> ShardedRows:
+                 fill, mesh=None) -> ShardedRows:
     """New shards of ``n_local`` rows on the same devices holding the rows
     at global positions ``sel`` (ascending), in order, and ``fill`` after
     them: growth (``sel`` every live position) and compaction (the
-    survivors). Rows move between cards as device-to-device copies."""
-    old = sharded.rows_per_shard
-    parts = []
-    for s, dev in enumerate(sharded.devices):
+    survivors). Rows move between cards as device-to-device copies; on a
+    ``mesh`` across processes each process builds only its own new shards,
+    and an old shard that a new shard of another process takes rows from is
+    broadcast by its process, one shard at a time."""
+    across = mesh is not None and mesh.distributed
+    devices = mesh.data_devices if across else sharded.devices
+    old, shards = sharded.rows_per_shard, len(devices)
+    # per new shard: the old shards it takes rows from, ascending, and the rows
+    takes = []
+    for s in range(shards):
         chunk = sel[s * n_local:(s + 1) * n_local]
         owner = chunk // old
-        pieces = [sharded.parts[o][torch.from_numpy(chunk[owner == o] - o * old).to(
-            sharded.parts[o].device)].to(dev) for o in np.unique(owner)]
-        if len(chunk) < n_local:
-            pieces.append(torch.full((n_local - len(chunk), *sharded.shape[1:]), fill,
-                                     dtype=sharded.dtype, device=dev))
-        parts.append(torch.cat(pieces))
+        takes.append({int(o): chunk[owner == o] - o * old for o in np.unique(owner)})
+    pieces: List[list] = [[] for _ in range(shards)]
+    for o in range(shards):
+        users = [s for s in range(shards) if o in takes[s]]
+        src = sharded.parts[o]
+        if across and any(mesh.processes[s] != mesh.processes[o] for s in users):
+            from tpualign_torch.parallel.multihost import process_broadcast
+
+            src = process_broadcast(mesh, src, (old, *sharded.shape[1:]), sharded.dtype,
+                                    mesh.processes[o])
+        for s in users:
+            if across and not mesh.is_local(s):
+                continue
+            at = torch.from_numpy(takes[s][o]).to(src.device)
+            pieces[s].append(src[at].to(devices[s]))
+    parts = []
+    for s, dev in enumerate(devices):
+        if across and not mesh.is_local(s):
+            parts.append(None)
+            continue
+        filled = sum(len(rows) for rows in takes[s].values())
+        if filled < n_local:
+            pieces[s].append(torch.full((n_local - filled, *sharded.shape[1:]), fill,
+                                        dtype=sharded.dtype, device=dev))
+        parts.append(torch.cat(pieces[s]))
     return ShardedRows(parts)
 
 
@@ -683,7 +724,6 @@ class RetrievalIndex:
         else:
             keys = np.zeros((m,), np.int32)
         keys = np.asarray(keys, np.int32)
-        one_process(self.mesh, "RetrievalIndex.add on a mesh")
         if self.n == 0:
             self.__dict__.update(self._fields(rows, keys, self.refine))
             return
@@ -698,6 +738,11 @@ class RetrievalIndex:
             fields["_refine_corpus"] = self._refine_corpus.appended(rows)
         self.__dict__.update(fields)
 
+    @property
+    def _across(self):
+        """The mesh when it spans processes, else None."""
+        return self.mesh if self.mesh is not None and self.mesh.distributed else None
+
     def _grown_capacity(self, cap: int, total: int, shards: int) -> int:
         return -(-_round_up(max(total, int(cap * self.GROWTH)), 1024) // shards) * shards
 
@@ -706,7 +751,7 @@ class RetrievalIndex:
         shard(s); past the capacity every field is re-split into larger
         whole shards first (fresh tensors), else only the key shards that
         change are copied (the row slack they write is keyed -1 in the
-        older keys)."""
+        older keys). Across processes each writes its own shards only."""
         shards, n_local = len(self._devices), self._n_local
         total = self.n + len(new_rows)
         corpus, ckeys, scales = self._corpus, self._keys, self._corpus_scales
@@ -714,12 +759,14 @@ class RetrievalIndex:
         if fresh:
             n_local = self._grown_capacity(n_local * shards, total, shards) // shards
             live = np.arange(self.n)
-            corpus = _select_rows(corpus, live, n_local, 0)
-            ckeys = _select_rows(ckeys, live, n_local, -1)
+            corpus = _select_rows(corpus, live, n_local, 0, self._across)
+            ckeys = _select_rows(ckeys, live, n_local, -1, self._across)
             if scales is not None:
-                scales = _select_rows(scales, live, n_local, 1.0)
+                scales = _select_rows(scales, live, n_local, 1.0, self._across)
         key_parts = list(ckeys.parts)
         for s in range(self.n // n_local, (total - 1) // n_local + 1):
+            if key_parts[s] is None:  # another process's shard
+                continue
             lo, hi = max(self.n, s * n_local), min(total, (s + 1) * n_local)
             src, dst = slice(lo - self.n, hi - self.n), slice(lo - s * n_local, hi - s * n_local)
             dev = self._devices[s]
@@ -735,29 +782,42 @@ class RetrievalIndex:
     def remove(self, corpus_indices) -> int:
         """Tombstone rows (pgvector's DELETE): their keys become -2, which
         no query key equals, so they are never returned; the slots stay
-        until :meth:`compact`. Returns the rows newly tombstoned;
-        out-of-range and already removed indices are ignored."""
+        until :meth:`compact`. Returns the rows newly tombstoned (across
+        processes, summed over them); out-of-range and already removed
+        indices are ignored."""
         idx = np.unique(np.asarray(corpus_indices, np.int64))
         idx = idx[(idx >= 0) & (idx < self.n)]
         if idx.size == 0 or self.n == 0:
             return 0
-        one_process(self.mesh, "RetrievalIndex.remove on a mesh")
         n_local, parts, removed = self._n_local, list(self._keys.parts), 0
         for s in np.unique(idx // n_local):
+            if parts[s] is None:  # another process's shard
+                continue
             at = torch.from_numpy(idx[idx // n_local == s] - s * n_local).to(parts[s].device)
             removed += int((parts[s][at] != -2).sum())
             parts[s] = parts[s].clone()
             parts[s][at] = -2
         self.__dict__.update({"_keys": ShardedRows(parts)})
-        return removed
+        return self._summed(removed)
+
+    def _summed(self, count: int) -> int:
+        """A count of this process's shards, summed over the processes."""
+        if self._across is None:
+            return count
+        from tpualign_torch.parallel.multihost import process_sum
+
+        return int(process_sum(self.mesh, [torch.tensor(count, dtype=torch.int64,
+                                                        device=self.mesh.home)])[0])
 
     @property
     def dead(self) -> int:
-        """Tombstoned rows awaiting :meth:`compact` (``/stats``' dead_rows)."""
+        """Tombstoned rows awaiting :meth:`compact` (``/stats``' dead_rows).
+        Across processes it is a collective: every process reads it
+        together, or the readers wait."""
         if self.n == 0:
             return 0
-        one_process(self.mesh, "RetrievalIndex.dead on a mesh")
-        return sum(int((p == -2).sum()) for p in self._keys.parts)
+        return self._summed(sum(int((p == -2).sum()) for p in self._keys.parts
+                                if p is not None))
 
     def compact(self) -> np.ndarray:
         """Drop the tombstoned rows and the capacity slack (pgvector's
@@ -768,8 +828,9 @@ class RetrievalIndex:
         over the shards."""
         if self.n == 0:
             return np.zeros((0,), np.int64)
-        one_process(self.mesh, "RetrievalIndex.compact on a mesh")
-        keys = self._keys.cpu().numpy()[:self.n]
+        across = self._across
+        keys = (self._keys.cpu() if across is None
+                else _process_rows(self._keys, across).cpu()).numpy()[:self.n]
         live = np.flatnonzero(keys != -2).astype(np.int64)
         if live.size == self.n and int(self._keys.shape[0]) == self.n:
             return live  # no tombstones and no slack
@@ -777,10 +838,12 @@ class RetrievalIndex:
                   "_n_local": 0}
         if live.size:
             n_local = -(-live.size // len(self._devices))
-            fields.update(_corpus=_select_rows(self._corpus, live, n_local, 0),
-                          _keys=_select_rows(self._keys, live, n_local, -1), _n_local=n_local,
+            fields.update(_corpus=_select_rows(self._corpus, live, n_local, 0, across),
+                          _keys=_select_rows(self._keys, live, n_local, -1, across),
+                          _n_local=n_local,
                           _corpus_scales=(None if self._corpus_scales is None else
-                                          _select_rows(self._corpus_scales, live, n_local, 1.0)))
+                                          _select_rows(self._corpus_scales, live, n_local, 1.0,
+                                                       across)))
         if self._refine_corpus is not None:
             fields["_refine_corpus"] = (self._refine_corpus.selected(live) if live.size
                                         else self._refine_corpus.empty())
@@ -838,8 +901,8 @@ class RetrievalIndex:
             return "gather"
         if k <= 16 and self.device.type == "cuda":
             return "streaming"
-        if self.precision in _QUANTIZED or self.mesh.distributed:
-            return "gather"  # the ring has no quantized path, nor one across processes
+        if self.precision in _QUANTIZED:
+            return "gather"  # the ring has no quantized path
         return "ring"
 
     def search_device(self, query_embeddings: torch.Tensor, query_keys: torch.Tensor,
@@ -870,7 +933,6 @@ class RetrievalIndex:
         if strategy == "ring":
             from tpualign_torch.parallel.ring import ring_search_fn
 
-            one_process(snap.mesh, "The ring strategy")
             if q.shape[0] % len(snap._devices):
                 raise ValueError("ring strategy needs Q divisible by the data axis; pad "
                                  "queries or use search()")

@@ -13,8 +13,17 @@ shard once, and one more move brings it home. The results are then
 gathered on the first device: bit-identical to the gather strategy, since
 the two-key order is a total order on distinct indices.
 
-One process drives every card (see ``parallel/mesh.py``); a device that a
-mesh repeats moves nothing.
+On a mesh of one process, one process drives every card (see
+``parallel/mesh.py``); a device that a mesh repeats moves nothing. On a
+mesh across processes (``parallel/multihost.py``) every process holds the
+blocks of its own cards: a block moves between its cards with ``.to()``,
+and from the last card of one process to the first card of the next as its
+running state by point-to-point messages through the process group
+(``dist.batch_isend_irecv``: each process posts its send and its receive
+of a step together, so that none waits on another; the receiver takes the
+block's queries from its own copy, since every process is given them all).
+The blocks are then all-gathered, so every process holds every query's
+answer.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpualign_torch.ops.sim_topk import SENTINEL_IDX
 from tpualign_torch.ops.similarity import NEG_INF
@@ -48,6 +58,7 @@ def ring_search_fn(mesh: Mesh, k: int):
     SENTINEL_IDX)``, and pad rows may appear when a query has fewer than k
     candidates."""
     devices = shard_devices(mesh)
+    local = mesh.local_rows
 
     def run(queries: torch.Tensor, query_keys: torch.Tensor, corpus: ShardedRows,
             corpus_keys: ShardedRows) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -56,29 +67,69 @@ def ring_search_fn(mesh: Mesh, k: int):
             raise ValueError(f"ring: {queries.shape[0]} queries is not a multiple of the "
                              f"data axis ({n_dev})")
         qb, k_local = queries.shape[0] // n_dev, min(k, n_local)
-        blocks = []
-        for b, dev in enumerate(devices):
+
+        def block_inputs(b: int, dev) -> list:
             rows = slice(b * qb, (b + 1) * qb)
-            blocks.append([queries[rows].to(dev, non_blocking=True),
-                           query_keys[rows].to(dev, non_blocking=True),
-                           torch.full((qb, k), NEG_INF, dtype=torch.float32, device=dev),
-                           torch.full((qb, k), SENTINEL_IDX, dtype=torch.int32, device=dev)])
+            return [queries[rows].to(dev, non_blocking=True),
+                    query_keys[rows].to(dev, non_blocking=True)]
+
+        # held[d]: the block on device d, as [queries, keys, running values,
+        # running indices]; block b starts on device b
+        held = {b: block_inputs(b, devices[b])
+                + [torch.full((qb, k), NEG_INF, dtype=torch.float32, device=devices[b]),
+                   torch.full((qb, k), SENTINEL_IDX, dtype=torch.int32, device=devices[b])]
+                for b in local}
         # D steps: device d scores block (d - step) mod D against its shard,
         # then hands the block on; the last move brings every block home
         for step in range(n_dev):
-            for d, dev in enumerate(devices):
-                block = blocks[(d - step) % n_dev]
-                q, qk, run_v, run_i = block
+            for d in local:
+                q, qk, run_v, run_i = held[d]
                 vals, idx = _device_topk(q, qk, corpus.parts[d], corpus_keys.parts[d], None,
                                          k_local)
-                run_v, run_i = _merge_topk(run_v, run_i, vals, _offset(idx, d * n_local), k)
-                nxt = devices[(d + 1) % n_dev]
-                block[:] = [t.to(nxt, non_blocking=True) for t in (q, qk, run_v, run_i)]
-        home = devices[0]
-        return (torch.cat([b[2].to(home, non_blocking=True) for b in blocks]),
-                torch.cat([b[3].to(home, non_blocking=True) for b in blocks]))
+                held[d][2:] = _merge_topk(run_v, run_i, vals, _offset(idx, d * n_local), k)
+            held = _hand_on(mesh, held, step, block_inputs, qb, k)
+        blocks = [held[b] for b in local]  # every block is back where it started
+        home = mesh.home
+        vals = torch.cat([b[2].to(home, non_blocking=True) for b in blocks])
+        idx = torch.cat([b[3].to(home, non_blocking=True) for b in blocks])
+        if mesh.distributed:
+            from tpualign_torch.parallel.multihost import process_gather
+
+            vals, idx = torch.cat(process_gather(mesh, vals)), torch.cat(process_gather(mesh, idx))
+        return vals, idx
 
     return run
+
+
+def _hand_on(mesh: Mesh, held: dict, step: int, block_inputs, qb: int, k: int) -> dict:
+    """Every held block moved to the next data device: by ``.to()`` where
+    this process holds it, else its running state sent to the process that
+    does, while the block coming from the previous device of another
+    process is received (both posted in one ``batch_isend_irecv``, through
+    the home device)."""
+    devices, n_dev = mesh.data_devices, len(mesh.data_devices)
+    out, ops, incoming = {}, [], []
+    for d in sorted(held):
+        block = held[d]
+        nxt = (d + 1) % n_dev
+        if mesh.is_local(nxt):
+            out[nxt] = [t.to(devices[nxt], non_blocking=True) for t in block]
+        else:
+            ops += [dist.P2POp(dist.isend, t.to(mesh.home).contiguous(), mesh.processes[nxt])
+                    for t in block[2:]]
+        prev = (d - 1) % n_dev
+        if not mesh.is_local(prev):
+            bufs = [torch.empty((qb, k), dtype=torch.float32, device=mesh.home),
+                    torch.empty((qb, k), dtype=torch.int32, device=mesh.home)]
+            ops += [dist.P2POp(dist.irecv, t, mesh.processes[prev]) for t in bufs]
+            incoming.append((d, bufs))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for d, bufs in incoming:
+        b = (d - step - 1) % n_dev  # the block that device d holds next
+        out[d] = block_inputs(b, devices[d]) + [t.to(devices[d]) for t in bufs]
+    return out
 
 
 def ring_topk_search(queries: np.ndarray, query_keys: np.ndarray, corpus: np.ndarray,
@@ -99,12 +150,12 @@ def ring_topk_search(queries: np.ndarray, query_keys: np.ndarray, corpus: np.nda
     corpus = _padded(corpus, n_local * shards, 0.0)
     corpus_keys = _padded(np.asarray(corpus_keys, np.int32), n_local * shards, -1)
     rows = ShardedRows([_tensor(corpus[s * n_local:(s + 1) * n_local], dev)
-                        for s, dev in enumerate(devices)])
+                        if mesh.is_local(s) else None for s, dev in enumerate(devices)])
     keys = ShardedRows([_tensor(corpus_keys[s * n_local:(s + 1) * n_local], dev)
-                        for s, dev in enumerate(devices)])
+                        if mesh.is_local(s) else None for s, dev in enumerate(devices)])
     q_pad = -(-nq // shards) * shards  # pad queries keyed -2 (they match nothing)
-    q = _tensor(_padded(queries, q_pad, 0.0), devices[0])
-    qk = _tensor(_padded(np.asarray(query_keys, np.int32), q_pad, -2), devices[0])
+    q = _tensor(_padded(queries, q_pad, 0.0), mesh.home)
+    qk = _tensor(_padded(np.asarray(query_keys, np.int32), q_pad, -2), mesh.home)
     vals, idx = ring_search_fn(mesh, k)(q, qk, rows, keys)
     vals, idx = vals[:nq].cpu().numpy(), idx[:nq].cpu().numpy().astype(np.int64)
     bad = (vals <= NEG_INF / 2) | (idx >= n)

@@ -29,9 +29,12 @@ column order; gathering a tensor undoes it, so the values agree.
 
 On a mesh across processes (``parallel/multihost.py``) a process holds
 the parts of its own rows only (the others are None) and
-:meth:`ShardedTensor.positions` lists those; a tensor that FSDP splits
-over ``data`` would need its slices from other processes, which is not
-ported (``NotImplementedError``).
+:meth:`ShardedTensor.positions` lists those. A tensor that FSDP splits
+over ``data`` needs the other processes' slices wherever it is used
+whole: :func:`with_remote` all-gathers them once (one collective a dtype
+for a whole parameter dict) into :attr:`ShardedTensor.remote`, where
+:meth:`ShardedTensor.local` and :meth:`ShardedTensor.full` find them;
+:func:`gather_full` gathers a dict whole.
 
 :class:`RowTowers` runs the towers of one data row: the replicated
 parameters on the row's first card, each model-split parameter as its
@@ -45,10 +48,10 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch.func import functional_call
 
-from tpualign_torch.parallel.mesh import Mesh, one_process
+from tpualign_torch.parallel.mesh import Mesh
 
 __all__ = ["clip_param_specs", "shard_params", "data_spec", "ShardedTensor", "RowTowers",
-           "row_params", "model_slices", "check_model_split"]
+           "row_params", "model_slices", "check_model_split", "with_remote", "gather_full"]
 
 Spec = tuple
 
@@ -118,15 +121,28 @@ class ShardedTensor:
     spec gives that device (split over ``data`` by ``i`` where the spec
     names it, over ``model`` by ``j`` in ``perm``'s order where it names
     ``model``, whole elsewhere); None where another process holds row
-    ``i``."""
+    ``i``. ``remote`` (set by :func:`with_remote`) maps ``(i, c)`` to the
+    data slice of another process's row ``i`` for column group ``c``."""
 
     def __init__(self, parts: List[List[torch.Tensor]], spec: Spec, shape, mesh: Mesh,
                  perm: Optional[torch.Tensor] = None):
         self.parts, self.spec, self.shape = parts, tuple(spec), tuple(shape)
         self.mesh, self.perm = mesh, perm
+        self.remote: Optional[Dict[tuple, torch.Tensor]] = None
         entries = list(self.spec) + [None] * (len(self.shape) - len(self.spec))
         self.data_dim = entries.index("data") if "data" in entries else None
         self.model_dim = entries.index("model") if "model" in entries else None
+
+    @property
+    def needs_remote(self) -> bool:
+        """Whether using this tensor whole takes other processes' slices:
+        it is split over a data axis that spans processes."""
+        return self.data_dim is not None and self.mesh.distributed
+
+    def columns(self) -> range:
+        """The column groups of a row: one a model position where the spec
+        splits over ``model``, else one for the whole row."""
+        return range(self.mesh.devices.shape[1] if self.model_dim is not None else 1)
 
     @classmethod
     def from_full(cls, t: torch.Tensor, mesh: Mesh, spec: Spec,
@@ -138,8 +154,6 @@ class ShardedTensor:
         src = t.detach()
         if perm is not None:
             src = src.index_select(st.model_dim, perm.to(src.device))
-        if st.data_dim is not None:
-            one_process(mesh, "FSDP (a parameter split over data)")
         st.parts = [[st._fresh(src, i, j, dtype or t.dtype) if mesh.is_local(i) else None
                      for j in range(m)] for i in range(d)]
         return st
@@ -175,27 +189,80 @@ class ShardedTensor:
         """The key shared by the positions that hold the same slice."""
         return (i if self.data_dim is not None else 0, j if self.model_dim is not None else 0)
 
+    def _slice(self, i: int, j: int) -> torch.Tensor:
+        """Row ``i``'s data slice for column ``j``: its part, or the slice
+        :func:`with_remote` fetched from the process holding it."""
+        part = self.parts[i][j]
+        if part is not None:
+            return part
+        if self.remote is None:
+            raise RuntimeError("the data slices of other processes are not fetched here: "
+                               "call with_remote (or gather_full) first")
+        return self.remote[self.group(i, j)]
+
     def local(self, i: int, j: int) -> torch.Tensor:
         """What device ``(i, j)`` computes with: its part, gathered over
         ``data`` (differentiably) where the spec splits it there."""
         if self.data_dim is None:
             return self.parts[i][j]
         dev = self.mesh.row(i)[j]
-        return torch.cat([row[j].to(dev) for row in self.parts], dim=self.data_dim)
+        return torch.cat([self._slice(r, j).to(dev) for r in range(len(self.parts))],
+                         dim=self.data_dim)
 
     def full(self, device=None) -> torch.Tensor:
-        """The whole tensor on ``device`` (default: the first device)."""
+        """The whole tensor on ``device`` (default: this process's first
+        device); across processes, after :func:`with_remote`."""
         dev = torch.device(device) if device is not None else self.mesh.home
         d, m = self.mesh.devices.shape
         cols = []
-        for j in range(m if self.model_dim is not None else 1):
-            rows = [self.parts[i][j].to(dev) for i in (range(d) if self.data_dim is not None
-                                                       else self.mesh.local_rows[:1])]
+        for j in self.columns():
+            rows = [self._slice(i, j).to(dev) for i in (range(d) if self.data_dim is not None
+                                                        else self.mesh.local_rows[:1])]
             cols.append(torch.cat(rows, self.data_dim) if len(rows) > 1 else rows[0])
         t = torch.cat(cols, self.model_dim) if len(cols) > 1 else cols[0]
         if self.perm is not None:
             t = t.index_select(self.model_dim, torch.argsort(self.perm).to(dev))
         return t
+
+
+def with_remote(tree: Dict[str, object], grad: bool = False) -> Dict[str, object]:
+    """``tree`` with a copy of every :class:`ShardedTensor` that is split
+    over a data axis across processes, holding the other processes' slices
+    in ``remote``: every process passes the same dict (its own parts), and
+    one all-gather a dtype carries them all. With ``grad`` the fetched
+    slices are fresh autograd leaves (their gradients are what this
+    process's rows add to the other processes' slices). Entries that need
+    nothing, or hold their slices already, pass through."""
+    todo = [k for k, v in tree.items()
+            if isinstance(v, ShardedTensor) and v.needs_remote and v.remote is None]
+    if not todo:
+        return tree
+    from tpualign_torch.parallel.multihost import _ranks, process_gather_all
+
+    mesh = tree[todo[0]].mesh
+    order = [(k, c, n) for k in todo for c in tree[k].columns()
+             for n in range(len(mesh.local_rows))]
+    got = process_gather_all(mesh, [tree[k].parts[mesh.local_rows[n]][c] for k, c, n in order])
+    out = dict(tree)
+    for k in todo:
+        out[k] = tree[k].like(tree[k].parts)
+        out[k].remote = {}
+    for p, rank in enumerate(_ranks(mesh)):
+        if rank == mesh.rank:
+            continue
+        rows = [i for i, q in enumerate(mesh.processes) if q == rank]
+        for (k, c, n), t in zip(order, got[p]):
+            out[k].remote[(rows[n], c)] = t.clone().requires_grad_(True) if grad else t
+    return out
+
+
+def gather_full(tree: Dict[str, object], device=None) -> Dict[str, object]:
+    """Every :class:`ShardedTensor` of ``tree`` whole on ``device`` (default:
+    this process's first device); across processes every process calls it
+    on the same dict, and FSDP's slices are all-gathered once. Other
+    entries pass through."""
+    tree = with_remote(tree)
+    return {k: (v.full(device) if isinstance(v, ShardedTensor) else v) for k, v in tree.items()}
 
 
 def shard_params(params: Dict[str, torch.Tensor], mesh: Mesh, fsdp: bool = False,

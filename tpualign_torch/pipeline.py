@@ -81,7 +81,8 @@ class Pipeline:
     """The five stages over a config; stages 3-5 on ``device`` (CUDA by
     default; raises when it is absent unless ``device="cpu"``), or with the
     embedding engine and the Evaluator's index data-parallel over ``mesh``
-    (whose first device then takes the place of ``device``). ``engine``
+    (whose first device then takes the place of ``device``; a mesh across
+    processes raises, as the engine and the Evaluator do). ``engine``
     replaces the embedding engine (any object with ``embed_image_records``
     and ``embed_chunk_records``). ``nlp`` and ``lexical_fallback`` go to
     the ``DocumentProcessor`` of stage 1: ``"auto"`` loads spaCy for the

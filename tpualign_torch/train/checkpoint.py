@@ -7,7 +7,11 @@ the state has them, ``ema_params``, ``frozen_params`` and ``lora_scale``
 (tensors on the CPU, plain ints and floats; ``torch.load(weights_only=True)``
 reads it). The newest three saves are kept. A mesh state's sharded
 tensors are gathered whole into the same file; a restore lays them back out
-in the receiving state's layout (TP and FSDP). A tpualign orbax directory
+in the receiving state's layout (TP and FSDP). Across processes every
+process calls :func:`save_checkpoint` alike: the FSDP slices are
+all-gathered, process 0 alone writes the file (the one a one-process run of
+the same mesh writes), and every process waits for it at a barrier; a
+restore on every process keeps its own parts. A tpualign orbax directory
 cannot be read here: orbax does not import without JAX, so it raises one
 clear error.
 """
@@ -21,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from tpualign_torch.parallel.sharding import ShardedTensor
+from tpualign_torch.parallel.sharding import ShardedTensor, gather_full
 from tpualign_torch.utils.logging import get_logger
 
 log = get_logger("train.checkpoint")
@@ -33,12 +37,10 @@ MAX_TO_KEEP = 3
 
 
 def _to_cpu(obj):
-    if isinstance(obj, ShardedTensor):
-        return obj.full().detach().cpu()
     if torch.is_tensor(obj):
         return obj.detach().cpu()
     if isinstance(obj, dict):
-        return {k: _to_cpu(v) for k, v in obj.items()}
+        return {k: _to_cpu(v) for k, v in gather_full(obj).items()}
     return obj
 
 
@@ -89,7 +91,8 @@ def latest_step(directory: str | Path) -> Optional[int]:
 
 def save_checkpoint(directory: str | Path, state, step: Optional[int] = None) -> int:
     """Save ``state`` under ``<directory>/<step>/state.pt`` (written to a
-    temporary name, then renamed) and keep the newest three saves."""
+    temporary name, then renamed) and keep the newest three saves; across
+    processes every process calls it, and process 0 writes."""
     d = Path(directory).absolute()
     step = int(state.step) if step is None else int(step)
     payload = {"params": state.params, "opt_state": state.opt_state, "step": step}
@@ -100,14 +103,21 @@ def save_checkpoint(directory: str | Path, state, step: Optional[int] = None) ->
         # the checkpoint self-contained for params-only loading
         payload["frozen_params"] = state.frozen_params
         payload["lora_scale"] = float(state.lora_scale)
-    target = d / str(step)
-    target.mkdir(parents=True, exist_ok=True)
-    tmp = target / (STATE_FILE + ".tmp")
-    torch.save(_to_cpu(payload), tmp)
-    os.replace(tmp, target / STATE_FILE)
-    for old in _steps(d)[:-MAX_TO_KEEP]:
-        shutil.rmtree(d / str(old), ignore_errors=True)
-    log.info("saved checkpoint step=%d -> %s", step, directory)
+    payload = _to_cpu(payload)
+    mesh = getattr(state, "mesh", None)
+    if mesh is None or not mesh.distributed or mesh.rank == mesh.processes[0]:
+        target = d / str(step)
+        target.mkdir(parents=True, exist_ok=True)
+        tmp = target / (STATE_FILE + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, target / STATE_FILE)
+        for old in _steps(d)[:-MAX_TO_KEEP]:
+            shutil.rmtree(d / str(old), ignore_errors=True)
+        log.info("saved checkpoint step=%d -> %s", step, directory)
+    if mesh is not None and mesh.distributed:
+        from tpualign_torch.parallel.multihost import process_barrier
+
+        process_barrier(mesh)
     return step
 
 

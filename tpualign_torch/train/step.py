@@ -25,9 +25,14 @@ passes the same global batch and runs its own rows on their slices; the
 features of every row are all-gathered on each process's first card (the
 process's own rows stay in the autograd graph, and the logit scale counts
 on the process holding row 0 only), every process takes the same loss, and
-each gradient is summed over the processes (one all-reduce), so every
-process applies the same update and reports the same loss and
-``grad_norm``. FSDP across processes is not ported.
+each replicated gradient is summed over the processes (one all-reduce a
+dtype), so every process applies the same update and reports the same
+loss and ``grad_norm``. Under FSDP a process holds its own rows' slices of
+the parameters, moments and EMA: the other processes' slices are
+all-gathered before the towers run (``sharding.with_remote``, as fresh
+autograd leaves), the gradient each process finds for every slice is
+reduce-scattered so that each keeps the sum for its own slices, and the
+squared norms of the slices are summed over the processes.
 """
 
 from __future__ import annotations
@@ -43,8 +48,8 @@ from tpualign_torch.config import TrainConfig
 from tpualign_torch.models.clip import CLIP
 from tpualign_torch.parallel.mesh import shard_devices
 from tpualign_torch.parallel.sharding import (
-    RowTowers, ShardedTensor, check_model_split, model_slices, row_params, shard_params,
-    split_rows)
+    RowTowers, ShardedTensor, check_model_split, gather_full, model_slices, row_params,
+    shard_params, split_rows, with_remote)
 from tpualign_torch.train.loss import clip_contrastive_loss, distill_kl_loss, siglip_loss
 from tpualign_torch.train.optim import AdamW, global_norm
 
@@ -209,14 +214,15 @@ def _update_ema(state: TrainState, config: TrainConfig) -> TrainState:
 def export_params(state: TrainState) -> Params:
     """The dict to embed and serve with: the EMA when tracked, else the
     params; under LoRA merged into the frozen base. A mesh state is
-    gathered to its first device."""
+    gathered to its first device (across processes, on every process: each
+    calls it alike)."""
     trainable = state.ema_params if state.ema_params is not None else state.params
     if state.mesh is not None:
-        trainable = {k: v.full() for k, v in trainable.items()}
+        trainable = gather_full(trainable)
         if state.frozen_params is not None:
             from tpualign_torch.train.lora import lora_apply
 
-            base = {k: v.full() for k, v in state.frozen_params.items()}
+            base = gather_full(state.frozen_params)
             trainable = lora_apply(base, trainable, state.lora_scale)
         return trainable
     return {k: v.detach() for k, v in state.effective_params(trainable).items()}
@@ -250,12 +256,14 @@ def _compose_loss(img, txt, scale, weak_scores, config: TrainConfig,
 
 def _leaves(params: Params) -> Params:
     """Fresh autograd leaves sharing the params' storage (a mesh state's:
-    every part)."""
+    every part, and across processes the other processes' FSDP slices as
+    leaves of their own)."""
     def leaf(v):
         return v.detach().requires_grad_(True)
 
-    return {k: (v.map(leaf) if isinstance(v, ShardedTensor) else leaf(v))
-            for k, v in params.items()}
+    out = {k: (v.map(leaf) if isinstance(v, ShardedTensor) else leaf(v))
+           for k, v in params.items()}
+    return with_remote(out, grad=True)
 
 
 def _encode(state: TrainState, model: CLIP, params: Params, images, tokens, patch_indices):
@@ -363,15 +371,16 @@ def _to(x, device):
     return None if x is None else x.to(device)
 
 
-def _row_params(state: TrainState, params: Params, i: int) -> dict:
+def _row_params(state: TrainState, params: Params, frozen, i: int) -> dict:
     """What data row ``i`` runs the towers on (``row_params``); under LoRA
-    the frozen base's parts merged with the replicated adapters, each part
-    with its kernel's slice of the adapter (``W_j + scale·A_j@B_j``)."""
+    the frozen base ``frozen`` (``state.frozen_params`` with its remote
+    slices) merged with the replicated adapters, each part with its
+    kernel's slice of the adapter (``W_j + scale·A_j@B_j``)."""
     rows = row_params(params, i)
-    if state.frozen_params is None:
+    if frozen is None:
         return rows
     out = {}
-    for name, base in row_params(state.frozen_params, i).items():
+    for name, base in row_params(frozen, i).items():
         if f"{name}.a" not in rows:
             out[name] = rows.get(name, base)
             continue
@@ -403,10 +412,12 @@ def _mesh_encode(state: TrainState, model: CLIP, params: Params, images, tokens,
     d, first = mesh.shape["data"], mesh.home
     imgs, toks = split_rows(images, d), split_rows(tokens, d)
     pidx = [None] * d if patch_indices is None else split_rows(patch_indices, d)
+    params = with_remote(params)
+    frozen = None if state.frozen_params is None else with_remote(state.frozen_params)
     img_all, txt_all, scale = [], [], None
     for i in mesh.local_rows:
         home = mesh.row(i)[0]
-        towers = RowTowers(model, _row_params(state, params, i))
+        towers = RowTowers(model, _row_params(state, params, frozen, i))
         img, txt, s = towers(_as_pixels(_to(imgs[i], home), model), toks[i].to(home),
                              _to(pidx[i], home))
         img_all.append(img.to(first))
@@ -428,11 +439,17 @@ def _mesh_grads(loss: torch.Tensor, leaves: Dict[str, ShardedTensor]) -> Dict[st
     slice received, copied to each of them. A replicated parameter sums
     over the data rows; an FSDP slice has its sum over the rows from
     autograd already (its gather's backward). Across processes each
-    slice's sum over this process's positions is then summed over the
-    processes (process_sum)."""
+    replicated slice's sum over this process's positions is then summed
+    over the processes (process_sum), and each FSDP slice's gradient, from
+    its own part or its remote leaf, is reduce-scattered to the process
+    that holds it (:func:`_scatter_fsdp`)."""
     order = [(name, i, j) for name, st in leaves.items() for i, j in st.positions()]
-    got = dict(zip(order, torch.autograd.grad(
-        loss, [leaves[n].parts[i][j] for n, i, j in order], allow_unused=True)))
+    remote = [(name, key) for name, st in leaves.items() for key in (st.remote or {})]
+    got = torch.autograd.grad(
+        loss, [leaves[n].parts[i][j] for n, i, j in order]
+        + [leaves[n].remote[key] for n, key in remote], allow_unused=True)
+    remote_got = dict(zip(remote, got[len(order):]))
+    got = dict(zip(order, got[:len(order)]))
     out = {}
     for name, st in leaves.items():
         groups: dict = {}
@@ -454,8 +471,11 @@ def _mesh_grads(loss: torch.Tensor, leaves: Dict[str, ShardedTensor]) -> Dict[st
     if mesh.distributed:
         from tpualign_torch.parallel.multihost import process_sum
 
-        summed = iter(process_sum(mesh, [t for *_, totals in out.values() for t in totals]))
-        out = {name: (st, groups, parts, [next(summed) for _ in totals])
+        summed = iter(process_sum(mesh, [t for st, *_, totals in out.values()
+                                         if not st.needs_remote for t in totals]))
+        scattered = _scatter_fsdp(mesh, out, remote_got)
+        out = {name: (st, groups, parts,
+                      scattered[name] if st.needs_remote else [next(summed) for _ in totals])
                for name, (st, groups, parts, totals) in out.items()}
     grads = {}
     for name, (st, groups, parts, totals) in out.items():
@@ -466,17 +486,59 @@ def _mesh_grads(loss: torch.Tensor, leaves: Dict[str, ShardedTensor]) -> Dict[st
     return grads
 
 
+def _scatter_fsdp(mesh, out: dict, remote_got: dict) -> Dict[str, list]:
+    """Across processes, the gradient of every FSDP slice summed over the
+    processes, each process keeping its own: what this process found for
+    every data row's slice (its own rows' from ``out``'s local totals, the
+    other rows' from their remote leaves, zeros where autograd found none)
+    goes into one reduce-scatter a dtype, in process order. Returns each
+    FSDP tensor's totals in ``out``'s group order."""
+    from tpualign_torch.parallel.multihost import _ranks, process_reduce_scatter
+
+    fsdp = [(name, st, groups, totals) for name, (st, groups, _, totals) in out.items()
+            if st.needs_remote]
+    if not fsdp:
+        return {}
+    mine = {name: dict(zip(groups, totals)) for name, _, groups, totals in fsdp}
+    parts = []
+    for rank in _ranks(mesh):
+        rows = [i for i, q in enumerate(mesh.processes) if q == rank]
+        row = []
+        for name, st, groups, _ in fsdp:
+            for c in st.columns():
+                for i in rows:
+                    key = (i, c)
+                    g = mine[name].get(key) if rank == mesh.rank else remote_got.get((name, key))
+                    if g is None:
+                        g = torch.zeros_like(st.remote[key])
+                    row.append(g)
+        parts.append(row)
+    summed = iter(process_reduce_scatter(mesh, parts))
+    got = {(name, (i, c)): next(summed) for name, st, _, _ in fsdp for c in st.columns()
+           for i in mesh.local_rows}
+    return {name: [got[(name, key)].to(st.parts[key[0]][key[1]].device) for key in groups]
+            for name, st, groups, _ in fsdp}
+
+
 def _sharded_norm(grads: Dict[str, ShardedTensor], first: torch.device) -> torch.Tensor:
-    """``global_norm`` over every distinct slice once, summed on ``first``."""
-    heads = []
+    """``global_norm`` over every distinct slice once, summed on ``first``;
+    across processes each FSDP slice's square is summed over the processes
+    that hold them (the replicated ones are equal on every process)."""
+    heads, split = [], []
     for st in grads.values():
         seen = set()
         for i, j in st.positions():
             if st.group(i, j) not in seen:
                 seen.add(st.group(i, j))
-                heads.append(st.parts[i][j])
-    norms = torch.stack([n.float().to(first) for n in torch._foreach_norm(heads)])
-    return torch.sqrt(torch.sum(norms * norms))
+                (split if st.needs_remote else heads).append(st.parts[i][j])
+    sq = [n.float().to(first) ** 2 for n in torch._foreach_norm(heads + split)]
+    if not split:
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    from tpualign_torch.parallel.multihost import process_sum
+
+    mesh = next(iter(grads.values())).mesh
+    own = process_sum(mesh, [torch.sum(torch.stack(sq[len(heads):]))])[0]
+    return torch.sqrt((torch.sum(torch.stack(sq[:len(heads)])) if heads else 0.0) + own)
 
 
 def _sharded_update(tx: AdamW, params, grads, opt_state: dict, g_norm: torch.Tensor) -> dict:

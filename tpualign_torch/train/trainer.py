@@ -6,10 +6,14 @@ or for vanilla_clip from the same-page cartesian pairs with weight 1;
 images decode in a worker process's thread pool ahead of the step (host feed: PIL bicubic
 pixels; device feed: uint8 buckets that the step resizes on the card and
 normalises through K5), texts tokenize to the 77-token context with the
-length buckets; the step runs on one device, or over a mesh of one
-process (``Trainer(mesh=)``, ``make_sharded_train_step``: the batch split
-over ``data``, the towers tensor parallel over ``model``, ``TRAIN_FSDP``);
-checkpoints go to ``train/checkpoint.py``. The numpy RNG streams are tpualign's (``seed``
+length buckets; the step runs on one device, or over a mesh
+(``Trainer(mesh=)``, ``make_sharded_train_step``: the batch split over
+``data``, the towers tensor parallel over ``model``, ``TRAIN_FSDP``), of
+one process or across processes (``parallel/multihost.py``): there every
+process builds the same pairs and the same seeded batches, decodes only
+its own data rows' images, and runs its own rows; process 0 writes the
+log lines, the metrics file and the checkpoints; checkpoints go to
+``train/checkpoint.py``. The numpy RNG streams are tpualign's (``seed``
 the shuffle, ``seed+1`` the patch masks, ``seed+2`` the crops, ``seed+3``
 the held-out split), so one seed gives both packages the same batches.
 """
@@ -33,9 +37,10 @@ from tpualign_torch.config import PipelineConfig
 from tpualign_torch.models.clip import CLIP, build_clip, init_clip_params
 from tpualign_torch.models.convert import from_jax_params
 from tpualign_torch.models.loader import load_checkpoint_params
-from tpualign_torch.ops.preprocess import pad_to_bucket, preprocess_host, sample_crop_boxes
+from tpualign_torch.ops.preprocess import (
+    bucket_hw, pad_to_bucket, preprocess_host, sample_crop_boxes)
 from tpualign_torch.parallel.embed import truncate_to_bucket
-from tpualign_torch.parallel.mesh import one_process, shard_devices
+from tpualign_torch.parallel.mesh import shard_devices
 from tpualign_torch.parallel.sharding import RowTowers, row_params, shard_params
 from tpualign_torch.store import EmbeddingStore
 from tpualign_torch.tokenizer import ClipTokenizer
@@ -118,7 +123,10 @@ class Trainer:
     resize and K5 on each row's first card), held-out evaluation runs the
     towers data and tensor parallel over the mesh, and the model's own
     parameters are released (the mesh holds the weights). ``TRAIN_FSDP``
-    without a mesh changes nothing, as in tpualign.
+    without a mesh changes nothing, as in tpualign. On a mesh across
+    processes every process constructs the Trainer and calls ``train``
+    alike; batches stay on the host until the step moves each row's slice
+    to its card, and held-out evaluation runs on this process's rows.
     """
 
     def __init__(self, config: PipelineConfig, store: Optional[EmbeddingStore] = None,
@@ -126,8 +134,11 @@ class Trainer:
         self.config = config
         self.mesh = mesh
         devices = shard_devices(mesh)
-        one_process(mesh, "Trainer(mesh=)")
-        self.device = resolve_device(device) if devices is None else devices[0]
+        self.device = resolve_device(device) if devices is None else mesh.home
+        distributed = devices is not None and mesh.distributed
+        # across processes the step moves each row's slice from the host
+        self._host_batches = distributed
+        self._primary = not distributed or mesh.rank == mesh.processes[0]
         self.variant = config.model.variant
         self.store = store or EmbeddingStore(config.store.root,
                                              embed_dim=self.variant.embed_dim)
@@ -200,7 +211,8 @@ class Trainer:
             self.variant.context_length, tcfg.image_feed == "device",
             int(self.config.image_preprocess_bucket),
             int(tcfg.feed_workers) or min(8, os.cpu_count() or 1),
-            int(tcfg.feed_cache_mb) * 2**20, self.config.text_buckets)
+            int(tcfg.feed_cache_mb) * 2**20, self.config.text_buckets,
+            self._decoded_rows(batch_size))
         feed = _ProcessFeed(source, prefetch)
         try:
             while True:
@@ -212,6 +224,25 @@ class Trainer:
                 yield item
         finally:
             feed.close()
+
+    def _decoded_rows(self, batch_size: int) -> Optional[np.ndarray]:
+        """On a mesh across processes, the positions of a global batch that
+        this process's data rows run (``GRAD_ACCUM_STEPS`` microbatches in
+        turn, each split over the data axis): the only images it decodes.
+        None (every row) elsewhere, or where the batch does not split (the
+        step raises then)."""
+        mesh = self.mesh
+        if mesh is None or not mesh.distributed:
+            return None
+        a, d = max(1, int(self.config.train.grad_accum_steps)), mesh.shape["data"]
+        if batch_size % (a * d):
+            return None
+        micro, rows = batch_size // a, batch_size // (a * d)
+        keep = np.zeros(batch_size, bool)
+        for s in range(a):
+            for i in mesh.local_rows:
+                keep[s * micro + i * rows: s * micro + (i + 1) * rows] = True
+        return keep
 
     # -- distillation ----------------------------------------------------------
 
@@ -275,20 +306,25 @@ class Trainer:
     def _embed(self, model: CLIP, params, images: Optional[np.ndarray],
                tokens: Optional[np.ndarray], batch_size: int) -> np.ndarray:
         """Unit-norm embeddings in batches; ``params`` a parameter dict, or
-        one ``RowTowers`` a data row of the mesh (each batch's rows split
-        over them, the results gathered in order)."""
+        one ``RowTowers`` for each of this process's data rows of the mesh
+        (each batch's rows split over every data row, the results gathered
+        in order: across processes each embeds its rows' parts, and the
+        parts are all-gathered)."""
         data = images if images is not None else tokens
         out = []
         for s0 in range(0, len(data), batch_size):
             chunk = torch.from_numpy(np.ascontiguousarray(data[s0: s0 + batch_size]))
             if isinstance(params, list):
-                parts = [(rows, towers) for rows, towers in
-                         zip(torch.tensor_split(chunk, len(params)), params) if len(rows)]
-                emb = torch.cat([
-                    (towers.encode_image(rows.to(towers.device), normalize=True)
-                     if images is not None
-                     else towers.encode_text(rows.to(towers.device), normalize=True))
-                    .to(self.device) for rows, towers in parts])
+                parts = torch.tensor_split(chunk, self.mesh.shape["data"])
+                embs = {i: (towers.encode_image(parts[i].to(towers.device), normalize=True)
+                            if images is not None
+                            else towers.encode_text(parts[i].to(towers.device), normalize=True))
+                        .float().to(self.device)
+                        for i, towers in zip(self.mesh.local_rows, params) if len(parts[i])}
+                if self.mesh.distributed:
+                    embs = self._gather_rows(embs, [len(p) for p in parts],
+                                             model.variant.embed_dim)
+                emb = torch.cat([embs[i] for i in range(len(parts)) if len(parts[i])])
             else:
                 chunk = chunk.to(self.device)
                 emb = (_encode_with(model, params, images=chunk) if images is not None
@@ -297,6 +333,25 @@ class Trainer:
         if not out:
             return np.zeros((0, model.variant.embed_dim), np.float32)
         return np.concatenate(out)
+
+    def _gather_rows(self, embs: dict, sizes: List[int], dim: int) -> dict:
+        """Every data row's embeddings (``sizes[i]`` rows of ``dim`` for row
+        i) from this process's ``embs`` (row -> tensor): one all-gather over
+        the processes, each process's rows padded to the largest part."""
+        from tpualign_torch.parallel.multihost import process_gather
+
+        mesh, width = self.mesh, max(sizes)
+        buf = torch.zeros((len(mesh.local_rows), width, dim), device=self.device)
+        for k, i in enumerate(mesh.local_rows):
+            if i in embs:
+                buf[k, :sizes[i]] = embs[i]
+        got = process_gather(mesh, buf)
+        ranks = sorted(set(mesh.processes))
+        out = {}
+        for p, rows in zip(ranks, got):
+            for k, i in enumerate(r for r in range(len(sizes)) if mesh.processes[r] == p):
+                out[i] = rows[k, :sizes[i]]
+        return out
 
     # -- held-out evaluation ---------------------------------------------------
 
@@ -331,14 +386,17 @@ class Trainer:
         ``(image_path, text, weight)`` triples: each image queries the
         distinct held-out texts, its own text the ground truth. Returns
         ``{"top1": ..., "top{k}": ..., "mrr": ..., "pairs": N}``; the ranks
-        are taken on the host (ties: ascending index)."""
+        are taken on the host (ties: ascending index). Across processes
+        every process calls it alike (the export params are gathered), each
+        embeds its data rows' part of the set, and the parts are gathered,
+        so all report the same."""
         params = self.export_params
         imgs, tokens, gt, _n_pairs, _n_texts = self._prepare_heldout(triples, batch_size)
         if self.mesh is not None:
             sharded = shard_params(params, self.mesh)
             del params
             params = [RowTowers(self.model, row_params(sharded, i))
-                      for i in range(self.mesh.shape["data"])]
+                      for i in self.mesh.local_rows]
         ie = self._embed(self.model, params, imgs, None, batch_size)
         te = self._embed(self.model, params, None, tokens, batch_size)
         sims = ie @ te.T  # (P, T)
@@ -353,6 +411,8 @@ class Trainer:
 
     def _to_device(self, x, dtype=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(x))
+        if self._host_batches:
+            return t if dtype is None else t.to(dtype)
         return t.to(self.device, dtype=dtype, non_blocking=True)
 
     def train(self, schema: str = "clip_combined", steps: int = 100,
@@ -367,7 +427,8 @@ class Trainer:
         ``metrics_file`` gets one JSON line per ``log_every`` interval, per
         held-out evaluation and at the end. With ``ckpt_dir`` the state
         resumes from its newest save and is saved every ``ckpt_every``
-        steps and at the end.
+        steps and at the end. Across processes every process calls it with
+        the same arguments; process 0 logs and writes ``metrics_file``.
         """
         batch_size = batch_size or self.config.train.batch_size
         triples = build_pair_dataset(self.store, schema, self.config.data.images_dir)
@@ -382,15 +443,7 @@ class Trainer:
         if eval_fraction > 0.0:
             if not 0.0 < eval_fraction < 1.0:
                 raise ValueError(f"eval_fraction must be in (0, 1), got {eval_fraction}")
-            # a deterministic split, independent of the shuffle stream
-            ho_rng = np.random.default_rng(self.config.seed + 3)
-            n_ho = max(1, int(round(len(triples) * eval_fraction)))
-            if n_ho >= len(triples):
-                raise ValueError(f"eval_fraction={eval_fraction} leaves no training "
-                                 f"pairs ({len(triples)} total)")
-            ho_set = set(int(i) for i in ho_rng.permutation(len(triples))[:n_ho])
-            heldout = [t for i, t in enumerate(triples) if i in ho_set]
-            triples = [t for i, t in enumerate(triples) if i not in ho_set]
+            heldout, triples = heldout_split(triples, self.config.seed, eval_fraction)
             log.info("held out %d/%d pairs for validation",
                      len(heldout), len(heldout) + len(triples))
         if batch_size > len(triples):
@@ -420,15 +473,16 @@ class Trainer:
 
         def emit(record: dict) -> None:
             # open-append-close per record: a crash never loses flushed lines
-            if metrics_file:
+            if metrics_file and self._primary:
                 with open(metrics_file, "a", encoding="utf-8") as fh:
                     fh.write(json.dumps(record) + "\n")
 
         def run_eval(step_i):
             m = self.evaluate_heldout(heldout)
             heldout_history.append({"step": step_i, **m})
-            log.info("heldout@%d: top1=%.3f mrr=%.3f (%d pairs)",
-                     step_i, m.get("top1", 0.0), m["mrr"], m["pairs"])
+            if self._primary:
+                log.info("heldout@%d: top1=%.3f mrr=%.3f (%d pairs)",
+                         step_i, m.get("top1", 0.0), m["mrr"], m["pairs"])
             emit({"kind": "heldout", "step": step_i, **m})
 
         augment = self.config.train.augment
@@ -465,7 +519,7 @@ class Trainer:
                         self._to_device(weights),
                         None if patch_idx is None else self._to_device(patch_idx, torch.int64),
                         teacher)
-                if (step_i + 1) % log_every == 0:
+                if (step_i + 1) % log_every == 0 and self._primary:
                     kd = ("" if "distill_kl" not in metrics
                           else " distill_kl=%.4f" % float(metrics["distill_kl"]))
                     log.info("step %d: loss=%.4f acc_i2t=%.3f grad_norm=%.3f%s",
@@ -486,7 +540,8 @@ class Trainer:
             from tpualign_torch.train.checkpoint import save_checkpoint
 
             save_checkpoint(ckpt_dir, self.state)
-        meter.report()
+        if self._primary:
+            meter.report()
         out = {k: float(v) for k, v in metrics.items()}
         out["wall_seconds"] = time.perf_counter() - t0
         if heldout and eval_every > 0:
@@ -498,6 +553,21 @@ class Trainer:
         return out
 
 
+def heldout_split(triples: list, seed: int, fraction: float) -> Tuple[list, list]:
+    """``Trainer.train``'s held-out split of ``triples``: ``fraction`` of
+    them (rounded, at least one) by the ``seed + 3`` stream, independent of
+    the shuffle. Returns ``(held out, trained on)``, each in the triples'
+    order."""
+    ho_rng = np.random.default_rng(seed + 3)
+    n_ho = max(1, int(round(len(triples) * fraction)))
+    if n_ho >= len(triples):
+        raise ValueError(f"eval_fraction={fraction} leaves no training "
+                         f"pairs ({len(triples)} total)")
+    ho_set = set(int(i) for i in ho_rng.permutation(len(triples))[:n_ho])
+    return ([t for i, t in enumerate(triples) if i in ho_set],
+            [t for i, t in enumerate(triples) if i not in ho_set])
+
+
 class _BatchSource:
     """The feed's batches for one seed, in tpualign's order and content;
     picklable, so that a worker process can build them. ``run(put,
@@ -505,11 +575,17 @@ class _BatchSource:
     returns False when the consumer has gone."""
 
     def __init__(self, triples, batch_size, seed, epochs, extras, image_size,
-                 context_length, device_feed, bucket, workers, cache_budget, text_buckets):
+                 context_length, device_feed, bucket, workers, cache_budget, text_buckets,
+                 decoded=None):
         self.triples, self.batch_size, self.seed, self.epochs = triples, batch_size, seed, epochs
         self.extras, self.size, self.ctx = extras, image_size, context_length
         self.device_feed, self.bucket, self.workers = device_feed, bucket, workers
         self.cache_budget, self.text_buckets = cache_budget, text_buckets
+        # the batch positions whose images are decoded (None: all); the
+        # others stay zero, their texts and weights kept, and under the
+        # device feed their true sizes read from the files' headers (the
+        # crops' sampling reads every row's)
+        self.decoded = decoded
 
     def run(self, put, stop) -> None:
         from PIL import Image
@@ -520,9 +596,16 @@ class _BatchSource:
         tokenizer = ClipTokenizer(context_length=self.ctx)
         buckets = self.text_buckets
         cache: dict = {}
+        sizes: dict = {}
 
-        def load_one(j: int):
+        def load_one(j: int, decode: bool = True):
             path, text, w = triples[j]
+            if not decode:
+                if not device_feed:
+                    return None, text, w
+                if path not in sizes:
+                    sizes[path] = _header_hw(path, bucket)
+                return (None, sizes[path]), text, w
             arr = cache.get(path)
             if arr is None:
                 try:
@@ -560,10 +643,14 @@ class _BatchSource:
                         hws = None
                     texts = [""] * batch_size
                     weights = np.zeros(batch_size, np.float32)
-                    for i, (arr, text, w) in enumerate(pool.map(load_one, sel)):
+                    loads = (pool.map(load_one, sel) if self.decoded is None
+                             else pool.map(load_one, sel, self.decoded))
+                    for i, (arr, text, w) in enumerate(loads):
                         if arr is not None:
                             if device_feed:
-                                imgs[i], hws[i] = arr
+                                pixels, hws[i] = arr
+                                if pixels is not None:
+                                    imgs[i] = pixels
                             else:
                                 imgs[i] = arr
                         texts[i] = text
@@ -580,6 +667,21 @@ class _BatchSource:
                         return
                 epoch += 1
         put(None)
+
+
+def _header_hw(path: str, bucket: int) -> np.ndarray:
+    """The (h, w) that decoding ``path`` into a ``bucket`` buffer gives,
+    read from the file's header alone; the full bucket where the file does
+    not open, as a failed decode keeps (a file whose header reads but whose
+    pixels do not decode is the one case where the two differ)."""
+    from PIL import Image
+
+    try:
+        with Image.open(path) as im:
+            w, h = im.size
+    except Exception:
+        return np.asarray((bucket, bucket), np.int32)
+    return np.asarray(bucket_hw(h, w, bucket), np.int32)
 
 
 def _to_shared(item):
