@@ -17,8 +17,9 @@ line each:
 2. K1 ``fused_mha`` against its plain version at ViT-B-32's shapes (B=256:
    vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal) and at
    ViT-H-14's vision (B=32, T=257, D=1280, H=16, hd 80) whole and as one
-   card's part of a 4-way model axis (H=4), fp32 (the CUDA-core kernel) and
-   bf16 (the tensor-core kernel): twelve rows,
+   card's part of a 4-way model axis (H=4), and ViT-B-32's vision and text
+   T=77 as one card's part of a 2-way model axis (H=6 and 4, B=256), fp32
+   (the CUDA-core kernel) and bf16 (the tensor-core kernel): sixteen rows,
    with times for the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
    calls it), the kernel's and the yardstick's over a CUDA graph of 64
@@ -40,7 +41,12 @@ line each:
    through ``torch._int_mm``, every attention through K1) against the bf16
    towers over 1,024 images and 4,096 chunks (images/s, chunks/s, largest
    gap, smallest cosine), and one batch's first projection against the
-   CPU ``int8_dot`` (the same codes, an ulp at most);
+   CPU ``int8_dot`` (the same codes, an ulp at most); then the int8 towers
+   tensor parallel on card 0 twice as a (1, 2) mesh (each row-split
+   product's maxima over the row's cards, its int32 partials summed on the
+   first), images and chunks bit-equal to the one-card int8 engine, K1 once
+   and ``_int_mm`` four times a part, block and forward, images/s and
+   chunks/s beside one card's;
 5. K3 ``masked_sim_topk_quant`` against its plain version at Q=1,024,
    N=1,000,000, D=512 (10,000 page keys, the mix of 3.), for int8 (s8),
    int8 (dequant), int4 and int2, k=10 and k=40, with times for the kernel,
@@ -116,7 +122,7 @@ line each:
     and ``query --image-id`` through the artifact; the counters are read
     around the clients' run alone;
     live, over the same store: the int8 exact service and its IVF twin
-    behind HTTP with SERVE_AUTO_COMPACT=0.2: /add of 20,000 rows by
+    behind HTTP with SERVE_AUTO_COMPACT=0.2: /add of 12,000 rows by
     embeddings and 256 by text, /remove of 25 % in four requests (the
     last compacts automatically), /remove of 1 % and /compact, /sync of a
     snapshot with 4,096 new chunks and 1,024 gone; after each step the
@@ -169,8 +175,8 @@ line each:
     store, its metrics.json against the one-device Evaluator's; after live,
     over the serve phase's store, the sharded exact index against the
     one-device index (int8 and int4 over 1,000,000 rows with gather and
-    streaming, fp32 over 100,000 with gather, streaming and ring; 512
-    keyed and 512 wildcard queries at k=10 and k=100: indices identical,
+    streaming, fp32 over 100,000 with gather, streaming and ring; 256
+    keyed and 256 wildcard queries at k=10 and k=100: indices identical,
     values within 1e-6) and the search ms of each, /add of 4,096 rows, a
     remove of 25 % and compact against fresh indexes, the sharded IVF index
     (int8 over the 1,000,000 rows, 256 lists a shard: build and calibration
@@ -182,14 +188,18 @@ line each:
     ``EmbedEngine(mesh=)``
     over the slice's images and chunks and one device-feed batch (images/s,
     chunks/s) within 1e-5 of the one-device engine, and
-    ``build_service(mesh=)`` behind HTTP, its /search_image and
+    the int8 engine (ViT-B-32, bf16) on a (2, 2) mesh over 256 images and
+    256 texts, bit-equal to card 0's int8 engine at the batch of one data
+    row, ``build_service(mesh=)`` behind HTTP, its /search_image and
     /search_text answers against the one-device service's; the kernels'
-    counts around the mesh runs alone. With four cards or more also: each
+    counts around the mesh runs alone; each part's seconds. With four cards
+    or more also: each
     card's idle share while the replicated and the one-device engines
     embed the slice's images (``torch.profiler``), ``python -m
     tpualign_torch serve`` as a process on card 0 and with ``--mesh-data
-    4`` (start, p50 of each route alone, requests/s under the clients of
-    11., every serial answer equal), the same ``--mesh-data 4`` daemon under
+    4`` (the three daemons of this part started side by side, then each
+    driven alone: start, p50 of each route alone, requests/s under the
+    clients of 11., every serial answer equal), the same ``--mesh-data 4`` daemon under
     RETRIEVAL_INDEX=ivf (its /search_image and /search_text answers, serial
     and the clients', against the per-shard plain K4 version over the
     artifact it wrote, with the exact rescore), and, in the pipeline phase,
@@ -202,11 +212,14 @@ line each:
     (4, 1) with TRAIN_FSDP against the one-card step on the same batch and
     params (loss within 1e-4, grad_norm within 1e-3 relative, params within
     1e-2 x lr where |g| >= 1e-3 x the leaf's max; FSDP against replicated
-    within 1e-5 and 2e-6), each card's peak; then 3 bf16 steps of
+    within 1e-5 and 2e-6), each card's peak; then 2 bf16 steps of
     ``Trainer(mesh=)`` with TRAIN_FSDP on (2, 2) over the store with the
     device feed, after one warm-up (step ms, the feed's wait, every step's
     loss, every card's peak; K1 forward and recompute on every part of
-    every block, K5 once a data row and step). Four distinct cards where
+    every block, K5 once a data row and step); one CLIP_QUANT=int8_qat
+    fp32 step of ``Trainer(mesh=)`` on (1, 2) at B=64 against one card's
+    Trainer on the same batch (loss within 1e-4, grad_norm within 1e-3
+    relative). Four distinct cards where
     the host has them, else card 0 repeated; without ``--mesh-only`` also
     the (2, 2) Trainer without FSDP and a bf16 step's host time by part
     (forward, backward, update; one card and (2, 2)); with ``--mesh-only``
@@ -214,10 +227,10 @@ line each:
     idle share (``torch.profiler``, the feed included; the FSDP one over
     the pairs the multihost quad trains on), ``python -m tpualign_torch
     train`` as processes with ``--mesh-data 4`` and with ``TRAIN_FSDP=1
-    --mesh-data 4`` (3 steps each: the loop's ms a step, pairs/s, each
+    --mesh-data 4`` (2 steps each: the loop's ms a step, pairs/s, each
     card's peak), and ViT-H-14 at its full widths, seeded (one fp32 step on
     (1, 4) and on (4, 1) FSDP against one card's at 4 blocks a tower, B=8;
-    3 timed bf16 steps at full depth on (2, 2), B=64);
+    2 timed bf16 steps at full depth on (2, 2), B=64);
 17. multihost, with four cards and ``--mesh-only`` only: processes across
     the cards (``tpualign_torch.parallel.multihost``, NCCL), each started
     with COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID and its
@@ -229,7 +242,7 @@ line each:
     process's one-process mesh on the same four cards, and the fp32 ring
     bit-equal to gather; one ViT-B-32 fp32 step on hybrid_mesh(2) at B=64
     against mesh_train's one-process (2, 2) step, the two processes' loss
-    equal; ``Trainer(mesh=hybrid_mesh(2))`` with TRAIN_FSDP, 3 bf16 steps
+    equal; ``Trainer(mesh=hybrid_mesh(2))`` with TRAIN_FSDP, 2 bf16 steps
     at B=256 with the device feed, its losses equal on both processes and
     within 1e-4 of mesh_train's in-process (2, 2) FSDP Trainer, its
     checkpoint read here bit-equal to process 0's export), then four
@@ -271,9 +284,12 @@ B = 256  # BATCH_SIZE default
 K1_SHAPES = [("vision", 50, 768, 12, False), ("text16", 16, 512, 8, True),
              ("text32", 32, 512, 8, True), ("text77", 77, 512, 8, True)]
 # ViT-H-14's vision attention (hd 80) whole and as one card's part of a
-# 4-way model axis (tensor parallel: H/4 heads), at the train batch of a row
+# 4-way model axis (tensor parallel: H/4 heads), at the train batch of a row;
+# ViT-B-32's as one card's part of a 2-way model axis (the int8 towers'
+# (1, 2) check), at the embed batch
 K1_LARGE_SHAPES = [("h14_vision", 32, 257, 1280, 16, False),
-                   ("h14_vision_tp4", 32, 257, 320, 4, False)]
+                   ("h14_vision_tp4", 32, 257, 320, 4, False),
+                   ("vision_tp2", B, 50, 384, 6, False), ("text77_tp2", B, 77, 256, 4, True)]
 K1_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2**-6, 2**-7)}  # (atol, rtol)
 K2_TOL_VALUES = 1e-5
 K2_TIE_GAP = 1e-6
@@ -982,19 +998,66 @@ def phase_fp32_towers(dev, seed) -> int:
 INT8_IMAGES, INT8_CHUNKS = 1024, 4096
 
 
+def _int8_split(one, tp, images, texts) -> dict:
+    """``tp``, an ``EmbedEngine`` at CLIP_QUANT=int8 over a mesh whose model
+    axis is above 1 (each row's int8 products split over its cards: the
+    row and column maxima taken over the cards, the int32 partials summed
+    on the row's first card), against ``one``, one card's int8 engine at the
+    batch of one data row (the same products at the same shapes): images
+    and chunks bit for bit; images/s and chunks/s of each; the launches,
+    counted around each engine's runs alone (the mesh's: K1 once a part,
+    block and forward, ``m`` times one card's; ``_int_mm`` four times a
+    part, block and forward)."""
+    from tpualign_torch.ops import quant
+    from tpualign_torch.ops.attention import fused_mha
+
+    m = tp.mesh.shape["model"]
+    out, got = {}, {}
+    for name, eng in (("one_card", one), ("mesh", tp)):
+        eng.encode_image_batch(images[:tp.batch_size])  # warm-up, untimed
+        eng.encode_text_batch(texts[:tp.batch_size])
+        _sync_all()
+        fused_mha.launches = quant.int8_dot.int_mm_calls = 0
+        t0 = time.perf_counter()
+        img = eng.encode_image_batch(images)
+        t_img = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        txt = eng.encode_text_batch(texts)
+        t_txt = time.perf_counter() - t0
+        _sync_all()
+        got[name] = (img, txt)
+        out[name] = {"images_per_s": len(images) / t_img, "chunks_per_s": len(texts) / t_txt,
+                     "batch_size": eng.batch_size,
+                     "launches": {"fused_mha": fused_mha.launches,
+                                  "int_mm": quant.int8_dot.int_mm_calls}}
+    for k, what in enumerate(("images", "chunks")):
+        a, b = got["mesh"][k], got["one_card"][k]
+        check(np.array_equal(a, b), f"int8 towers on {tp.mesh.shape}: {what} differ from one "
+                                    f"card's by {float(np.abs(a - b).max()):.3g}")
+    lm, l1 = out["mesh"]["launches"], out["one_card"]["launches"]
+    check(lm["fused_mha"] == m * l1["fused_mha"] > 0 and lm["int_mm"] == 4 * lm["fused_mha"],
+          f"int8 towers on {tp.mesh.shape}: launches {lm} against one card's {l1} (K1 once a "
+          "part, _int_mm four times a part, block and forward)")
+    return {"on": {"shape": tp.mesh.shape, "devices": [str(d) for d in tp.mesh.devices.flat]},
+            "images": len(images), "chunks": len(texts), "bit_equal": True, **out}
+
+
 def phase_int8_towers(dev, seed):
     """CLIP_QUANT=int8: ViT-B-32's towers (seeded weights, bf16 stream) with
     every projection of every block through ``int8_dot`` (``torch._int_mm``)
     and every attention through K1, against the bf16 towers on the same
     inputs: images/s, chunks/s, the largest gap and the smallest cosine;
-    the launches (one K1 and four ``_int_mm`` per block and forward); and
-    one batch's first projection on the card against the CPU ``int8_dot``
-    on the same input: the same codes, outputs within an ulp."""
+    the launches (one K1 and four ``_int_mm`` per block and forward); one
+    batch's first projection on the card against the CPU ``int8_dot`` on
+    the same input: the same codes, outputs within an ulp; then the same
+    int8 towers tensor parallel on ``[dev] * 2`` as a (1, 2) mesh against
+    the one-card int8 engine, bit for bit (_int8_split). Returns the
+    one-card int8 launches and the (1, 2) engine's."""
     from tpualign_torch.config import ModelConfig
     from tpualign_torch.models.layers import MultiHeadAttention
     from tpualign_torch.ops import quant
     from tpualign_torch.ops.attention import fused_mha
-    from tpualign_torch.parallel import EmbedEngine
+    from tpualign_torch.parallel import EmbedEngine, create_mesh
 
     rng = np.random.default_rng(seed + 7)
     images = rng.normal(size=(INT8_IMAGES, 224, 224, 3)).astype(np.float32)
@@ -1053,6 +1116,11 @@ def phase_int8_towers(dev, seed):
     dot_ms = time_ms(lambda: quant.int8_dot(x2, kernel, bias), 20)
     bf16_ms = time_ms(lambda: torch.mm(x2.to(torch.bfloat16), k_bf,
                                        out_dtype=torch.float32) + bias, 20)
+    del engines["none"]
+    tp = EmbedEngine(ModelConfig("ViT-B-32", quant="int8"), seed=seed,
+                     mesh=create_mesh(1, 2, devices=[dev] * 2))
+    split = _int8_split(engines["int8"], tp, images, texts)
+    del tp
     emit({"phase": "int8_towers", "model": "ViT-B-32", "quant": "int8", "batch_size": B,
           "images": INT8_IMAGES, "chunks": INT8_CHUNKS,
           **{f"{q}_{k}": out[q][k] for q in ("int8", "none")
@@ -1060,8 +1128,8 @@ def phase_int8_towers(dev, seed):
           "max_abs_gap_to_bf16": gap, "min_cosine_to_bf16": cos, "launches": launches,
           "int8_dot_vs_cpu": {"shape": list(x2.shape) + [kernel.shape[1]],
                               "codes_equal": codes, "max_ulps": ulps},
-          "in_proj_ms": {"int8_dot": dot_ms, "bf16_mm": bf16_ms}})
-    return launches["int8"]
+          "in_proj_ms": {"int8_dot": dot_ms, "bf16_mm": bf16_ms}, "split_1x2": split})
+    return launches["int8"], split["mesh"]["launches"]
 
 
 def profile_window(fn, top: int = 8) -> dict:
@@ -1624,8 +1692,8 @@ def _recall(index, q_rec, exact, **kw) -> dict:
 def phase_serve_ivf(dev, seed, root, shared):
     """RETRIEVAL_INDEX=ivf over the serve phase's store: ``python -m
     tpualign_torch index`` as a subprocess (int8, refine 4, recall target
-    0.95), the same build and calibration timed in this process (the same
-    structure), build_service loading the artifact, the clients' mix with
+    0.95), beside it the same build and calibration timed in this process
+    (the same structure), build_service loading the artifact, the clients' mix with
     every answer against the plain path (plain K4, exact rescore), recall
     of each rung against exact fp32, and ``query --image-id`` through the
     artifact."""
@@ -1642,19 +1710,17 @@ def phase_serve_ivf(dev, seed, root, shared):
     cache = os.path.join(root, "vanilla_clip.ivf.npz")
     env = {"STORE_DIR": root, "RETRIEVAL_INDEX": "ivf", "RETRIEVAL_PRECISION": "int8",
            "RETRIEVAL_REFINE": "4", "RETRIEVAL_RECALL_TARGET": "0.95", "IVF_CACHE": cache}
-    t0 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "index", "--device",
-                          dev.type], capture_output=True, text=True, timeout=900,
-                         env=dict(os.environ, **env))
-    index_cli_s = time.perf_counter() - t0
-    check(cli.returncode == 0, f"index exited {cli.returncode}: {cli.stderr[-2000:]}")
-    info = json.loads(cli.stdout.strip().splitlines()[-1])
-    check(info["n_lists"] == 1000 and info["capacity"] <= 1536
-          and info["calibrated_target"] == 0.95 and os.path.exists(cache),
-          f"index printed {info}")
+    def index_cli():
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "index", "--device",
+                              dev.type], capture_output=True, text=True, timeout=900,
+                             env=dict(os.environ, **env))
+        return cli, time.perf_counter() - t0
 
-    # the same build and calibration in this process: their times, and the
-    # same structure as the subprocess's artifact (k-means is deterministic)
+    # the index process starts beside the same build and calibration in this
+    # process: their times, and the same structure as the subprocess's
+    # artifact (k-means is deterministic)
+    started = _beside(index_cli)
     chunk_emb, manuals, pages = shared["chunk_emb"], shared["manuals"], shared["pages"]
     t0 = time.perf_counter()
     again = IVFIndex(chunk_emb, manuals, pages, precision="int8", refine=4, device=dev)
@@ -1663,6 +1729,12 @@ def phase_serve_ivf(dev, seed, root, shared):
     t0 = time.perf_counter()
     again.calibrate(0.95)
     calibrate_s = time.perf_counter() - t0
+    cli, index_cli_s = started.result()
+    check(cli.returncode == 0, f"index exited {cli.returncode}: {cli.stderr[-2000:]}")
+    info = json.loads(cli.stdout.strip().splitlines()[-1])
+    check(info["n_lists"] == 1000 and info["capacity"] <= 1536
+          and info["calibrated_target"] == 0.95 and os.path.exists(cache),
+          f"index printed {info}")
     art = np.load(cache)
     check(np.array_equal(again._ids.cpu().numpy(), art["pids"])
           and np.array_equal(again.centroids.cpu().numpy(), art["centroids"])
@@ -1742,7 +1814,7 @@ def phase_serve_ivf(dev, seed, root, shared):
 
 # the live corpus (phase live): rows added by embeddings and by text, the
 # share removed, the auto-compaction threshold, /sync's delta
-LIVE_ADD, LIVE_ADD_BATCH, LIVE_TEXT, LIVE_TEXT_BATCH = 20_000, 4_000, 256, 64
+LIVE_ADD, LIVE_ADD_BATCH, LIVE_TEXT, LIVE_TEXT_BATCH = 12_000, 4_000, 256, 64
 LIVE_ADD_PAGES = 40  # the stored images whose pages take the added rows
 LIVE_REMOVE, LIVE_REMOVE_BATCHES, LIVE_AUTO_COMPACT = 0.25, 4, 0.2
 LIVE_SYNC_NEW, LIVE_SYNC_GONE, LIVE_CHECK_IMAGES, LIVE_P50_REQUESTS = 4096, 1024, 64, 64
@@ -1919,7 +1991,7 @@ def _live_kernels(dev, services, images):
 def phase_live(dev, seed, root, shared):
     """The live corpus on the serve phase's 1M-chunk store: the int8
     (refine 4) exact service and its IVF twin (the serve_ivf artifact),
-    each behind HTTP with SERVE_AUTO_COMPACT=0.2. /add 20,000 rows by
+    each behind HTTP with SERVE_AUTO_COMPACT=0.2. /add 12,000 rows by
     embeddings and 256 by text, /remove 25 % of the corpus (the fourth of
     four requests crosses the threshold and compacts), /remove 1 % more
     and /compact, then /sync from a store snapshot with 4,096 new chunks
@@ -2736,8 +2808,9 @@ def _run_twice(dev, env, work) -> dict:
 
 def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True):
     """The pipeline as a user runs it, from raw manuals: ``python -m
-    tpualign_torch process``, ``filter``, ``setup-db``, ``embed``
-    (IMAGE_PREPROCESS=device) and ``evaluate`` as subprocesses over 256
+    tpualign_torch process``, ``filter``, ``setup-db`` (beside the first
+    two), ``embed`` (IMAGE_PREPROCESS=device) and ``evaluate`` as
+    subprocesses over 256
     synthdoc manuals (2,048 images, 16,384 chunks), the towers loaded from
     the OpenCLIP checkpoint; stage 1's records against what the writer
     placed, the stored embeddings against the seeded engine bit for bit,
@@ -2788,8 +2861,15 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True
 
     chain = _beside(run_then_ingest)
     secs, launches, logs = {}, {}, {}
+    # setup-db reads nothing stages 1-2 write: its processes run beside them
+    setup = _beside(_run_stage, ["setup-db", "--device", dev.type], env, work)
+    four = torch.cuda.device_count() >= MESH_SHARDS
+    mesh_setup = _mesh_setup_db(env, work) if four else None
     for argv in (["process"], ["filter"], ["setup-db"], ["embed"], ["evaluate"]):
         device = [] if argv[0] in ("process", "filter") else ["--device", dev.type]
+        if argv[0] == "setup-db":
+            secs[argv[0]], launches[argv[0]], logs[argv[0]] = setup.result()
+            continue
         secs[argv[0]], launches[argv[0]], logs[argv[0]] = _run_stage(argv + device, env, work)
         if argv[0] == "filter":
             stage1, images, chunks, terms = _check_stage1(out, feed_dir, pages_want)
@@ -2811,8 +2891,8 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True
                                             os.path.join(out, "images"))
         bitwise["s"] = time.perf_counter() - t0
     # on a host of MESH_SHARDS cards or more: the same stage on the mesh
-    mesh_embed = (_mesh_embed_cli(env, work, store, secs["embed"], len(images))
-                  if torch.cuda.device_count() >= MESH_SHARDS else None)
+    mesh_embed = (_mesh_embed_cli(mesh_setup, work, store, secs["embed"], len(images))
+                  if four else None)
     want = _recount(store, "vanilla_clip")
     got = metrics["vanilla_clip"]
     check(got["num_pairs"] == want["num_pairs"] == len(images) * PIPE_CHUNKS_PER_PAGE,
@@ -2863,6 +2943,7 @@ class _Daemon:
         import queue
         import re
 
+        self.name = name
         self.counters = os.path.join(cwd, f"counters-{name}.json")
         repo = os.path.dirname(os.path.abspath(__file__))
         path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
@@ -3167,38 +3248,35 @@ def _sync_all():
         torch.cuda.synchronize(i)
 
 
-def _timed_steps(trainer, triples, seed, steps=TRAIN_TIMED_STEPS) -> dict:
-    """One warm-up step, then ``steps`` steps at B=256 through the feed:
-    the wait for each batch (decode, upload) and the step on the cards
-    (synchronised), every step's loss (the warm-up's first), peak memory
-    (the current card's, and every card's), and the kernels' launches."""
+def _timed_steps(trainer, it, steps=TRAIN_TIMED_STEPS) -> dict:
+    """One warm-up step, then ``steps`` steps at B=256 through the feed
+    ``it`` (``trainer.batches``; the caller closes it): the wait for each
+    batch (decode, upload) and the step on the cards (synchronised), every
+    step's loss (the warm-up's first), peak memory (the current card's, and
+    every card's), and the kernels' launches."""
     from tpualign_torch.ops.attention import fused_mha
     from tpualign_torch.ops.normalize import normalize_u8
 
-    it = trainer.batches(triples, B, seed=seed)
     feed_s, step_s, losses = [], [], []
-    try:
-        for i in range(steps + 1):
-            if i == 1:
-                _sync_all()
-                for card in range(torch.cuda.device_count()):
-                    torch.cuda.reset_peak_memory_stats(card)
-                fused_mha.launches = fused_mha.backward_recomputes = normalize_u8.launches = 0
-            t0 = time.perf_counter()
-            batch = _device_batch(trainer, next(it))
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            trainer.state, m = trainer._step(trainer.state, *batch)
-            loss = float(m["loss"])
-            losses.append(loss)
+    for i in range(steps + 1):
+        if i == 1:
             _sync_all()
-            t2 = time.perf_counter()
-            check(np.isfinite(loss), f"timed step {i}: loss {loss}")
-            if i:
-                feed_s.append(t1 - t0)
-                step_s.append(t2 - t1)
-    finally:
-        it.close()
+            for card in range(torch.cuda.device_count()):
+                torch.cuda.reset_peak_memory_stats(card)
+            fused_mha.launches = fused_mha.backward_recomputes = normalize_u8.launches = 0
+        t0 = time.perf_counter()
+        batch = _device_batch(trainer, next(it))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.state, m = trainer._step(trainer.state, *batch)
+        loss = float(m["loss"])
+        losses.append(loss)
+        _sync_all()
+        t2 = time.perf_counter()
+        check(np.isfinite(loss), f"timed step {i}: loss {loss}")
+        if i:
+            feed_s.append(t1 - t0)
+            step_s.append(t2 - t1)
     step_ms = 1e3 * float(np.mean(step_s))
     feed_ms = 1e3 * float(np.mean(feed_s))
     return {"step_ms": step_ms, "feed_wait_ms": feed_ms, "step_ms_each": [1e3 * x for x in step_s],
@@ -3325,8 +3403,10 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
     check(len(triples) >= 4 * B, f"clip_combined has {len(triples)} trainable pairs")
     out["pairs"] = len(triples)
     it = trainer.batches(triples, B, seed=seed)
-    batch = _device_batch(trainer, next(it))
-    it.close()
+    try:
+        batch = _device_batch(trainer, next(it))
+    finally:
+        it.close()
     cfg = trainer.config.train
     k1_step = _step_grads(trainer, cfg, batch, fused=True)
     out["step_k1_vs_plain"] = _compare_steps("one step, K1 against plain", k1_step,
@@ -3336,11 +3416,19 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
                                                  accum, k1_step)
     del k1_step, accum
     out["remat"] = _remat_step(trainer, cfg, batch)
-
-    timed = {"device": _timed_steps(trainer, triples, seed)}
+    # a fresh feed: the timed steps wait on the first epoch's decode
+    it = trainer.batches(triples, B, seed=seed)
+    try:
+        timed = {"device": _timed_steps(trainer, it)}
+    finally:
+        it.close()
     del trainer
     host = Trainer(load_config({**env, "TRAIN_IMAGE_FEED": "host"}), device=dev)
-    timed["host"] = _timed_steps(host, triples, seed)
+    it = host.batches(triples, B, seed=seed)
+    try:
+        timed["host"] = _timed_steps(host, it)
+    finally:
+        it.close()
     del host
     torch.cuda.empty_cache()
     peak = device_peak_flops(torch.cuda.get_device_name(0))
@@ -3857,9 +3945,12 @@ def phase_hnsw(dev, seed, root, checkpoint, card) -> dict:
 
     out["live"] = _hnsw_live(dev, service, images, img_emb, rows, manuals, pages, seed)
     del service
+    # calibrate (its dry run, then its --write process) beside the fp16 rung:
+    # neither reads what the other writes
+    calibrate = _beside(_calibrate_cli, dev, {"STORE_DIR": store_dir, "CLIP_MODEL": "ViT-B-32"},
+                        store_dir)
     out["fp16"] = _hnsw_fp16(dev, rows, manuals, pages, images, img_emb)
-    out["calibrate"] = _calibrate_cli(dev, {"STORE_DIR": store_dir, "CLIP_MODEL": "ViT-B-32"},
-                                      store_dir)
+    out["calibrate"] = calibrate.result()
     emit(out)
     return run["launches"]
 
@@ -3867,7 +3958,7 @@ def phase_hnsw(dev, seed, root, checkpoint, card) -> dict:
 # the mesh phase: a 4-way data mesh (four distinct cards where the host has
 # them, else the first card four times) over the serve phase's store
 MESH_SHARDS = 4
-MESH_QUERIES = 512        # keyed image queries, and as many wildcard ones
+MESH_QUERIES = 256        # keyed image queries, and as many wildcard ones
 MESH_FP32_ROWS = 100_000  # the fp32 index: the first rows of the store
 MESH_ADD = 4096
 MESH_REMOVE_SHARE = 0.25
@@ -4275,6 +4366,27 @@ def _mesh_engine(dev, mesh, tally, seed, distinct) -> dict:
     return out
 
 
+def _mesh_int8(dev, seed, tally) -> dict:
+    """CLIP_QUANT=int8 (ViT-B-32, seeded, bf16) on a (2, 2) mesh, four
+    distinct cards where the host has them (a ``.to()`` between distinct
+    cards is where a misplaced scale or partial would show; on card 0
+    repeated it moves nothing), over B seeded images and B texts of one
+    length bucket, against card 0's int8 engine at the batch of one data
+    row (_int8_split: bit for bit); the mesh engine's K1 launches count on
+    the mesh path."""
+    from tpualign_torch.config import ModelConfig
+    from tpualign_torch.parallel import EmbedEngine
+
+    config = ModelConfig("ViT-B-32", quant="int8")
+    one = EmbedEngine(config, device=dev, seed=seed, batch_size=B // 2)
+    tp = EmbedEngine(config, mesh=_mesh_of(dev, 2, 2), seed=seed)
+    images = np.random.default_rng(seed + 9).normal(size=(B, 224, 224, 3)).astype(np.float32)
+    texts = [f"vervang het filter {i}" for i in range(B)]  # one bucket: 16 tokens
+    row = _int8_split(one, tp, images, texts)
+    tally["fused_mha"] = tally.get("fused_mha", 0) + row["mesh"]["launches"]["fused_mha"]
+    return row
+
+
 def _card_idle(fn) -> dict:
     """fn() under torch.profiler; each card's idle share of the host-clock
     window (1 - its merged kernel and copy time / the window; "not
@@ -4368,16 +4480,16 @@ def _mesh_service(dev, mesh, tally, root, checkpoint, seed, shared) -> dict:
             "service_build_s": {"one_device": one_s, "mesh": mesh_s}}
 
 
-def _mesh_daemon(env, work, name, args, images, pngs) -> dict:
-    """One ``serve`` process over the serve phase's store: its start, p50
-    of /search_image, /search_text (one fresh text a request, so that the
-    mesh engine runs it on its first replica as one card does) and
-    /search_image_bytes sent alone, requests/s under the serve phase's
-    clients, /stats' mesh, its kernel counts and its serial answers
-    (``pngs``: encoded image files)."""
+def _mesh_daemon(daemon, images, pngs) -> dict:
+    """One started ``serve`` process (a ``_Daemon``) over the serve phase's
+    store, stopped at the end: its start, p50 of /search_image,
+    /search_text (one fresh text a request, so that the mesh engine runs it
+    on its first replica as one card does) and /search_image_bytes sent
+    alone, requests/s under the serve phase's clients, /stats' mesh, its
+    kernel counts and its serial answers (``pngs``: encoded image files)."""
     import base64
 
-    daemon = _Daemon(env, work, name, "cuda", args)
+    name = daemon.name
     try:
         rng = np.random.default_rng(5)
         asks = {"/search_image": [{"image_ids": [images[int(i)]["image_id"]
@@ -4417,61 +4529,79 @@ def _mesh_daemon(env, work, name, args, images, pngs) -> dict:
 
 def _mesh_serve_cli(seed, root, checkpoint, images, mesh, shared) -> dict:
     """``python -m tpualign_torch serve`` as a process over the serve
-    phase's store (int8, refine 4, the checkpoint's towers) on card 0, then
-    with ``--mesh-data`` over the mesh's cards (_mesh_daemon each): every
-    serial answer of the mesh daemon equal to the one-card daemon's; then
-    the ``--mesh-data`` daemon under RETRIEVAL_INDEX=ivf (_mesh_ivf_daemon)."""
+    phase's store (int8, refine 4, the checkpoint's towers) on card 0, with
+    ``--mesh-data`` over the mesh's cards, and with ``--mesh-data`` under
+    RETRIEVAL_INDEX=ivf (the sharded IVF index, built, calibrated to
+    MESH_IVF_TARGET and saved to IVF_CACHE by the daemon): the three start
+    side by side (their ``start_s`` overlap), then each is driven alone
+    (_mesh_daemon): every serial answer of the mesh daemon equal to the
+    one-card daemon's, the IVF daemon's against the plain path
+    (_mesh_ivf_daemon)."""
     import os
 
     work = os.path.join(root, "mesh-serve")
     os.makedirs(work)
     env = {"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8", "RETRIEVAL_REFINE": "4",
            "CLIP_MODEL": "ViT-B-32", "SEED": str(seed), "CLIP_CHECKPOINT": checkpoint}
-    rng = np.random.default_rng(seed)
-    pngs = [_png(rng) for _ in range(4)]
-    daemons = {name: _mesh_daemon(env, work, name, extra, images, pngs)
-               for name, extra in (("one_card", ()),
-                                   ("mesh", ("--mesh-data", str(mesh.shape["data"]))))}
-    got, want = daemons["mesh"].pop("answers"), daemons["one_card"].pop("answers")
-    for path in want:
-        check(got[path] == want[path], f"serve --mesh-data {path}: answers differ from the "
-                                       "one-card daemon's")
-    check(daemons["mesh"]["mesh"] == mesh.shape, f"the mesh daemon's /stats: "
-                                                 f"{daemons['mesh']['mesh']}")
-    for d in daemons.values():
-        del d["asks"], d["load"]
-    daemons["mesh_ivf"] = _mesh_ivf_daemon(env, work, images, pngs, mesh, shared)
-    return {"answers_equal": True, **daemons}
+    cache = os.path.join(work, "vanilla_clip.ivf.npz")  # names its schema: used as it is
+    ivf_env = {**env, "RETRIEVAL_INDEX": "ivf", "RETRIEVAL_RECALL_TARGET": str(MESH_IVF_TARGET),
+               "IVF_CACHE": cache}
+    on_mesh = ("--mesh-data", str(mesh.shape["data"]))
+    starts = {name: _beside(_Daemon, case_env, work, name, "cuda", args)
+              for name, case_env, args in (("one_card", env, ()), ("mesh", env, on_mesh),
+                                           ("mesh-ivf", ivf_env, on_mesh))}
+    started, failed = {}, []
+    for name, future in starts.items():
+        try:
+            started[name] = future.result()
+        except Exception as exc:  # noqa: BLE001 — raised below, once every daemon is stopped
+            failed.append(exc)
+    try:
+        if failed:
+            raise failed[0]
+        rng = np.random.default_rng(seed)
+        pngs = [_png(rng) for _ in range(4)]
+        daemons = {name: _mesh_daemon(started[name], images, pngs)
+                   for name in ("one_card", "mesh")}
+        got, want = daemons["mesh"].pop("answers"), daemons["one_card"].pop("answers")
+        for path in want:
+            check(got[path] == want[path], f"serve --mesh-data {path}: answers differ from the "
+                                           "one-card daemon's")
+        check(daemons["mesh"]["mesh"] == mesh.shape, f"the mesh daemon's /stats: "
+                                                     f"{daemons['mesh']['mesh']}")
+        for d in daemons.values():
+            del d["asks"], d["load"]
+        daemons["mesh_ivf"] = _mesh_ivf_daemon(started["mesh-ivf"], root, cache, images, pngs,
+                                               mesh, shared)
+    finally:
+        for daemon in started.values():
+            daemon.stop()
+    return {"answers_equal": True, "started_side_by_side": True, **daemons}
 
 
-def _mesh_ivf_daemon(env, work, images, pngs, mesh, shared) -> dict:
-    """``serve --mesh-data`` under RETRIEVAL_INDEX=ivf (the sharded IVF
-    index, built, calibrated to MESH_IVF_TARGET and saved to IVF_CACHE by
-    the daemon), through _mesh_daemon; its serial /search_image and
-    /search_text answers and every /search_image answer of the clients'
-    mix against the plain path (per-shard plain K4 at the daemon's probes,
-    the exact rescore) over the artifact it wrote, loaded here on the same
-    cards; texts are encoded here by the one-card engine (the mesh engine
-    encodes one text a request on its first replica, as one card does)."""
+def _mesh_ivf_daemon(daemon, store_dir, cache, images, pngs, mesh, shared) -> dict:
+    """The started ``serve --mesh-data`` daemon under RETRIEVAL_INDEX=ivf
+    over ``store_dir``, through _mesh_daemon; its serial /search_image and
+    /search_text answers and every /search_image answer of the clients' mix
+    against the plain path (per-shard plain K4 at the daemon's probes, the
+    exact rescore) over the artifact it wrote (``cache``), loaded here on
+    the same cards; texts are encoded here by the one-card engine (the mesh
+    engine encodes one text a request on its first replica, as one card
+    does)."""
     import os
 
     from tpualign_torch.parallel.ivf import IVFIndex
     from tpualign_torch.parallel.retrieval import WILDCARD_KEY, encode_keys
     from tpualign_torch.store import EmbeddingStore
 
-    cache = os.path.join(work, "vanilla_clip.ivf.npz")  # names its schema: used as it is
-    ivf_env = {**env, "RETRIEVAL_INDEX": "ivf", "RETRIEVAL_RECALL_TARGET": str(MESH_IVF_TARGET),
-               "IVF_CACHE": cache}
-    run = _mesh_daemon(ivf_env, work, "mesh-ivf", ("--mesh-data", str(mesh.shape["data"])),
-                       images, pngs)
+    run = _mesh_daemon(daemon, images, pngs)
     check(run["mesh"] == mesh.shape and run["index"] == "IVFIndex" and os.path.exists(cache),
           f"the IVF mesh daemon's /stats: {run['mesh']} {run['index']}")
     check(run["launches"].get("ivf_probe_topk", 0) > 0, "the IVF mesh daemon launched no K4")
     index = IVFIndex.load(cache, shared["chunk_emb"], refine=4, mesh=mesh)
     check(index.n_probes == run["ivf"]["n_probes"], f"artifact probes {index.n_probes}")
-    chunk_ids = list(EmbeddingStore(env["STORE_DIR"]).embedding_matrix(
-        "vanilla_clip", "text_chunks")[0])
-    _, img_emb = EmbeddingStore(env["STORE_DIR"]).embedding_matrix("vanilla_clip", "images")
+    chunk_ids = list(EmbeddingStore(store_dir).embedding_matrix("vanilla_clip", "text_chunks")[0])
+    _, img_emb = EmbeddingStore(store_dir).embedding_matrix("vanilla_clip", "images")
     by_id = {im["image_id"]: (i, im) for i, im in enumerate(images)}
 
     def plain_images(image_ids):
@@ -4503,19 +4633,28 @@ def _mesh_ivf_daemon(env, work, images, pngs, mesh, shared) -> dict:
     return run
 
 
-def _mesh_embed_cli(env, work, store, one_card_s, n_images) -> dict:
-    """``setup-db`` into a fresh store, then ``embed --mesh-data
-    MESH_SHARDS`` over stage 1's records of the pipeline phase (the towers
-    replicated on the first MESH_SHARDS cards, K5 on each): the process's
-    seconds and images/s beside the one-card ``embed`` process's, its
-    launches, and every stored embedding of every schema against the
-    one-card store's within MESH_REPLICA_ATOL."""
+def _mesh_setup_db(env, work):
+    """``setup-db`` of the fresh store ``embed --mesh-data`` fills, started
+    on a thread of its own (it reads nothing the other stages write):
+    ``(its env, the future)``."""
     import os
 
+    mesh_env = {**env, "STORE_DIR": os.path.join(work, "store-mesh")}
+    return mesh_env, _beside(_run_stage, ["setup-db", "--device", "cuda"], mesh_env, work,
+                             "-mesh")
+
+
+def _mesh_embed_cli(mesh_setup, work, store, one_card_s, n_images) -> dict:
+    """``embed --mesh-data MESH_SHARDS`` into the fresh store of
+    ``mesh_setup`` (_mesh_setup_db) over stage 1's records of the pipeline
+    phase (the towers replicated on the first MESH_SHARDS cards, K5 on
+    each): the process's seconds and images/s beside the one-card ``embed``
+    process's, its launches, and every stored embedding of every schema
+    against the one-card store's within MESH_REPLICA_ATOL."""
     from tpualign_torch.store import SCHEMAS, EmbeddingStore
 
-    mesh_env = {**env, "STORE_DIR": os.path.join(work, "store-mesh")}
-    _run_stage(["setup-db", "--device", "cuda"], mesh_env, work, "-mesh")
+    mesh_env, setup = mesh_setup
+    setup.result()
     secs, launches, _ = _run_stage(["embed", "--device", "cuda", "--mesh-data",
                                     str(MESH_SHARDS)], mesh_env, work, "-mesh")
     check(launches["normalize_u8"] == MESH_SHARDS * -(-n_images // B),
@@ -4553,16 +4692,32 @@ def phase_mesh(dev, seed, root, checkpoint, shared, mesh, where, tally, evaluato
     out = {"phase": "mesh", "mesh": {"shape": mesh.shape, "devices": [str(d) for d in
                                                                       mesh.devices.flat],
                                      "stands_on": where}}
+    seconds = out["part_s"] = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     out["indexes"], int8_index = _mesh_indexes(dev, mesh, tally, shared, queries)
+    lap("indexes")
     out["mutations"] = _mesh_mutations(dev, int8_index, tally, shared, queries, seed)
     del int8_index
+    lap("mutations")
     out["ivf"] = _mesh_ivf(dev, mesh, tally, {**shared, "img_emb": img_emb}, queries, seed, root)
+    lap("ivf")
     distinct = len(set(mesh.devices.flat)) == mesh.devices.size
     out["engine"] = _mesh_engine(dev, mesh, tally, seed, distinct)
+    lap("engine")
+    out["int8_2x2"] = _mesh_int8(dev, seed, tally)
+    lap("int8_2x2")
     out["service"] = _mesh_service(dev, mesh, tally, root, checkpoint, seed, shared)
+    lap("service")
     out["evaluator"] = evaluator
     if distinct:
         out["serve_cli"] = _mesh_serve_cli(seed, root, checkpoint, images, mesh, shared)
+        lap("serve_cli")
         out["embed_cli"] = embed_cli
     out["launches"] = dict(tally)
     emit(out)
@@ -4579,9 +4734,9 @@ MESH_TRAIN_LR = 1e-3
 MESH_TRAIN_SHAPES = ((4, 1, False), (2, 2, False), (1, 4, False), (4, 1, True))
 MESH_LOSS_REL, MESH_NORM_REL = 1e-4, 1e-3    # tests/test_train.py:116's bounds
 FSDP_LOSS_REL, FSDP_PARAM_ATOL = 1e-5, 2e-6  # tests/test_train.py:765's bounds
-MESH_TRAIN_STEPS = 3                   # bf16 Trainer(mesh=) steps timed, after one warm-up
+MESH_TRAIN_STEPS = 2                   # bf16 Trainer(mesh=) steps timed, after one warm-up
 MESH_IDLE_STEPS = 1                    # Trainer steps under the profiler (four cards)
-MESH_PROCESS_STEPS = 3                 # each `train` process (four cards)
+MESH_PROCESS_STEPS = 2                 # each `train` process (four cards)
 H14_CUT_LAYERS, H14_CHECK_B = 4, 8     # ViT-H-14's fp32 checks: blocks a tower, batch
 H14_TIMED_B = 64                       # ViT-H-14 bf16 at full depth on (2, 2)
 
@@ -4737,7 +4892,19 @@ def _mesh_trainer(env, triples, seed, mesh, tally, idle: bool) -> dict:
 
     _reset_peaks()
     trainer = Trainer(load_config(env), mesh=mesh)
-    row = _timed_steps(trainer, triples, seed, steps=MESH_TRAIN_STEPS)
+    it = trainer.batches(triples, B, seed=seed)  # one feed for the timed and the profiled steps
+    try:
+        row = _timed_steps(trainer, it, steps=MESH_TRAIN_STEPS)
+        if idle:
+            def steps():
+                for _ in range(MESH_IDLE_STEPS):
+                    trainer.state, m = trainer._step(trainer.state,
+                                                     *_device_batch(trainer, next(it)))
+                    float(m["loss"])
+
+            row["idle"] = _card_idle(steps)
+    finally:
+        it.close()
     for key in ("fused_mha", "fused_mha_backward", "normalize_u8"):
         tally[key] = tally.get(key, 0) + row["launches"][key]
     d, m = mesh.shape["data"], mesh.shape["model"]
@@ -4749,20 +4916,46 @@ def _mesh_trainer(env, triples, seed, mesh, tally, idle: bool) -> dict:
           f"Trainer(mesh={d}x{m}): launches {row['launches']} in {MESH_TRAIN_STEPS} steps")
     row["mesh"] = {"shape": mesh.shape, "devices": [str(x) for x in mesh.devices.flat],
                    "fsdp": trainer.config.train.fsdp, "pairs": len(triples)}
-    if idle:
-        it = trainer.batches(triples, B, seed=seed + 1)
-
-        def steps():
-            for _ in range(MESH_IDLE_STEPS):
-                trainer.state, m = trainer._step(trainer.state, *_device_batch(trainer, next(it)))
-                float(m["loss"])
-
-        try:
-            row["idle"] = _card_idle(steps)
-        finally:
-            it.close()
     del trainer
     return row
+
+
+def _int8_qat_step(dev, env, seed, tally) -> dict:
+    """One CLIP_QUANT=int8_qat step (COMPUTE_DTYPE=float32, MESH_TRAIN_B
+    seeded pairs, the checkpoint's weights) of ``Trainer(mesh=)`` on (1, 2)
+    against one card's Trainer on the same batch: loss within
+    MESH_LOSS_REL, grad_norm within MESH_NORM_REL (the row-split products
+    fake-quantize each card's slices with the maxima over the row's cards;
+    the fp32 partials sum in another order than one card's product); K1
+    forward and recompute on each part of every block; ms of each step
+    (host clock, every card synchronised)."""
+    from tpualign_torch.config import load_config
+    from tpualign_torch.train.trainer import Trainer
+
+    config = load_config({**env, "CLIP_QUANT": "int8_qat", "COMPUTE_DTYPE": "float32"})
+    batch = _train_batch(dev, seed, MESH_TRAIN_B, config.model.variant.image_size)
+    one = Trainer(config, device=dev)
+    (_, m1), one_s = _counted({}, one._step, one.state, *batch)
+    del one
+    mesh = _mesh_of(dev, 1, 2)
+    trainer = Trainer(config, mesh=mesh)
+    seen: dict = {}
+    (_, m), secs = _counted(seen, trainer._step, trainer.state, *batch)
+    del trainer
+    for key, n in seen.items():
+        tally[key] = tally.get(key, 0) + n
+    loss, norm, loss1, norm1 = (float(x) for x in (m["loss"], m["grad_norm"], m1["loss"],
+                                                   m1["grad_norm"]))
+    check(abs(loss - loss1) <= MESH_LOSS_REL * abs(loss1)
+          and abs(norm - norm1) <= MESH_NORM_REL * abs(norm1),
+          f"int8_qat (1, 2): loss {loss} / {loss1}, grad_norm {norm} / {norm1}")
+    blocks = (config.model.variant.vision_layers + config.model.variant.text_layers) * 2
+    check(seen["fused_mha"] == blocks and seen["fused_mha_backward"] == blocks,
+          f"int8_qat (1, 2): launches {seen}")
+    return {"B": MESH_TRAIN_B, "dtype": "float32", "loss": [loss, loss1],
+            "grad_norm": [norm, norm1], "ms": secs * 1e3, "one_card_ms": one_s * 1e3,
+            "launches": seen, "devices": [str(x) for x in mesh.devices.flat],
+            "bounds": {"loss_rel": MESH_LOSS_REL, "grad_norm_rel": MESH_NORM_REL}}
 
 
 def _mesh_train_process(env, work, tag, d, m, extra_env=(), extra_args=()) -> dict:
@@ -4926,9 +5119,13 @@ def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> tup
 
     tally: dict = {}
     head = {"phase": "mesh_train", "card": card, "model": "ViT-B-32"}
+    t0 = time.perf_counter()
 
     def part(name, row):  # each part its own line: a later part's failure keeps it
-        emit({**head, "part": name, name: row})
+        nonlocal t0
+        now = time.perf_counter()
+        emit({**head, "part": name, "s": now - t0, name: row})
+        t0 = now
 
     config = load_config({"CLIP_MODEL": "ViT-B-32", "COMPUTE_DTYPE": "float32"})
     model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
@@ -4951,6 +5148,7 @@ def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> tup
     trainers = {name: _mesh_trainer(case_env, case_triples, seed, mesh, tally, four_cards)
                 for name, mesh, case_env, case_triples in runs}
     part("trainer", trainers)
+    part("int8_qat", _int8_qat_step(dev, env, seed, tally))
     if not four_cards:
         part("step_parts", _step_parts(dev, seed))
     if four_cards:
@@ -5422,7 +5620,7 @@ def main() -> int:
         launches = phase_slice(dev, args.seed)
         fp32_launches = phase_fp32_towers(dev, args.seed)
         lap("slice")
-        int8_launches = phase_int8_towers(dev, args.seed)
+        int8_launches, int8_split_launches = phase_int8_towers(dev, args.seed)
         lap("int8_towers")
         k3 = phase_k3(dev, gen)
         lap("k3")
@@ -5492,6 +5690,7 @@ def main() -> int:
          "launches_by_phase": {"slice": launches["fused_mha"],
                                "slice_fp32_towers": fp32_launches,
                                "int8_towers": int8_launches["fused_mha"],
+                               "int8_towers_1x2": int8_split_launches["fused_mha"],
                                "serve": serve_launches["fused_mha"],
                                "serve_ivf": ivf_launches["fused_mha"],
                                "pipeline": pipe_launches["fused_mha"],

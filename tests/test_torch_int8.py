@@ -131,6 +131,87 @@ def test_int8_dot_qat_gradients_are_straight_through():
     assert x.grad.abs().max() > 0 and w.grad.abs().max() > 0
 
 
+def _split(x, w, parts):
+    """``x``'s columns and ``w``'s rows cut into ``parts`` K-slices (one a
+    card of a model row)."""
+    xs = [torch.from_numpy(np.ascontiguousarray(a)) for a in np.split(x, parts, axis=1)]
+    ws = [torch.from_numpy(np.ascontiguousarray(a)) for a in np.split(w, parts, axis=0)]
+    return xs, ws
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("bias", [True, False])
+def test_int8_dot_rows_match_jitted_jax_on_the_whole_operands(parts, bias):
+    """The row-split form (``out_proj``/``c_proj`` on a model axis): the
+    scales taken over the parts equal tpualign's jitted scales of the whole
+    operands, so do the parts' codes; the output is within an ulp of
+    tpualign's jitted ``int8_dot`` and equal to the port's one-device one
+    (int32 partials summed exactly, the bias added once, in the epilogue).
+    The last card's slice of ``x`` is all zeros, and row 0 is zero on every
+    card: a card's own maxima would take the 1e-12 floor there."""
+    x, w, b = _operands(parts, 33, 256, 48, 3.0)
+    x[:, -256 // parts:] = 0.0
+    bb = b if bias else None
+    xs, ws = _split(x, w, parts)
+    tb = None if bb is None else torch.from_numpy(bb)
+    got = quant.int8_dot_rows(xs, ws, tb, torch.device("cpu")).numpy()
+    want = np.asarray(jax.jit(jax_quant.int8_dot)(x, w, bb))
+    assert got.dtype == np.float32 and got.shape == (33, 48) and _ulps(got, want) <= 1
+    whole = quant.int8_dot(torch.from_numpy(x), torch.from_numpy(w), tb).numpy()
+    np.testing.assert_array_equal(got, whole)
+    cpu = torch.device("cpu")
+    x_s, w_s = quant._split_scale(xs, -1, cpu), quant._split_scale(ws, 0, cpu)
+    j_q, j_s = _jax_codes(x)
+    jw_q, jw_s = (np.asarray(t) for t in jax.jit(jax_quant.quantize_weight)(w))
+    np.testing.assert_array_equal(x_s.numpy(), j_s)
+    np.testing.assert_array_equal(w_s.numpy(), jw_s)
+    np.testing.assert_array_equal(torch.cat([quant._codes(a, x_s) for a in xs], 1).numpy(), j_q)
+    np.testing.assert_array_equal(torch.cat([quant._codes(a, w_s) for a in ws]).numpy(), jw_q)
+
+
+def test_int8_dot_columns_equal_the_one_device_columns():
+    """The column-split form (``in_proj``/``c_fc``): ``x`` quantized once,
+    each card's columns bit-equal to the one-device ``int8_dot``'s, in the
+    stream dtype (fp32 and bf16)."""
+    x, w, b = _operands(7, 2 * 9, 64, 48, 2.0)
+    x3 = torch.from_numpy(x.reshape(2, 9, 64))
+    ws, bs = torch.from_numpy(w).chunk(4, dim=1), torch.from_numpy(b).chunk(4)
+    for xx in (x3, x3.to(torch.bfloat16)):
+        got = quant.int8_dot_columns(xx, ws, bs)
+        whole = quant.int8_dot(xx, torch.from_numpy(w), torch.from_numpy(b))
+        assert all(g.dtype == xx.dtype for g in got)
+        assert torch.equal(torch.cat(got, dim=-1), whole)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_int8_dot_qat_rows_match_the_whole_product_and_its_gradients(parts):
+    """The row-split QAT form: the fake-quantized slices use the whole
+    operands' scales, so the output is the one-device ``int8_dot_qat``'s
+    within the fp32 product's rounding bound, and the straight-through
+    gradients reach every card's slices as the whole product's."""
+    x, w, b = _operands(11 + parts, 12, 64, 24, 1.5)
+    x[:, :64 // parts] = 0.0
+    xs, ws = _split(x, w, parts)
+    for t in xs + ws:
+        t.requires_grad_()
+    got = quant.int8_dot_qat_rows(xs, ws, torch.from_numpy(b), torch.device("cpu"))
+    xw = torch.from_numpy(x).requires_grad_()
+    ww = torch.from_numpy(w).requires_grad_()
+    want = quant.int8_dot_qat(xw, ww, torch.from_numpy(b))
+    j_q, j_s = _jax_codes(x)
+    w_fq = np.asarray(jax.jit(jax_quant.quantize_weight)(w)[0]) * np.asarray(
+        jax.jit(jax_quant.quantize_weight)(w)[1])
+    bound = 64 * np.finfo(np.float32).eps * (np.abs(j_q * j_s) @ np.abs(w_fq)) + 1e-30
+    assert (np.abs(got.detach().numpy() - want.detach().numpy()) <= bound).all()
+    cot = torch.from_numpy(np.random.default_rng(3).normal(size=(12, 24)).astype(np.float32))
+    (got * cot).sum().backward()
+    (want * cot).sum().backward()
+    np.testing.assert_allclose(torch.cat([t.grad for t in xs], 1).numpy(), xw.grad.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(torch.cat([t.grad for t in ws]).numpy(), ww.grad.numpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     return jax_init(JaxCLIP(variant=TINY, use_quick_gelu=True, compute_dtype=jnp.float32),

@@ -173,8 +173,8 @@ reported["resumed"] = resumed.train(steps=5, ckpt_dir=ck,
                                     metrics_file=os.path.join(tout, f"metrics-resumed-{pid}.jsonl"),
                                     **inputs["run"])
 assert resumed.state.step == 5
-# random resized crops: every row's true size (the other process's rows'
-# from their headers) goes into the crops' sampling, recorded here
+# random resized crops: every row's size (the other process's rows' as
+# that process decoded them) goes into the crops' sampling, recorded here
 import numpy as np
 import tpualign_torch.train.trainer as trainer_mod
 sampled, sample = [], trainer_mod.sample_crop_boxes
@@ -248,6 +248,21 @@ def _noise_image(i):
     bucket): its crops differ wherever the boxes do."""
     rng = np.random.default_rng(100 + i)
     return Image.fromarray(rng.integers(0, 256, (30 + 9 * i, 40 + 13 * i, 3), np.uint8))
+
+
+# the rrc store's image whose header reads but whose pixels do not decode
+TRUNCATED = 5
+
+
+def _truncate(path):
+    """Keep the first half of an image file: its header still reads (a
+    size), its pixels no longer decode."""
+    data = path.read_bytes()
+    path.write_bytes(data[:len(data) // 2])
+    with Image.open(path) as im:
+        assert im.size == (40 + 13 * TRUNCATED, 30 + 9 * TRUNCATED)
+        with pytest.raises(OSError):
+            im.convert("RGB")
 
 
 def _store(root, pairs=6, image=_plain_image):
@@ -330,6 +345,7 @@ def workers(jax_pair, tmp_path_factory):
     ov = overrides(store, images_dir, TRAIN_FSDP=1, GRAD_ACCUM_STEPS=2, EMA_DECAY=0.5,
                    LEARNING_RATE=1e-4)
     rrc_store, rrc_images = _store(root / "rrc", pairs=8, image=_noise_image)
+    _truncate(rrc_images / f"m_p1_img{TRUNCATED}.png")
     torch.save({"tree": host(tree), "overrides": ov, "run": TRAIN_RUN,
                 "rrc_overrides": overrides(rrc_store, rrc_images, **RRC_OVERRIDES),
                 "rrc_run": RRC_RUN, "keys": list(TRAIN_KEYS)}, root / "trainer" / "inputs.pt")
@@ -498,15 +514,18 @@ def test_trainer_across_processes_matches_tpualign(trainer_runs):
 
 def test_trainer_rrc_across_processes_matches_one_process(trainer_runs):
     """(b) Random resized crops on the device feed over images of eight
-    sizes (four shrunk into the 64-pixel bucket): each process decodes only
-    its own rows' images, yet both sample every step's crops from every
-    row's true size, so they draw the one-process (2, 2) Trainer's sizes,
-    boxes and flips, and process 0's per-step loss and grad_norm are within
-    rel 1e-4 / 1e-3 of its."""
+    sizes (four shrunk into the 64-pixel bucket), one of them truncated (its
+    header reads, its pixels do not decode, so the process that decodes its
+    row keeps a full bucket, as one process does): each process decodes
+    only its own rows' images, yet both sample every step's crops from the
+    sizes of the process that decodes each row, so they draw the
+    one-process (2, 2) Trainer's sizes, boxes and flips, and process 0's
+    per-step loss and grad_norm are within rel 1e-4 / 1e-3 of its."""
     root, reported = trainer_runs
     want = torch.load(root / "rrc-crops-one.pt", weights_only=False)
     assert len(want) == 3 and {tuple(hw) for w in want for hw in w[0]} > {(30, 40)}
     assert any(max(hw) == 64 for w in want for hw in w[0])
+    assert any(tuple(hw) == (64, 64) for w in want for hw in w[0])  # the truncated file
     for pid in range(2):
         got = torch.load(root / f"rrc-crops-{pid}.pt", weights_only=False)
         assert len(got) == len(want)

@@ -14,7 +14,10 @@ The port's mesh repeats the CPU device (``create_mesh(4, 2, devices=[cpu]
 - the tensor-parallel towers (``RowTowers``) and ``EmbedEngine`` on (4, 2)
   against the one-device towers within 1e-6 (a split product sums in
   another order) and against tpualign's towers and mesh engine within
-  1e-3 (the port's fp32 towers' bound against tpualign).
+  1e-3 (the port's fp32 towers' bound against tpualign);
+- the int8 towers' ``EmbedEngine`` on (1, 2) and (2, 2) bit-equal to the
+  one-device int8 engine, and as close to tpualign's mesh engine as the
+  one-device engines are to each other.
 """
 
 import dataclasses
@@ -157,14 +160,66 @@ def test_tensor_parallel_towers_match_one_device_and_tpualign(tiny_tree):
 
 
 def test_towers_refuse_a_split_they_cannot_take(tiny_tree):
+    """Heads that a model axis does not divide are refused; the int8
+    towers split (their comparisons: the test below)."""
     _, tree = tiny_tree
     model = torch_tiny(tree)
     sharded = shard_params(model_params(model), port_mesh(1, 8))
     with pytest.raises(ValueError, match="heads do not split"):
         RowTowers(model, row_params(sharded, 0))
     quant = CLIP(TORCH_TINY, True, torch.float32, False, "int8")
-    with pytest.raises(ValueError, match="model axis of 1"):
-        RowTowers(quant, row_params(shard_params(model_params(model), port_mesh(1, 2)), 0))
+    towers = RowTowers(quant, row_params(shard_params(model_params(model), port_mesh(1, 2)), 0))
+    assert len(towers.tp["visual"][0]["attn"]) == 2
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=["1x2", "2x2"])
+def test_int8_embed_engine_on_a_model_axis_matches_one_device_and_tpualign(monkeypatch, shape):
+    """``CLIP_QUANT=int8`` on a model axis of 2: the row-split products take
+    their row and column maxima over the cards of a row and sum the int32
+    partials exactly on its first card, so ``EmbedEngine(mesh=)``'s images
+    and chunks equal, bit for bit, the port's int8 engine without the model
+    split: the one-device engine on (1, 2), the (2, 1) replicas on (2, 2)
+    (a data split alone may round the fp32 products of the smaller row
+    batches otherwise, within the 1e-6 of the fp32 engine test below).
+
+    Against tpualign's ``EmbedEngine(quant="int8", mesh=create_mesh(...))``
+    on the same params (bit-equal to its one-device engine): the chunks
+    within 1e-3, the bound ``tests/test_torch_int8.py`` holds one device to;
+    the images within 1e-3 too, save where the two packages' one-device
+    engines are already farther apart, and there no farther than they are
+    (plus the 1e-6 of a data split): on this input one image row of those
+    is 1.3e-3 off, because their fp32 LayerNorms differ by ulps and one
+    int8 code lands on the other side of a rounding (ROADMAP queue 3); that
+    gap is held under 2e-3."""
+    from tests.test_torch_embed import TINY77, _chunk_records
+    from tpualign.parallel.embed import EmbedEngine as JaxEngine
+
+    monkeypatch.setitem(jax_config.CLIP_VARIANTS, "tiny", TINY77)
+    monkeypatch.setitem(torch_config.CLIP_VARIANTS, "tiny",
+                        torch_config.ClipVariant(**dataclasses.asdict(TINY77)))
+    params = jax_init(JaxCLIP(variant=TINY77, compute_dtype=jnp.float32), seed=1)
+    host = jax.tree.map(np.asarray, params)
+    jax_model = jax_config.ModelConfig("tiny", compute_dtype="float32", quant="int8")
+    ref = JaxEngine(jax_model, batch_size=8, params=params, mesh=jax_mesh.create_mesh(*shape))
+    ref_one = JaxEngine(jax_model, batch_size=8, params=params)
+    config = torch_config.ModelConfig("tiny", compute_dtype="float32", quant="int8")
+    kw = dict(batch_size=8, params=host, decode_workers=2)
+    tp = EmbedEngine(config, mesh=port_mesh(*shape), **kw)
+    base = (EmbedEngine(config, device="cpu", **kw) if shape[0] == 1
+            else EmbedEngine(config, mesh=port_mesh(shape[0], 1), **kw))
+    assert tp.model.quant == "int8" and tp._towers[0].tp is not None
+    images = np.random.default_rng(5).normal(size=(13, 32, 32, 3)).astype(np.float32)
+    got, want = tp.encode_image_batch(images), ref.encode_image_batch(images)
+    np.testing.assert_array_equal(got, base.encode_image_batch(images))
+    np.testing.assert_array_equal(want, ref_one.encode_image_batch(images))
+    one_gap = np.abs(EmbedEngine(config, device="cpu", **kw).encode_image_batch(images)
+                     - want)
+    assert float(one_gap.max()) < 2e-3
+    assert (np.abs(got - want) <= np.maximum(1e-3, one_gap + 1e-6)).all()
+    records = _chunk_records()
+    got = tp.embed_chunk_records(records)
+    np.testing.assert_array_equal(got, base.embed_chunk_records(records))
+    np.testing.assert_allclose(got, ref.embed_chunk_records(records), rtol=0, atol=1e-3)
 
 
 def test_embed_engine_on_4x2_matches_tpualign(monkeypatch, tiny_tree):

@@ -34,7 +34,7 @@ import tpualign.config as jax_config
 import tpualign_torch.config as torch_config
 from tests.test_distill import _teacher_embs
 from tests.test_models import TINY
-from tests.test_torch_lora import ALPHA, RANK, _lora_hook
+from tests.test_torch_lora import ALPHA, RANK, _lora_hook, jax_adapters
 from tests.test_torch_train import (  # noqa: F401  (jax_pair is a fixture)
     LR, _feed, assert_params_close, configs, flat, jax_grads, jax_pair, torch_model)
 from tests.test_torch_trainer import overrides, port_store, tiny  # noqa: F401
@@ -46,7 +46,7 @@ from tpualign.parallel import mesh as jax_mesh
 from tpualign.train import step as jax_step
 from tpualign.train import trainer as jax_trainer
 from tpualign_torch.models.clip import CLIP
-from tpualign_torch.models.convert import to_jax_layout
+from tpualign_torch.models.convert import from_jax_params, lora_from_jax, to_jax_layout
 from tpualign_torch.parallel import create_mesh
 from tpualign_torch.parallel.sharding import ShardedTensor
 from tpualign_torch.train import checkpoint as ckpt
@@ -73,13 +73,15 @@ def host(tree) -> dict:
 
 
 def mesh_steps(jax_model, tree, cfgs, images, tokens, weak, shape=(4, 2), steps=1,
-               patch_indices=None, teacher=None, torch_images=None, state_hook=None):
+               patch_indices=None, teacher=None, torch_images=None, state_hook=None,
+               tmodel=None):
     """``steps`` sharded steps of both packages on ``shape`` meshes from
     one tree (and, with ``state_hook``, one adapter tree); returns the
     per-step (loss, grad_norm) pairs, both states, the JAX gradients of the
-    first step (at one device) and tpualign's one-device step's metrics."""
+    first step (at one device) and tpualign's one-device step's metrics.
+    ``tmodel``: the port's model (default: the fp32 towers of ``tree``)."""
     jcfg, tcfg = cfgs
-    tmodel = torch_model(tree)
+    tmodel = torch_model(tree) if tmodel is None else tmodel
     j0 = jax_step.create_train_state(jax_model, tree, jcfg)
     t0 = torch_step.create_train_state(tmodel, torch_step.model_params(tmodel), tcfg)
     if state_hook is not None:
@@ -322,18 +324,67 @@ def test_sharded_state_layout_and_fresh_tensors(jax_pair):
 
 
 def test_sharded_step_refuses_a_quantized_model(jax_pair):
-    """tests/test_quant.py:140: an int8 model refuses the mesh step; so do
-    ``int8_qat`` on a model axis (its activation scales would span a row)
-    and a model axis that the heads do not divide."""
+    """tests/test_quant.py:140: an int8 model refuses the mesh step, on one
+    device and on a model axis; so does a model axis that the heads do not
+    divide. ``int8_qat`` takes a model axis (the test below)."""
     _, tree = jax_pair
     cfg = torch_config.TrainConfig(batch_size=2)
-    with pytest.raises(ValueError, match="zero gradient"):
-        torch_step.make_sharded_train_step(torch_model(tree, quant="int8"), port_mesh(1, 1), cfg)
-    with pytest.raises(ValueError, match="model axis of 1"):
-        torch_step.make_sharded_train_step(torch_model(tree, quant="int8_qat"), port_mesh(1, 2),
-                                           cfg)
+    for shape in ((1, 1), (1, 2)):
+        with pytest.raises(ValueError, match="zero gradient"):
+            torch_step.make_sharded_train_step(torch_model(tree, quant="int8"),
+                                               port_mesh(*shape), cfg)
     with pytest.raises(ValueError, match="heads do not split"):
         torch_step.make_sharded_train_step(torch_model(tree), port_mesh(1, 8), cfg)
+    with pytest.raises(ValueError, match="heads do not split"):
+        torch_step.make_sharded_train_step(torch_model(tree, quant="int8_qat"), port_mesh(1, 8),
+                                           cfg)
+
+
+@pytest.mark.parametrize("shape,fsdp,remat,lora", [
+    ((1, 2), False, False, False), ((2, 2), False, False, False), ((1, 2), True, False, False),
+    ((2, 2), True, False, False), ((2, 2), True, True, False), ((2, 2), False, False, True)],
+    ids=["1x2", "2x2", "1x2-fsdp", "2x2-fsdp", "2x2-fsdp-remat", "2x2-lora"])
+def test_int8_qat_sharded_step_matches_one_device_and_tpualign(jax_pair, shape, fsdp, remat,
+                                                               lora):
+    """``CLIP_QUANT=int8_qat`` on a model axis of 2 (with and without FSDP):
+    the row-split products fake-quantize every card's slices with the row
+    and column maxima over the row's cards. One step against the port's
+    one-device int8_qat step and tpualign's sharded int8_qat step on the
+    same mesh: loss rel 1e-4, grad_norm rel 1e-3 (this file's bounds), the
+    params by ``assert_params_close``. With ``CLIP_REMAT`` every block is
+    checkpointed with its parts, and the recompute takes the maxima again;
+    under LoRA (tpualign takes int8_qat with adapters) each card's kernel
+    part is merged with its slice of the adapter before the split product,
+    both packages from one adapter tree.
+
+    The batch is ``tests/test_torch_train.py``'s int8_qat batch, on which
+    that file holds the one-device step to tpualign's at these bounds. A
+    fake-quantized code flips where an ulp moves a value across a rounding
+    boundary, and an ulp apart the packages' fp32 paths often are, so on
+    another batch a flip can move the loss past 1e-4 (ROADMAP queue 3)."""
+    _, tree = jax_pair
+    jax_model = JaxCLIP(variant=TINY, use_quick_gelu=True, compute_dtype=jnp.float32,
+                        quant="int8_qat")
+    tmodel = CLIP(torch_config.ClipVariant(**dataclasses.asdict(TINY)), True, torch.float32,
+                  False, "int8_qat", remat=remat)
+    tmodel = from_jax_params(tmodel, host(tree)).requires_grad_(False)
+    images, tokens, weak = batch_for(TINY, 8, np.random.default_rng(31))
+    extra = dict(lora_rank=RANK, lora_alpha=ALPHA, total_steps=10) if lora else {}
+    cfgs = configs(fsdp=fsdp, **extra)
+    history, js, ts, grads, _ = mesh_steps(jax_model, tree, cfgs, images, tokens, weak, shape,
+                                           tmodel=tmodel,
+                                           state_hook=_lora_hook(tree) if lora else None)
+    assert_close_history(history)
+    assert_params_close(full(ts.params), host(js.params), host(grads))
+    one = torch_model(tree, quant="int8_qat")
+    state = torch_step.create_train_state(one, torch_step.model_params(one), cfgs[1])
+    if lora:
+        state.params = lora_from_jax(one, host(jax_adapters(tree)))
+        state.opt_state = state.tx.init(state.params)
+    _, m = torch_step.train_step(state, one, torch.from_numpy(images),
+                                 torch.from_numpy(tokens).long(), torch.from_numpy(weak), cfgs[1])
+    np.testing.assert_allclose(history[0][0][1], float(m["loss"]), rtol=1e-4)
+    np.testing.assert_allclose(history[0][1][1], float(m["grad_norm"]), rtol=1e-3)
 
 
 @pytest.mark.parametrize("name", ["ViT-L-14", "ViT-H-14"])

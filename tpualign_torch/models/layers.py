@@ -10,7 +10,11 @@ compute dtype with fp32 accumulation and add the bias in fp32, and QKV is
 cast to the compute dtype before attention. Under ``quant="int8"`` (or
 ``"int8_qat"``) the four projections of a block go through
 ``tpualign_torch.ops.quant.int8_dot`` (``int8_dot_qat``), which hands back
-the stream's dtype, as tpualign's layers do; attention stays K1.
+the stream's dtype, as tpualign's layers do; attention stays K1. On a
+model axis above 1 they take the split forms of ``ops/quant.py``: the row
+and column maxima over the cards of the row, the row-split products'
+partials summed on the row's first card, where the bias goes into the
+epilogue.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from tpualign_torch.ops.attention import fused_mha, fused_mha_reference
 from tpualign_torch.ops.dense import matmul_f32acc
-from tpualign_torch.ops.quant import int8_dot, int8_dot_qat
+from tpualign_torch.ops.quant import (
+    int8_dot, int8_dot_columns, int8_dot_qat, int8_dot_qat_columns, int8_dot_qat_rows,
+    int8_dot_rows)
 
 __all__ = ["quick_gelu", "get_activation", "LayerNorm", "MultiHeadAttention",
            "MLP", "ResidualBlock", "Transformer", "dense"]
@@ -43,6 +49,9 @@ def get_activation(use_quick_gelu: bool) -> Callable[[torch.Tensor], torch.Tenso
 
 
 _QUANT_DOTS = {"int8": int8_dot, "int8_qat": int8_dot_qat}
+# the tensor-parallel forms: (column-split, row-split)
+_SPLIT_DOTS = {"int8": (int8_dot_columns, int8_dot_rows),
+               "int8_qat": (int8_dot_qat_columns, int8_dot_qat_rows)}
 
 
 def dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor],
@@ -97,17 +106,24 @@ class MultiHeadAttention(nn.Module):
         ``[(in_proj_kernel, in_proj_bias, out_proj_kernel)]`` (see
         ``parallel/sharding.py``): each card runs its heads, K1 included, and
         its rows of ``out_proj``; the partial products are summed on ``x``'s
-        card, then the replicated bias is added."""
+        card, then the replicated bias is added (int8: the split forms of
+        ``ops/quant.py``, the bias in the epilogue)."""
         cdt = self.compute_dtype
         attend = fused_mha if self.use_fused_attention else fused_mha_reference
         if tp is not None:
             heads = self.num_heads // len(tp)
+            if self.quant != "none":
+                columns, rows = _SPLIT_DOTS[self.quant]
+                in_kernels, in_biases, out_kernels = zip(*tp)
+                ctxs = [attend(qkv.to(cdt), heads, None if mask is None else mask.to(qkv.device))
+                        for qkv in columns(x, in_kernels, in_biases)]
+                return rows(ctxs, out_kernels, self.out_proj_bias, x.device).to(x.dtype)
             total = None
             for in_kernel, in_bias, out_kernel in tp:
                 dev = in_kernel.device
-                qkv = dense(x.to(dev), in_kernel, in_bias, cdt, self.quant).to(cdt)
+                qkv = dense(x.to(dev), in_kernel, in_bias, cdt).to(cdt)
                 ctx = attend(qkv, heads, None if mask is None else mask.to(dev))
-                part = dense(ctx, out_kernel, None, cdt, self.quant).to(x.device)
+                part = dense(ctx, out_kernel, None, cdt).to(x.device)
                 total = part if total is None else total + part
             return (total + self.out_proj_bias).to(x.dtype)
         qkv = dense(x, self.in_proj_kernel, self.in_proj_bias, cdt, self.quant).to(cdt)
@@ -135,10 +151,15 @@ class MLP(nn.Module):
         model row, summed as :class:`MultiHeadAttention`'s parts are."""
         cdt = self.compute_dtype
         if tp is not None:
+            if self.quant != "none":
+                columns, rows = _SPLIT_DOTS[self.quant]
+                fc_kernels, fc_biases, proj_kernels = zip(*tp)
+                ys = [self.act(y) for y in columns(x, fc_kernels, fc_biases)]
+                return rows(ys, proj_kernels, self.c_proj_bias, x.device).to(x.dtype)
             total = None
             for fc_kernel, fc_bias, proj_kernel in tp:
-                y = self.act(dense(x.to(fc_kernel.device), fc_kernel, fc_bias, cdt, self.quant))
-                part = dense(y, proj_kernel, None, cdt, self.quant).to(x.device)
+                y = self.act(dense(x.to(fc_kernel.device), fc_kernel, fc_bias, cdt))
+                part = dense(y, proj_kernel, None, cdt).to(x.device)
                 total = part if total is None else total + part
             return (total + self.c_proj_bias).to(x.dtype)
         y = self.act(dense(x, self.c_fc_kernel, self.c_fc_bias, cdt, self.quant))
@@ -188,7 +209,8 @@ class Transformer(nn.Module):
     supplied them through ``functional_call``, whose swap has ended by the
     backward. Without autograd nothing changes. A block's tensor-parallel
     parts reach the recompute as the same tensors (an argument of the
-    checkpointed call)."""
+    checkpointed call), so the int8 split forms take their cross-card
+    maxima again over the same tensors."""
 
     def __init__(self, width: int, num_layers: int, num_heads: int,
                  mlp_hidden: Optional[int], use_quick_gelu: bool,

@@ -22,7 +22,8 @@ With a model axis of 1 the towers are replicated on each data device (one
 replica a distinct device; int8 towers too); above 1 they are laid out by
 ``parallel/sharding.py``'s TP specs and each row runs them tensor parallel
 over its devices (``RowTowers``: K1 on each card's heads; the int8 towers
-take a model axis of 1). The host decode pool stays one pool. A mesh
+bit-equal to one device's, their maxima taken over the row's cards). The
+host decode pool stays one pool. A mesh
 across processes raises ``NotImplementedError``: tpualign's embedding
 jits refuse numpy inputs with shardings across processes too (ROADMAP
 settled difference 24).

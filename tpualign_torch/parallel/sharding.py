@@ -9,7 +9,8 @@ keyed by the port's parameter names:
   (``("model",)``);
 - attention ``out_proj_kernel`` (d, d) and MLP ``c_proj_kernel`` (4d, d)
   are row-split (``("model", None)``): each card's partial product is
-  summed on the row's first card, then the replicated bias is added;
+  summed on the row's first card, then the replicated bias is added (in
+  the int8 towers the int32 partials, and the bias in the epilogue there);
 - everything else (embeddings, layernorms, projections, the other biases)
   is replicated (``()``).
 
@@ -325,9 +326,9 @@ def _tp_blocks(parts: Dict[str, object], prefix: str, layers: int) -> list:
 
 def check_model_split(model, m: int) -> None:
     """Raise ``ValueError`` unless ``model``'s towers split over a model
-    axis of ``m``: every tower's heads divide by it, and above 1 the towers
-    are not int8 (their per-row activation scales would span the cards of
-    a row)."""
+    axis of ``m``: every tower's heads divide by it. The int8 towers split
+    too: their row-split products take the row and column maxima over the
+    cards of a row (``ops/quant.py``'s split forms)."""
     if m == 1:
         return
     v = model.variant
@@ -335,9 +336,6 @@ def check_model_split(model, m: int) -> None:
         if heads % m:
             raise ValueError(f"the {tower} tower's {heads} heads do not split over a "
                              f"model axis of {m}")
-    if getattr(model, "quant", "none") != "none":
-        raise ValueError(f"CLIP_QUANT={model.quant} takes a model axis of 1: its "
-                         "per-row activation scales would span the cards of a row")
 
 
 class RowTowers:

@@ -11,8 +11,10 @@ length buckets; the step runs on one device, or over a mesh
 ``data``, the towers tensor parallel over ``model``, ``TRAIN_FSDP``), of
 one process or across processes (``parallel/multihost.py``): there every
 process builds the same pairs and the same seeded batches, decodes only
-its own data rows' images, and runs its own rows; process 0 writes the
-log lines, the metrics file and the checkpoints; checkpoints go to
+its own data rows' images (under ``TRAIN_AUGMENT=rrc`` the rows' sizes
+are all-reduced, so every process samples the crops alike), and runs its own
+rows; process 0 writes the log lines, the metrics file and the
+checkpoints; checkpoints go to
 ``train/checkpoint.py``. The numpy RNG streams are tpualign's (``seed``
 the shuffle, ``seed+1`` the patch masks, ``seed+2`` the crops, ``seed+3``
 the held-out split), so one seed gives both packages the same batches.
@@ -38,7 +40,7 @@ from tpualign_torch.models.clip import CLIP, build_clip, init_clip_params
 from tpualign_torch.models.convert import from_jax_params
 from tpualign_torch.models.loader import load_checkpoint_params
 from tpualign_torch.ops.preprocess import (
-    bucket_hw, pad_to_bucket, preprocess_host, sample_crop_boxes)
+    pad_to_bucket, preprocess_host, sample_crop_boxes)
 from tpualign_torch.parallel.embed import truncate_to_bucket
 from tpualign_torch.parallel.mesh import shard_devices
 from tpualign_torch.parallel.sharding import RowTowers, row_params, shard_params
@@ -243,6 +245,17 @@ class Trainer:
             for i in mesh.local_rows:
                 keep[s * micro + i * rows: s * micro + (i + 1) * rows] = True
         return keep
+
+    def _row_sizes(self, hws: np.ndarray, decoded: np.ndarray) -> np.ndarray:
+        """Across processes, every row's (h, w) as the process that decodes
+        it has it (a file that fails to decode keeps the full bucket there,
+        as in one process), so that ``sample_crop_boxes`` draws alike on
+        every process: this process's rows (``decoded``) and zeros elsewhere,
+        summed over the processes, one ``(B, 2)`` int32 all-reduce."""
+        from tpualign_torch.parallel.multihost import process_sum
+
+        own = torch.from_numpy(np.where(decoded[:, None], hws, 0).astype(np.int32))
+        return process_sum(self.mesh, [own])[0].numpy()
 
     # -- distillation ----------------------------------------------------------
 
@@ -495,11 +508,14 @@ class Trainer:
             run_eval(start_step)
         t0 = time.perf_counter()
         aug_rng = np.random.default_rng(self.config.seed + 2)
+        decoded = self._decoded_rows(batch_size)
         it = self.batches(triples, batch_size, seed=self.config.seed, extras=extras)
         try:
             for step_i in range(start_step, steps):
                 imgs, tokens, weights, *extra = next(it)
                 if isinstance(imgs, tuple):  # device feed: (u8, hw)
+                    if decoded is not None and augment == "rrc":
+                        imgs = (imgs[0], self._row_sizes(imgs[1], decoded))
                     if augment == "rrc":
                         boxes, flips = sample_crop_boxes(aug_rng, imgs[1])
                         imgs = imgs + (boxes, flips)
@@ -583,8 +599,8 @@ class _BatchSource:
         self.cache_budget, self.text_buckets = cache_budget, text_buckets
         # the batch positions whose images are decoded (None: all); the
         # others stay zero, their texts and weights kept, and under the
-        # device feed their true sizes read from the files' headers (the
-        # crops' sampling reads every row's)
+        # device feed a full bucket's size (under rrc, Trainer.train takes
+        # every row's from the process that decodes it)
         self.decoded = decoded
 
     def run(self, put, stop) -> None:
@@ -596,16 +612,11 @@ class _BatchSource:
         tokenizer = ClipTokenizer(context_length=self.ctx)
         buckets = self.text_buckets
         cache: dict = {}
-        sizes: dict = {}
 
         def load_one(j: int, decode: bool = True):
             path, text, w = triples[j]
             if not decode:
-                if not device_feed:
-                    return None, text, w
-                if path not in sizes:
-                    sizes[path] = _header_hw(path, bucket)
-                return (None, sizes[path]), text, w
+                return None, text, w
             arr = cache.get(path)
             if arr is None:
                 try:
@@ -648,9 +659,7 @@ class _BatchSource:
                     for i, (arr, text, w) in enumerate(loads):
                         if arr is not None:
                             if device_feed:
-                                pixels, hws[i] = arr
-                                if pixels is not None:
-                                    imgs[i] = pixels
+                                imgs[i], hws[i] = arr
                             else:
                                 imgs[i] = arr
                         texts[i] = text
@@ -667,21 +676,6 @@ class _BatchSource:
                         return
                 epoch += 1
         put(None)
-
-
-def _header_hw(path: str, bucket: int) -> np.ndarray:
-    """The (h, w) that decoding ``path`` into a ``bucket`` buffer gives,
-    read from the file's header alone; the full bucket where the file does
-    not open, as a failed decode keeps (a file whose header reads but whose
-    pixels do not decode is the one case where the two differ)."""
-    from PIL import Image
-
-    try:
-        with Image.open(path) as im:
-            w, h = im.size
-    except Exception:
-        return np.asarray((bucket, bucket), np.int32)
-    return np.asarray(bucket_hw(h, w, bucket), np.int32)
 
 
 def _to_shared(item):
