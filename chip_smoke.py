@@ -13,7 +13,8 @@ line each:
 0. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 1. build: the five kernels compiled from ``tpualign_torch/csrc/``, in
    parallel, and the native host library (``tpualign_torch/native``, g++)
-   beside them;
+   beside them; on threads beside the build, the host work of 8.-10.:
+   the checkpoint, the device_feed files and the pipeline's manuals;
 2. K1 ``fused_mha`` against its plain version at ViT-B-32's shapes (B=256:
    vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal) and at
    ViT-H-14's vision (B=32, T=257, D=1280, H=16, hd 80) whole and as one
@@ -41,7 +42,8 @@ line each:
    through ``torch._int_mm``, every attention through K1) against the bf16
    towers over 1,024 images and 4,096 chunks (images/s, chunks/s, largest
    gap, smallest cosine), and one batch's first projection against the
-   CPU ``int8_dot`` (the same codes, an ulp at most); then the int8 towers
+   CPU ``int8_dot`` on its first 32 images' rows (the same codes, an ulp
+   at most); then the int8 towers
    tensor parallel on card 0 twice as a (1, 2) mesh (each row-split
    product's maxima over the row's cards, its int32 partials summed on the
    first), images and chunks bit-equal to the one-card int8 engine, K1 once
@@ -96,10 +98,11 @@ line each:
     stages and checks: ``python -m tpualign_torch run --non-interactive``
     over 32 of the manuals into fresh directories, its metrics against its own recount, and the same
     command again, which must skip stages 1-4 and write the same metrics;
-    then, over that run's store: ``ingest`` once, ``serve`` as a
-    subprocess, 16 new manuals and ``ingest --notify <daemon>``; the
+    beside it, over a copy of the first run's store: ``ingest`` once,
+    ``serve`` as a subprocess, 16 new manuals and ``ingest --notify
+    <daemon>``; the
     daemon's ``/stats`` must show the new chunks and images, and its
-    answers must equal a freshly started daemon's;
+    answers must equal those of a service freshly built over the store;
 11. serve: the port's store (1,000,000 chunks on 125,000 pages, 20,000
     images, 100,000 weak alignments) is written to a temporary directory and
     served by ``build_service`` + ``serve_schemas`` at int8 with refine 4 and
@@ -123,7 +126,7 @@ line each:
     around the clients' run alone;
     live, over the same store: the int8 exact service and its IVF twin
     behind HTTP with SERVE_AUTO_COMPACT=0.2: /add of 12,000 rows by
-    embeddings and 256 by text, /remove of 25 % in four requests (the
+    embeddings and 128 by text, /remove of 25 % in four requests (the
     last compacts automatically), /remove of 1 % and /compact, /sync of a
     snapshot with 4,096 new chunks and 1,024 gone; after each step the
     served answers against a fresh int8 index over the live rows (exact),
@@ -143,8 +146,9 @@ line each:
     gradients within K1's step bounds; timed steps in this process with the
     device feed, then the host feed (step ms, the feed's wait, pairs/s,
     peak memory, the model-FLOP share); then ``python -m tpualign_torch
-    train`` as processes: 10 steps (device feed, held-out evaluation every
-    5), then 5 with LORA_RANK=8 and 5 at CLIP_QUANT=int8_qat side by side,
+    train`` as processes side by side: 6 steps (device feed, held-out
+    evaluation every 3), 3 with LORA_RANK=8 and 3 at CLIP_QUANT=int8_qat
+    (those two at B=64),
     their K1, K1 backward and K5 counts; each checkpoint directory
     as CLIP_CHECKPOINT of ``embed`` (the int8_qat one at CLIP_QUANT=int8;
     the three processes side by side) over the run subset, the stored
@@ -163,7 +167,7 @@ line each:
     against the exact fp32 index (K2), every score against the unit rows'
     dot; /add of 4,096 rows by embeddings and 64 by text, /remove of 25 %
     and /compact, each step's keyed answers against an exact index over
-    the live rows; the fp16 rung against fp32 over 8,192 rows (memory,
+    the live rows; the fp16 rung against fp32 over 4,096 rows (memory,
     recall@10, keyed answers against the fp16-rounded exact index); and
     ``calibrate --schema clip_combined``, a dry run through the CLI's
     ``main`` in this process, then ``--write`` as a subprocess (the pairs,
@@ -252,7 +256,13 @@ line each:
     in-process (4, 1) FSDP Trainer, held-out metrics equal; step ms,
     pairs/s, the feed's share, each card's idle share and peak), and each
     process's K1, K2, K3 and K5 launches;
-18. the seconds of each phase, the kernels line, the card line, and
+18. the timing line: the seconds of each phase, each phase's seconds split
+    into the kernel build, model builds (every ``EmbedEngine`` and
+    ``Trainer`` built in this process, ``build_clip``, the checkpoint's
+    tree), child-process starts (from the spawn to the child's first
+    line, which it prints once torch and the port's CLI are imported;
+    where no build overlaps) and the rest, their sums, and each child
+    process's start and life; then the kernels line, the card line, and
     ``{"ok": true, ...}`` last.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -263,10 +273,12 @@ imports nothing of JAX or ``tpualign``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
 import multiprocessing
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -302,6 +314,83 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+# Where a run's seconds go (the timing line's split): spans on the host's
+# wall clock, ``(kind, label, start, end)``. Kinds: "kernel_build" (phase
+# 1), "model_build" (towers built or loaded in this process: every
+# ``EmbedEngine`` and ``Trainer``, ``build_clip``, the checkpoint's seeded
+# tree), "child_start" (a child process from its spawn to its first line,
+# which it prints once torch and the port's CLI are imported: ``READY``),
+# "child" (a child's whole life).
+SPANS: list = []
+READY = ("import sys, time, torch, tpualign_torch.cli\n"
+         "print('chip_smoke-ready', repr(time.time()), file=sys.stderr, flush=True)\n")
+# ``python -m tpualign_torch <argv>`` that prints the ready line first
+CLI = READY + ("import runpy\nsys.argv = ['tpualign_torch'] + sys.argv[1:]\n"
+               "runpy.run_module('tpualign_torch', run_name='__main__', alter_sys=True)\n")
+
+
+@contextlib.contextmanager
+def span(kind: str, label: str = ""):
+    start = time.time()
+    try:
+        yield
+    finally:
+        SPANS.append((kind, label, start, time.time()))
+
+
+def child_done(label: str, spawned: float, stderr: str) -> None:
+    """Records a child process's life from ``spawned`` (``time.time()``)
+    to now, and its start up to the ready line in ``stderr`` (its text)."""
+    SPANS.append(("child", label, spawned, time.time()))
+    for line in stderr.splitlines():
+        if line.startswith("chip_smoke-ready "):
+            SPANS.append(("child_start", label, spawned, float(line.split()[1])))
+            return
+
+
+def _covered(kinds, a: float, b: float) -> float:
+    """Seconds of ``[a, b]`` inside a span of one of ``kinds``."""
+    total, end = 0.0, a
+    for s, e in sorted((max(s, a), min(e, b)) for k, _, s, e in SPANS if k in kinds):
+        s = max(s, end)
+        if e > s:
+            total, end = total + e - s, e
+    return total
+
+
+def time_split(a: float, b: float) -> dict:
+    """``[a, b]`` (wall clock) split into the kernel build, model builds,
+    child starts (where no build overlaps them) and the rest."""
+    kinds = ["kernel_build", "model_build", "child_start"]
+    covered = [_covered(kinds[:i + 1], a, b) for i in range(3)]
+    return {"kernel_build": covered[0], "model_build": covered[1] - covered[0],
+            "child_start": covered[2] - covered[1], "rest": (b - a) - covered[2],
+            "children": sum(1 for k, _, s, _ in SPANS if k == "child" and a <= s < b)}
+
+
+def children(begin: float) -> list:
+    """Each child process in spawn order: its label, when it was spawned
+    (seconds after ``begin``, wall clock), its start (spawn to ready line)
+    and its life, in seconds."""
+    starts = {(label, a): b - a for k, label, a, b in SPANS if k == "child_start"}
+    return [{"child": label, "at_s": a - begin, "start_s": starts.get((label, a)),
+             "life_s": b - a}
+            for k, label, a, b in sorted(SPANS, key=lambda sp: sp[2]) if k == "child"]
+
+
+def _time_model_builds() -> None:
+    """Every ``EmbedEngine`` and ``Trainer`` built in this process counts
+    as a model build in the timing line's split."""
+    from tpualign_torch.parallel.embed import EmbedEngine
+    from tpualign_torch.train.trainer import Trainer
+
+    for cls in (EmbedEngine, Trainer):
+        def timed(self, *args, _init=cls.__init__, _label=cls.__name__, **kwargs):
+            with span("model_build", _label):
+                _init(self, *args, **kwargs)
+        cls.__init__ = timed
 
 
 def time_ms(fn, iters: int) -> float:
@@ -521,6 +610,16 @@ K3_KS = (10, 40)  # k, and the refine over-fetch of k=10 at RETRIEVAL_REFINE=4
 K3_SLAB = 128  # queries per slab of the plain version at N=1M
 
 
+def _side_by_side(calls: dict) -> dict:
+    """``{key: fn(*args)}`` for ``calls = {key: (fn, *args)}``, each on a
+    thread of its own (numpy's whole-array operations release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = {key: pool.submit(*call) for key, call in calls.items()}
+        return {key: f.result() for key, f in futures.items()}
+
+
 def _k3_variants():
     from tpualign_torch.parallel.retrieval import (
         _quantize_rows, _quantize_rows_int2, _quantize_rows_int4)
@@ -563,14 +662,19 @@ def phase_k3(dev, gen):
     queries, qk, corpus, ck = _sim_inputs(gen, dev, q, n, d, keys)
     host = corpus.cpu().numpy()
     del corpus
+    variants = _k3_variants()
+    # each quantizer once (int8's codes serve two variants), side by side
+    quantized = _side_by_side({quantize: (quantize, host) for _, quantize, _, _ in variants})
+    del host
     rows = []
-    for name, quantize, mxu, variant in _k3_variants():
-        codes, scales = (torch.from_numpy(a).to(dev) for a in quantize(host))
+    for name, quantize, mxu, variant in variants:
+        codes, scales = (torch.from_numpy(a).to(dev) for a in quantized[quantize])
         for k in K3_KS:
             rows.append({"variant": name, "Q": q, "N": n, "D": d, "k": k,
                          **_k3_measure(f"K3 {name} k={k}", queries, qk, codes, ck, scales, mxu,
                                        k)})
         del codes, scales
+    del quantized
     emit({"phase": "k3_masked_sim_topk_quant", "results": rows})
     return rows
 
@@ -706,10 +810,11 @@ def phase_k4(dev, gen):
     check(n_lists == 1000 and cap <= 1536 and index.n_probes == 125,
           f"K4 geometry: {n_lists} lists, capacity {cap}, {index.n_probes} probes")
     layouts = {"fp32": (index._emb, None)}
-    for name in ("int8", "int4", "int2"):
-        codes, scales = _QUANTIZERS[name](host)
-        layouts[name] = index._gather(_tensor(codes, dev), _tensor(scales, dev))
+    quantized = _side_by_side({name: (_QUANTIZERS[name], host) for name in ("int8", "int4", "int2")})
     del host
+    for name, (codes, scales) in quantized.items():
+        layouts[name] = index._gather(_tensor(codes, dev), _tensor(scales, dev))
+    del quantized
     ck = index._keys
     rows_total = index._emb.shape[0]
     queries = {q: _k4_queries(gen, dev, topics, q) for q in (2, 64, 1024)}
@@ -813,6 +918,7 @@ def _chunk_texts(rng, count, empty_every=97):
 SLICE_PAGES, SLICE_TEXT_QUERIES = 1024, 256
 
 
+@functools.lru_cache(maxsize=1)  # the slice's and the mesh phase's
 def _slice_inputs(seed):
     """The slice's 2,048 normalised images (fp32 NHWC), 8,192 chunk records
     and 256 text queries, from ``seed``; returns (images, chunks, queries,
@@ -996,6 +1102,7 @@ def phase_fp32_towers(dev, seed) -> int:
 
 
 INT8_IMAGES, INT8_CHUNKS = 1024, 4096
+INT8_CPU_IMAGES = 32  # images of one batch whose first projection the CPU repeats (of 256)
 
 
 def _int8_split(one, tp, images, texts) -> dict:
@@ -1049,7 +1156,8 @@ def phase_int8_towers(dev, seed):
     inputs: images/s, chunks/s, the largest gap and the smallest cosine;
     the launches (one K1 and four ``_int_mm`` per block and forward); one
     batch's first projection on the card against the CPU ``int8_dot`` on
-    the same input: the same codes, outputs within an ulp; then the same
+    the same input (its first INT8_CPU_IMAGES images' rows): the same
+    codes, outputs within an ulp; then the same
     int8 towers tensor parallel on ``[dev] * 2`` as a (1, 2) mesh against
     the one-card int8 engine, bit for bit (_int8_split). Returns the
     one-card int8 launches and the (1, 2) engine's."""
@@ -1095,7 +1203,9 @@ def phase_int8_towers(dev, seed):
         cos[name] = float((a * b).sum(axis=1).min())
         check(cos[name] > 0.99, f"int8 {name} tower: smallest cosine to bf16 {cos[name]:.5f}")
 
-    # one batch's first vision projection: the card against the CPU
+    # one batch's first vision projection, the card against the CPU on the
+    # first INT8_CPU_IMAGES images' rows (each row is quantized and
+    # multiplied on its own; the CPU's int32 product is slow)
     attn = next(m for m in engines["int8"].model.visual.modules()
                 if isinstance(m, MultiHeadAttention))
     seen = {}
@@ -1104,10 +1214,11 @@ def phase_int8_towers(dev, seed):
     hook.remove()
     x = seen["x"].float()
     kernel, bias = attn.in_proj_kernel.detach(), attn.in_proj_bias.detach()
-    card = quant.int8_dot(x, kernel, bias)
-    cpu = quant.int8_dot(x.cpu(), kernel.cpu(), bias.cpu())
-    codes = torch.equal(quant._quantize_rows(x.reshape(-1, x.shape[-1]))[0].cpu(),
-                        quant._quantize_rows(x.cpu().reshape(-1, x.shape[-1]))[0])
+    few = x[:INT8_CPU_IMAGES]
+    card = quant.int8_dot(few, kernel, bias)
+    cpu = quant.int8_dot(few.cpu(), kernel.cpu(), bias.cpu())
+    codes = torch.equal(quant._quantize_rows(few.reshape(-1, x.shape[-1]))[0].cpu(),
+                        quant._quantize_rows(few.cpu().reshape(-1, x.shape[-1]))[0])
     ulps = int((card.cpu().view(torch.int32).long() - cpu.view(torch.int32).long()).abs().max())
     check(codes and ulps <= 1, f"int8_dot on the card against the CPU: codes equal {codes}, "
                                f"{ulps} ulps")
@@ -1126,7 +1237,8 @@ def phase_int8_towers(dev, seed):
           **{f"{q}_{k}": out[q][k] for q in ("int8", "none")
              for k in ("images_per_s", "chunks_per_s", "image_s", "chunk_s")},
           "max_abs_gap_to_bf16": gap, "min_cosine_to_bf16": cos, "launches": launches,
-          "int8_dot_vs_cpu": {"shape": list(x2.shape) + [kernel.shape[1]],
+          "int8_dot_vs_cpu": {"shape": [few.shape[0] * few.shape[1], x2.shape[1],
+                                        kernel.shape[1]],
                               "codes_equal": codes, "max_ulps": ulps},
           "in_proj_ms": {"int8_dot": dot_ms, "bf16_mm": bf16_ms}, "split_1x2": split})
     return launches["int8"], split["mesh"]["launches"]
@@ -1518,11 +1630,12 @@ def _query_cli(env, image_id, service, dev):
     must be the service's. Returns its wall seconds."""
     import os
 
-    t0 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "query", "--image-id",
+    t0, spawned = time.perf_counter(), time.time()
+    cli = subprocess.run([sys.executable, "-c", CLI, "query", "--image-id",
                           image_id, "--device", dev.type], capture_output=True, text=True,
                          timeout=600, env=dict(os.environ, **env))
     secs = time.perf_counter() - t0
+    child_done("query", spawned, cli.stderr)
     check(cli.returncode == 0, f"query --image-id exited {cli.returncode}: {cli.stderr[-2000:]}")
     check("no prebuilt" not in cli.stdout, f"query did not use the artifact: {cli.stdout[:200]}")
     cli_ids = [line.split()[1] for line in cli.stdout.splitlines()[1:] if line.strip()]
@@ -1531,14 +1644,15 @@ def _query_cli(env, image_id, service, dev):
     return secs
 
 
-def phase_serve(dev, seed, root, checkpoint, precisions=("int8", "int4", "int2")):
+def phase_serve(dev, seed, root, checkpoint, precisions=("int8", "int4", "int2"), ivf=True):
     """The serving path: the port's store, build_service + serve_schemas at
     int8 with refine 4 and ViT-B-32 towers loaded from the checkpoint
     (``/stats`` reports it), eight clients, every answer held against the
     plain path; then the index rebuilt standalone at each of
     ``precisions`` (the four-card run: int8 alone, the one-card run checks
     the int4 and int2 rungs), recall against exact fp32, and the ``query
-    --image-id`` CLI. Returns the launches, and what serve_ivf reuses."""
+    --image-id`` CLI; with ``ivf``, serve_ivf's ``index`` process beside
+    the rebuilds. Returns the launches, and what serve_ivf reuses."""
     from tpualign_torch.config import load_config
     from tpualign_torch.ops.attention import fused_mha
     from tpualign_torch.ops.sim_topk import masked_sim_topk, masked_sim_topk_quant
@@ -1627,6 +1741,8 @@ def phase_serve(dev, seed, root, checkpoint, precisions=("int8", "int4", "int2")
     rungs = {}
     cli = _beside(_query_cli, {"STORE_DIR": root, "RETRIEVAL_PRECISION": "int8",
                                "RETRIEVAL_REFINE": "4"}, images[7]["image_id"], service, dev)
+    # serve_ivf's index process reads the store alone: it starts here too
+    ivf_index = _beside(_ivf_index_cli, root, dev) if ivf else None
     for precision in precisions:
         kw = dict(index_kwargs(config, "vanilla_clip"), precision=precision)
         t0 = time.perf_counter()
@@ -1661,7 +1777,7 @@ def phase_serve(dev, seed, root, checkpoint, precisions=("int8", "int4", "int2")
           "launches": launches})
     return launches, k3_serving, {"engine": engine, "images": images, "pngs": pngs,
                                   "exact": exact, "chunk_emb": chunk_emb, "manuals": manuals,
-                                  "pages": pages}
+                                  "pages": pages, "ivf_index": ivf_index}
 
 
 def _profiles(service, images, pngs) -> dict:
@@ -1689,6 +1805,29 @@ def _recall(index, q_rec, exact, **kw) -> dict:
     return recall
 
 
+def _ivf_env(root) -> dict:
+    """serve_ivf's settings over the serve store: int8, refine 4, recall
+    target 0.95, the artifact in the store's directory."""
+    import os
+
+    return {"STORE_DIR": root, "RETRIEVAL_INDEX": "ivf", "RETRIEVAL_PRECISION": "int8",
+            "RETRIEVAL_REFINE": "4", "RETRIEVAL_RECALL_TARGET": "0.95",
+            "IVF_CACHE": os.path.join(root, "vanilla_clip.ivf.npz")}
+
+
+def _ivf_index_cli(root, dev):
+    """``python -m tpualign_torch index`` under serve_ivf's settings as a
+    subprocess. Returns it and its wall seconds."""
+    import os
+
+    t0, spawned = time.perf_counter(), time.time()
+    cli = subprocess.run([sys.executable, "-c", CLI, "index", "--device", dev.type],
+                         capture_output=True, text=True, timeout=900,
+                         env=dict(os.environ, **_ivf_env(root)))
+    child_done("index", spawned, cli.stderr)
+    return cli, time.perf_counter() - t0
+
+
 def phase_serve_ivf(dev, seed, root, shared):
     """RETRIEVAL_INDEX=ivf over the serve phase's store: ``python -m
     tpualign_torch index`` as a subprocess (int8, refine 4, recall target
@@ -1707,20 +1846,13 @@ def phase_serve_ivf(dev, seed, root, shared):
     from tpualign_torch.parallel.retrieval import encode_keys
     from tpualign_torch.serving.server import build_service, make_image_bytes_encoder
 
-    cache = os.path.join(root, "vanilla_clip.ivf.npz")
-    env = {"STORE_DIR": root, "RETRIEVAL_INDEX": "ivf", "RETRIEVAL_PRECISION": "int8",
-           "RETRIEVAL_REFINE": "4", "RETRIEVAL_RECALL_TARGET": "0.95", "IVF_CACHE": cache}
-    def index_cli():
-        t0 = time.perf_counter()
-        cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "index", "--device",
-                              dev.type], capture_output=True, text=True, timeout=900,
-                             env=dict(os.environ, **env))
-        return cli, time.perf_counter() - t0
-
-    # the index process starts beside the same build and calibration in this
-    # process: their times, and the same structure as the subprocess's
-    # artifact (k-means is deterministic)
-    started = _beside(index_cli)
+    env = _ivf_env(root)
+    cache = env["IVF_CACHE"]
+    # the index process (started by phase_serve beside its rung rebuilds)
+    # runs beside the same build and calibration in this process: their
+    # times, and the same structure as the subprocess's artifact (k-means is
+    # deterministic)
+    started = shared["ivf_index"]
     chunk_emb, manuals, pages = shared["chunk_emb"], shared["manuals"], shared["pages"]
     t0 = time.perf_counter()
     again = IVFIndex(chunk_emb, manuals, pages, precision="int8", refine=4, device=dev)
@@ -1814,7 +1946,7 @@ def phase_serve_ivf(dev, seed, root, shared):
 
 # the live corpus (phase live): rows added by embeddings and by text, the
 # share removed, the auto-compaction threshold, /sync's delta
-LIVE_ADD, LIVE_ADD_BATCH, LIVE_TEXT, LIVE_TEXT_BATCH = 12_000, 4_000, 256, 64
+LIVE_ADD, LIVE_ADD_BATCH, LIVE_TEXT, LIVE_TEXT_BATCH = 12_000, 4_000, 128, 64
 LIVE_ADD_PAGES = 40  # the stored images whose pages take the added rows
 LIVE_REMOVE, LIVE_REMOVE_BATCHES, LIVE_AUTO_COMPACT = 0.25, 4, 0.2
 LIVE_SYNC_NEW, LIVE_SYNC_GONE, LIVE_CHECK_IMAGES, LIVE_P50_REQUESTS = 4096, 1024, 64, 64
@@ -1992,7 +2124,7 @@ def phase_live(dev, seed, root, shared):
     """The live corpus on the serve phase's 1M-chunk store: the int8
     (refine 4) exact service and its IVF twin (the serve_ivf artifact),
     each behind HTTP with SERVE_AUTO_COMPACT=0.2. /add 12,000 rows by
-    embeddings and 256 by text, /remove 25 % of the corpus (the fourth of
+    embeddings and 128 by text, /remove 25 % of the corpus (the fourth of
     four requests crosses the threshold and compacts), /remove 1 % more
     and /compact, then /sync from a store snapshot with 4,096 new chunks
     and 1,024 gone. After each step the served answers are held against
@@ -2281,11 +2413,31 @@ def check_drift(got: np.ndarray, want: np.ndarray, what: str) -> dict:
     return out
 
 
-def phase_device_feed(dev, seed, root):
-    """``embed_image_records`` over 1,536 files with the host feed, then the
-    device feed (ViT-B-32, bf16, batch 256): images/s of each, the idle
-    share of one batch of each, and 64 images' pixels on the card against
-    the port's CPU path."""
+def _host_corpus(root, seed) -> dict:
+    """The host files of the device_feed and pipeline phases, written under
+    ``root`` (beside the kernels' build): the feed's files, then the
+    pipeline's raw manuals, which embed their bytes; with their seconds."""
+    import os
+
+    feed = os.path.join(root, "feed")
+    os.makedirs(feed)
+    t0 = time.perf_counter()
+    names, sides = _feed_files(feed, seed)
+    t_files = time.perf_counter() - t0
+    work = os.path.join(root, "pipeline")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    manuals = _manual_corpus(work, seed, feed, names)
+    return {"names": names, "sides": sides, "files_s": t_files, "manuals": manuals,
+            "manuals_s": time.perf_counter() - t0}
+
+
+def phase_device_feed(dev, seed, root, corpus):
+    """``embed_image_records`` over 1,536 files (``corpus``, from
+    :func:`_host_corpus`) with the host feed, then the device feed
+    (ViT-B-32, bf16, batch 256): images/s of each, the idle share of one
+    batch of each, and 64 images' pixels on the card against the port's
+    CPU path."""
     import os
 
     from PIL import Image
@@ -2296,10 +2448,7 @@ def phase_device_feed(dev, seed, root):
     from tpualign_torch.parallel import EmbedEngine
 
     feed = os.path.join(root, "feed")
-    os.makedirs(feed)
-    t0 = time.perf_counter()
-    names, sides = _feed_files(feed, seed)
-    t_files = time.perf_counter() - t0
+    names, sides, t_files = corpus["names"], corpus["sides"], corpus["files_s"]
     records = [{"image_id": f"feed{i:05d}", "filename": name} for i, name in enumerate(names)]
     engine = EmbedEngine(ModelConfig("ViT-B-32"), device=dev, seed=seed,
                          preprocess_bucket=FEED_BUCKET)
@@ -2350,7 +2499,6 @@ def phase_device_feed(dev, seed, root):
           "k5_launches": launches,
           "host_vs_device_cosine": {"min": float(cos.min()), "mean": float(cos.mean())},
           "pixels_card_vs_cpu": drift, "profile": profiles})
-    return names
 
 
 def _openclip_name(name: str, t: torch.Tensor):
@@ -2388,7 +2536,8 @@ def phase_checkpoint(root, seed) -> str:
 
     mc = ModelConfig("ViT-B-32")
     t0 = time.perf_counter()
-    seeded = init_clip_params(CLIP(mc.variant, mc.use_quick_gelu), seed=seed)
+    with span("model_build", "checkpoint"):
+        seeded = init_clip_params(CLIP(mc.variant, mc.use_quick_gelu), seed=seed)
     sd = dict(_openclip_name(n, p.detach()) for n, p in seeded.named_parameters())
     sd = {k: v.contiguous() for k, v in sd.items()}
     path = os.path.join(root, "vit-b-32-openclip.pt")
@@ -2397,7 +2546,8 @@ def phase_checkpoint(root, seed) -> str:
     t0 = time.perf_counter()
     tree = load_checkpoint_params(dataclasses.replace(mc, checkpoint_path=path))
     load_s = time.perf_counter() - t0
-    loaded = from_jax_params(CLIP(mc.variant, mc.use_quick_gelu), tree)
+    with span("model_build", "checkpoint"):
+        loaded = from_jax_params(CLIP(mc.variant, mc.use_quick_gelu), tree)
     for (name, want), got in zip(seeded.named_parameters(), loaded.parameters()):
         check(torch.equal(got, want), f"checkpoint round trip: {name} differs")
     out = {"phase": "checkpoint", "layout": "openclip", "file": os.path.basename(path),
@@ -2566,7 +2716,7 @@ def _check_embeddings_bitwise(dev, env, store, images, chunks, images_dir) -> di
     return out
 
 
-_STAGE = """
+_STAGE = READY + """
 import atexit, json, runpy, sys
 from tpualign_torch.ops.attention import fused_mha
 from tpualign_torch.ops.normalize import normalize_u8
@@ -2600,11 +2750,12 @@ def _run_stage(argv, env, cwd, tag=""):
     counters = os.path.join(cwd, f"counters-{argv[0]}{tag}.json")
     repo = os.path.dirname(os.path.abspath(__file__))
     path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
-    t0 = time.perf_counter()
+    t0, spawned = time.perf_counter(), time.time()
     out = subprocess.run([sys.executable, "-c", _STAGE, counters, *argv], capture_output=True,
                          text=True, timeout=600, cwd=cwd,
                          env=dict(os.environ, PYTHONPATH=path, **env))
     secs = time.perf_counter() - t0
+    child_done(argv[0] + tag, spawned, out.stderr)
     check(out.returncode == 0, f"{argv[0]} exited {out.returncode}: {out.stderr[-3000:]}")
     with open(counters) as f:
         return secs, json.load(f), out
@@ -2753,14 +2904,14 @@ def _check_evaluator_ranking(dev, store, eval_dir) -> dict:
     return {"k2_at_evaluator_search": k2, "alignments_gt": aligned}
 
 
-def _run_twice(dev, env, work) -> dict:
+def _run_twice(dev, env, work, after_first=lambda: None) -> dict:
     """``python -m tpualign_torch run --non-interactive`` over a fresh
     output, store and evaluation directory: its metrics.json against its
     own float64 recount. Then the same command again, which must skip
     stages 1-4 through their completion checks (the manifest's input
     fingerprint for stage 1) and launch no tower kernel; evaluation has no
     completion check (as in tpualign), re-runs and must write the same
-    metrics."""
+    metrics. ``after_first`` is called between the two."""
     import json
     import os
 
@@ -2768,6 +2919,8 @@ def _run_twice(dev, env, work) -> dict:
 
     out = {}
     for attempt in ("first", "second"):
+        if attempt == "second":
+            after_first()
         secs, launches, done = _run_stage(["run", "--non-interactive", "--device", dev.type],
                                           env, work)
         with open(os.path.join(env["EVAL_OUTPUT_DIR"], "metrics.json")) as f:
@@ -2806,7 +2959,7 @@ def _run_twice(dev, env, work) -> dict:
                        "metrics_identical": True}}
 
 
-def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True):
+def phase_pipeline(dev, seed, root, corpus, checkpoint, bitwise: bool = True):
     """The pipeline as a user runs it, from raw manuals: ``python -m
     tpualign_torch process``, ``filter``, ``setup-db`` (beside the first
     two), ``embed`` (IMAGE_PREPROCESS=device) and ``evaluate`` as
@@ -2816,9 +2969,11 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True
     placed, the stored embeddings against the seeded engine bit for bit,
     metrics.json against a float64 recount, the alignment records against
     the CPU ``compute_alignments``; beside them, ``run`` in one command
-    over 32 of the manuals, twice, then ``ingest`` over that store
-    (``_ingest_notify``); with MESH_SHARDS cards or more, ``embed
-    --mesh-data`` (_mesh_embed_cli). Without ``bitwise`` (the four-card
+    over 32 of the manuals, twice, and ``ingest`` over a copy of the
+    first run's store beside the second (``_ingest_notify``); with
+    MESH_SHARDS cards or more, ``embed --mesh-data`` (_mesh_embed_cli).
+    The manuals are written beside the kernels' build (_host_corpus).
+    Without ``bitwise`` (the four-card
     run: the one-card run checks it) the stored embeddings are not held
     against the seeded engine. Returns the launches of the five
     stages, K2 at the Evaluator's search, ingest's launches and the mesh
@@ -2831,11 +2986,9 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True
     from tpualign_torch.weaksup import compute_alignments
 
     work = os.path.join(root, "pipeline")
-    os.makedirs(work)
     feed_dir = os.path.join(root, "feed")
-    t0 = time.perf_counter()
-    raw, pages_want, raw_bytes = _manual_corpus(work, seed, feed_dir, feed_names)
-    write_s = time.perf_counter() - t0
+    feed_names = corpus["names"]
+    (raw, pages_want, raw_bytes), write_s = corpus["manuals"], corpus["manuals_s"]
     exclude = os.path.join(work, "exclude_terms.txt")
     with open(exclude, "w") as f:
         f.write(f"# the operator's exclusion list\n{PIPE_EXCLUDE}\n")
@@ -2856,8 +3009,20 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True
                "STORE_DIR": os.path.join(sub, "store"), "EVAL_OUTPUT_DIR": os.path.join(sub, "eval")}
 
     def run_then_ingest():
-        return (_run_twice(dev, sub_env, sub),
-                _ingest_notify(dev, sub_env, sub, feed_dir, feed_names, seed))
+        started = {}
+
+        def ingest_beside():
+            # ingest on a copy of the first run's directories, beside the
+            # second run (which must find stages 1-4 done in its own)
+            copy = os.path.join(work, "run-ingest")
+            shutil.copytree(sub, copy)
+            copy_env = {**sub_env, **{k: sub_env[k].replace(sub, copy, 1) for k in (
+                "INPUT_DIR", "OUTPUT_DIR", "STORE_DIR", "EVAL_OUTPUT_DIR")}}
+            started["ingest"] = _beside(_ingest_notify, dev, copy_env, copy, feed_dir,
+                                        feed_names, seed)
+
+        one = _run_twice(dev, sub_env, sub, after_first=ingest_beside)
+        return one, started["ingest"].result()
 
     chain = _beside(run_then_ingest)
     secs, launches, logs = {}, {}, {}
@@ -2873,6 +3038,16 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True
         secs[argv[0]], launches[argv[0]], logs[argv[0]] = _run_stage(argv + device, env, work)
         if argv[0] == "filter":
             stage1, images, chunks, terms = _check_stage1(out, feed_dir, pages_want)
+        if argv[0] == "embed" and bitwise:
+            # the stored embeddings against the seeded engine, beside evaluate
+            def held_to_seeded():
+                t0 = time.perf_counter()
+                held = _check_embeddings_bitwise(
+                    dev, env, EmbeddingStore(env["STORE_DIR"], embed_dim=512), images, chunks,
+                    os.path.join(out, "images"))
+                return {**held, "s": time.perf_counter() - t0}
+
+            bitwise = _beside(held_to_seeded)
     check(not any(launches["process"].values()) and not any(launches["filter"].values()),
           f"stages 1-2 launched {launches['process']}, {launches['filter']}")
     check(f"Loading OpenCLIP-layout checkpoint from {checkpoint}" in logs["embed"].stderr,
@@ -2886,10 +3061,7 @@ def phase_pipeline(dev, seed, root, feed_names, checkpoint, bitwise: bool = True
     check(sorted(metrics) == sorted(SCHEMAS), f"metrics.json holds {sorted(metrics)}")
     store = EmbeddingStore(env["STORE_DIR"], embed_dim=512)
     if bitwise:
-        t0 = time.perf_counter()
-        bitwise = _check_embeddings_bitwise(dev, env, store, images, chunks,
-                                            os.path.join(out, "images"))
-        bitwise["s"] = time.perf_counter() - t0
+        bitwise = bitwise.result()
     # on a host of MESH_SHARDS cards or more: the same stage on the mesh
     mesh_embed = (_mesh_embed_cli(mesh_setup, work, store, secs["embed"], len(images))
                   if four else None)
@@ -2948,7 +3120,7 @@ class _Daemon:
         repo = os.path.dirname(os.path.abspath(__file__))
         path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
         self.log = open(os.path.join(cwd, f"{name}.err"), "w")
-        t0 = time.perf_counter()
+        t0, self.spawned = time.perf_counter(), time.time()
         self.proc = subprocess.Popen(
             [sys.executable, "-c", _STAGE, self.counters, "serve", "--device", device,
              "--port", "0", *args], stdout=subprocess.PIPE, stderr=self.log, text=True, cwd=cwd,
@@ -2985,12 +3157,39 @@ class _Daemon:
             except subprocess.TimeoutExpired:
                 self.proc.kill()
                 self.proc.wait()
-        self.log.close()
+        if not self.log.closed:
+            self.log.close()
+            with open(self.log.name) as f:
+                child_done(f"serve:{self.name}", self.spawned, f.read())
         try:
             with open(self.counters) as f:
                 return json.load(f)
         except OSError:
             return {}
+
+
+class _FreshService:
+    """A service built in this process over ``env``'s store with the towers
+    from its checkpoint, behind HTTP: :class:`_Daemon`'s ``url``, ``get``
+    and ``stop``, without a process's start."""
+
+    def __init__(self, env, device):
+        from tpualign_torch.config import load_config
+        from tpualign_torch.serving.server import _ServiceBox, build_service, serve_schemas
+
+        t0 = time.perf_counter()
+        service = build_service(load_config(env), "vanilla_clip", device=device)
+        self.httpd = serve_schemas({"vanilla_clip": _ServiceBox(service)}, "vanilla_clip",
+                                   "127.0.0.1", 0)
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.start_s = time.perf_counter() - t0
+
+    get = _Daemon.get
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
 
 
 def _ingest_notify(dev, env, work, feed_dir, feed_names, seed) -> dict:
@@ -2999,7 +3198,8 @@ def _ingest_notify(dev, env, work, feed_dir, feed_names, seed) -> dict:
     and records the ingest manifest), ``serve`` as a subprocess, 16 new
     manuals, then ``ingest --notify <daemon>``: the daemon's /stats must
     show the new chunks and images, and its /search_text and /search_image
-    answers must equal a freshly started daemon's over the same store."""
+    answers must equal those of a service freshly built over the same store
+    (in this process, behind HTTP: _FreshService)."""
     import os
 
     from tpualign_torch.store import EmbeddingStore
@@ -3043,7 +3243,7 @@ def _ingest_notify(dev, env, work, feed_dir, feed_names, seed) -> dict:
         same_old = bool(np.array_equal(emb_after[:len(ids_before)], emb_before))
         new_images = [im["image_id"] for im in store.images("vanilla_clip")
                       if int(im["manual_id"][3:]) >= PIPE_MANUALS][:16]
-        fresh = _Daemon(env, work, "fresh", dev.type)
+        fresh = _FreshService(env, dev)
         try:
             answers, gap = [], 0.0
             for path, body in (("/search_text", {"texts": SERVE_TEXTS, "k": 10, "global": True}),
@@ -3051,31 +3251,32 @@ def _ingest_notify(dev, env, work, feed_dir, feed_names, seed) -> dict:
                 got, want_rows = (_post(d.url, path, body)["results"] for d in (daemon, fresh))
                 check([[h["chunk_id"] for h in r] for r in got]
                       == [[h["chunk_id"] for h in r] for r in want_rows],
-                      f"{path}: the synced daemon's ids differ from a fresh daemon's")
+                      f"{path}: the synced daemon's ids differ from a fresh service's")
                 gap = max([gap] + [abs(a["score"] - b["score"]) for ra, rb in zip(got, want_rows)
                                    for a, b in zip(ra, rb)])
                 answers.append(len(got))
             check(gap <= (0.0 if same_old else 1e-5), f"scores differ by {gap}")
             check(fresh.get("/stats")["corpus_size"] == after["corpus_size"], "corpus sizes")
         finally:
-            fresh_launches = fresh.stop()
+            fresh.stop()
     finally:
         daemon_launches = daemon.stop()
     return {"manuals_added": INGEST_MANUALS, "first_ingest_s": warm_s, "ingest_s": secs,
             "ingest_to_stats_s": seen["t"] - t0, "daemon_start_s": daemon.start_s,
-            "fresh_daemon_start_s": fresh.start_s, "stats_growth": {"chunks": grew[0],
-                                                                     "images": grew[1]},
+            "fresh_service_build_s": fresh.start_s, "stats_growth": {"chunks": grew[0],
+                                                                      "images": grew[1]},
             "old_chunk_embeddings_unchanged": same_old, "max_score_gap_to_fresh": gap,
             "answers_compared": answers, "launches": {"ingest": launches,
-                                                      "daemon": daemon_launches,
-                                                      "fresh_daemon": fresh_launches},
+                                                      "daemon": daemon_launches},
             "dir": os.path.basename(work)}
 
 
 # steps of the train process and of the LoRA and int8_qat runs (cut from 40
-# and 10 to keep the script within its time limit as phases were added)
-TRAIN_STEPS, TRAIN_SIDE_STEPS = 10, 5
-TRAIN_TIMED_STEPS = 4                    # in-process steps timed per feed, after one warm-up
+# and 10, then from 10 and 5, to keep the script within its time limit as
+# phases were added), and the LoRA and int8_qat runs' batch (B until PR 17:
+# three processes at B=256 fill the card's 80 GB, at 27 GB a step each)
+TRAIN_STEPS, TRAIN_SIDE_STEPS, TRAIN_SIDE_B = 6, 3, 64
+TRAIN_TIMED_STEPS = 2                    # in-process steps timed per feed, after one warm-up
 TRAIN_GRAD_REL, TRAIN_LOSS_REL = 5e-2, 1e-2  # bf16 towers: K1 against plain, accumulation
 K1_TRAIN_SHAPES = [("vision", 50, 768, 12, False), ("text77", 77, 512, 8, True)]
 
@@ -3292,39 +3493,39 @@ def _timed_steps(trainer, it, steps=TRAIN_TIMED_STEPS) -> dict:
                          "normalize_u8": normalize_u8.launches}}
 
 
-def _embed_process(dev, env, ckpt_dir, quant, work, tag) -> tuple:
-    """``embed vanilla_clip`` as a process with ``CLIP_CHECKPOINT=<ckpt_dir>``
-    (and ``CLIP_QUANT=quant``) into a fresh store: (its env, wall s,
-    launches)."""
+def _embed_env(env, ckpt_dir, quant, work, tag) -> dict:
+    """The settings of ``embed`` from ``ckpt_dir`` (and ``CLIP_QUANT=quant``)
+    into a fresh store of its own."""
     import os
 
+    return {**env, "STORE_DIR": os.path.join(work, f"store-{tag}"), "CLIP_CHECKPOINT": ckpt_dir,
+            "CLIP_QUANT": quant, "IMAGE_PREPROCESS": "device"}
+
+
+def _embed_process(dev, embed_env, work, tag) -> tuple:
+    """``embed vanilla_clip`` as a process under ``embed_env`` (from
+    :func:`_embed_env`): (its wall s, launches)."""
     from tpualign_torch.store import SCHEMAS, EmbeddingStore
 
-    store_dir = os.path.join(work, f"store-{tag}")
-    EmbeddingStore(store_dir, embed_dim=512).setup(SCHEMAS)
-    embed_env = {**env, "STORE_DIR": store_dir, "CLIP_CHECKPOINT": ckpt_dir,
-                 "CLIP_QUANT": quant, "IMAGE_PREPROCESS": "device"}
+    EmbeddingStore(embed_env["STORE_DIR"], embed_dim=512).setup(SCHEMAS)
     secs, launches, done = _run_stage(["embed", "vanilla_clip", "--device", dev.type],
                                       embed_env, work, tag=f"-{tag}")
     check("Loading trained params from checkpoint directory" in done.stderr,
           f"embed ({tag}) did not load the checkpoint directory")
-    return embed_env, secs, launches
+    return secs, launches
 
 
-def _embeds_like_export(dev, embedded, train_env, ckpt_dir, quant, records, images_dir,
-                        tag) -> dict:
-    """The store an ``_embed_process`` wrote against the stage's own engine
+def _export_embeddings(dev, embed_env, train_env, ckpt_dir, records, images_dir,
+                       tag) -> dict:
+    """The embeddings of ``records`` by the stage's own engine (``embed_env``)
     carrying the export params of a trainer (configured by ``train_env``)
-    restored from ``ckpt_dir``, bit for bit."""
+    restored from ``ckpt_dir``: ``{table: (key, records, embeddings)}``."""
     from tpualign_torch.config import load_config
     from tpualign_torch.models.convert import from_jax_params, to_jax_layout
     from tpualign_torch.pipeline import Pipeline
-    from tpualign_torch.store import EmbeddingStore
     from tpualign_torch.train.checkpoint import restore_checkpoint
     from tpualign_torch.train.trainer import Trainer
 
-    embed_env, secs, launches = embedded
-    store_dir = embed_env["STORE_DIR"]
     trainer = Trainer(load_config(train_env), device=dev)
     check(restore_checkpoint(ckpt_dir, trainer.state) is not None, f"{tag}: nothing to restore")
     export = to_jax_layout(trainer.export_params)
@@ -3332,28 +3533,36 @@ def _embeds_like_export(dev, embedded, train_env, ckpt_dir, quant, records, imag
     engine = Pipeline(load_config({**embed_env, "CLIP_CHECKPOINT": ""}), device=dev).engine
     from_jax_params(engine.model, export)
     images, chunks = records
-    store = EmbeddingStore(store_dir, embed_dim=512)
-    for table, recs, key, embed in (
-            ("images", images, "image_id", lambda: engine.embed_image_records(images, images_dir)),
-            ("text_chunks", chunks, "chunk_id", lambda: engine.embed_chunk_records(chunks))):
+    return {"images": ("image_id", images, engine.embed_image_records(images, images_dir)),
+            "text_chunks": ("chunk_id", chunks, engine.embed_chunk_records(chunks))}
+
+
+def _stored_like_export(embed_env, embedded, want, quant, tag) -> dict:
+    """The store an ``_embed_process`` wrote against the export params'
+    embeddings (:func:`_export_embeddings`), bit for bit."""
+    from tpualign_torch.store import EmbeddingStore
+
+    secs, launches = embedded
+    store = EmbeddingStore(embed_env["STORE_DIR"], embed_dim=512)
+    for table, (key, recs, embeddings) in want.items():
         ids, stored = store.embedding_matrix("vanilla_clip", table)
         row = {k: i for i, k in enumerate(ids)}
         stored = stored[[row[r[key]] for r in recs]]
-        want = embed()
-        check(np.array_equal(stored, want),
-              f"{tag}: {int((stored != want).any(axis=1).sum())} stored {table} embeddings "
-              "differ from the export params'")
-    return {"embed_s": secs, "images": len(images), "chunks": len(chunks), "quant": quant,
-            "launches": launches, "bit_identical_to_export_params": True}
+        check(np.array_equal(stored, embeddings),
+              f"{tag}: {int((stored != embeddings).any(axis=1).sum())} stored {table} "
+              "embeddings differ from the export params'")
+    return {"embed_s": secs, "images": len(want["images"][1]),
+            "chunks": len(want["text_chunks"][1]), "quant": quant, "launches": launches,
+            "bit_identical_to_export_params": True}
 
 
-def _train_process(dev, env, work, tag, steps, extra_args=()) -> tuple:
+def _train_process(dev, env, work, tag, steps, extra_args=(), batch=B) -> tuple:
     import json
     import os
 
     ckpt_dir = os.path.join(work, f"ckpt-{tag}")
     metrics = os.path.join(work, f"metrics-{tag}.jsonl")
-    argv = ["train", "--device", dev.type, "--steps", str(steps), "--train-batch-size", str(B),
+    argv = ["train", "--device", dev.type, "--steps", str(steps), "--train-batch-size", str(batch),
             "--ckpt-dir", ckpt_dir, "--metrics-file", metrics, "--log-every", "10",
             *extra_args]
     secs, launches, done = _run_stage(argv, env, work, tag=f"-{tag}")
@@ -3373,16 +3582,19 @@ def _train_process(dev, env, work, tag, steps, extra_args=()) -> tuple:
                       "final": final}
 
 
-def phase_train(dev, seed, root, checkpoint, card) -> dict:
+def phase_train(dev, seed, root, checkpoint, card) -> tuple:
     """Training on the pipeline phase's store (``clip_combined``'s weak
     pairs over its 2,048 images), the towers from the checkpoint: the card
     checks (K1's backward, ``matmul_f32acc``'s gradients, one step with K1
     against the plain attention, GRAD_ACCUM_STEPS=4 against the full
     batch), timed in-process steps with the host and the device feed, then
-    ``python -m tpualign_torch train`` as processes (10 steps with held-out
-    evaluation, then 5 with LORA_RANK=8 and 5 at CLIP_QUANT=int8_qat side by
-    side), each checkpoint directory as ``CLIP_CHECKPOINT``
-    for ``embed`` against the trainer's export params, bit for bit."""
+    ``python -m tpualign_torch train`` as processes side by side (6 steps
+    with held-out evaluation, 3 with LORA_RANK=8 and 3 at
+    CLIP_QUANT=int8_qat, those two at B=64), each checkpoint directory as
+    ``CLIP_CHECKPOINT``
+    for ``embed`` against the trainer's export params, bit for bit; beside
+    the processes, the hnsw phase's ``index`` process. Returns its record
+    and that process's future."""
     import dataclasses as dc
     import os
 
@@ -3441,20 +3653,20 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
                           "peak_source": "NVIDIA H100 SXM data sheet, dense bf16 989 TFLOP/s "
                                          "(utils/flops.py)"}
 
-    # (tag, training env, steps, extra flags, CLIP_QUANT for embed)
+    # (tag, training env, steps, extra flags, CLIP_QUANT for embed, batch)
     cases = (("full", env, TRAIN_STEPS, ("--eval-fraction", "0.05", "--eval-every",
-                                         str(TRAIN_STEPS // 2)), "none"),
-             ("lora", {**env, "LORA_RANK": "8"}, TRAIN_SIDE_STEPS, (), "none"),
-             ("int8_qat", {**env, "CLIP_QUANT": "int8_qat"}, TRAIN_SIDE_STEPS, (), "int8"))
-    # the full run, then the two short ones side by side (a short run is
-    # mostly its process's start; three at once, the full run's held-out
-    # evaluation beside two training steps, filled the card's 80 GB)
+                                         str(TRAIN_STEPS // 2)), "none", B),
+             ("lora", {**env, "LORA_RANK": "8"}, TRAIN_SIDE_STEPS, (), "none", TRAIN_SIDE_B),
+             ("int8_qat", {**env, "CLIP_QUANT": "int8_qat"}, TRAIN_SIDE_STEPS, (), "int8",
+              TRAIN_SIDE_B))
+    # the three processes side by side (a short run is mostly its process's
+    # start), and beside them the hnsw phase's index process, which reads
+    # vanilla_clip, which training leaves alone
+    hnsw_index = _beside(_hnsw_index_cli, dev, _hnsw_env(root, seed, checkpoint), work)
+    started = {tag: _beside(_train_process, dev, case_env, work, tag, steps, flags, batch)
+               for tag, case_env, steps, flags, _, batch in cases}
     runs, ckpts = {}, {}
-    tag, case_env, steps, flags, _ = cases[0]
-    ckpts[tag], runs[tag] = _train_process(dev, case_env, work, tag, steps, flags)
-    side = [(tag, _beside(_train_process, dev, case_env, work, tag, steps, flags))
-            for tag, case_env, steps, flags, _ in cases[1:]]
-    for tag, run in side:
+    for tag, run in started.items():
         ckpts[tag], runs[tag] = run.result()
     check(len(runs["full"]["heldout"]) == 3, f"held-out evaluations {runs['full']['heldout']}")
     out["processes"] = runs
@@ -3462,18 +3674,23 @@ def phase_train(dev, seed, root, checkpoint, card) -> dict:
     sub = {"OUTPUT_DIR": os.path.join(work, "run", "processed")}
     images, chunks, _ = Pipeline(load_config({**env, **sub}), device=dev)._load_processed()
     images_dir = os.path.join(sub["OUTPUT_DIR"], "images")
-    embedded = [_beside(_embed_process, dev, {**env, **sub}, ckpts[tag], quant, work, tag)
-                for tag, _, _, _, quant in cases]
+    embed_envs = {tag: _embed_env({**env, **sub}, ckpts[tag], quant, work, tag)
+                  for tag, _, _, _, quant, _ in cases}
+    embedded = {tag: _beside(_embed_process, dev, embed_envs[tag], work, tag)
+                for tag, *_ in cases}
+    # the export params' embeddings in this process while the processes run
+    want = {tag: _export_embeddings(dev, embed_envs[tag], case_env, ckpts[tag],
+                                    (images, chunks), images_dir, tag)
+            for tag, case_env, *_ in cases}
     out["embed_from_checkpoint_dir"] = {
-        tag: _embeds_like_export(dev, e.result(), case_env, ckpts[tag], quant,
-                                 (images, chunks), images_dir, tag)
-        for (tag, case_env, _, _, quant), e in zip(cases, embedded)}
+        tag: _stored_like_export(embed_envs[tag], embedded[tag].result(), want[tag], quant, tag)
+        for tag, _, _, _, quant, _ in cases}
     emit(out)
-    return out
+    return out, hnsw_index
 
 
 HNSW_TARGET = 0.95      # RETRIEVAL_RECALL_TARGET of the hnsw phase's index
-HNSW_FP16_ROWS = 8192   # rows of the fp16 rung against fp32
+HNSW_FP16_ROWS = 4096   # rows of the fp16 rung against fp32
 HNSW_ADD_ROWS, HNSW_ADD_TEXTS = 4096, 64
 HNSW_REMOVE_SHARE = 0.25
 HNSW_CHECK_QUERIES = 256  # keyed image queries held against the exact index per step
@@ -3589,7 +3806,7 @@ def _native_speedups(seed, work, chunk_texts, terms) -> dict:
     return out
 
 
-_TIMED_INDEX = """
+_TIMED_INDEX = READY + """
 import atexit, json, runpy, sys, time
 from tpualign_torch.parallel import hnsw
 spans = {"build_s": 0.0, "calibrate_s": 0.0}
@@ -3624,11 +3841,12 @@ def _hnsw_index_cli(dev, env, work) -> dict:
     spans = os.path.join(work, "hnsw_index_spans.json")
     repo = os.path.dirname(os.path.abspath(__file__))
     path = os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p)
-    t0 = time.perf_counter()
+    t0, spawned = time.perf_counter(), time.time()
     out = subprocess.run([sys.executable, "-c", _TIMED_INDEX, spans, "index", "--schema",
                           "vanilla_clip", "--device", dev.type], capture_output=True, text=True,
                          timeout=900, cwd=work, env=dict(os.environ, PYTHONPATH=path, **env))
     wall = time.perf_counter() - t0
+    child_done("index_hnsw", spawned, out.stderr)
     check(out.returncode == 0, f"index exited {out.returncode}: {out.stderr[-3000:]}")
     line = json.loads(out.stdout.strip().splitlines()[-1])
     with open(spans) as f:
@@ -3824,11 +4042,12 @@ def _calibrate_cli(dev, env, store_dir) -> dict:
         code = cli_main(["calibrate", "--schema", schema, "--store-dir", store_dir,
                          "--env-file", ""])
     out["dry_run_in_process_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cli = subprocess.run([sys.executable, "-m", "tpualign_torch", "calibrate", "--schema",
+    t0, spawned = time.perf_counter(), time.time()
+    cli = subprocess.run([sys.executable, "-c", CLI, "calibrate", "--schema",
                           schema, "--write"], capture_output=True, text=True, timeout=600,
                          env=dict(os.environ, **env))
     out["write_process_s"] = time.perf_counter() - t0
+    child_done("calibrate", spawned, cli.stderr)
     check(code == 0 and cli.returncode == 0,
           f"calibrate exited {code}, with --write {cli.returncode}: {cli.stderr[-2000:]}")
     for tag, line in (("dry_run", printed.getvalue()), ("write", cli.stdout)):
@@ -3850,12 +4069,25 @@ def _calibrate_cli(dev, env, store_dir) -> dict:
     return out
 
 
-def phase_hnsw(dev, seed, root, checkpoint, card) -> dict:
+def _hnsw_env(root, seed, checkpoint) -> dict:
+    """The hnsw phase's settings over the pipeline store."""
+    import os
+
+    store_dir = os.path.join(root, "pipeline", "store")
+    return {"STORE_DIR": store_dir, "RETRIEVAL_INDEX": "hnsw",
+            "HNSW_CACHE": os.path.join(root, "pipeline", "vanilla_clip.hnsw.npz"),
+            "RETRIEVAL_RECALL_TARGET": str(HNSW_TARGET), "CLIP_MODEL": "ViT-B-32",
+            "SEED": str(seed), "CLIP_CHECKPOINT": checkpoint}
+
+
+def phase_hnsw(dev, seed, root, checkpoint, card, index_cli) -> dict:
     """RETRIEVAL_INDEX=hnsw over the pipeline phase's store (after
     ``train``, which reads the weak scores ``calibrate --write`` rewrites):
     the native library (tokenizer and lexical counts, native against
     Python), ``index`` as a subprocess (build, calibration to
-    HNSW_TARGET, artifact), the service loading it with the towers from
+    HNSW_TARGET, artifact; ``index_cli``, the future of
+    :func:`_hnsw_index_cli`, started beside the train processes), the
+    service loading it with the towers from
     the checkpoint and every served answer against a direct search, the
     exact index and the unit rows' dots, the mutations, the fp16 rung, and
     ``calibrate``. Returns K1's launches around the clients' run."""
@@ -3875,13 +4107,11 @@ def phase_hnsw(dev, seed, root, checkpoint, card) -> dict:
     chunks = store.chunks("vanilla_clip")
     with open(os.path.join(work, "processed", "filtered_lexical_components.json")) as f:
         terms = [c["term"] for c in json.load(f)["components"]]
+    env = _hnsw_env(root, seed, checkpoint)
     out["native"] = _native_speedups(seed, work, [c["text"] for c in chunks], terms)
-
-    cache = os.path.join(work, "vanilla_clip.hnsw.npz")
-    env = {"STORE_DIR": store_dir, "RETRIEVAL_INDEX": "hnsw", "HNSW_CACHE": cache,
-           "RETRIEVAL_RECALL_TARGET": str(HNSW_TARGET), "CLIP_MODEL": "ViT-B-32",
-           "SEED": str(seed), "CLIP_CHECKPOINT": checkpoint}
-    line = _hnsw_index_cli(dev, env, work)
+    config = load_config(env)
+    engine = make_engine(config, dev)
+    line = index_cli.result()
     check(line["index"] == "hnsw" and line["n"] == len(chunks) and line["precision"] == "fp32",
           f"index printed {line}")
     line["build_s_per_1k_rows"] = line["build_s"] / line["n"] * 1e3
@@ -3892,8 +4122,6 @@ def phase_hnsw(dev, seed, root, checkpoint, card) -> dict:
     make_core = hnsw_mod.make_hnsw_core
     hnsw_mod.make_hnsw_core = lambda *a, **k: builds.append(1) or make_core(*a, **k)
     try:
-        config = load_config(env)
-        engine = make_engine(config, dev)
         text_enc = _Recorder(engine.encode_text_batch)
         image_enc = _Recorder(make_image_bytes_encoder(engine))
         t0 = time.perf_counter()
@@ -5050,7 +5278,8 @@ def _step_parts(dev, seed) -> dict:
     from tpualign_torch.train import step as S
 
     config = load_config({"CLIP_MODEL": "ViT-B-32"})
-    model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
+    with span("model_build", "build_clip"):
+        model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
     images, tokens, weak = _train_batch(dev, seed, B, config.model.variant.image_size)
     cfg = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=10)
 
@@ -5128,7 +5357,8 @@ def phase_mesh_train(dev, seed, root, checkpoint, card, four_cards: bool) -> tup
         t0 = now
 
     config = load_config({"CLIP_MODEL": "ViT-B-32", "COMPUTE_DTYPE": "float32"})
-    model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
+    with span("model_build", "build_clip"):
+        model = init_clip_params(build_clip(config.model, dev), seed=seed).requires_grad_(False)
     batch = _train_batch(dev, seed, MESH_TRAIN_B, config.model.variant.image_size)
     checks = _mesh_step_checks(dev, model, batch, MESH_TRAIN_SHAPES, tally, "ViT-B-32 fp32")
     part("fp32_checks", {"B": MESH_TRAIN_B, **checks})
@@ -5395,7 +5625,8 @@ def _multihost_worker(mode, work, seed, root, checkpoint) -> int:
         del answers
         torch.cuda.empty_cache()
         config = load_config({"CLIP_MODEL": "ViT-B-32", "COMPUTE_DTYPE": "float32"})
-        model = init_clip_params(build_clip(config.model, mesh.home), seed=seed)
+        with span("model_build", "build_clip"):
+            model = init_clip_params(build_clip(config.model, mesh.home), seed=seed)
         batch = _train_batch(mesh.home, seed, MESH_TRAIN_B, config.model.variant.image_size)
         from tpualign_torch.config import TrainConfig
         from tpualign_torch.train import step as S
@@ -5446,22 +5677,25 @@ def _multihost_run(mode, visible, work, seed, root, checkpoint, timeout=600) -> 
                    CUDA_VISIBLE_DEVICES=cards)
         err = open(os.path.join(work, f"multihost-{mode}-{pid}.err"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, "-c", "import sys, chip_smoke; "
+            [sys.executable, "-c", READY + "import chip_smoke\n"
              "sys.exit(chip_smoke._multihost_worker(*sys.argv[1:]))", mode, work, str(seed),
              root, checkpoint],
-            stdout=subprocess.PIPE, stderr=err, text=True, cwd=work, env=env), err))
+            stdout=subprocess.PIPE, stderr=err, text=True, cwd=work, env=env), err,
+            time.time()))
     outs = []
     try:
         deadline = time.monotonic() + timeout
-        for p, _ in procs:
+        for p, _, _ in procs:
             outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
     finally:
-        for p, err in procs:
+        for pid, (p, err, spawned) in enumerate(procs):
             if p.poll() is None:
                 p.kill()
                 p.wait()
             err.close()
-    for pid, ((p, err), out) in enumerate(zip(procs, outs)):
+            with open(err.name) as f:
+                child_done(f"multihost-{mode}-{pid}", spawned, f.read())
+    for pid, ((p, err, _), out) in enumerate(zip(procs, outs)):
         check(p.returncode == 0 and out.strip(), f"multihost {mode} process {pid} exited "
                                                  f"{p.returncode}: {open(err.name).read()[-3000:]}")
     return [json.loads(out.strip().splitlines()[-1]) for out in outs]
@@ -5600,47 +5834,55 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count()})
-    seconds = {}
+    _time_model_builds()
+    seconds, split = {}, {}
     t_start = t0 = time.perf_counter()
+    w_start = w0 = time.time()
 
     def lap(name):
-        nonlocal t0
-        now = time.perf_counter()
-        seconds[name] = now - t0
-        t0 = now
+        nonlocal t0, w0
+        now, wall = time.perf_counter(), time.time()
+        seconds[name], split[name] = now - t0, time_split(w0, wall)
+        t0, w0 = now, wall
 
-    phase_build()
-    lap("build")
-    if not args.mesh_only:
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        k1 = phase_k1(dev, gen)
-        lap("k1")
-        k2 = phase_k2(dev, gen)
-        lap("k2")
-        launches = phase_slice(dev, args.seed)
-        fp32_launches = phase_fp32_towers(dev, args.seed)
-        lap("slice")
-        int8_launches, int8_split_launches = phase_int8_towers(dev, args.seed)
-        lap("int8_towers")
-        k3 = phase_k3(dev, gen)
-        lap("k3")
-        k4 = phase_k4(dev, gen)
-        lap("k4")
-        k5 = phase_k5(dev, gen)
-        lap("k5")
     with tempfile.TemporaryDirectory(prefix="tpualign_ckpt_") as ckpt_dir:
-        checkpoint = phase_checkpoint(ckpt_dir, args.seed)
+        feed = tempfile.TemporaryDirectory(prefix="tpualign_feed_")
+        # host work beside the kernels' build: the seeded tree's checkpoint,
+        # the device_feed phase's files and the pipeline phase's manuals
+        written = _beside(phase_checkpoint, ckpt_dir, args.seed)
+        host_corpus = _beside(_host_corpus, feed.name, args.seed)
+        with span("kernel_build"):
+            phase_build()
+        lap("build")
+        checkpoint, corpus = written.result(), host_corpus.result()
         lap("checkpoint")
-        with tempfile.TemporaryDirectory(prefix="tpualign_feed_") as root:
-            feed_names = phase_device_feed(dev, args.seed, root)
+        if not args.mesh_only:
+            gen = torch.Generator(device=dev).manual_seed(args.seed)
+            k1 = phase_k1(dev, gen)
+            lap("k1")
+            k2 = phase_k2(dev, gen)
+            lap("k2")
+            launches = phase_slice(dev, args.seed)
+            fp32_launches = phase_fp32_towers(dev, args.seed)
+            lap("slice")
+            int8_launches, int8_split_launches = phase_int8_towers(dev, args.seed)
+            lap("int8_towers")
+            k3 = phase_k3(dev, gen)
+            lap("k3")
+            k4 = phase_k4(dev, gen)
+            lap("k4")
+            k5 = phase_k5(dev, gen)
+            lap("k5")
+        with feed as root:
+            phase_device_feed(dev, args.seed, root, corpus)
             lap("device_feed")
             pipe_launches, k2_eval, ingest_launches, mesh_embed = phase_pipeline(
-                dev, args.seed, root, feed_names, checkpoint, bitwise=not args.mesh_only)
+                dev, args.seed, root, corpus, checkpoint, bitwise=not args.mesh_only)
             lap("pipeline")
             if not args.mesh_only:
-                train = phase_train(dev, args.seed, root, checkpoint, card)
+                train, hnsw_index = phase_train(dev, args.seed, root, checkpoint, card)
                 lap("train")
-                hnsw_launches = phase_hnsw(dev, args.seed, root, checkpoint, card)
+                hnsw_launches = phase_hnsw(dev, args.seed, root, checkpoint, card, hnsw_index)
                 lap("hnsw")
             four_cards = args.mesh_only and torch.cuda.device_count() >= 4
             mesh_train, train_checks, trainers = phase_mesh_train(
@@ -5658,7 +5900,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="tpualign_serve_") as root:
             serve_launches, k3_serve, shared = phase_serve(
                 dev, args.seed, root, checkpoint,
-                precisions=("int8",) if args.mesh_only else ("int8", "int4", "int2"))
+                precisions=("int8",) if args.mesh_only else ("int8", "int4", "int2"),
+                ivf=not args.mesh_only)
             lap("serve")
             if not args.mesh_only:
                 ivf_launches, k4_head = phase_serve_ivf(dev, args.seed, root, shared)
@@ -5669,7 +5912,12 @@ def main() -> int:
                                        mesh_tally, mesh_eval, mesh_embed)
             lap("mesh")
             del shared
-    emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t_start})
+    emit({"phase": "timing", "seconds": seconds, "total_s": time.perf_counter() - t_start,
+          "split": split,
+          "split_total": {k: sum(v[k] for v in split.values())
+                          for k in ("kernel_build", "model_build", "child_start", "rest",
+                                    "children")},
+          "children": children(w_start)})
     if args.mesh_only:
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -188,9 +188,10 @@ def test_int8_embed_engine_on_a_model_axis_matches_one_device_and_tpualign(monke
     the images within 1e-3 too, save where the two packages' one-device
     engines are already farther apart, and there no farther than they are
     (plus the 1e-6 of a data split): on this input one image row of those
-    is 1.3e-3 off, because their fp32 LayerNorms differ by ulps and one
-    int8 code lands on the other side of a rounding (ROADMAP queue 3); that
-    gap is held under 2e-3."""
+    is 1.3e-3 off, because the two attention contexts in front of block
+    0's ``out_proj`` differ by ulps and one int8 code lands on the other
+    side of a rounding (ROADMAP settled difference 26,
+    ``tests/test_torch_int8_parity.py``); that gap is held under 2e-3."""
     from tests.test_torch_embed import TINY77, _chunk_records
     from tpualign.parallel.embed import EmbedEngine as JaxEngine
 

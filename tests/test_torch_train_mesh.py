@@ -361,7 +361,8 @@ def test_int8_qat_sharded_step_matches_one_device_and_tpualign(jax_pair, shape, 
     that file holds the one-device step to tpualign's at these bounds. A
     fake-quantized code flips where an ulp moves a value across a rounding
     boundary, and an ulp apart the packages' fp32 paths often are, so on
-    another batch a flip can move the loss past 1e-4 (ROADMAP queue 3)."""
+    another batch a flip can move the loss past 1e-4 (ROADMAP settled
+    difference 26)."""
     _, tree = jax_pair
     jax_model = JaxCLIP(variant=TINY, use_quick_gelu=True, compute_dtype=jnp.float32,
                         quant="int8_qat")
