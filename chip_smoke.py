@@ -14,13 +14,15 @@ line each:
 1. build: the five kernels compiled from ``tpualign_torch/csrc/``, in
    parallel, and the native host library (``tpualign_torch/native``, g++)
    beside them; on threads beside the build, the host work of 8.-10.:
-   the checkpoint, the device_feed files and the pipeline's manuals;
+   the checkpoint, the device_feed files and the pipeline's manuals, and
+   (one card) h14_embed's seeded ViT-H-14 engine;
 2. K1 ``fused_mha`` against its plain version at ViT-B-32's shapes (B=256:
    vision T=50 D=768 H=12 unmasked; text T=16/32/77 D=512 H=8 causal) and at
    ViT-H-14's vision (B=32, T=257, D=1280, H=16, hd 80) whole and as one
-   card's part of a 4-way model axis (H=4), and ViT-B-32's vision and text
+   card's part of a 4-way model axis (H=4), ViT-H-14's vision whole at
+   B=256 (the h14_embed phase's shape), and ViT-B-32's vision and text
    T=77 as one card's part of a 2-way model axis (H=6 and 4, B=256), fp32
-   (the CUDA-core kernel) and bf16 (the tensor-core kernel): sixteen rows,
+   (the CUDA-core kernel) and bf16 (the tensor-core kernel): eighteen rows,
    with times for the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (a yardstick only; the port never
    calls it), the kernel's and the yardstick's over a CUDA graph of 64
@@ -38,6 +40,13 @@ line each:
    kernel in every attention) over 1,024 images and 4,096 texts, images/s,
    chunks/s and K1's launches, the embeddings against the plain attention
    within 1e-4;
+   h14_embed: ``EmbedEngine`` with ViT-H-14 at its full widths and depth
+   (vision 1280 / 32 layers / 16 heads / hd 80, T=257; text 1024 / 24 /
+   16), seeded, bf16, B=256, over 512 seeded images and 512 chunk texts
+   (the 16/32/77 buckets): images/s, chunks/s, peak memory, K1's launches
+   by sequence length (all 64 of the image tower's at T=257), the
+   embeddings finite and unit-norm, and 64 image and 64 text rows against
+   the same towers on the plain attention within 2e-2;
    int8_towers: the same towers at ``CLIP_QUANT=int8`` (every projection
    through ``torch._int_mm``, every attention through K1) against the bf16
    towers over 1,024 images and 4,096 chunks (images/s, chunks/s, largest
@@ -296,11 +305,13 @@ B = 256  # BATCH_SIZE default
 K1_SHAPES = [("vision", 50, 768, 12, False), ("text16", 16, 512, 8, True),
              ("text32", 32, 512, 8, True), ("text77", 77, 512, 8, True)]
 # ViT-H-14's vision attention (hd 80) whole and as one card's part of a
-# 4-way model axis (tensor parallel: H/4 heads), at the train batch of a row;
+# 4-way model axis (tensor parallel: H/4 heads), at the train batch of a row,
+# and whole at the embed batch (the h14_embed phase's shape);
 # ViT-B-32's as one card's part of a 2-way model axis (the int8 towers'
 # (1, 2) check), at the embed batch
 K1_LARGE_SHAPES = [("h14_vision", 32, 257, 1280, 16, False),
                    ("h14_vision_tp4", 32, 257, 320, 4, False),
+                   ("h14_vision_b256", B, 257, 1280, 16, False),
                    ("vision_tp2", B, 50, 384, 6, False), ("text77_tp2", B, 77, 256, 4, True)]
 K1_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (2**-6, 2**-7)}  # (atol, rtol)
 K2_TOL_VALUES = 1e-5
@@ -503,8 +514,11 @@ def phase_k1(dev, gen):
             library = functools.partial(F.scaled_dot_product_attention, q, k, v, is_causal=causal)
             ms_events = time_ms(kernel, 20)
             lib_events = time_ms(library, 20)
-            ms = graph_ms(kernel)
-            lib_ms = graph_ms(library)
+            # a graph of 64 launches where events would count the host's gaps;
+            # 16 for kernels of a millisecond or more (B=256 at T=257)
+            reps = {} if ms_events < 1.0 else {"launches": 16, "replays": 4}
+            ms = graph_ms(kernel, **reps)
+            lib_ms = graph_ms(library, **reps)
             plain_ms = time_ms(lambda: fused_mha_reference(qkv, heads, mask), 10)
             item = qkv.element_size()
             nbytes = qkv.numel() * item + b * t * d * item + (t * t * 4 if causal else 0)
@@ -517,7 +531,8 @@ def phase_k1(dev, gen):
                          "bound_ms": bms, "bound_by": by, "bound_share": bms / ms,
                          "ms_events": ms_events, "library_ms_events": lib_events})
     emit({"phase": "k1_fused_mha", "timing": "ms and library_ms: a CUDA graph of 64 launches, "
-                                             "10 replays; *_events: events around 20 launches",
+                                             "10 replays (16 and 4 where the events read 1 ms or "
+                                             "more); *_events: events around 20 launches",
           "results": rows})
     return rows
 
@@ -1042,6 +1057,110 @@ def phase_slice(dev, seed):
         check(count > 0, f"{name} was not launched on the main path")
     phase_profile(engine, images, texts)
     return launches
+
+
+H14_IMAGES, H14_TEXTS, H14_CHECK_ROWS = 512, 512, 64
+H14_TOWER_TOL = 2e-2  # the slice's bound: K1 against the plain attention, bf16 towers
+
+
+def _h14_engine(dev, seed):
+    """The h14_embed phase's ``EmbedEngine`` (ViT-H-14 seeded at full size,
+    bf16) and the seconds it took: built on a thread beside the kernels'
+    build, where its host-side draws of about 1e9 weights overlap nvcc."""
+    from tpualign_torch.config import ModelConfig
+    from tpualign_torch.parallel import EmbedEngine
+
+    t0 = time.perf_counter()
+    engine = EmbedEngine(ModelConfig("ViT-H-14"), device=dev, seed=seed)
+    return engine, time.perf_counter() - t0
+
+
+def phase_h14_embed(dev, seed, built) -> dict:
+    """ViT-H-14 at its full widths and depth (vision 1280 / 32 layers / 16
+    heads / hd 80, T=257; text 1024 / 24 / 16), seeded, bf16, at the
+    engine's batch of 256 (``built``: ``_h14_engine``'s future): 512 seeded
+    images at 224 px and 512 chunk texts over the 16/32/77 buckets.
+    Images/s, chunks/s and peak memory; the embeddings finite and
+    unit-norm; 64 image and 64 text rows against the same towers on the
+    plain attention; K1's launches around the timed pass, by sequence
+    length (a tally around the wrapper's launch)."""
+    import collections
+
+    from tpualign_torch.models.layers import MultiHeadAttention
+    from tpualign_torch.ops import attention
+
+    rng = np.random.default_rng(seed + 14)
+    images = rng.standard_normal((H14_IMAGES, 224, 224, 3), dtype=np.float32)
+    texts = _chunk_texts(rng, H14_TEXTS, empty_every=0)
+    engine, t_build = built.result()
+    attn = [m for m in engine.model.modules() if isinstance(m, MultiHeadAttention)]
+    check(engine.batch_size == B and engine.model.visual.compute_dtype == torch.bfloat16
+          and all(m.use_fused_attention for m in attn), "ViT-H-14: not the bf16 K1 towers at B=256")
+    bucket_of = np.searchsorted(engine.text_buckets,
+                                np.argmax(engine.tokenizer(texts), axis=1) + 1)
+    buckets = {int(engine.text_buckets[b]): int((bucket_of == b).sum())
+               for b in np.unique(bucket_of)}
+    check(set(buckets) == {16, 32, 77}, f"ViT-H-14 chunk texts fill buckets {buckets}")
+    engine.encode_image_batch(images[:B])  # warm-up, untimed
+    engine.encode_text_batch(texts[:B])
+
+    by_t = collections.Counter()
+    launch = attention._launch
+
+    def tallied(qkv, num_heads, mask):
+        before = attention.fused_mha.launches
+        out = launch(qkv, num_heads, mask)
+        by_t[int(qkv.shape[1])] += attention.fused_mha.launches - before
+        return out
+
+    attention._launch = tallied
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        attention.fused_mha.launches = 0
+        t0 = time.perf_counter()
+        img = engine.encode_image_batch(images)
+        t_img = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        txt = engine.encode_text_batch(texts)
+        t_txt = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = attention.fused_mha.launches
+    finally:
+        attention._launch = launch
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    for name, emb, n in (("images", img, H14_IMAGES), ("texts", txt, H14_TEXTS)):
+        check(emb.shape == (n, engine.variant.embed_dim), f"ViT-H-14 {name}: shape {emb.shape}")
+        check(bool(np.isfinite(emb).all()), f"ViT-H-14 {name}: non-finite embeddings")
+        norm_err = float(np.abs(np.linalg.norm(emb, axis=1) - 1.0).max())
+        check(norm_err <= 1e-5, f"ViT-H-14 {name}: norms off by {norm_err:.3g}")
+    for m in attn:
+        m.use_fused_attention = False
+    plain_img = engine.encode_image_batch(images[:H14_CHECK_ROWS])
+    plain_txt = engine.encode_text_batch(texts[:H14_CHECK_ROWS])
+    for m in attn:
+        m.use_fused_attention = True
+    gap = {"images": float(np.abs(img[:H14_CHECK_ROWS] - plain_img).max()),
+           "texts": float(np.abs(txt[:H14_CHECK_ROWS] - plain_txt).max())}
+    for name, e in gap.items():
+        check(e <= H14_TOWER_TOL, f"ViT-H-14 {name}, K1 against the plain attention: max abs "
+                                  f"{e:.3g} > {H14_TOWER_TOL}")
+    vision_launches = engine.variant.vision_layers * -(-H14_IMAGES // engine.batch_size)
+    check(by_t[257] == vision_launches,
+          f"K1 at T=257 launched {by_t[257]} times in ViT-H-14's image tower "
+          f"(want {vision_launches})")
+    emit({"phase": "h14_embed", "model": "ViT-H-14", "dtype": "bfloat16",
+          "batch_size": engine.batch_size, "images": H14_IMAGES, "texts": H14_TEXTS,
+          "chunk_buckets": buckets, "engine_build_s_beside_kernel_build": t_build,
+          "image_s": t_img,
+          "chunk_s": t_txt, "images_per_s": H14_IMAGES / t_img,
+          "chunks_per_s": H14_TEXTS / t_txt, "peak_memory_gb": peak_gb,
+          "k1_launches": launches, "k1_launches_by_t": dict(sorted(by_t.items())),
+          "max_abs_gap_to_plain_attention": gap, "tolerance": H14_TOWER_TOL,
+          "checked_rows": H14_CHECK_ROWS})
+    del engine, built
+    torch.cuda.empty_cache()
+    return {"launches": launches, "t257": by_t[257]}
 
 
 FP32_IMAGES, FP32_TEXTS = 1024, 4096
@@ -5851,10 +5970,13 @@ def main() -> int:
         # the device_feed phase's files and the pipeline phase's manuals
         written = _beside(phase_checkpoint, ckpt_dir, args.seed)
         host_corpus = _beside(_host_corpus, feed.name, args.seed)
+        h14_engine = None if args.mesh_only else _beside(_h14_engine, dev, args.seed)
         with span("kernel_build"):
             phase_build()
         lap("build")
         checkpoint, corpus = written.result(), host_corpus.result()
+        if h14_engine is not None:
+            h14_engine.result()  # built before the timed phases start
         lap("checkpoint")
         if not args.mesh_only:
             gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -5865,6 +5987,9 @@ def main() -> int:
             launches = phase_slice(dev, args.seed)
             fp32_launches = phase_fp32_towers(dev, args.seed)
             lap("slice")
+            h14 = phase_h14_embed(dev, args.seed, h14_engine)
+            del h14_engine
+            lap("h14_embed")
             int8_launches, int8_split_launches = phase_int8_towers(dev, args.seed)
             lap("int8_towers")
             k3 = phase_k3(dev, gen)
@@ -5937,6 +6062,8 @@ def main() -> int:
          "launches": launches["fused_mha"], **{k: k1_head[k] for k in keys},
          "launches_by_phase": {"slice": launches["fused_mha"],
                                "slice_fp32_towers": fp32_launches,
+                               "h14_embed": h14["launches"],
+                               "h14_embed_t257": h14["t257"],
                                "int8_towers": int8_launches["fused_mha"],
                                "int8_towers_1x2": int8_split_launches["fused_mha"],
                                "serve": serve_launches["fused_mha"],

@@ -76,27 +76,45 @@ def _mha_case(dev, b, t, heads, hd, dtype, causal):
     assert err <= tol, f"T={t} hd={hd} B={b} causal={causal}: max abs error {err:.3g} > {tol}"
 
 
+# past T=128 the query tiles (64 rows) and the key chunks (32 keys) end
+# at 192 and 256: one short of each edge, on it and one past it
+LONG_EDGES = [191, 192, 193, 255, 256]
+
+
 @pytest.mark.parametrize("hd", [64, 80, 88, 104])
-@pytest.mark.parametrize("t", [1, 16, 50, 63, 64, 65, 77, 128, 129, 257])
+@pytest.mark.parametrize("t", [1, 16, 50, 63, 64, 65, 77, 128, 129, 257] + LONG_EDGES)
 def test_fused_mha_bf16_tensor_cores_match_plain(dev, t, hd):
-    """The bf16 kernel (mma.sync) at T padded to 16 (one pass up to 128,
-    three passes past it) and hd padded to 16, causal and unmasked, B=1
-    and an odd B."""
+    """The bf16 kernel (mma.sync) at T padded to 16 (one pass up to 128;
+    past it 64-row query tiles, K and V through a ring of 32-row chunks,
+    two passes) and hd padded to 16, causal and unmasked, B=1 and an odd
+    B."""
     for b in (1, 3):
         for causal in (False, True):
             _mha_case(dev, b, t, 2, hd, torch.bfloat16, causal)
 
 
 @pytest.mark.parametrize("hd", [64, 80, 88, 104])
-@pytest.mark.parametrize("t", [1, 16, 50, 63, 64, 65, 77, 128, 129, 257])
+@pytest.mark.parametrize("t", [1, 16, 50, 63, 64, 65, 77, 128, 129, 257] + LONG_EDGES)
 def test_fused_mha_fp32_dispatch_matches_plain(dev, t, hd):
     """The fp32 kernel (CUDA cores, register tiles) at the bf16 test's grid:
     Q, K and V resident up to T=128 (64, 128 or 256 threads), 64-row query
-    blocks with K and V streamed past it and where the resident layout would
-    pass 227 KB (hd=104 at T=128); causal and unmasked, B=1 and an odd B."""
+    blocks with K and V streamed through a ring of 32-row chunks past it and
+    where the resident layout would pass 227 KB (hd=104 at T=128); causal
+    and unmasked, B=1 and an odd B."""
     for b in (1, 3):
         for causal in (False, True):
             _mha_case(dev, b, t, 2, hd, torch.float32, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [129, 200, 257])
+def test_fused_mha_long_small_grid_matches_plain(dev, t, dtype):
+    """Past T=128 with fewer (batch row, head) pairs than the card has SMs
+    (B=2, H=3): every query tile a block, causal and unmasked, each head
+    dim."""
+    for hd in (64, 80, 88, 104):
+        for causal in (False, True):
+            _mha_case(dev, 2, t, 3, hd, dtype, causal)
 
 
 @pytest.mark.parametrize("t", [16, 77, 257])

@@ -23,6 +23,11 @@ from tpualign_torch.parallel.embed import truncate_to_bucket
 pytestmark = pytest.mark.fast
 
 TORCH_TINY = torch_config.ClipVariant(**dataclasses.asdict(TINY))
+# T=257 as at ViT-L/H-14 (112 / 7 = 16 patches a side + CLS), head dim 80
+# as at ViT-H-14: the attention past T=128
+TINY_LONG = dataclasses.replace(TINY, name="tiny_long", image_size=112, patch_size=7,
+                                vision_width=160, vision_heads=2, vision_layers=2)
+TORCH_TINY_LONG = torch_config.ClipVariant(**dataclasses.asdict(TINY_LONG))
 
 
 @pytest.fixture(scope="module")
@@ -91,6 +96,26 @@ def test_tower_parity_fp32(jax_params, tower, fused):
             got = port.encode_text(torch.from_numpy(toks), normalize=True)
     err = float(np.max(np.abs(got.numpy() - np.asarray(want))))
     assert err <= 1e-3, f"{tower} tower (fused={fused}) max abs error {err:.3g} > 1e-3"
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_long_image_tower_parity_fp32(fused):
+    """The whole image tower at T=257 (hd 80), the port's against
+    tpualign's from the same params, fused attention on and off, within
+    test_tower_parity_fp32's bound."""
+    jmodel = JaxCLIP(variant=TINY_LONG, use_quick_gelu=True, compute_dtype=jnp.float32,
+                     use_fused_attention=fused)
+    params = jax_init(jmodel, seed=2)
+    port = from_jax_params(CLIP(TORCH_TINY_LONG, True, torch.float32, fused),
+                           jax.tree.map(np.asarray, params))
+    assert port.visual.positional_embedding.shape[0] == 257
+    x = np.random.default_rng(4).normal(size=(2, 112, 112, 3)).astype(np.float32)
+    want = jmodel.apply({"params": params}, jnp.asarray(x), normalize=True,
+                        method=jmodel.encode_image)
+    with torch.no_grad():
+        got = port.encode_image(torch.from_numpy(x), normalize=True)
+    err = float(np.max(np.abs(got.numpy() - np.asarray(want))))
+    assert err <= 1e-3, f"T=257 image tower (fused={fused}) max abs error {err:.3g} > 1e-3"
 
 
 def test_joint_forward_and_logit_scale(jax_params):

@@ -26,17 +26,12 @@
 //   zero-padded to a multiple of 16 (88 -> 96, 104 -> 112); A from Q and B
 //   from K by ldmatrix.
 // - Softmax in fp32 registers: scale, then the caller's additive (T, T)
-//   mask, padded keys set to -inf before the max. It is exact over the
-//   whole row as fused_mha_reference takes it (max and sum over all T
-//   keys, then e / sum rounded to bf16): no online rescaling. For T <= 128
-//   the row of scores stays in registers (one pass), in 4, 8, 10 or 16
-//   n8 tiles (T <= 32, 64, 80, 128), so that T=77 does not hold the
-//   registers of 128 keys (it ran slower so on the H100: fewer blocks fit
-//   a SM). For T up to 257 it
-//   does not fit, and the block recomputes Q K^T in chunks of 64 keys in
-//   three passes (max, sum, then P.V): T > 128 is ViT-L/H-14, off the main
-//   path, and 3x a product that is 2 us at B=256 costs less than the
-//   shared memory a (T x T) fp32 score array would take from the K/V tiles.
+//   mask, padded keys set to -inf before the max. P is rounded where
+//   fused_mha_reference rounds it: bf16(exp(s - max) / sum), max and sum
+//   over all T keys. For T <= 128 the row of scores stays in registers
+//   (one pass), in 4, 8, 10 or 16 n8 tiles (T <= 32, 64, 80, 128), so that
+//   T=77 does not hold the registers of 128 keys (it ran slower so on the
+//   H100: fewer blocks fit a SM).
 // - P.V: the rounded P fragments are the A operand straight from registers
 //   (the m16n8 accumulator layout is the m16n8k16 A layout); V goes in
 //   through ldmatrix.trans. The fp32 context is rounded to bf16, staged in
@@ -44,6 +39,38 @@
 // - Why not wgmma/TMA: the work is bound by bytes (24 us) and its 2 GFLOP
 //   take about 2 us even at mma.sync's rate; a 64-row warpgroup tile would
 //   also waste most of its rows at T=16/50/77.
+//
+// bf16 past T = 128 (ViT-L/H/g/bigG-14 at 224 px: T=257), mha_bf16_long_kernel.
+// - Bound: bytes. ViT-H-14 at B=32 reads 63 MB of QKV and writes 21 MB
+//   (25 us at 3.35 TB/s) against 5.4 GFLOP (5 us on the tensor cores).
+//   Its first form, one block a (batch row, head) holding all 272 padded
+//   rows of Q, K and V (143 KB at hd 80: one block of 17 warps an SM), no
+//   copy overlapped with work and Q K^T taken three times, ran 0.232 ms.
+//   What bounds the kernel on the card is not the bytes but the latency of
+//   each warp's chain of ldmatrix, mma.sync, exp and barrier, so the design
+//   buys warps an SM: measured on the H100, 8 warps an SM (the head's K
+//   resident) ran 0.317 ms, 16 (64-key chunks) 0.242, 20 (32-key chunks)
+//   0.214; two m16 tiles a warp (each K and V fragment read once for both)
+//   took 164 registers, 12 warps an SM, and 0.228.
+// - Grid: one block of 4 warps (16 query rows each, as above) per (batch
+//   row, head, 64 query rows), the query tiles of a head adjacent in
+//   blockIdx so that the head's K and V come from HBM once and from L2 for
+//   the other tiles; at T=257, 5 tiles (2,560 blocks at B=32 H=16, 640 for
+//   the 4-way part's H=4). A warp whose rows all lie past T only copies.
+// - Shared memory: the Q tile and a ring of three stages, each a 32-row
+//   chunk of K and one of V: (64 + 6 x 32) x (hd' + 8) bf16, 45,056 bytes
+//   at hd 80, 96 registers: 5 blocks an SM (6 at hd 64, 4 at 88, 3 at 104).
+//   Pass A streams K, pass B K and V; two chunks are in flight while one is
+//   used, one __syncthreads a chunk.
+// - Two passes. Pass A takes the row max and the sum of exp(s - max)
+//   together: a running max, the sum rescaled by exp(m_old - m_new) when
+//   it moves (a row masked so far adds 0), the four lanes of a row merged
+//   at the end. Pass B recomputes the scores, forms P = bf16(exp(s - max)
+//   * (1 / sum)), normalised before it is rounded as the reference rounds
+//   it (one reciprocal a row: e / sum per score cost 10 % of the kernel;
+//   the two differ by an fp32 ulp before the bf16 rounding), and
+//   accumulates P.V. The one-pass flash form, which rounds P before
+//   normalising, is not used.
 //
 // fp32 (COMPUTE_DTYPE=float32 without PARITY_MODE, which takes the plain
 // path): mha_f32_kernel, on the CUDA cores, so that no TF32 rounding enters
@@ -89,10 +116,32 @@
 // - Shared memory and blocks per SM (228 KB an SM): T=16 13,056 bytes (16
 //   blocks of 32 threads), T=32 26,112 (8 of 64), T=50 45,696 (4 of 128),
 //   T=77 92,160 with P apart (2 of 256).
-// - T from 129 to 257 (ViT-L/H-14, off the main path), and T <= 128 where
-//   the resident layout would pass 227 KB (hd=104 at T=128; kChunked):
-//   blocks of 64 query rows, K and then V streamed through one 64-row
-//   buffer, the scores of the whole row kept in P; right, not tuned.
+// - T from 129 to 257, and T <= 128 where the resident layout would pass
+//   227 KB (hd=104 at T=128): mha_f32_long_kernel. Bound: operations
+//   (ViT-H-14 at B=32: 10.8 GFLOP of FMA, 0.162 ms at 67 TFLOP/s). Its
+//   first form (64 query rows a block, K and then V through one 64-row
+//   buffer with a __syncthreads before and after each copy, 126 KB: one
+//   block an SM, half its threads idle in Q K^T, every padded key and row
+//   computed) took 0.812 ms; this one 0.605 ms on the H100 (SDPA 0.611):
+//   - one block of 256 threads per (batch row, head, 64 query rows), the
+//     tiles of a head adjacent in blockIdx;
+//   - K and then V stream through a two-stage ring of 32-row chunks (one
+//     __syncthreads a chunk; chunk s + 1 copied while chunk s's products
+//     run);
+//   - Q K^T from 2 x 4 register tiles (rows tr + 32 i, keys tc + 8 u): a
+//     64 x 32 chunk gives each of the 256 threads 8 scores, and a warp's 4 Q
+//     rows and 8 K rows are one bank wavefront each, so 6 float4 loads
+//     feed 32 FMAs, the depth in the order of a plain fmaf chain; rows and
+//     keys past T are skipped (8-row tiles would leave 64 of the 256
+//     threads a chunk);
+//   - P (64 x pitch, pitch >= T rounded to 4 and 8 mod 32: conflict-free
+//     writes and softmax reads) stays resident for the exact softmax pass
+//     above; P.V in the 8 x 4 tiles above, chunk by chunk, a tile whose
+//     rows all lie past T skipped (the same tiles spread over all 8 warps
+//     ran 5 % slower);
+//   - shared memory (64 + 64) x (HD + 4) + 64 x 264 floats at T=257:
+//     110,592 bytes at hd 80 (2 blocks an SM; 2 at 64 and 88; 1 at 104;
+//     a third stage or 64-row chunks would leave one block an SM).
 //
 // Layout: qkv (B, T, 3*D) row-major, D = heads * HD; mask (T, T) fp32 or
 // null; out (B, T, D). T <= 257, HD in {64, 80, 88, 104}.
@@ -115,8 +164,6 @@ constexpr int kMaxT = 257;
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxWarps = (kMaxT + 15) / 16;  // 17: T=257 padded to 272
-constexpr int kLongChunk = 8;                 // n8 key tiles a pass holds when T > 128
 
 template <int HD>
 struct Bf16Geometry {
@@ -161,15 +208,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The warp's 16 query rows (from r0) against keys [kc0, kc0 + 8 nt):
-// sc[j] is the m16n8 accumulator of key tile j, scaled in fp32, plus the
-// mask; keys past T are -inf. Element e of a tile sits at row
-// r0 + lane/4 + 8 (e/2), key kc0 + 8j + 2 (lane%4) + e%2.
+// The warp's 16 query rows (shared rows from r0, sequence rows from
+// q_off + r0) against shared keys [kc0, kc0 + 8 nt) (sequence keys k_off +
+// those): sc[j] is the m16n8 accumulator of key tile j, scaled in fp32,
+// plus the mask; keys past T are -inf. Element e of a tile sits at row
+// q_off + r0 + lane/4 + 8 (e/2), key k_off + kc0 + 8j + 2 (lane%4) + e%2.
 template <int HD, int NT>
 __device__ __forceinline__ void qk_scores(float (&sc)[NT][4], const bf16* qs, const bf16* ks,
                                           int r0, int kc0, int nt, int t_len,
                                           const float* __restrict__ mask, float scale,
-                                          int lane) {
+                                          int lane, int q_off = 0, int k_off = 0) {
   using G = Bf16Geometry<HD>;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -190,14 +238,14 @@ __device__ __forceinline__ void qk_scores(float (&sc)[NT][4], const bf16* qs, co
       }
     }
   }
-  const int row0 = r0 + (lane >> 2);
+  const int row0 = q_off + r0 + (lane >> 2);
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     if (j < nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + (e >> 1) * 8;
-        const int col = kc0 + 8 * j + 2 * (lane & 3) + (e & 1);
+        const int col = k_off + kc0 + 8 * j + 2 * (lane & 3) + (e & 1);
         float v = sc[j][e] * scale;
         if (col >= t_len)
           v = -INFINITY;
@@ -247,20 +295,22 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// o += bf16(e / l) . V[kc0 : kc0 + 8 nt): P as the A operand from registers
-template <int HD, int NT>
+// o += bf16(e / l) . V[kc0 : kc0 + 8 nt): P as the A operand from registers.
+// kRcp: l holds 1 / sum and P is bf16(e * l).
+template <int HD, int NT, bool kRcp = false>
 __device__ __forceinline__ void pv(const float (&sc)[NT][4], int nt, const float (&l)[2],
                                    float (&o)[Bf16Geometry<HD>::kHDP / 8][4], const bf16* vs,
                                    int kc0, int lane) {
   using G = Bf16Geometry<HD>;
+  auto nrm = [&](float e, int r) { return kRcp ? e * l[r] : e / l[r]; };
 #pragma unroll
   for (int s = 0; s < NT / 2; ++s) {
     if (2 * s < nt) {
       uint32_t a[4];
-      a[0] = pack_bf16(sc[2 * s][0] / l[0], sc[2 * s][1] / l[0]);
-      a[1] = pack_bf16(sc[2 * s][2] / l[1], sc[2 * s][3] / l[1]);
-      a[2] = pack_bf16(sc[2 * s + 1][0] / l[0], sc[2 * s + 1][1] / l[0]);
-      a[3] = pack_bf16(sc[2 * s + 1][2] / l[1], sc[2 * s + 1][3] / l[1]);
+      a[0] = pack_bf16(nrm(sc[2 * s][0], 0), nrm(sc[2 * s][1], 0));
+      a[1] = pack_bf16(nrm(sc[2 * s][2], 1), nrm(sc[2 * s][3], 1));
+      a[2] = pack_bf16(nrm(sc[2 * s + 1][0], 0), nrm(sc[2 * s + 1][1], 0));
+      a[3] = pack_bf16(nrm(sc[2 * s + 1][2], 1), nrm(sc[2 * s + 1][3], 1));
 #pragma unroll
       for (int dp = 0; dp < G::kHDP / 16; ++dp) {
         uint32_t b[4];
@@ -273,10 +323,36 @@ __device__ __forceinline__ void pv(const float (&sc)[NT][4], int nt, const float
   }
 }
 
-// NT: n8 key tiles held in registers; kLong: T > 128, three passes over
-// chunks of NT tiles, else one pass over the whole row (T <= 8 NT).
-template <int HD, int NT, bool kLong>
-__global__ void __launch_bounds__(kLong ? kMaxWarps * 32 : NT * 16)
+// The warp's context rows (shared rows r0 .. r0 + 15, sequence rows q0 +
+// those), rounded to bf16, staged in the warp's own Q rows, then stored 16
+// bytes at a time.
+template <int HD>
+__device__ __forceinline__ void store_context(const float (&o)[Bf16Geometry<HD>::kHDP / 8][4],
+                                              bf16* qs, bf16* __restrict__ out, int r0, int q0,
+                                              int t_len, int b, int d, int h, int lane) {
+  using G = Bf16Geometry<HD>;
+  constexpr int P = G::kPitch;
+  __syncwarp();
+  const int row0 = r0 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < G::kHDP / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(qs + row0 * P + col) = pack_bf16(o[j][0], o[j][1]);
+    *reinterpret_cast<uint32_t*>(qs + (row0 + 8) * P + col) = pack_bf16(o[j][2], o[j][3]);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * G::kSegs; e += 32) {
+    const int row = r0 + e / G::kSegs, seg = e % G::kSegs;
+    if (q0 + row < t_len)
+      *reinterpret_cast<uint4*>(out + ((size_t)b * t_len + q0 + row) * d + h * HD + seg * 8) =
+          *reinterpret_cast<const uint4*>(qs + row * P + seg * 8);
+  }
+}
+
+// NT: n8 key tiles held in registers, one pass over the whole row
+// (T <= 8 NT <= 128).
+template <int HD, int NT>
+__global__ void __launch_bounds__(NT * 16)
 mha_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
                 bf16* __restrict__ out, int t_len, int heads, float scale) {
   using G = Bf16Geometry<HD>;
@@ -318,77 +394,167 @@ mha_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float sc[NT][4];
-  if (!kLong) {
-    const int nt = tp / 8;
-    qk_scores<HD, NT>(sc, qs, ks, r0, 0, nt, t_len, mask, scale, lane);
-    row_max<NT>(sc, nt, m);
-    m[0] = quad_max(m[0]);
-    m[1] = quad_max(m[1]);
-    exp_sum<NT>(sc, nt, m, l);
-    l[0] = quad_sum(l[0]);
-    l[1] = quad_sum(l[1]);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // V landed
-    pv<HD, NT>(sc, nt, l, o, vs, 0, lane);
-  } else {
-    constexpr int kChunk = NT * 8;
-    for (int kc0 = 0; kc0 < tp; kc0 += kChunk) {
-      const int nt = min(kChunk, tp - kc0) / 8;
-      qk_scores<HD, NT>(sc, qs, ks, r0, kc0, nt, t_len, mask, scale, lane);
-      row_max<NT>(sc, nt, m);
-    }
-    m[0] = quad_max(m[0]);
-    m[1] = quad_max(m[1]);
-    for (int kc0 = 0; kc0 < tp; kc0 += kChunk) {
-      const int nt = min(kChunk, tp - kc0) / 8;
-      qk_scores<HD, NT>(sc, qs, ks, r0, kc0, nt, t_len, mask, scale, lane);
-      exp_sum<NT>(sc, nt, m, l);
-    }
-    l[0] = quad_sum(l[0]);
-    l[1] = quad_sum(l[1]);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // V landed
-    for (int kc0 = 0; kc0 < tp; kc0 += kChunk) {
-      const int nt = min(kChunk, tp - kc0) / 8;
-      float unused[2] = {0.f, 0.f};
-      qk_scores<HD, NT>(sc, qs, ks, r0, kc0, nt, t_len, mask, scale, lane);
-      exp_sum<NT>(sc, nt, m, unused);
-      pv<HD, NT>(sc, nt, l, o, vs, kc0, lane);
-    }
-  }
+  const int nt = tp / 8;
+  qk_scores<HD, NT>(sc, qs, ks, r0, 0, nt, t_len, mask, scale, lane);
+  row_max<NT>(sc, nt, m);
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+  exp_sum<NT>(sc, nt, m, l);
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // V landed
+  pv<HD, NT>(sc, nt, l, o, vs, 0, lane);
+  store_context<HD>(o, qs, out, r0, 0, t_len, b, d, h, lane);
+}
 
-  // the context, rounded to bf16, staged in the warp's own Q rows, then
-  // stored 16 bytes at a time
-  __syncwarp();
-  const int row0 = r0 + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < G::kHDP / 8; ++j) {
-    const int col = 8 * j + 2 * (lane & 3);
-    *reinterpret_cast<uint32_t*>(qs + row0 * P + col) = pack_bf16(o[j][0], o[j][1]);
-    *reinterpret_cast<uint32_t*>(qs + (row0 + 8) * P + col) = pack_bf16(o[j][2], o[j][3]);
-  }
-  __syncwarp();
-  for (int e = lane; e < 16 * G::kSegs; e += 32) {
-    const int row = r0 + e / G::kSegs, seg = e % G::kSegs;
-    if (row < t_len)
-      *reinterpret_cast<uint4*>(out + ((size_t)b * t_len + row) * d + h * HD + seg * 8) =
-          *reinterpret_cast<const uint4*>(qs + row * P + seg * 8);
+// -- bf16 past T = 128 --------------------------------------------------------
+
+constexpr int kLongRows = 64;   // query rows a block: 4 warps of 16
+constexpr int kLongKeys = 32;   // keys a chunk: 4 n8 tiles
+constexpr int kLongStages = 3;  // the ring's stages: 2 chunks in flight
+
+// Rows [r0, r0 + n) of one head's Q, K or V (`src` at the head's columns of
+// the batch row's first packed row) into [n][kPitch], 16 bytes a copy, zero
+// past t_len and past the head's depth.
+template <int HD>
+__device__ __forceinline__ void copy_rows_bf16(bf16* dst, const bf16* src, int r0, int n,
+                                               int t_len, int ld3) {
+  using G = Bf16Geometry<HD>;
+  for (int e = threadIdx.x; e < n * G::kSegsP; e += blockDim.x) {
+    const int r = e / G::kSegsP, seg = e % G::kSegsP;
+    const bool ok = r0 + r < t_len && seg < G::kSegs;
+    cp_async16(dst + r * G::kPitch + seg * 8,
+               src + (ok ? (size_t)(r0 + r) * ld3 + seg * 8 : 0), ok);
   }
 }
 
-template <int HD, int NT, bool kLong>
+// One block per (batch row, head, 64 query rows), the query tiles of a head
+// adjacent in blockIdx. K, then K and V, stream through a ring of
+// kLongStages stages of 32-row chunks. Pass A takes the row max and the
+// sum of exp(s - max) together, rescaling the sum when the max moves; pass
+// B recomputes the scores and accumulates bf16(exp(s - max) * (1 / sum)) .
+// V, P normalised before it is rounded, as fused_mha_reference rounds it.
+template <int HD>
+__global__ void __launch_bounds__(kLongRows * 2)
+mha_bf16_long_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+                     bf16* __restrict__ out, int t_len, int heads, int tiles, float scale) {
+  using G = Bf16Geometry<HD>;
+  constexpr int P = G::kPitch, C = kLongKeys, S = kLongStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tp = (t_len + 15) & ~15;
+  const int nc = (tp + C - 1) / C;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [64][P]: the Q tile, then the output
+  bf16* ring = qs + kLongRows * P;               // [S][K, V][C][P]
+
+  const int head = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x % tiles) * kLongRows;
+  const int b = head / heads, h = head % heads;
+  const int d = heads * HD, ld3 = 3 * d;
+  const bf16* base = qkv + (size_t)b * t_len * ld3 + h * HD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // step s < nc copies K chunk s (pass A), step nc + c K and V chunk c
+  // (pass B), into stage s % S; past the last step a group stays empty
+  auto fetch = [&](int s) {
+    if (s < 2 * nc) {
+      bf16* st = ring + (s % S) * 2 * C * P;
+      const int k0 = (s % nc) * C, n = min(C, tp - k0);
+      copy_rows_bf16<HD>(st, base + d, k0, n, t_len, ld3);
+      if (s >= nc) copy_rows_bf16<HD>(st + C * P, base + 2 * d, k0, n, t_len, ld3);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  copy_rows_bf16<HD>(qs, base, q0, kLongRows, t_len, ld3);
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) fetch(s);  // the Q tile with step 0
+  // step s landed, and step s - 1's readers are done with stage (s - 1) % S
+  auto next = [&](int s) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 2) : "memory");
+    __syncthreads();
+    fetch(s + S - 1);
+    return ring + (s % S) * 2 * C * P;
+  };
+
+  const int r0 = warp * 16;
+  const bool live = q0 + r0 < t_len;  // a warp past the last row only copies
+  float sc[C / 8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int s = 0; s < nc; ++s) {
+    const bf16* st = next(s);
+    if (live) {
+      const int k0 = s * C, nt = min(C, tp - k0) / 8;
+      qk_scores<HD, C / 8>(sc, qs, st, r0, 0, nt, t_len, mask, scale, lane, q0, k0);
+      float mc[2] = {m[0], m[1]}, mr[2];
+      row_max<C / 8>(sc, nt, mc);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mr[r] = mc[r] == -INFINITY ? 0.f : mc[r];  // a row masked so far adds 0
+        l[r] *= expf(m[r] - mr[r]);                // 1 when the max did not move
+        m[r] = mc[r];
+      }
+      exp_sum<C / 8>(sc, nt, mr, l);
+    }
+  }
+  // the row's max and 1 / sum over the four lanes that hold it
+  float mx[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(m[r]);
+    inv[r] = 1.f / quad_sum(l[r] * expf(m[r] - (mx[r] == -INFINITY ? 0.f : mx[r])));
+  }
+
+  float o[G::kHDP / 8][4];
+#pragma unroll
+  for (int j = 0; j < G::kHDP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  for (int s = nc; s < 2 * nc; ++s) {
+    const bf16* st = next(s);
+    if (live) {
+      const int k0 = (s - nc) * C, nt = min(C, tp - k0) / 8;
+      float unused[2] = {0.f, 0.f};
+      qk_scores<HD, C / 8>(sc, qs, st, r0, 0, nt, t_len, mask, scale, lane, q0, k0);
+      exp_sum<C / 8>(sc, nt, mx, unused);
+      pv<HD, C / 8, true>(sc, nt, inv, o, st + C * P, 0, lane);
+    }
+  }
+  if (live) store_context<HD>(o, qs, out, r0, q0, t_len, b, d, h, lane);
+}
+
+template <int HD, int NT>
 cudaError_t launch_bf16(const void* qkv, const void* mask, void* out, int batch, int t_len,
                         int heads, float scale, cudaStream_t stream) {
   using G = Bf16Geometry<HD>;
   const int tp = (t_len + 15) & ~15;
   const size_t smem = 3 * sizeof(bf16) * (size_t)tp * G::kPitch;
   static devflags::PerDevice<bool> attr_set(false);
-  const size_t most = 3 * sizeof(bf16) * (size_t)(kLong ? kMaxWarps * 16 : NT * 8) * G::kPitch;
-  cudaError_t err = devflags::smem_limit_once(attr_set, mha_bf16_kernel<HD, NT, kLong>, most);
+  const size_t most = 3 * sizeof(bf16) * (size_t)(NT * 8) * G::kPitch;
+  cudaError_t err = devflags::smem_limit_once(attr_set, mha_bf16_kernel<HD, NT>, most);
   if (err != cudaSuccess) return err;
-  mha_bf16_kernel<HD, NT, kLong><<<batch * heads, (tp / 16) * 32, smem, stream>>>(
+  mha_bf16_kernel<HD, NT><<<batch * heads, (tp / 16) * 32, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<bf16*>(out),
       t_len, heads, scale);
+  return cudaGetLastError();
+}
+
+// shared memory of a long-path block: the Q tile and the ring
+template <int HD>
+constexpr size_t bf16_long_smem() {
+  return sizeof(bf16) * (kLongRows + 2 * kLongStages * kLongKeys) * Bf16Geometry<HD>::kPitch;
+}
+
+template <int HD>
+cudaError_t launch_bf16_long(const void* qkv, const void* mask, void* out, int batch, int t_len,
+                             int heads, float scale, cudaStream_t stream) {
+  static devflags::PerDevice<bool> attr_set(false);
+  cudaError_t err =
+      devflags::smem_limit_once(attr_set, mha_bf16_long_kernel<HD>, bf16_long_smem<HD>());
+  if (err != cudaSuccess) return err;
+  const int tiles = (t_len + kLongRows - 1) / kLongRows;
+  mha_bf16_long_kernel<HD><<<batch * heads * tiles, kLongRows * 2, bf16_long_smem<HD>(),
+                             stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(mask), static_cast<bf16*>(out),
+      t_len, heads, tiles, scale);
   return cudaGetLastError();
 }
 
@@ -396,12 +562,11 @@ template <int HD>
 cudaError_t launch_bf16_t(const void* qkv, const void* mask, void* out, int batch, int t_len,
                           int heads, float scale, cudaStream_t stream) {
   const int tp = (t_len + 15) & ~15;
-  if (tp <= 32) return launch_bf16<HD, 4, false>(qkv, mask, out, batch, t_len, heads, scale, stream);
-  if (tp <= 64) return launch_bf16<HD, 8, false>(qkv, mask, out, batch, t_len, heads, scale, stream);
-  if (tp <= 80) return launch_bf16<HD, 10, false>(qkv, mask, out, batch, t_len, heads, scale, stream);
-  if (tp <= 128)
-    return launch_bf16<HD, 16, false>(qkv, mask, out, batch, t_len, heads, scale, stream);
-  return launch_bf16<HD, kLongChunk, true>(qkv, mask, out, batch, t_len, heads, scale, stream);
+  if (tp <= 32) return launch_bf16<HD, 4>(qkv, mask, out, batch, t_len, heads, scale, stream);
+  if (tp <= 64) return launch_bf16<HD, 8>(qkv, mask, out, batch, t_len, heads, scale, stream);
+  if (tp <= 80) return launch_bf16<HD, 10>(qkv, mask, out, batch, t_len, heads, scale, stream);
+  if (tp <= 128) return launch_bf16<HD, 16>(qkv, mask, out, batch, t_len, heads, scale, stream);
+  return launch_bf16_long<HD>(qkv, mask, out, batch, t_len, heads, scale, stream);
 }
 
 cudaError_t dispatch_bf16(const void* qkv, const void* mask, void* out, int batch, int t_len,
@@ -418,9 +583,11 @@ cudaError_t dispatch_bf16(const void* qkv, const void* mask, void* out, int batc
 
 // -- fp32 on the CUDA cores ---------------------------------------------------
 
-constexpr int kF32Chunk = 64;         // query rows per block and keys per chunk, T > 128
 constexpr int kSmemMax = 232448;      // shared memory a block may use on sm_90
 constexpr int kLanes = 8;             // lanes that share a row of the softmax pass
+constexpr int kF32Rows = 64;          // query rows a block on the streamed path
+constexpr int kF32Keys = 32;          // keys a chunk of its ring
+constexpr int kF32Threads = 256;
 
 template <int HD>
 struct F32Geometry {
@@ -659,17 +826,15 @@ __device__ __forceinline__ void store_f32(float* __restrict__ out, const float (
   }
 }
 
-// The three layouts of mha_f32_kernel.
+// The two resident layouts of mha_f32_kernel (mha_f32_long_kernel streams).
 enum class F32Path {
   kRegisters,  // T <= 64: Q, K, V resident; the scores and softmax in registers
   kPass,       // T <= 128: Q, K, V and P resident; the softmax a pass over P
-  kChunked,    // T <= 257: 64 query rows a block, K and V streamed, P resident
 };
 
-// One block per (batch row, head), or per (batch row, head, 64 query rows)
-// on the chunked path. kRegisters: 8 (T + 3) / 4 <= NT threads hold 4 x
-// (KMAX >= T / 8) score tiles and the row softmax in registers, and P goes
-// over Q and K. kPass and kChunked: 4 x 8 score tiles into P, then
+// One block per (batch row, head). kRegisters: 8 (T + 3) / 4 <= NT threads
+// hold 4 x (KMAX >= T / 8) score tiles and the row softmax in registers,
+// and P goes over Q and K. kPass: 4 x 8 score tiles into P, then
 // softmax_rows_f32.
 template <int HD, int NT, int KMAX, F32Path PATH>
 __global__ void __launch_bounds__(NT)
@@ -687,89 +852,162 @@ mha_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
   const int kn = (t_len + 3) & ~3;  // keys P.V runs over: P and V are 0 past t_len
   float acc[8][4];
 
-  if constexpr (PATH != F32Path::kChunked) {
-    const int tp = (t_len + 7) & ~7;
-    const int pp = tp + 4;
-    float* qs = smem_f32;  // [tp][P]
-    float* ks = qs + tp * P;
-    float* vs = ks + tp * P;
-    // [tp][pp]: over Q and K once the scores are in registers, else apart
-    float* ps = PATH == F32Path::kRegisters ? qs : vs + tp * P;
-    load_rows_f32<HD, NT>(qs, base, 0, tp, t_len, ld3, vec);
-    load_rows_f32<HD, NT>(ks, base + d, 0, tp, t_len, ld3, vec);
-    asm volatile("cp.async.commit_group;\n" ::);
-    load_rows_f32<HD, NT>(vs, base + 2 * d, 0, tp, t_len, ld3, vec);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-    if constexpr (PATH == F32Path::kRegisters) {
-      const int rs = (t_len + 3) / 4;  // rows tr + i rs, keys tc + 8 u
-      const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
-      const bool mine = tr < rs;
-      float pr[4][KMAX];
-      qk_softmax_regs_f32<HD, KMAX>(pr, qs, ks, tr, tc, rs, tp / 8, mine, t_len, mask, scale);
-      __syncthreads();  // Q and K read: P goes over them
-      if (mine) {
+  const int tp = (t_len + 7) & ~7;
+  const int pp = tp + 4;
+  float* qs = smem_f32;  // [tp][P]
+  float* ks = qs + tp * P;
+  float* vs = ks + tp * P;
+  // [tp][pp]: over Q and K once the scores are in registers, else apart
+  float* ps = PATH == F32Path::kRegisters ? qs : vs + tp * P;
+  load_rows_f32<HD, NT>(qs, base, 0, tp, t_len, ld3, vec);
+  load_rows_f32<HD, NT>(ks, base + d, 0, tp, t_len, ld3, vec);
+  asm volatile("cp.async.commit_group;\n" ::);
+  load_rows_f32<HD, NT>(vs, base + 2 * d, 0, tp, t_len, ld3, vec);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();
+  if constexpr (PATH == F32Path::kRegisters) {
+    const int rs = (t_len + 3) / 4;  // rows tr + i rs, keys tc + 8 u
+    const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+    const bool mine = tr < rs;
+    float pr[4][KMAX];
+    qk_softmax_regs_f32<HD, KMAX>(pr, qs, ks, tr, tc, rs, tp / 8, mine, t_len, mask, scale);
+    __syncthreads();  // Q and K read: P goes over them
+    if (mine) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int u = 0; u < KMAX; ++u)
-            if (u < tp / 8) ps[(tr + i * rs) * pp + tc + 8 * u] = pr[i][u];
-      }
-    } else {
-      qk_f32<HD, NT>(qs, ks, ps, pp, tp / 4, tp / 8, 0);
-      __syncthreads();
-      softmax_rows_f32<NT>(ps, pp, t_len, 0, t_len, tp, mask, scale);
-    }
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // P normalised, V landed
-    const int rs8 = tp / 8;
-    for (int idx = threadIdx.x; idx < rs8 * G::kSegs; idx += NT) {
-      const int tr = idx / G::kSegs, cg = idx % G::kSegs;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-      pv_f32<HD>(acc, ps, pp, vs, tr, cg, rs8, 0, kn, 0);
-      store_f32(out, acc, (size_t)b * t_len, 0, t_len, d, h * HD + 4 * cg, tr, rs8);
+        for (int u = 0; u < KMAX; ++u)
+          if (u < tp / 8) ps[(tr + i * rs) * pp + tc + 8 * u] = pr[i][u];
     }
   } else {
-    constexpr int C = kF32Chunk;
-    const int q0 = blockIdx.y * C;
-    const int tk = (t_len + C - 1) / C * C;
-    const int pp = tk + 4;
-    float* qs = smem_f32;    // [C][P]
-    float* kv = qs + C * P;  // [C][P]: a chunk of K, later of V
-    float* ps = kv + C * P;  // [C][pp]
-    load_rows_f32<HD, NT>(qs, base, q0, C, t_len, ld3, vec);
-    for (int k0 = 0; k0 < tk; k0 += C) {
-      __syncthreads();  // the last chunk's readers are done
-      load_rows_f32<HD, NT>(kv, base + d, k0, C, t_len, ld3, vec);
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      __syncthreads();
-      qk_f32<HD, NT>(qs, kv, ps, pp, C / 4, C / 8, k0);
-    }
+    qk_f32<HD, NT>(qs, ks, ps, pp, tp / 4, tp / 8, 0);
     __syncthreads();
-    softmax_rows_f32<NT>(ps, pp, min(C, t_len - q0), q0, t_len, tk, mask, scale);
-    // one context tile a thread: 8 x (HD / 4) <= NT
-    const int tr = threadIdx.x / G::kSegs, cg = threadIdx.x % G::kSegs;
-    const bool mine = threadIdx.x < (C / 8) * G::kSegs;
+    softmax_rows_f32<NT>(ps, pp, t_len, 0, t_len, tp, mask, scale);
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // P normalised, V landed
+  const int rs8 = tp / 8;
+  for (int idx = threadIdx.x; idx < rs8 * G::kSegs; idx += NT) {
+    const int tr = idx / G::kSegs, cg = idx % G::kSegs;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-    for (int k0 = 0; k0 < tk; k0 += C) {
-      __syncthreads();
-      load_rows_f32<HD, NT>(kv, base + 2 * d, k0, C, t_len, ld3, vec);
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      __syncthreads();
-      if (mine && k0 < kn) pv_f32<HD>(acc, ps, pp, kv, tr, cg, C / 8, k0, min(k0 + C, kn), k0);
-    }
-    if (mine)
-      store_f32(out, acc, (size_t)b * t_len, q0, t_len, d, h * HD + 4 * cg, tr, C / 8);
+    pv_f32<HD>(acc, ps, pp, vs, tr, cg, rs8, 0, kn, 0);
+    store_f32(out, acc, (size_t)b * t_len, 0, t_len, d, h * HD + 4 * cg, tr, rs8);
   }
+}
+
+// q . k of the block's query rows [0, nr) against the chunk's keys [0, nk)
+// (sequence keys k0 + those, nk a multiple of 4), written to
+// ps[row][k0 + key]. Thread (tr, tc) of 32 x 8 owns rows tr + 32 i (i < 2)
+// and keys tc + 8 u (u < 4), the depth in the order of a plain fmaf chain;
+// a warp's 4 Q rows and 8 K rows are one bank wavefront a float4 step each.
+template <int HD>
+__device__ __forceinline__ void qk_chunk_f32(const float* qs, const float* ks, float* ps, int pp,
+                                             int nr, int nk, int k0) {
+  constexpr int P = F32Geometry<HD>::kPitch;
+  const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
+  if (tr >= nr || tc >= nk) return;
+  const float* qrow = qs + tr * P;
+  const float* krow = ks + tc * P;
+  float acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < HD; c += 4) {
+    float4 q[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) q[i] = *reinterpret_cast<const float4*>(qrow + 32 * i * P + c);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 k = *reinterpret_cast<const float4*>(krow + 8 * u * P + c);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc[i][u] = fmaf(q[i].x, k.x, acc[i][u]);
+        acc[i][u] = fmaf(q[i].y, k.y, acc[i][u]);
+        acc[i][u] = fmaf(q[i].z, k.z, acc[i][u]);
+        acc[i][u] = fmaf(q[i].w, k.w, acc[i][u]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (tr + 32 * i < nr && tc + 8 * u < nk) ps[(tr + 32 * i) * pp + k0 + tc + 8 * u] = acc[i][u];
+}
+
+// Row pitch of the streamed path's scores: at least the keys P.V runs over
+// (T rounded up to 4) and 8 mod 32 floats, so that 4 rows x 8 consecutive
+// keys (the score writes, the softmax pass) fall in 32 distinct banks.
+__host__ __device__ __forceinline__ int f32_long_pitch(int t_len) {
+  const int kn = (t_len + 3) & ~3;
+  return kn + ((8 - kn) % 32 + 32) % 32;
+}
+
+// One block per (batch row, head, 64 query rows), the query tiles of a head
+// adjacent in blockIdx. K and then V stream through a two-stage ring of
+// 32-row chunks, chunk s + 1 copied while chunk s's products run; the
+// scores of the tile's rows stay in P for the exact softmax pass, then P.V
+// in 8 x 4 register tiles.
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads, 2)
+mha_f32_long_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+                    float* __restrict__ out, int t_len, int heads, int tiles, float scale) {
+  using G = F32Geometry<HD>;
+  constexpr int P = G::kPitch, R = kF32Rows, C = kF32Keys, NT = kF32Threads;
+  extern __shared__ __align__(16) float smem_f32[];
+  const int head = blockIdx.x / tiles;
+  const int q0 = (blockIdx.x % tiles) * R;
+  const int b = head / heads, h = head % heads;
+  const int d = heads * HD, ld3 = 3 * d;
+  const float* base = qkv + (size_t)b * t_len * ld3 + h * HD;
+  const bool vec = (reinterpret_cast<uintptr_t>(qkv) & 15) == 0;
+  const int kn = (t_len + 3) & ~3;  // keys P.V runs over: P and V are 0 past t_len
+  const int pp = f32_long_pitch(t_len);
+  const int nr = min(R, t_len - q0);
+  const int nc = (t_len + C - 1) / C;  // chunks of K, then as many of V
+  float* qs = smem_f32;          // [R][P]
+  float* ring = qs + R * P;      // [2][C][P]
+  float* ps = ring + 2 * C * P;  // [R][pp]
+  // step s < nc copies K chunk s, step nc + c V chunk c, into stage s % 2
+  auto fetch = [&](int s) {
+    load_rows_f32<HD, NT>(ring + (s & 1) * C * P, base + (s < nc ? d : 2 * d), (s % nc) * C, C,
+                          t_len, ld3, vec);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  load_rows_f32<HD, NT>(qs, base, q0, R, t_len, ld3, vec);
+  fetch(0);  // with the Q tile
+
+  // one context tile a thread: 8 x (HD / 4) <= NT
+  const int tr = threadIdx.x / G::kSegs, cg = threadIdx.x % G::kSegs;
+  const bool mine = threadIdx.x < (R / 8) * G::kSegs && tr < nr;  // some row before T
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  for (int s = 0; s < 2 * nc; ++s) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // step s landed; step s - 1's readers are done
+    if (s + 1 < 2 * nc) fetch(s + 1);
+    const float* cur = ring + (s & 1) * C * P;
+    const int k0 = (s % nc) * C;
+    if (s < nc) {
+      qk_chunk_f32<HD>(qs, cur, ps, pp, nr, min(C, kn - k0), k0);
+      continue;
+    }
+    if (s == nc) {
+      softmax_rows_f32<NT>(ps, pp, nr, q0, t_len, kn, mask, scale);
+      __syncthreads();
+    }
+    if (mine && k0 < kn) pv_f32<HD>(acc, ps, pp, cur, tr, cg, R / 8, k0, min(k0 + C, kn), k0);
+  }
+  if (mine) store_f32(out, acc, (size_t)b * t_len, q0, t_len, d, h * HD + 4 * cg, tr, R / 8);
 }
 
 // shared memory of one block, in floats
@@ -778,26 +1016,44 @@ size_t f32_smem_floats(F32Path path, int t_len) {
   constexpr int P = F32Geometry<HD>::kPitch;
   const size_t tp = (t_len + 7) & ~7;
   if (path == F32Path::kRegisters) return 3 * tp * P;
-  if (path == F32Path::kPass) return 3 * tp * P + tp * (tp + 4);
-  const size_t tk = (t_len + kF32Chunk - 1) / kF32Chunk * kF32Chunk;
-  return 2 * (size_t)kF32Chunk * P + (size_t)kF32Chunk * (tk + 4);
+  return 3 * tp * P + tp * (tp + 4);
+}
+
+template <int HD>
+size_t f32_long_smem_floats(int t_len) {
+  constexpr int P = F32Geometry<HD>::kPitch;
+  return (size_t)(kF32Rows + 2 * kF32Keys) * P + (size_t)kF32Rows * f32_long_pitch(t_len);
 }
 
 template <int HD, int NT, int KMAX, F32Path PATH>
 cudaError_t launch_f32(const void* qkv, const void* mask, void* out, int batch, int t_len,
                        int heads, float scale, cudaStream_t stream) {
-  static_assert(PATH != F32Path::kChunked || (kF32Chunk / 8) * F32Geometry<HD>::kSegs <= NT,
-                "one context tile a thread when K and V are streamed");
   static devflags::PerDevice<bool> attr_set(false);
   cudaError_t err =
       devflags::smem_limit_once(attr_set, mha_f32_kernel<HD, NT, KMAX, PATH>, kSmemMax);
   if (err != cudaSuccess) return err;
-  const int tiles = PATH == F32Path::kChunked ? (t_len + kF32Chunk - 1) / kF32Chunk : 1;
-  mha_f32_kernel<HD, NT, KMAX, PATH><<<dim3(batch * heads, tiles), NT,
+  mha_f32_kernel<HD, NT, KMAX, PATH><<<batch * heads, NT,
                                        sizeof(float) * f32_smem_floats<HD>(PATH, t_len),
                                        stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(mask), static_cast<float*>(out),
       t_len, heads, scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_f32_long(const void* qkv, const void* mask, void* out, int batch, int t_len,
+                            int heads, float scale, cudaStream_t stream) {
+  static_assert((kF32Rows / 8) * F32Geometry<HD>::kSegs <= kF32Threads,
+                "one context tile a thread");
+  static devflags::PerDevice<bool> attr_set(false);
+  cudaError_t err = devflags::smem_limit_once(attr_set, mha_f32_long_kernel<HD>,
+                                              sizeof(float) * f32_long_smem_floats<HD>(kMaxT));
+  if (err != cudaSuccess) return err;
+  const int tiles = (t_len + kF32Rows - 1) / kF32Rows;
+  mha_f32_long_kernel<HD><<<batch * heads * tiles, kF32Threads,
+                            sizeof(float) * f32_long_smem_floats<HD>(t_len), stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(mask), static_cast<float*>(out),
+      t_len, heads, tiles, scale);
   return cudaGetLastError();
 }
 
@@ -814,8 +1070,7 @@ cudaError_t launch_f32_t(const void* qkv, const void* mask, void* out, int batch
   if (t_len <= 128 && sizeof(float) * f32_smem_floats<HD>(F32Path::kPass, t_len) <= kSmemMax)
     return launch_f32<HD, 256, 1, F32Path::kPass>(qkv, mask, out, batch, t_len, heads, scale,
                                                   stream);
-  return launch_f32<HD, 256, 1, F32Path::kChunked>(qkv, mask, out, batch, t_len, heads, scale,
-                                                   stream);
+  return launch_f32_long<HD>(qkv, mask, out, batch, t_len, heads, scale, stream);
 }
 
 cudaError_t dispatch_f32(const void* qkv, const void* mask, void* out, int batch, int t_len,
