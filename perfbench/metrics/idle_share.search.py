@@ -1,0 +1,7 @@
+"""The card's idle share of the traced search window, in %."""
+
+from perfbench.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)
